@@ -1,0 +1,15 @@
+"""Qwen1.5 110B dense — QKV bias. [hf:Qwen/Qwen1.5-0.5B; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    arch_id="qwen1.5-110b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=49152,
+    vocab_size=152064,
+    qkv_bias=True,
+    source="hf:Qwen/Qwen1.5-0.5B; hf",
+)

@@ -1,0 +1,98 @@
+"""Wrapper of the hand-written CUDA flash-attention forward kernel
+(``csrc/flash_attention.cu``), the port of the Pallas TPU kernel
+``repro/kernels/flash_attention.py:_flash_kernel``.
+
+The wrapper checks what the kernel takes, allocates the output with
+``torch.empty``, launches on the current stream and raises if the launch
+is refused. ``launches`` counts the launches, so a run can show that its
+main path went through the kernel. Nothing is built or loaded at import
+time; the first call builds the library (``kernels/build.py``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NAME = "flash_attention"
+SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+REPLACES = "src/repro/kernels/flash_attention.py:23"
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0          # kernel launches in this process (see ops.py)
+_fn = None
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        fn = build.load(NAME).flash_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def check_shapes(q, k, v, q_offset: int):
+    """Shape rules shared by the kernel and its plain version:
+    q (B, Sq, H, hd), k/v (B, Sk, KV, hd), H % KV == 0, q_offset >= 0."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention wants 4-D q/k/v (B, S, H, hd)")
+    B, _, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if k.shape[2] < 1 or H % k.shape[2]:
+        raise ValueError(f"H={H} is not a multiple of KV={k.shape[2]}")
+    if k.shape[1] < 1:
+        raise ValueError("flash_attention needs at least one key")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool, q_offset: int = 0):
+    """Launch the kernel on CUDA tensors; raises on anything it does not
+    take (no fallback to the plain version)."""
+    global launches
+    check_shapes(q, k, v, q_offset)
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
+        raise ValueError("flash_attention_cuda wants q/k/v on one CUDA "
+                         f"device, got {q.device}/{k.device}/{v.device}")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
+                        f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}")
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if B * H > 65535:
+        raise ValueError(f"B*H = {B * H} exceeds the grid limit 65535")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} must be contiguous in head_dim "
+                             f"(stride {t.stride(3)})")
+    o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
+    if Sq == 0 or B == 0:
+        return o
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *o.stride()[:3])
+    fn = _entry()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 DTYPE_CODES[q.dtype], B, Sq, Sk, H, KV, hd, strides,
+                 int(bool(causal)), int(q_offset), float(hd ** -0.5),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"cudaError_t {err}")
+    launches += 1
+    return o

@@ -1,0 +1,51 @@
+"""Attention: the prefill call into the flash kernel, decode attention
+against a compact per-slot cache, and ``repeat_kv``.
+
+Layouts are those of ``repro.models.attention``: q/k/v (B, S, H|KV, hd),
+caches (B, S, KV, hd). Prefill goes through ``kernels.ops.flash_attention``
+(the CUDA kernel on the card, GQA by index), where the JAX model calls
+its jnp ``flash_attention_ref`` on pre-repeated heads. Decode stays plain
+PyTorch, as the JAX decode is plain jnp.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+
+
+def repeat_kv(k, n_heads: int):
+    """(B,S,KV,hd) -> (B,S,H,hd) by repeating each kv head H//KV times."""
+    kv = k.shape[2]
+    if kv == n_heads:
+        return k
+    return k.repeat_interleave(n_heads // kv, dim=2)
+
+
+def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0):
+    """Prefill attention: q (B,S,H,hd), k/v (B,S,KV,hd) -> (B,S,H,hd)."""
+    return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def decode_attention(q, k_cache, v_cache, length):
+    """Single-step attention against a compact cache.
+
+    q (B,1,H,hd); k_cache/v_cache (B,S,KV,hd); length (B,) integer: slot
+    b sees cache positions < length[b]. The JAX function takes one scalar
+    length and runs per slot under ``vmap``; here each slot carries its
+    own, so slots at different depths decode in one batched call."""
+    B, _, H, hd = q.shape
+    _, S, KV, _ = k_cache.shape
+    g = H // KV
+    qf = q.reshape(B, 1, KV, g, hd).float()
+    scale = hd ** -0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k_cache.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    visible = pos[None, :] < length.reshape(B, 1)                 # (B,S)
+    s = torch.where(visible[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bkgqd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, hd).to(q.dtype)

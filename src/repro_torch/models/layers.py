@@ -1,0 +1,165 @@
+"""Shared layers: param definitions, norms, RoPE/M-RoPE, MLP, embedding,
+last-token logits. Plain functions on tensors; parameter trees are nested
+dicts of tensors, the counterpart of ``repro.models.layers``."""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Iterator, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Parameter definition machinery
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ParamDef:
+    """Abstract parameter: shape + logical dim names + init spec."""
+    shape: Tuple[int, ...]
+    dims: Tuple[str, ...]
+    init: str = "normal"         # normal | zeros | ones | const:<v>
+    scale: float = 1.0           # fan-in style scale multiplier
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.dims):
+            raise ValueError(f"shape {self.shape} vs dims {self.dims}")
+
+
+def iter_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
+    """(path, leaf) in ``jax.tree.flatten`` order: dict keys sorted,
+    depth first. Paths join keys with ``/`` (``blocks/attn/wq``)."""
+    for key in sorted(tree):
+        val = tree[key]
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from iter_leaves(val, path + "/")
+        else:
+            yield path, val
+
+
+def map_leaves(fn, tree):
+    """Same nesting as ``tree``, each leaf replaced by ``fn(path, leaf)``,
+    called in ``iter_leaves`` order."""
+    def go(t, prefix):
+        return {k: (go(t[k], f"{prefix}{k}/") if isinstance(t[k], dict)
+                    else fn(f"{prefix}{k}", t[k]))
+                for k in sorted(t)}
+    return go(tree, "")
+
+
+def init_params(defs, generator: torch.Generator,
+                dtype: torch.dtype) -> Dict:
+    """Materialise a parameter tree on ``generator.device``.
+
+    Same rule as JAX's ``init_params``: normal leaves draw f32 N(0, 1)
+    scaled by ``scale / sqrt(fan_in)`` with ``fan_in = shape[-2]`` (also
+    on layer-stacked ``(L, ...)`` shapes), then cast. Torch cannot
+    reproduce ``jax.random``, so the distributions match but the numbers
+    do not; parity tests carry JAX's weights across instead."""
+    device = generator.device
+
+    def make(_path, d: ParamDef):
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dtype, device=device)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dtype, device=device)
+        if d.init.startswith("const:"):
+            return torch.full(d.shape, float(d.init[6:]), dtype=dtype,
+                              device=device)
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        std = d.scale / math.sqrt(max(1, fan_in))
+        a = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (a * std).to(dtype)
+
+    return map_leaves(make, defs)      # draws in flatten order
+
+
+# ---------------------------------------------------------------------------
+# Norms (computed in f32, cast back — the cast points of the JAX layers)
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, w, eps: float = 1e-5):
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * w.float()).to(dt)
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE / M-RoPE (rotate-half layout, f32 angles)
+# ---------------------------------------------------------------------------
+
+
+def _rope_angles(positions, half: int, theta: float):
+    """positions (...,) -> cos/sin (..., half)."""
+    freqs = torch.exp(
+        -math.log(theta)
+        * torch.arange(half, dtype=torch.float32, device=positions.device)
+        / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, positions, theta: float,
+               mrope_sections: Optional[Tuple[int, ...]] = None):
+    """x (B, S, H, hd); positions (B, S) or (3, B, S) for M-RoPE."""
+    hd = x.shape[-1]
+    half = hd // 2
+    if mrope_sections is None:
+        cos, sin = _rope_angles(positions, half, theta)      # (B,S,half)
+    else:
+        if sum(mrope_sections) != half:
+            raise ValueError(f"mrope sections {mrope_sections} must sum "
+                             f"to head_dim/2 = {half}")
+        cs, ss = [], []
+        for i, sec in enumerate(mrope_sections):
+            # section i rotates with positions[i] (t/h/w)
+            freq_lo = sum(mrope_sections[:i])
+            idx = torch.arange(sec, device=positions.device) + freq_lo
+            freqs = torch.exp(-math.log(theta) * idx.float() / half)
+            ang = positions[i].float()[..., None] * freqs
+            cs.append(torch.cos(ang))
+            ss.append(torch.sin(ang))
+        cos = torch.cat(cs, -1)
+        sin = torch.cat(ss, -1)
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    dt = x.dtype
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin],
+                     -1).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MLP, embedding, logits
+# ---------------------------------------------------------------------------
+
+
+def gated_mlp(x, wg, wu, wd):
+    """SwiGLU MLP. x (B,S,D); wg/wu (D,F); wd (F,D)."""
+    return (F.silu(x @ wg) * (x @ wu)) @ wd
+
+
+def embed_tokens(tokens, table):
+    """tokens (B, S) integer; table (V, D) -> (B, S, D)."""
+    return F.embedding(tokens, table)
+
+
+def last_token_logits(h_last, w_head):
+    """h_last (B, 1, D) -> f32 logits (B, 1, V)."""
+    return (h_last @ w_head).float()

@@ -1,0 +1,64 @@
+"""Model facade: one entry point per architecture, the counterpart of
+``repro.models.model`` for the families the port runs.
+
+``Model`` owns the param-def tree, ``init`` from a ``torch.Generator``,
+``prefill`` / ``decode`` and ``cache_specs``. There is no mesh: the port
+runs one card per model.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import init_params
+
+
+class CacheSpec(NamedTuple):
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+@dataclass
+class Model:
+    cfg: ArchConfig
+
+    def __post_init__(self):
+        tf.check_ported(self.cfg)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return tf.model_dtype(self.cfg)
+
+    def param_defs(self):
+        return tf.decoder_param_defs(self.cfg)
+
+    def init(self, generator: torch.Generator):
+        """Fresh weights on ``generator.device``, drawn from it."""
+        return init_params(self.param_defs(), generator, self.dtype)
+
+    def prefill(self, params, batch, *, cache=None, slots=None):
+        return tf.lm_prefill(params, batch, self.cfg, cache=cache,
+                             slots=slots)
+
+    def decode(self, params, cache, batch):
+        return tf.lm_decode(params, cache, batch, self.cfg)
+
+    def cache_specs(self, B: int, S: int) -> Dict[str, CacheSpec]:
+        """k/v (L, B, S, KV, hd) in the cache dtype; pos (B,) int64, one
+        write position per slot."""
+        c = self.cfg
+        kv = CacheSpec((c.n_layers, B, S, c.n_kv_heads, c.hd),
+                       tf.cache_dtype(c))
+        return {"k": kv, "v": kv, "pos": CacheSpec((B,), torch.int64)}
+
+    def empty_cache(self, B: int, S: int, device) -> Dict[str, torch.Tensor]:
+        return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+                for k, s in self.cache_specs(B, S).items()}
+
+
+def make_model(cfg: ArchConfig) -> Model:
+    return Model(cfg)

@@ -1,0 +1,197 @@
+"""The port's layers and dense model against the JAX package on the
+same inputs and the same weights (one JAX-initialised flat vector loaded
+into both). Everything in float32 on the CPU, where the point is the
+algorithm: atol/rtol 1e-4 for the model (the two frameworks sum in other
+orders), 1e-5 for single layers."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import reduce_for_smoke as jax_reduce
+from repro.configs.registry import get_arch as jax_get_arch
+from repro.distributed.sharding import Dist
+from repro.models import layers as jl
+from repro.models import make_model as jax_make_model
+from repro.runtime.learner import _flat_io
+from repro_torch.configs.base import reduce_for_smoke
+from repro_torch.configs.registry import get_arch
+from repro_torch.errors import UserError
+from repro_torch.models import layers as tl
+from repro_torch.models import make_model
+from repro_torch.weights import flat_layout, params_from_flat
+
+MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
+LAYER_TOL = dict(atol=1e-5, rtol=1e-5)
+OPTS = {"remat": "none", "xent_chunk": 32, "q_chunk": 32, "k_chunk": 32}
+
+
+def _np(x):
+    return x.detach().float().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float32)
+
+
+def test_rms_norm_matches_jax():
+    rng = np.random.RandomState(0)
+    x = rng.standard_normal((2, 5, 64)).astype(np.float32) * 3
+    w = rng.standard_normal(64).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(tl.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-5)),
+        _np(jl.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-5)), **LAYER_TOL)
+
+
+def test_layer_norm_matches_jax():
+    rng = np.random.RandomState(1)
+    x, w, b = (rng.standard_normal(s).astype(np.float32)
+               for s in ((2, 5, 32), 32, 32))
+    np.testing.assert_allclose(
+        _np(tl.layer_norm(*map(torch.from_numpy, (x, w, b)))),
+        _np(jl.layer_norm(*map(jnp.asarray, (x, w, b)))), **LAYER_TOL)
+
+
+@pytest.mark.parametrize("sections", [None, (2, 3, 3)])
+def test_apply_rope_matches_jax(sections):
+    rng = np.random.RandomState(2)
+    x = rng.standard_normal((2, 6, 3, 16)).astype(np.float32)
+    if sections is None:
+        pos = rng.randint(0, 50, size=(2, 6)).astype(np.int32)
+    else:
+        pos = rng.randint(0, 50, size=(3, 2, 6)).astype(np.int32)
+    got = tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                        10000.0, sections)
+    want = jl.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10000.0,
+                         sections)
+    np.testing.assert_allclose(_np(got), _np(want), **LAYER_TOL)
+
+
+def test_gated_mlp_matches_jax():
+    rng = np.random.RandomState(3)
+    x = rng.standard_normal((2, 4, 32)).astype(np.float32)
+    wg, wu = (rng.standard_normal((32, 48)).astype(np.float32) * 0.2
+              for _ in range(2))
+    wd = rng.standard_normal((48, 32)).astype(np.float32) * 0.2
+    got = tl.gated_mlp(*map(torch.from_numpy, (x, wg, wu, wd)))
+    want = jl.gated_mlp(*map(jnp.asarray, (x, wg, wu, wd)), Dist())
+    np.testing.assert_allclose(_np(got), _np(want), **LAYER_TOL)
+
+
+def _setup(arch):
+    """One JAX-initialised flat vector (qkv biases made non-zero so they
+    are tested) loaded into both packages."""
+    jcfg = jax_reduce(jax_get_arch(arch))
+    jmodel = jax_make_model(jcfg, Dist(), dict(OPTS))
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
+    ravel, unravel = _flat_io(shapes)
+    flat = np.array(ravel(jmodel.init(jax.random.PRNGKey(1))))
+    cfg = reduce_for_smoke(get_arch(arch))
+    rng = np.random.RandomState(4)
+    for path, shape, off in flat_layout(cfg):
+        if path.split("/")[-1] in ("bq", "bk", "bv"):
+            n = int(np.prod(shape))
+            flat[off:off + n] = rng.standard_normal(n) * 0.1
+    jparams = unravel(jnp.asarray(flat))
+    tparams = params_from_flat(flat, cfg, device="cpu")
+    return jmodel, jparams, make_model(cfg), tparams, cfg
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen1.5-110b"])
+def test_prefill_matches_jax(arch):
+    jmodel, jparams, model, params, cfg = _setup(arch)
+    toks = np.random.RandomState(5).randint(
+        0, cfg.vocab_size, size=(2, 11)).astype(np.int32)
+    jlog, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)})
+    tlog, tcache = model.prefill(
+        params, {"tokens": torch.from_numpy(toks).long()})
+    assert tlog.shape == (2, 1, cfg.vocab_size)
+    np.testing.assert_allclose(_np(tlog), _np(jlog), **MODEL_TOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(_np(tcache[key]), _np(jcache[key]),
+                                   **MODEL_TOL)
+    assert tcache["pos"].tolist() == [11, 11]
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen1.5-110b"])
+def test_decode_per_slot_positions_match_jax(arch):
+    """Two slots prefilled at different prompt lengths into one batched
+    cache, then 4 batched decode steps, against JAX's per-slot prefill
+    and ``jax.vmap(model.decode)`` (the JAX engine's decode)."""
+    jmodel, jparams, model, params, cfg = _setup(arch)
+    S = 24
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (5, 12)]
+    steps = rng.randint(0, cfg.vocab_size, size=(4, 2)).astype(np.int32)
+
+    cache = model.empty_cache(2, S, "cpu")
+    jcaches = []
+    for b, p in enumerate(prompts):
+        tlog, _ = model.prefill(params, {"tokens": torch.from_numpy(
+            p[None]).long()}, cache=cache, slots=torch.tensor([b]))
+        jlog, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(p[None])})
+        np.testing.assert_allclose(_np(tlog), _np(jlog), **MODEL_TOL)
+        for key in ("k", "v"):
+            np.testing.assert_allclose(_np(cache[key][:, b, :p.size]),
+                                       _np(jc[key][:, 0]), **MODEL_TOL)
+        pad = [(0, 0)] * 5
+        pad[2] = (0, S - p.size)
+        jcaches.append({"k": jnp.pad(jc["k"], pad)[:, 0],
+                        "v": jnp.pad(jc["v"], pad)[:, 0],
+                        "pos": jnp.int32(p.size)})
+    assert cache["pos"].tolist() == [5, 12]
+    jcache = {k: jnp.stack([c[k] for c in jcaches],
+                           axis=0 if k == "pos" else 1) for k in jcaches[0]}
+
+    def decode_one(jp, c, tok):
+        c = {k: (v if k == "pos" else v[:, None]) for k, v in c.items()}
+        logits, new = jmodel.decode(jp, c, {"tokens": tok})
+        return logits, {k: (v if k == "pos" else v[:, 0])
+                        for k, v in new.items()}
+
+    axes = {"k": 1, "v": 1, "pos": 0}
+    jdecode = jax.jit(jax.vmap(decode_one, in_axes=(None, axes, 0),
+                               out_axes=(0, axes)))
+    for tok in steps:
+        jlog, jcache = jdecode(jparams, jcache,
+                               jnp.asarray(tok.reshape(2, 1, 1)))
+        tlog, cache = model.decode(
+            params, cache, {"tokens": torch.from_numpy(tok[:, None]).long()})
+        np.testing.assert_allclose(_np(tlog), _np(jlog[:, 0]), **MODEL_TOL)
+    assert cache["pos"].tolist() == [9, 16]
+    np.testing.assert_array_equal(np.asarray(jcache["pos"]), [9, 16])
+    for key in ("k", "v"):
+        np.testing.assert_allclose(_np(cache[key]), _np(jcache[key]),
+                                   **MODEL_TOL)
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "mamba2-1.3b",
+                                  "jamba-1.5-large-398b",
+                                  "whisper-large-v3"])
+def test_unported_families_raise_user_error(arch):
+    with pytest.raises(UserError, match="not yet ported"):
+        make_model(reduce_for_smoke(get_arch(arch)))
+
+
+def test_vlm_embeds_input_raises_user_error():
+    cfg = reduce_for_smoke(get_arch("qwen2-vl-2b"))
+    model = make_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen)
+    with pytest.raises(UserError, match="not yet ported"):
+        model.prefill(params, {"embeds": torch.zeros(1, 3, cfg.d_model)})
+
+
+def test_init_follows_jax_fan_in_rule():
+    """Normal leaves have std 1/sqrt(shape[-2]) even on stacked (L, ...)
+    shapes; norms are ones, biases zeros."""
+    cfg = reduce_for_smoke(get_arch("qwen1.5-110b"))
+    params = make_model(cfg).init(torch.Generator().manual_seed(0))
+    blocks = params["blocks"]
+    wq = blocks["attn"]["wq"]                           # (L, D, H, hd)
+    assert abs(wq.std().item() - wq.shape[-2] ** -0.5) < 0.02
+    wd = blocks["mlp"]["wd"]                            # (L, F, D)
+    assert abs(wd.std().item() - wd.shape[-2] ** -0.5) < 0.02
+    assert torch.all(blocks["ln1"]["w"] == 1)
+    assert torch.all(blocks["attn"]["bq"] == 0)
+    same = make_model(cfg).init(torch.Generator().manual_seed(0))
+    torch.testing.assert_close(same["head"], params["head"], rtol=0, atol=0)
