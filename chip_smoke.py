@@ -21,20 +21,52 @@ first failing phase (no phase catches an exception):
      tokens; at full width cut to 2 layers, prefill (kernel attention)
      agrees with decode (plain attention) in f32; then the kernel against
      its plain version at every prefill shape the serve gave it;
-  5. result  — ``{"kernels": [...]}`` on the line before the last and
+  5. kernels — the training slice's kernels against their plain PyTorch
+     versions, each with kernel, plain, library and bound ms: the PS
+     update (K1, all five solvers at three shapes, timed at a shard of
+     the run), the int8 wire (K2 quantize with error feedback, K3
+     dequantize; exact ties included; timed at the run's length, K2 on
+     the learner's bf16 gradient, K3 beside the one ``torch.mul`` that
+     computes it), and the flash forward with its LSE (K4) and backward
+     (K4b) at both training shapes and two small ones, with
+     ``scaled_dot_product_attention``'s forward and backward as
+     yardsticks the port never calls;
+  6. step    — a training step on the card against the CPU at smoke
+     width in f32 (``LMPlugin.flat_loss_grad``: loss and flat gradient),
+     then one int8 + adam PS round with 2 learners on both devices;
+  7. train   — full-width StableLM-1.6B cut to 12 layers (bf16, random
+     weights from a seed): two learner threads run ``make_learner_body``
+     under the port's ``Watchdog`` against one ``SoftwareParameterServer``
+     on the card (4 shards, adam, int8 wire, BSP) for 6 rounds of
+     2 x 512 tokens per learner, checkpointing every 3 steps; asserts the
+     push/round counts, every kernel's launches, and that the newest
+     checkpoint, the PS params and ``trained_model.npy`` are bit for bit
+     one vector; prints round and agg times, tokens per second, peak
+     device memory, and a profiled extra round (busy share, the PS
+     kernels' share). The same at one 4,096-token sequence per learner
+     step (the model's context), then 3 rounds of the first traffic with
+     a device synchronise after every step, push and pull, for the
+     per-phase breakdown (those timers are not in the other two runs);
+  8. result  — ``{"kernels": [...]}`` on the line before the last and
      ``{"ok": true, "device": {...}}`` as the last line.
+
+About three minutes on an H100, the kernel builds included.
 """
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 H100_BF16_FLOPS = 989e12       # dense tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # f32 outside the tensor cores
@@ -46,6 +78,27 @@ SERVE_REQUESTS = [(128, 16), (128, 32), (128, 24), (128, 20),
 # prefill (kernel) vs decode (plain) logits, relative L2, f32 at 2 layers:
 # the two paths sum in other orders (~1e-6 expected)
 PREFILL_DECODE_RTOL = 1e-4
+LSE_TOL = 1e-4             # row log-sum-exp, f32 (abs; 1e-5 relative)
+BWD_TOL = 2e-3             # K4b in f32 (tests/test_kernels.py:139-162)
+BWD_BF16_REL_L2 = 2e-2     # K4b in bf16: relative L2 per gradient
+# K1 (tests/test_kernels.py:71-73): params 1e-5, m/v 1e-6
+AGG_TOL = {"params": 1e-5, "m": 1e-6, "v": 1e-6}
+# K2 (tests/test_compression.py:112-122): q equal, scales rtol 1e-6,
+# err atol 1e-6; K3 exactly equal
+QUANT_TOL = {"scales_rtol": 1e-6, "err_atol": 1e-6}
+STEP_LOSS_TOL = 1e-4       # loss, card vs CPU, f32 smoke width
+STEP_GRAD_TOL = 2e-3       # flat gradient, atol = rtol
+ROUND_PARAM_TOL = 1e-5     # PS params after one int8 + adam round
+TRAIN_ARCH_LAYERS = 12     # full width, depth cut to fit one card
+TRAIN = dict(n_learners=2, n_shards=4, steps=6, batch_docs=2, seq_len=512,
+             checkpoint_every=3, lr=1e-4, optimizer="adam",
+             compression="int8")
+# one sequence at the model's published context (StableLM 2 1.6B model
+# card, hf:stabilityai/stablelm-2-1_6b: 4,096 tokens) per learner step
+TRAIN_LONG = dict(TRAIN, batch_docs=1, seq_len=4096)
+# the per-phase breakdown: TRAIN's traffic with synchronised timers
+TRAIN_TIMED = dict(TRAIN, steps=3)
+PS_KERNELS = ("ps_aggregate", "quantize_ef", "dequantize")
 
 
 def card_line() -> str:
@@ -216,9 +269,12 @@ def serve(torch, cfg, ops, seed: int, card: str, profile: bool = False):
     return [r.tokens for r in reqs], eng, rec.prefills, launches, wall, prof
 
 
-def print_profile(prof, wall: float, card: str, top: int = 8):
-    """Device busy share of the serve's wall time and the kernels that
-    took the most device time, from the profiler's CUDA events."""
+def print_profile(prof, wall: float, card: str, top: int = 8,
+                  ours=("flash_fwd_kernel",)):
+    """Device busy share of the profiled wall time and the kernels that
+    took the most device time, from the profiler's CUDA events. Returns
+    the device microseconds by event name (empty if the profiler saw no
+    device events)."""
     from torch.autograd import DeviceType
     kernels = {}
     n_launches = 0
@@ -230,16 +286,18 @@ def print_profile(prof, wall: float, card: str, top: int = 8):
     if not kernels:
         print(f"[profile] {card}: the profiler saw no device events; "
               f"device busy share not measured")
-        return
+        return kernels
     busy = sum(kernels.values()) / 1e6
     print(f"[profile] {card}: device busy {busy:.3f} s of {wall:.3f} s "
           f"wall = {busy / wall:.3f} (idle share {1 - busy / wall:.3f}), "
           f"{n_launches} device events under {len(kernels)} names")
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
-    ours = [kv for kv in ranked[top:] if "flash_fwd_kernel" in kv[0]]
+    ours = [kv for kv in ranked[top:]
+            if any(name in kv[0] for name in ours)]
     for name, us in ranked[:top] + ours:
         print(f"[profile] {card}: {us / 1e3:9.3f} ms "
               f"{us / 1e6 / busy:6.3f} of busy  {name[:110]}")
+    return kernels
 
 
 def prefill_vs_decode(torch, cfg, prompt, seed=0):
@@ -268,6 +326,595 @@ def prefill_vs_decode(torch, cfg, prompt, seed=0):
     return ((a - b).norm() / b.norm()).item()
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the training slice's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def bound(nbytes: float, flops: float = 0.0, peak=H100_BF16_FLOPS):
+    """(bound ms, what bounds it): the larger of bytes over the HBM rate
+    and operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / H100_HBM_BYTES, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_attention_bwd(torch, ops, ref, shape, seed=0):
+    """K4 with LSE and K4b against their plain versions at one shape;
+    SDPA forward + backward through autograd as the yardstick."""
+    import torch.nn.functional as F
+    B, S, H, KV, hd, dtype, causal, q_offset = shape
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt)
+    k = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(dt)
+    v = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(dt)
+    do = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt)
+    kw = dict(causal=causal, q_offset=q_offset)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    tol = TOL[dtype]
+    fwd_err = (o.float() - o_ref.float()).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    if (o.float() - o_ref.float()).abs().gt(
+            tol + tol * o_ref.float().abs()).any() or \
+            (lse - lse_ref).abs().gt(LSE_TOL + 1e-5 * lse_ref.abs()).any():
+        raise AssertionError(f"flash forward with LSE disagrees at {shape}: "
+                             f"o err {fwd_err}, lse err {lse_err}")
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    errs, rels = [], []
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all().item():
+            raise AssertionError(f"K4b {name} not finite at {shape}")
+        errs.append((a - b).abs().max().item())
+        rels.append(((a - b).norm() / b.norm()).item())
+        if dtype == "float32":
+            if (a - b).abs().gt(BWD_TOL + BWD_TOL * b.abs()).any():
+                raise AssertionError(f"K4b {name} out of atol=rtol="
+                                     f"{BWD_TOL} at {shape}: {errs[-1]}")
+        elif rels[-1] > BWD_BF16_REL_L2:
+            raise AssertionError(f"K4b {name} relative L2 {rels[-1]} > "
+                                 f"{BWD_BF16_REL_L2} at {shape}")
+    fwd_ms = time_ms(torch, lambda: ops.flash_attention(
+        q, k, v, return_lse=True, **kw), iters=20)
+    bwd_ms = time_ms(torch, lambda: ops.flash_attention_bwd(
+        q, k, v, o, lse, do, **kw), iters=20)
+    plain_ms = time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, **kw), iters=5)
+    # SDPA wants (B, H, S, hd), equal head counts, and a top-left causal
+    # mask: lay out outside timing, pass an explicit mask for q_offset
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).detach() \
+        .requires_grad_()
+    vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).detach() \
+        .requires_grad_()
+    mask = None
+    if causal and q_offset:
+        pos = torch.arange(S, device="cuda")
+        mask = pos[None, :] <= pos[:, None] + q_offset
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and not q_offset)
+    dot = do.transpose(1, 2)
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters=20)
+    esize = 2 if dtype == "bfloat16" else 4
+    if causal:
+        pairs = sum(min(S, i + 1 + q_offset) for i in range(S))
+    else:
+        pairs = S * S
+    # read q, k, v, o, dO and lse, write dq, dk, dv; five products
+    nbytes = (4 * B * S * H + 4 * B * S * KV) * hd * esize + 4 * B * H * S
+    flops = 10 * B * H * hd * pairs
+    bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOPS
+                               if dtype == "bfloat16" else H100_F32_FLOPS)
+    return {"shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
+                      "dtype": dtype, "causal": causal,
+                      "q_offset": q_offset},
+            "fwd_lse_ms": fwd_ms, "fwd_max_abs_err": fwd_err,
+            "lse_max_abs_err": lse_err,
+            "max_abs_err": max(errs), "rel_l2": rels, "ms": bwd_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_ps_aggregate(torch, ops, ref, nl, f, solver, seed=0, steps=3,
+                       rows=None):
+    """K1 against its plain version for ``steps`` rounds from one state;
+    returns the largest error of params, m and v. ``rows`` (NL, F) may
+    be given as a strided view (the PS receive buffer's column slice)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if rows is None:
+        wide = torch.randn(nl, f + 512, generator=g, device="cuda")
+        rows = wide[:, 256:256 + f]
+    state = [torch.randn(f, generator=g, device="cuda"),
+             0.1 * torch.randn(f, generator=g, device="cuda"),
+             0.1 * torch.randn(f, generator=g, device="cuda").abs()]
+    mine = [x.clone() for x in state]
+    plain = state
+    kw = dict(solver=solver, lr=0.01)
+    for step in range(1, steps + 1):
+        ops.ps_aggregate(rows, *mine, step, **kw)
+        ref.ps_aggregate_ref(rows, *plain, step, **kw)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in zip(("params", "m", "v"), mine, plain):
+        errs[name] = (a - b).abs().max().item()
+        tol = AGG_TOL[name]
+        rtol = tol if name == "params" else 0.0
+        if (a - b).abs().gt(tol + rtol * b.abs()).any():
+            raise AssertionError(f"K1 {solver} ({nl}, {f}) {name} err "
+                                 f"{errs[name]} > {tol}")
+    return errs
+
+
+def time_ps_aggregate(torch, ops, ref, nl, f):
+    """K1 at the run's shard shape (adam): check once, then kernel and
+    plain ms, bound and errors. No single PyTorch call computes this
+    fused mean + update (library_ms null)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows = torch.randn(nl, f, generator=g, device="cuda")
+    errs = check_ps_aggregate(torch, ops, ref, nl, f, "adam", steps=1,
+                              rows=rows)
+    torch.cuda.empty_cache()
+    p = torch.randn(f, generator=g, device="cuda")
+    m = torch.zeros(f, device="cuda")
+    v = torch.zeros(f, device="cuda")
+    kw = dict(solver="adam", lr=1e-4)
+    ms = time_ms(torch, lambda: ops.ps_aggregate(rows, p, m, v, 2, **kw),
+                 iters=10)
+    plain_ms = time_ms(torch, lambda: ref.ps_aggregate_ref(
+        rows, p, m, v, 2, **kw), iters=3, warmup=1)
+    # adam: read NL rows and p/m/v, write p/m/v, f32
+    bound_ms, bound_by = bound((nl + 6) * 4 * f, 0)
+    return {"shape": {"NL": nl, "F": f, "solver": "adam"},
+            "max_abs_err": max(errs.values()), "errors": errs, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def ties(torch, n, seed):
+    """x, err whose sum y holds exact ties y = (k + 0.5) * scale, with
+    every block's absmax 127 * scale so that scale is exact."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    scale = 0.25
+    k = torch.randint(-126, 126, (n,), generator=g, device="cuda")
+    y = (k.float() + 0.5) * scale
+    y[::256] = 127 * scale
+    # even positions (every block's absmax among them) carry err = 0, so
+    # x + err is exactly y there; odd ones exercise the feedback add
+    err = 1e-3 * torch.randn(n, generator=g, device="cuda")
+    err[::2] = 0.0
+    return y - err, err
+
+
+def check_quantize(torch, ops, ref, x, err):
+    """K2 then K3 against the plain versions: (q mismatches, scale and
+    err max abs errors, dequantize max abs error)."""
+    q, s, ne = ops.quantize_ef(x, err)
+    qr, sr, er = ref.quantize_ref(x, err)
+    deq = ops.dequantize(q, s)
+    deq_ref = ref.dequantize_ref(q, s)
+    torch.cuda.synchronize()
+    bad_q = int((q != qr).sum().item())
+    s_err = (s - sr).abs().max().item()
+    e_err = (ne - er).abs().max().item()
+    d_err = (deq - deq_ref).abs().max().item()
+    if bad_q or (s - sr).abs().gt(QUANT_TOL["scales_rtol"] * sr.abs()).any() \
+            or e_err > QUANT_TOL["err_atol"] or d_err != 0.0:
+        raise AssertionError(f"int8 wire at n={x.numel()}: {bad_q} q "
+                             f"mismatches, scale err {s_err}, err err "
+                             f"{e_err}, dequantize err {d_err}")
+    return bad_q, s_err, e_err, d_err
+
+
+def time_quantize(torch, ops, ref, n, x_dtype):
+    """K2 and K3 at the run's push length, K2 reading ``x_dtype`` (the
+    learner's gradient dtype): check, then kernel, plain and bound ms.
+    No single PyTorch call computes K2 (library_ms null). For K3 one
+    does: ``torch.mul`` of the int8 blocks by their scales into the f32
+    output (int8 x f32 promotes to f32, one rounding); it is timed as a
+    yardstick, and its difference from K3 is reported."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(n, generator=g, device="cuda").to(x_dtype)
+    err = 0.01 * torch.randn(n, generator=g, device="cuda")
+    _, s_err, e_err, d_err = check_quantize(torch, ops, ref, x, err)
+    torch.cuda.empty_cache()
+    q, s, _ = ops.quantize_ef(x, err)
+    k2_ms = time_ms(torch, lambda: ops.quantize_ef(x, err, out_err=err),
+                    iters=10)
+    k2_plain = time_ms(torch, lambda: ref.quantize_ref(x, err), iters=2,
+                       warmup=1)
+    out = torch.empty(n, device="cuda")
+    lib = torch.empty(n, device="cuda")
+    qb, sb, lb = q.view(-1, 256), s[:, None], lib.view(-1, 256)
+    k3_ms = time_ms(torch, lambda: ops.dequantize(q, s, out=out), iters=10)
+    k3_plain = time_ms(torch, lambda: ref.dequantize_ref(q, s, out=out),
+                       iters=3, warmup=1)
+    k3_lib = time_ms(torch, lambda: torch.mul(qb, sb, out=lb), iters=10)
+    ops.dequantize(q, s, out=out)
+    lib_err = (out - lib).abs().max().item()
+    nb = n // 256
+    xb = x.element_size()
+    k2_bound = bound(n * (xb + 4 + 1 + 4) + 4 * nb)  # x, err -> q, err, s
+    k3_bound = bound(n * (1 + 4) + 4 * nb)           # q, s -> x
+    return ({"shape": {"F": n, "x_dtype": str(x_dtype).split(".")[-1]},
+             "max_abs_err": max(s_err, e_err),
+             "ms": k2_ms, "plain_ms": k2_plain, "library_ms": None,
+             "bound_ms": k2_bound[0], "bound_by": k2_bound[1]},
+            {"shape": {"F": n}, "max_abs_err": d_err, "ms": k3_ms,
+             "plain_ms": k3_plain, "library_ms": k3_lib,
+             "library_max_abs_diff": lib_err,
+             "bound_ms": k3_bound[0], "bound_by": k3_bound[1]})
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: a training step on the card against the CPU (smoke width)
+# ---------------------------------------------------------------------------
+
+
+def step_card_vs_cpu(torch, ops):
+    """Loss and flat gradient of one step, then one int8 + adam PS round
+    with 2 learners (the same two pushes) on both devices."""
+    import numpy as np
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.software_ps import SoftwareParameterServer
+    from repro_torch.runtime.learner import LMPlugin
+    cfg = reduce_for_smoke(get_arch("stablelm-1.6b"))
+    gpu = LMPlugin({}, cfg=cfg, device="cuda")
+    cpu = LMPlugin({}, cfg=cfg, device="cpu")
+    flat = cpu.flat_state(0)
+    rng = np.random.RandomState(9)
+    toks = rng.randint(0, cfg.vocab_size, size=(2, 2, 65)).astype("int32")
+    batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+    lg, gg = gpu.flat_loss_grad(flat.cuda(), batches[0])
+    grads = [cpu.flat_loss_grad(flat, b) for b in batches]
+    loss_err = abs(lg.item() - grads[0][0].item())
+    gc = grads[0][1]
+    grad_err = (gg.cpu() - gc).abs().max().item()
+    if loss_err > STEP_LOSS_TOL or (gg.cpu() - gc).abs().gt(
+            STEP_GRAD_TOL + STEP_GRAD_TOL * gc.abs()).any():
+        raise AssertionError(f"step on the card vs the CPU: loss err "
+                             f"{loss_err}, grad err {grad_err}")
+
+    def ps_round(dev):
+        ps = SoftwareParameterServer(flat, n_shards=2, n_learners=2,
+                                     optimizer="adam", lr=1e-3,
+                                     compression="int8", device=dev)
+        clients = [ps.make_client(i) for i in range(2)]
+        for i in range(2):
+            ps.join(i)
+        ts = [threading.Thread(target=clients[i].push,
+                               args=(grads[i][1].to(dev),))
+              for i in range(2)]
+        [t.start() for t in ts]
+        [t.join(120) for t in ts]
+        if any(t.is_alive() for t in ts) or ps.stats()["agg_rounds"] != 1:
+            raise AssertionError(f"PS round on {dev} did not complete")
+        return clients[0].pull().cpu()
+
+    round_err = (ps_round("cuda") - ps_round("cpu")).abs().max().item()
+    if round_err > ROUND_PARAM_TOL:
+        raise AssertionError(f"int8 + adam PS round: params differ by "
+                             f"{round_err} > {ROUND_PARAM_TOL}")
+    return loss_err, grad_err, round_err
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: full-width training through the learner body and the PS
+# ---------------------------------------------------------------------------
+
+
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class TimedPlugin:
+    """The learner's plugin with each step's forward + backward timed on
+    the host clock up to a device synchronise. Only the breakdown run
+    uses it: the synchronise is not the port's own, and on a card both
+    learners share, a step's time includes the other's interleaved
+    work."""
+
+    def __init__(self, torch, plugin):
+        self._torch, self._plugin = torch, plugin
+        self.step_s = []
+
+    def flat_loss_grad(self, flat, batch):
+        t0 = time.perf_counter()
+        out = self._plugin.flat_loss_grad(flat, batch)
+        sync(self._torch, self._plugin.device)
+        self.step_s.append(time.perf_counter() - t0)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._plugin, name)
+
+
+def stamped_ps(torch, timers: bool):
+    """A SoftwareParameterServer class that stamps the end of every round
+    on the host clock. That adds no synchronise: the PS already waits
+    for the round's K1 launches, through the event it times them with.
+    With ``timers`` its clients also time each push (K2, receive with
+    K3, the BSP wait, and K1 for the last pusher) and each pull up to a
+    device synchronise, the breakdown run's instrumentation, which the
+    port's own loop does not have."""
+    from repro_torch.core.software_ps import (PSClient,
+                                              SoftwareParameterServer)
+
+    class Client(PSClient):
+        def push(self, flat, timeout=30.0):
+            t0 = time.perf_counter()
+            ok = super().push(flat, timeout)
+            sync(torch, self.ps.device)
+            self.ps.push_s.append(time.perf_counter() - t0)
+            return ok
+
+        def pull(self):
+            t0 = time.perf_counter()
+            buf = super().pull()
+            sync(torch, self.ps.device)
+            self.ps.pull_s.append(time.perf_counter() - t0)
+            return buf
+
+    class PS(SoftwareParameterServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.push_s, self.pull_s, self.round_end = [], [], []
+
+        def make_client(self, learner_id):
+            if not timers:
+                return super().make_client(learner_id)
+            return Client(self, learner_id, compression=self.compression)
+
+        def _finish_round_locked(self):
+            super()._finish_round_locked()
+            self.round_end.append(time.perf_counter())
+
+    return PS
+
+
+def train_run(torch, ops, cfg, device, workdir, card, *, n_learners,
+              n_shards, steps, batch_docs, seq_len, checkpoint_every, lr,
+              optimizer, compression, timers=False, profile=False):
+    """Train ``cfg`` with ``n_learners`` learner threads through the
+    port's learner body and PS. Returns a dict of what the run counted
+    and measured; raises on any failed check. Without ``timers`` the
+    loop is the port's own (round ends stamped on the host, no added
+    synchronise); with them, every step, push and pull ends in a device
+    synchronise and is timed (the per-phase breakdown)."""
+    import numpy as np
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.core.cursor import GlobalCursor
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.platform.metrics import MetricsService
+    from repro_torch.platform.storage import LocalFSStore, StorageManager
+    from repro_torch.platform.watchdog import Watchdog
+    from repro_torch.platform.zookeeper import ZooKeeper
+    from repro_torch.runtime.learner import (LearnerJobConfig, LMPlugin,
+                                             make_learner_body)
+    job = "chip-smoke-train"
+    zk = ZooKeeper()
+    storage = StorageManager()
+    storage.register("results", LocalFSStore(str(workdir / "results")))
+    metrics = MetricsService()
+    base = LMPlugin({}, cfg=cfg, device=device)
+    plugin = TimedPlugin(torch, base) if timers else base
+    data_cfg = {"seq_len": seq_len, "n_docs": 512, "seed": 0}
+    jcfg = LearnerJobConfig(
+        job_id=job, data_cfg=data_cfg, n_learners=n_learners,
+        batch_docs=batch_docs, steps=steps, lr=lr, optimizer=optimizer,
+        solver="psgd", compression=compression, seed=0,
+        checkpoint_dir=str(workdir / "ckpt"),
+        checkpoint_every=checkpoint_every)
+    t0 = time.perf_counter()
+    ps = stamped_ps(torch, timers)(plugin.flat_state(jcfg.seed),
+                                   n_shards=n_shards,
+                         n_learners=n_learners, optimizer=optimizer, lr=lr,
+                         trigger="bsp", compression=compression,
+                         metrics=metrics, job_id=job, device=device)
+    sync(torch, device)
+    init_s = time.perf_counter() - t0
+    cursor = GlobalCursor(zk, f"/jobs/{job}/cursor", dataset_size=512)
+    results = {}
+    body = make_learner_body(jcfg, ps, cursor, storage, metrics, results,
+                             plugin=plugin)
+    failed = []
+
+    def run(idx):
+        wd = Watchdog(zk, job, f"learner-{idx}")
+        try:
+            wd.run(lambda w: body(w, idx))
+        except BaseException as e:       # handed to the main thread below
+            failed.append(e)
+            raise
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    threads = [threading.Thread(target=run, args=(i,), daemon=True,
+                                name=f"learner-{i}")
+               for i in range(n_learners)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if failed:
+        raise RuntimeError("a learner failed") from failed[0]
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("learner threads did not finish")
+    peak = (torch.cuda.max_memory_allocated()
+            if torch.device(device).type == "cuda" else None)
+    st = ps.stats()
+    losses = metrics.series(job, "loss").values
+    if len(losses) != n_learners * steps or \
+            not all(np.isfinite(losses)):
+        raise AssertionError(f"losses {losses}")
+    rounds = steps
+    want = {"push_count": n_learners * steps, "agg_rounds": rounds,
+            "push_timeouts": 0}
+    if any(st[k] != v for k, v in want.items()):
+        raise AssertionError(f"PS stats {st}, want {want}")
+    if compression == "int8" and st["compression_ratio"] < 3.9:
+        raise AssertionError(f"compression ratio {st['compression_ratio']}")
+    pushes = n_learners * steps
+    want_launches = {"quantize_ef": pushes, "dequantize": pushes,
+                     "ps_aggregate": rounds * n_shards,
+                     "flash_attention": cfg.n_layers * pushes,
+                     "flash_attention_bwd": cfg.n_layers * pushes}
+    if torch.device(device).type == "cpu":
+        want_launches = {k: 0 for k in want_launches}
+    if launches != want_launches:
+        raise AssertionError(f"launches {launches}, want {want_launches}")
+    # the newest checkpoint, the PS params and the uploaded model are one
+    # vector, bit for bit
+    probe = CheckpointManager(jcfg.checkpoint_dir)
+    last = probe.latest_valid()
+    if last != steps:
+        raise AssertionError(f"latest valid checkpoint {last} != {steps}")
+    tree, extra = probe.restore(last, {"flat": np.zeros(ps.size,
+                                                        np.float32)})
+    ps_flat = ps.pull(0).cpu().numpy()
+    uploaded = np.load(io.BytesIO(storage.download(
+        "results", job, "trained_model.npy")))
+    if not (tree["flat"].tobytes() == ps_flat.tobytes()
+            == uploaded.tobytes()):
+        raise AssertionError("checkpoint, PS params and trained_model.npy "
+                             "differ")
+    del tree, ps_flat, uploaded, results
+    # copies: the profiled round below adds to the PS's own lists
+    agg_ms = list(metrics.series(job, "agg_time_ms").values)
+    out = {"wall_s": wall, "init_s": init_s, "stats": st,
+           "launches": launches, "losses": losses, "peak_bytes": peak,
+           "agg_ms": agg_ms,
+           "sync_ms": [1e3 * s for s in
+                       metrics.series(job, "sync_time_s").values],
+           "round_ms": [1e3 * (b - a) for a, b in
+                        zip([t0] + ps.round_end[:-1], ps.round_end)],
+           "tokens": n_learners * steps * batch_docs * seq_len,
+           "F": ps.size,
+           "checkpoint_step": last}
+    if timers:
+        out.update(step_ms=[1e3 * s for s in plugin.step_s],
+                   push_ms=[1e3 * s for s in ps.push_s],
+                   pull_ms=[1e3 * s for s in ps.pull_s])
+    if profile:
+        out["profile"] = profiled_round(torch, ps, base, cursor,
+                                        SyntheticCorpus(
+                                            base.dataset_spec(data_cfg)),
+                                        batch_docs, card)
+    del ps
+    return out
+
+
+def profiled_round(torch, ps, plugin, cursor, corpus, batch_docs, card):
+    """One more BSP round (every learner: step, push, pull) under the
+    profiler, after the run's checks, through the port's own plugin and
+    client (no added synchronise). Returns its wall seconds and device
+    ms: busy, the PS kernels (K1, K2, K3), device-to-device copies (the
+    pulls and the gradient's flat copies) and attention (K4, K4b)."""
+    from torch.profiler import ProfilerActivity
+    n = ps.n_learners
+    clients = [ps.make_client(i) for i in range(n)]
+    for i in range(n):
+        ps.join(i)
+    batches = [corpus.batch_for(cursor.next_chunk(batch_docs))
+               for _ in range(n)]
+    flats = [c.pull() for c in clients]
+    torch.cuda.synchronize()
+    failed = []
+
+    def learner(i):
+        try:
+            _, g = plugin.flat_loss_grad(flats[i], batches[i])
+            clients[i].push(g)
+            del g
+            clients[i].pull()
+        except BaseException as e:       # handed to the main thread below
+            failed.append(e)
+            raise
+
+    prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+    prof.start()
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=learner, args=(i,), daemon=True)
+          for i in range(n)]
+    [t.start() for t in ts]
+    [t.join(300) for t in ts]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof.stop()
+    for i in range(n):
+        ps.leave(i)
+    if failed or any(t.is_alive() for t in ts):
+        raise RuntimeError("profiled round failed") from (
+            failed[0] if failed else None)
+    kernels = print_profile(prof, wall, card, top=10,
+                            ours=("flash_",) + PS_KERNELS)
+
+    def device_ms(names):
+        return sum(us for n, us in kernels.items()
+                   if any(k in n for k in names)) / 1e3
+
+    return {"wall_ms": 1e3 * wall,
+            "busy_ms": sum(kernels.values()) / 1e3 if kernels else None,
+            "ps_ms": device_ms(PS_KERNELS) if kernels else None,
+            "dtod_ms": device_ms(("DtoD",)) if kernels else None,
+            "attention_ms": device_ms(("flash_",)) if kernels else None}
+
+
+def print_train(label, res, card, cfg, traffic):
+    tag = f"[{label}] {card}:"
+
+    def stats(xs):
+        xs = sorted(xs)
+        return (f"min {xs[0]:.2f} median {xs[len(xs) // 2]:.2f} max "
+                f"{xs[-1]:.2f} ms (n={len(xs)})")
+    print(f"{tag} {cfg.arch_id} L={cfg.n_layers} d={cfg.d_model} "
+          f"{cfg.dtype}, F={res['F']} params; {traffic}")
+    print(f"{tag} PS + weights init {res['init_s']:.2f} s; "
+          f"{len(res['round_ms'])} rounds in {res['wall_s']:.3f} s wall "
+          f"(checkpoints and upload included) = "
+          f"{res['tokens'] / res['wall_s']:.1f} tokens/s; peak device "
+          f"memory {res['peak_bytes'] / 2**30:.2f} GiB")
+    rounds = sorted(res["round_ms"])
+    per_round = res["tokens"] / len(rounds)
+    print(f"{tag} round {stats(rounds)}; at the median round "
+          f"{per_round / rounds[len(rounds) // 2] * 1e3:.1f} tokens/s "
+          f"({per_round:.0f} tokens per round); agg (device) "
+          f"{stats(res['agg_ms'])}; the learner's push + pull on the "
+          f"host clock {stats(res['sync_ms'])}")
+    if "step_ms" in res:
+        print(f"{tag} with a synchronise after each: learner step "
+              f"forward+backward {stats(res['step_ms'])}; push "
+              f"{stats(res['push_ms'])}; pull {stats(res['pull_ms'])}")
+    prof = res.get("profile")
+    if prof and prof["busy_ms"] is not None:
+        w = prof["wall_ms"]
+        print(f"{tag} profiled round {w:.3f} ms wall: device busy "
+              f"{prof['busy_ms']:.3f} ms ({prof['busy_ms'] / w:.3f}; idle "
+              f"{1 - prof['busy_ms'] / w:.3f}); PS kernels K1+K2+K3 "
+              f"{prof['ps_ms']:.3f} ms ({prof['ps_ms'] / w:.3f} of the "
+              f"round); device-to-device copies (pulls, gradient flat) "
+              f"{prof['dtod_ms']:.3f} ms ({prof['dtod_ms'] / w:.3f}); "
+              f"attention K4+K4b {prof['attention_ms']:.3f} ms "
+              f"({prof['attention_ms'] / w:.3f})")
+    print(f"{tag} losses {[round(x, 4) for x in res['losses']]};"
+          f" PS {json.dumps(res['stats'])}; launches "
+          f"{json.dumps(res['launches'])}; checkpoint step "
+          f"{res['checkpoint_step']} == PS params == trained_model.npy "
+          f"(bit for bit)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -277,6 +924,9 @@ def main() -> int:
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_attention_bwd as kfab
+    from repro_torch.kernels import ps_aggregate as kagg
+    from repro_torch.kernels import quantize as kq
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -338,7 +988,7 @@ def main() -> int:
               f"latency p50 {st['p50_latency_s']} s, p99 "
               f"{st['p99_latency_s']} s (8 requests); peak "
               f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-              f" GiB; flash launches {launches}")
+              f" GiB; kernel launches {launches}")
         if label == "profiled":
             print_profile(run[5], wall, card)
         eng.release()
@@ -346,7 +996,7 @@ def main() -> int:
         del eng, run
         torch.cuda.empty_cache()
     print(f"[serve] {card}: {len(runs)} engines, same seed: identical tokens")
-    tokens, prefills, launches = runs[0]
+    _, prefills, serve_launches = runs[0]
 
     # the model's output against an independent path: full width, 2
     # layers, f32 (at 24 layers, or in bf16, rounding differences between
@@ -369,16 +1019,110 @@ def main() -> int:
         print(f"[kernel] {card}: main path {json.dumps(res)}")
     head = max(main_path, key=lambda r: r["bound_ms"])
 
-    # 5. result
-    entry = {"name": kfa.NAME, "route": "cuda", "source": kfa.SOURCE,
-             "replaces": kfa.REPLACES, "launches": launches[kfa.NAME],
-             "max_abs_err": max(r["max_abs_err"] for r in main_path),
-             "ms": head["ms"], "kernel_ms": head["ms"],
-             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-             "bound_by": head["bound_by"],
-             "library_ms": head["library_ms"], "shape": head["shape"],
-             "card": card, "shapes": main_path}
-    print(json.dumps({"kernels": [entry]}))
+    # 5. the training slice's kernels against their plain versions
+    tcfg = dataclasses.replace(get_arch(SERVE_ARCH),
+                               n_layers=TRAIN_ARCH_LAYERS)
+    from repro_torch.core.software_ps import ShardLayout
+    from repro_torch.weights import flat_size
+    lay = ShardLayout.build(flat_size(tcfg), TRAIN["n_shards"])
+    agg_errs = {}
+    for solver in ("sgd", "momentum", "adam", "easgd_center", "average"):
+        for nl, f in ((2, 2048), (8, 4096), (3, 9 * 256)):
+            errs = check_ps_aggregate(torch, ops, ref, nl, f, solver)
+            agg_errs[f"{solver} ({nl}, {f})"] = max(errs.values())
+    print(f"[kernel] {card}: K1 ps_aggregate, 3 rounds each, max abs err "
+          f"by solver and shape: {json.dumps(agg_errs)}")
+    k1 = time_ps_aggregate(torch, ops, ref, TRAIN["n_learners"],
+                           lay.shard_len)
+    print(f"[kernel] {card}: K1 at the run's shard: {json.dumps(k1)}")
+    torch.cuda.empty_cache()
+    for n in (4096, 1 << 20):
+        g = torch.Generator(device="cuda").manual_seed(n)
+        for label, (x, e) in (
+                ("random", (torch.randn(n, generator=g, device="cuda"),
+                            0.1 * torch.randn(n, generator=g,
+                                              device="cuda"))),
+                ("ties", ties(torch, n, n))):
+            res = check_quantize(torch, ops, ref, x, e)
+            xb = x.to(torch.bfloat16)
+            resb = check_quantize(torch, ops, ref, xb, e)
+            print(f"[kernel] {card}: K2/K3 n={n} {label}: q mismatches, "
+                  f"scale err, err err, dequantize err: f32 x {res}, "
+                  f"bf16 x {resb}")
+    # the learner pushes its gradient in the model dtype
+    k2, k3 = time_quantize(torch, ops, ref, lay.padded,
+                           getattr(torch, tcfg.dtype))
+    print(f"[kernel] {card}: K2 at the run's push length: {json.dumps(k2)}")
+    print(f"[kernel] {card}: K3 at the run's push length: {json.dumps(k3)}")
+    torch.cuda.empty_cache()
+    train_shapes = [(t["batch_docs"], t["seq_len"], tcfg.n_heads,
+                     tcfg.n_kv_heads, tcfg.hd, "bfloat16", True)
+                    for t in (TRAIN, TRAIN_LONG)]
+    bwd = [check_attention_bwd(torch, ops, ref, shape) for shape in (
+        train_shapes[0] + (0,),
+        (2, 256, 8, 2, 128, "float32", False, 0),
+        (3, 37, 4, 2, 16, "float32", True, 9),
+        train_shapes[1] + (0,))]
+    for res in bwd:
+        print(f"[kernel] {card}: K4 with LSE and K4b: {json.dumps(res)}")
+        torch.cuda.empty_cache()
+    train_fwd = [check_attention(torch, ops, ref, s) for s in train_shapes]
+    for res in train_fwd:
+        print(f"[kernel] {card}: K4 at a training shape: {json.dumps(res)}")
+    torch.cuda.empty_cache()
+
+    # 6. a training step on the card against the CPU (smoke width, f32)
+    loss_err, grad_err, round_err = step_card_vs_cpu(torch, ops)
+    print(f"[step] {card}: stablelm-1.6b-smoke f32, card vs CPU: loss err "
+          f"{loss_err:.3e} (limit {STEP_LOSS_TOL}), flat gradient max abs "
+          f"err {grad_err:.3e} (atol=rtol {STEP_GRAD_TOL}); one int8 + adam "
+          f"PS round, 2 learners: params max abs err {round_err:.3e} "
+          f"(limit {ROUND_PARAM_TOL})")
+
+    # 7. full-width training, 12 layers, through the learner body and PS:
+    # the main path (its launches go into the kernels line), the model's
+    # context per learner step, and the per-phase breakdown with timers
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    train = {}
+    for label, traffic, timers in (("train", TRAIN, False),
+                                   ("train-4k", TRAIN_LONG, False),
+                                   ("train-timed", TRAIN_TIMED, True)):
+        workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-train-",
+                                        dir=build_dir))
+        try:
+            train[label] = train_run(torch, ops, tcfg, "cuda", workdir,
+                                     card, timers=timers,
+                                     profile=not timers, **traffic)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print_train(label, train[label], card, tcfg, traffic)
+        torch.cuda.empty_cache()
+    train_launches = train["train"]["launches"]
+
+    # 8. result
+    def entry(mod, launches, head, shapes):
+        return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
+                "replaces": mod.REPLACES, "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in shapes),
+                "ms": head["ms"], "kernel_ms": head["ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"], "shape": head["shape"],
+                "card": card, "shapes": shapes}
+
+    k4 = entry(kfa, serve_launches[kfa.NAME] + train_launches[kfa.NAME],
+               head, main_path + train_fwd)
+    k4["launches_by_path"] = {"serve": serve_launches[kfa.NAME],
+                              "train": train_launches[kfa.NAME]}
+    kernels = [
+        k4,
+        entry(kfab, train_launches[kfab.NAME], bwd[0], bwd),
+        entry(kagg, train_launches[kagg.NAME], k1, [k1]),
+        entry(kq.QUANTIZE, train_launches[kq.QUANTIZE.NAME], k2, [k2]),
+        entry(kq.DEQUANTIZE, train_launches[kq.DEQUANTIZE.NAME], k3, [k3]),
+    ]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

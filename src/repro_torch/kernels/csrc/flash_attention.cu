@@ -8,12 +8,16 @@
 //
 //   q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> o (B, Sq, H, hd)
 //   o[b,i,h] = softmax_j(scale * q[b,i,h] . k[b,j,h/(H/KV)]) @ v[b,:,h/(H/KV)]
+//   lse[b,h,i] = m + log(max(l, 1e-30))       (optional, f32, (B, H, Sq))
 //
 // with scale = hd^-0.5, f32 accumulation, masked scores -1e30, optional
 // causal mask "key j visible to query i iff j <= i + q_offset", and the
 // normaliser 1/max(l, 1e-30), as in the Pallas kernel and the jnp
 // reference. The probabilities are rounded to the input type before the
-// P.V product, as the reference does (`p.astype(v.dtype)`).
+// P.V product, as the reference does (`p.astype(v.dtype)`). The row
+// log-sum-exp is the one `_flash_fwd_lse` returns (models/attention.py:207)
+// for the backward (flash_attention_bwd.cu); a null `lse` pointer skips it,
+// which is how the serving path calls the kernel.
 //
 // Differences from the TPU kernel, by design:
 //   * GQA by index: KV head = h / (H/KV); no repeated copy of k/v.
@@ -52,33 +56,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;    // flash_attention.py:20
 constexpr int kThreads = 128;        // threads per block
 constexpr int kSub = 16;             // keys per online-softmax update
-
-template <typename T> struct Cvt;
-template <> struct Cvt<float> {
-  static __device__ __forceinline__ float load(float x) { return x; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-template <> struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
-    return __float2bfloat16_rn(x);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-};
-
-struct Strides {                      // element strides of dims (B, S, H)
-  int64_t b, s, h;
-};
 
 template <int HD> struct Tile {
   static constexpr int kDpt = HD < 32 ? HD : 32;      // dims per thread
@@ -93,7 +77,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 int H, int group, int Sq, int Sk,
+                 float* __restrict__ lse, int H, int group, int Sq, int Sk,
                  Strides qs, Strides ks, Strides vs, Strides os,
                  int causal, int q_offset, float scale) {
   using C = Cvt<T>;
@@ -191,33 +175,35 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + b * os.b + (int64_t)qi * os.s + h * os.h;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) orow[i * TPR + t] = C::store(acc[i] / denom);
+    if (lse != nullptr && t == 0)
+      lse[((int64_t)b * H + h) * Sq + qi] = m + logf(denom);
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int KV,
+                   float* lse, int B, int Sq, int Sk, int H, int KV,
                    const Strides* st, int causal, int q_offset, float scale,
                    cudaStream_t stream) {
   constexpr int BQ = Tile<HD>::kBq;
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, H / KV, Sq, Sk,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, H / KV, Sq, Sk,
       st[0], st[1], st[2], st[3], causal, q_offset, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        void* o, int B, int Sq, int Sk, int H, int KV,
+                        void* o, float* lse, int B, int Sq, int Sk, int H, int KV,
                         const Strides* st, int causal, int q_offset,
                         float scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -226,10 +212,12 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 
 // Plain C entry point, loaded with ctypes. dtype: 0 = float32, 1 = bf16.
 // strides: 12 element strides, (B, S, H) of q, k, v, o in that order.
+// lse: null, or (B, H, Sq) contiguous f32 for the row log-sum-exp.
 // Launches on `stream`, does not synchronise, allocates nothing, and
 // returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int dtype, int B,
+                                   const void* v, void* o, float* lse,
+                                   int dtype, int B,
                                    int Sq, int Sk, int H, int KV, int hd,
                                    const int64_t* strides, int causal,
                                    int q_offset, float scale, void* stream) {
@@ -242,10 +230,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_hd<float>(hd, q, k, v, o, B, Sq, Sk, H, KV, st, causal,
+    err = dispatch_hd<float>(hd, q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal,
                              q_offset, scale, s);
   else if (dtype == 1)
-    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Sk, H, KV, st,
+    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, Sq, Sk, H, KV, st,
                                      causal, q_offset, scale, s);
   else
     err = cudaErrorInvalidValue;

@@ -30,7 +30,7 @@ def _entry():
     global _fn
     if _fn is None:
         fn = build.load(NAME).flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -55,9 +55,11 @@ def check_shapes(q, k, v, q_offset: int):
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool, q_offset: int = 0):
+def flash_attention_cuda(q, k, v, *, causal: bool, q_offset: int = 0,
+                         return_lse: bool = False):
     """Launch the kernel on CUDA tensors; raises on anything it does not
-    take (no fallback to the plain version)."""
+    take (no fallback to the plain version). With ``return_lse`` it
+    returns (o, lse) with the row log-sum-exp lse (B, H, Sq) f32."""
     global launches
     check_shapes(q, k, v, q_offset)
     dev = q.device
@@ -80,14 +82,17 @@ def flash_attention_cuda(q, k, v, *, causal: bool, q_offset: int = 0):
             raise ValueError(f"{name} must be contiguous in head_dim "
                              f"(stride {t.stride(3)})")
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if Sq == 0 or B == 0:
-        return o
+        return (o, lse) if return_lse else o
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *o.stride()[:3])
     fn = _entry()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr() if return_lse else None,
                  DTYPE_CODES[q.dtype], B, Sq, Sk, H, KV, hd, strides,
                  int(bool(causal)), int(q_offset), float(hd ** -0.5),
                  stream)
@@ -95,4 +100,4 @@ def flash_attention_cuda(q, k, v, *, causal: bool, q_offset: int = 0):
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError_t {err}")
     launches += 1
-    return o
+    return (o, lse) if return_lse else o

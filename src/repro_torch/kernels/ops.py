@@ -10,27 +10,91 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
+from repro_torch.kernels import ps_aggregate as _agg
+from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
 
-KERNELS = (_fa,)      # every kernel module: NAME, SOURCE, REPLACES, launches
+# every kernel: NAME, SOURCE, REPLACES, launches
+KERNELS = (_fa, _fab, _agg, _q.QUANTIZE, _q.DEQUANTIZE)
 
 
-def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0):
+def _where(op: str, *ts) -> str:
+    """'cpu' or 'cuda' when every tensor lies there; raises otherwise."""
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"} or devs == {"cuda"}:
+        return devs.pop()
+    raise ValueError(f"{op}: tensors on {sorted(devs)}; want all on the "
+                     "CPU (plain version) or all on CUDA (kernel)")
+
+
+def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                    return_lse: bool = False):
     """q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> (B, Sq, H, hd).
 
     Softmax attention with scale hd^-0.5 and f32 accumulation; GQA heads
     by index (KV head = h // (H // KV)); causal masking lets query i see
-    keys j <= i + q_offset. Any Sq/Sk."""
-    devs = {q.device.type, k.device.type, v.device.type}
-    if devs == {"cpu"}:
+    keys j <= i + q_offset. Any Sq/Sk. With ``return_lse``, returns
+    (o, lse) with the row log-sum-exp lse (B, H, Sq) f32."""
+    if _where("flash_attention", q, k, v) == "cpu":
         _fa.check_shapes(q, k, v, q_offset)
         return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       q_offset=q_offset)
-    if devs == {"cuda"}:
-        return _fa.flash_attention_cuda(q, k, v, causal=causal,
-                                        q_offset=q_offset)
-    raise ValueError(f"flash_attention: q/k/v on {sorted(devs)}; want all "
-                     "on the CPU (plain version) or all on CUDA (kernel)")
+                                       q_offset=q_offset,
+                                       return_lse=return_lse)
+    return _fa.flash_attention_cuda(q, k, v, causal=causal,
+                                    q_offset=q_offset,
+                                    return_lse=return_lse)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool,
+                        q_offset: int = 0):
+    """(dq, dk, dv) of ``flash_attention`` from its output ``o``, row
+    log-sum-exp ``lse`` and the output gradient ``do``; each in its
+    input's dtype, dk/dv summed over each KV head's group."""
+    if _where("flash_attention_bwd", q, k, v, o, lse, do) == "cpu":
+        _fab.check_shapes(q, k, v, o, lse, do, q_offset)
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           causal=causal, q_offset=q_offset)
+    return _fab.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                         q_offset=q_offset)
+
+
+def quantize_ef(x, err, *, out_err=None):
+    """x (F,) f32 or bf16, err (F,) f32, F % 256 == 0 -> (q int8 (F,),
+    scales f32 (F/256,), new_err f32 (F,)): int8 block quantization of
+    ``x + err`` with error feedback. ``out_err`` (may be ``err``) takes
+    new_err in place."""
+    if _where("quantize_ef", x, err) == "cpu":
+        _q.check_quantize(x, err)
+        q, scales, new_err = ref.quantize_ref(x, err)
+        if out_err is not None:
+            new_err = out_err.copy_(new_err)
+        return q, scales, new_err
+    return _q.quantize_ef_cuda(x, err, out_err=out_err)
+
+
+def dequantize(q, scales, *, out=None):
+    """q int8 (F,), scales f32 (F/256,) -> q * scale per block, f32
+    (F,), written into ``out`` when given."""
+    if _where("dequantize", q, scales) == "cpu":
+        _q.check_dequantize(q, scales, out)
+        return ref.dequantize_ref(q, scales, out=out)
+    return _q.dequantize_cuda(q, scales, out=out)
+
+
+def ps_aggregate(rows, params, m, v, step, *, solver: str = "adam",
+                 lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, momentum: float = 0.9,
+                 beta: float = 0.9):
+    """rows (NL, F) f32 (any row stride), params/m/v (F,) f32, step the
+    1-based solver step: mean over rows + one solver update, in place on
+    params/m/v. Returns (params, m, v)."""
+    kw = dict(solver=solver, lr=lr, b1=b1, b2=b2, eps=eps,
+              momentum=momentum, beta=beta)
+    if _where("ps_aggregate", rows, params, m, v) == "cpu":
+        _agg.check_args(rows, params, m, v, solver)
+        return ref.ps_aggregate_ref(rows, params, m, v, step, **kw)
+    return _agg.ps_aggregate_cuda(rows, params, m, v, step, **kw)
 
 
 def launch_counts() -> Dict[str, int]:

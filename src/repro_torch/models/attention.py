@@ -1,11 +1,14 @@
-"""Attention: the prefill call into the flash kernel, decode attention
-against a compact per-slot cache, and ``repeat_kv``.
+"""Attention: the flash kernels for prefill and training, decode
+attention against a compact per-slot cache, and ``repeat_kv``.
 
 Layouts are those of ``repro.models.attention``: q/k/v (B, S, H|KV, hd),
 caches (B, S, KV, hd). Prefill goes through ``kernels.ops.flash_attention``
 (the CUDA kernel on the card, GQA by index), where the JAX model calls
-its jnp ``flash_attention_ref`` on pre-repeated heads. Decode stays plain
-PyTorch, as the JAX decode is plain jnp.
+its jnp ``flash_attention_ref`` on pre-repeated heads. Training goes
+through ``FlashAttention``, whose forward is the same kernel with its
+row log-sum-exp and whose backward is the flash backward kernel (K4b),
+the counterpart of JAX's custom VJP ``_flash_vjp`` (attention.py:214-296).
+Decode stays plain PyTorch, as the JAX decode is plain jnp.
 """
 from __future__ import annotations
 
@@ -24,8 +27,35 @@ def repeat_kv(k, n_heads: int):
     return k.repeat_interleave(n_heads // kv, dim=2)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a flash backward: the forward saves q, k, v,
+    o and the row LSE (O(S) memory, no S x S matrix), the backward
+    recomputes P from them. GQA by index in both directions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int):
+        o, lse = ops.flash_attention(q, k, v, causal=causal,
+                                     q_offset=q_offset, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = ops.flash_attention_bwd(
+            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+            q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0):
-    """Prefill attention: q (B,S,H,hd), k/v (B,S,KV,hd) -> (B,S,H,hd)."""
+    """q (B,S,H,hd), k/v (B,S,KV,hd) -> (B,S,H,hd). Differentiable
+    through ``FlashAttention`` when autograd needs a gradient; otherwise
+    (prefill under ``no_grad``) the forward kernel alone, with no LSE."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, q_offset)
     return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 

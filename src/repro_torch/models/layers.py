@@ -1,5 +1,5 @@
 """Shared layers: param definitions, norms, RoPE/M-RoPE, MLP, embedding,
-last-token logits. Plain functions on tensors; parameter trees are nested
+chunked cross-entropy, last-token logits. Plain functions on tensors; parameter trees are nested
 dicts of tensors, the counterpart of ``repro.models.layers``."""
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ---------------------------------------------------------------------------
@@ -60,23 +61,26 @@ def init_params(defs, generator: torch.Generator,
     on layer-stacked ``(L, ...)`` shapes), then cast. Torch cannot
     reproduce ``jax.random``, so the distributions match but the numbers
     do not; parity tests carry JAX's weights across instead."""
+    return map_leaves(lambda _path, d: init_leaf(d, generator, dtype),
+                      defs)            # draws in flatten order
+
+
+def init_leaf(d: ParamDef, generator: torch.Generator,
+              dtype: torch.dtype):
+    """One leaf of ``init_params``, drawn from ``generator``."""
     device = generator.device
-
-    def make(_path, d: ParamDef):
-        if d.init == "zeros":
-            return torch.zeros(d.shape, dtype=dtype, device=device)
-        if d.init == "ones":
-            return torch.ones(d.shape, dtype=dtype, device=device)
-        if d.init.startswith("const:"):
-            return torch.full(d.shape, float(d.init[6:]), dtype=dtype,
-                              device=device)
-        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
-        std = d.scale / math.sqrt(max(1, fan_in))
-        a = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return (a * std).to(dtype)
-
-    return map_leaves(make, defs)      # draws in flatten order
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init.startswith("const:"):
+        return torch.full(d.shape, float(d.init[6:]), dtype=dtype,
+                          device=device)
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    std = d.scale / math.sqrt(max(1, fan_in))
+    a = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (a * std).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +162,32 @@ def gated_mlp(x, wg, wu, wd):
 def embed_tokens(tokens, table):
     """tokens (B, S) integer; table (V, D) -> (B, S, D)."""
     return F.embedding(tokens, table)
+
+
+def _xent_chunk(h, w_head, labels):
+    """Summed next-token CE of one sequence chunk: f32 logits
+    ``h.to(w_head.dtype) @ w_head``, then ``logsumexp - gold``."""
+    logits = (h.to(w_head.dtype) @ w_head).float()
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def chunked_xent(h, w_head, labels, chunk: int = 512):
+    """h (B,S,D), w_head (D,V), labels (B,S) -> scalar mean CE
+    (``repro/models/layers.py:199-230``, no z-loss, no vocab sharding).
+
+    Loops over sequence chunks; each chunk's (B, chunk, V) logits live
+    only inside it and are recomputed in the backward
+    (``torch.utils.checkpoint``, where JAX uses ``jax.checkpoint``)."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    assert S % chunk == 0, (S, chunk)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s0 in range(0, S, chunk):
+        total = total + checkpoint(_xent_chunk, h[:, s0:s0 + chunk], w_head,
+                                   labels[:, s0:s0 + chunk],
+                                   use_reentrant=False)
+    return total / (B * S)
 
 
 def last_token_logits(h_last, w_head):

@@ -2,8 +2,8 @@
 ``repro.models.model`` for the families the port runs.
 
 ``Model`` owns the param-def tree, ``init`` from a ``torch.Generator``,
-``prefill`` / ``decode`` and ``cache_specs``. There is no mesh: the port
-runs one card per model.
+the training ``loss``, ``prefill`` / ``decode`` and ``cache_specs``.
+There is no mesh: the port runs one card per model.
 """
 from __future__ import annotations
 
@@ -39,6 +39,10 @@ class Model:
     def init(self, generator: torch.Generator):
         """Fresh weights on ``generator.device``, drawn from it."""
         return init_params(self.param_defs(), generator, self.dtype)
+
+    def loss(self, params, batch, xent_chunk: int = 512):
+        """Mean next-token CE of ``batch`` (tokens, labels)."""
+        return tf.lm_loss(params, batch, self.cfg, xent_chunk=xent_chunk)
 
     def prefill(self, params, batch, *, cache=None, slots=None):
         return tf.lm_prefill(params, batch, self.cfg, cache=cache,

@@ -1,6 +1,6 @@
 """Decoder-only LM, dense family (and the vlm family fed with tokens):
-param defs, prefill and decode. The counterpart of the dense path of
-``repro.models.transformer``.
+param defs, the training loss, prefill and decode. The counterpart of the
+dense path of ``repro.models.transformer``.
 
 Differences from the JAX module, by design:
   * layers run in a Python loop over the stacked ``(L, ...)`` weights
@@ -8,6 +8,12 @@ Differences from the JAX module, by design:
   * prefill attention calls ``kernels.ops.flash_attention`` (the CUDA
     kernel on the card, GQA by index) where JAX calls the jnp
     ``flash_attention_ref`` on repeated heads (transformer.py:218);
+  * under autograd, attention is ``FlashAttention``: the same forward
+    kernel with its row LSE and the flash backward kernel, where JAX
+    differentiates the jnp reference;
+  * the loss takes the stacked block weights either as ``(L, ...)``
+    tensors or as per-layer lists (``layer_params`` indexes both), so a
+    trainer can hand each layer's weights in as its own leaf;
   * the cache carries a per-slot position vector ``pos`` (B,), and decode
     writes each slot at its own position: one batched call replaces the
     serving engine's ``jit(vmap(decode_one))``;
@@ -26,9 +32,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.errors import UserError
 from repro_torch.models.attention import decode_attention, flash_attention
-from repro_torch.models.layers import (ParamDef, apply_rope, embed_tokens,
-                                       gated_mlp, last_token_logits,
-                                       rms_norm)
+from repro_torch.models.layers import (ParamDef, apply_rope, chunked_xent,
+                                       embed_tokens, gated_mlp,
+                                       last_token_logits, rms_norm)
 
 PORTED_FAMILIES = ("dense", "vlm")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -108,7 +114,8 @@ def decoder_param_defs(cfg: ArchConfig) -> dict:
 
 
 def layer_params(blocks: Dict, l: int) -> Dict:
-    """Layer ``l``'s slice (views) of the layer-stacked block weights."""
+    """Layer ``l``'s weights: views of the layer-stacked ``(L, ...)``
+    block weights, or entry ``l`` of per-layer lists."""
     return {k: (layer_params(v, l) if isinstance(v, dict) else v[l])
             for k, v in blocks.items()}
 
@@ -145,8 +152,9 @@ def _out_proj(out, p, cfg: ArchConfig):
 
 
 def attn_prefill(h, p, cfg: ArchConfig, positions, causal: bool = True):
-    """Full-sequence attention; returns (out, (k, v)) with k after RoPE,
-    both in the cache dtype."""
+    """Full-sequence attention (prefill, and the training loss, where
+    autograd differentiates it through the flash kernels); returns (out,
+    (k, v)) with k after RoPE, both in the cache dtype."""
     q, k, v = _qkv(h, p, cfg, positions)
     out = flash_attention(q, k, v, causal=causal)
     cd = cache_dtype(cfg)
@@ -207,11 +215,7 @@ def lm_prefill(params, batch, cfg: ArchConfig, *,
     B, S = tokens.shape
     dev = tokens.device
     h = embed_tokens(tokens, params["embed"])
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(S, device=dev).expand(B, S)
-        if cfg.mrope:
-            positions = positions.expand(3, B, S)
+    positions = _positions(batch, B, S, cfg, dev)
     blocks = params["blocks"]
     L = cfg.n_layers
     cd = cache_dtype(cfg)
@@ -256,3 +260,35 @@ def lm_decode(params, cache, batch, cfg: ArchConfig):
     cache["pos"] = pos + 1
     h = norm_apply(h, params["final_norm"], cfg)
     return last_token_logits(h, params["head"]), cache
+
+
+def _positions(batch, B: int, S: int, cfg: ArchConfig, dev):
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, device=dev).expand(B, S)
+        if cfg.mrope:
+            positions = positions.expand(3, B, S)
+    return positions
+
+
+def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512):
+    """Next-token CE loss (``transformer.py:319-332``, dense family).
+    batch: tokens (B, S), labels (B, S)[, positions]. Embed; per layer
+    norm -> attention (RoPE, flash kernels, GQA by index) -> wo ->
+    residual -> norm -> SwiGLU -> residual; final norm; chunked CE with
+    chunk ``min(xent_chunk, S)``. No remat of the layers (the learner's
+    ``remat: none``)."""
+    tokens = _tokens(batch)
+    B, S = tokens.shape
+    h = embed_tokens(tokens, params["embed"])
+    positions = _positions(batch, B, S, cfg, tokens.device)
+    blocks = params["blocks"]
+    for l in range(cfg.n_layers):
+        bp = layer_params(blocks, l)
+        x = norm_apply(h, bp["ln1"], cfg)
+        h = h + attn_prefill(x, bp["attn"], cfg, positions)[0]
+        x = norm_apply(h, bp["ln2"], cfg)
+        h = h + ffn_apply(x, bp, cfg)
+    h = norm_apply(h, params["final_norm"], cfg)
+    return chunked_xent(h, params["head"], batch["labels"],
+                        chunk=min(xent_chunk, S))

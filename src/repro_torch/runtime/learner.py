@@ -1,0 +1,339 @@
+"""Learner runtime — the ``train.sh`` analogue executed under watchdog
+supervision: the counterpart of ``repro/runtime/learner.py``.
+
+Pluggable "frameworks" (paper §Extensibility) register in ``PLUGINS``;
+the port has ``repro-lm`` (``LMPlugin``). ``make_learner_body`` returns
+the learner body with the reference's semantics (learner.py:311-448):
+resume from the newest valid checkpoint (learner 0 republishes through
+``ps.load_flat`` and restores the cursor), pull, the psgd and modelavg
+branches, the ``fail_at_step`` / ``user_error_at`` hooks, a checkpoint
+every ``checkpoint_every`` steps, ``trained_model.npy`` uploaded by
+learner 0, and ``results``.
+
+The learner's state is the flat f32 weight vector, as in the reference,
+but it lives on the device: the PS pull buffer, the gradient, the push
+and the checkpoint snapshot all start from device tensors, and only the
+checkpoint and the uploaded model go to the host. Left out of the port
+so far: ``MLPPlugin``, and ``LMPlugin.warm_async`` / ``lowered_hlo``
+(XLA compile warming and HLO for ``JobPerf``).
+"""
+from __future__ import annotations
+
+import contextlib
+import io
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.checkpoint import CheckpointManager
+from repro_torch.configs.base import ArchConfig, reduce_for_smoke
+from repro_torch.configs.registry import get_arch
+from repro_torch.core.cursor import GlobalCursor
+from repro_torch.core.software_ps import SoftwareParameterServer, as_flat
+from repro_torch.data.pipeline import DatasetSpec, SyntheticCorpus
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.errors import UserError
+from repro_torch.models import make_model
+from repro_torch.models.layers import init_leaf, iter_leaves
+from repro_torch.platform.metrics import MetricsService
+from repro_torch.platform.storage import StorageManager
+from repro_torch.platform.watchdog import CHECKPOINTING, TRAINING, Watchdog
+from repro_torch.weights import flat_layout, flat_size
+
+# one sampled step span every this many steps (repro/observability/
+# trace.py:48)
+TRACE_STEP_SAMPLE = int(os.environ.get("DLAAS_TRACE_STEP_SAMPLE", "8"))
+
+
+@contextlib.contextmanager
+def maybe_span(tracer, job_id: str, name: str, **attrs):
+    """Span context that is a no-op when no tracer is wired."""
+    if tracer is None:
+        yield None
+        return
+    with tracer.span(job_id, name, **attrs) as sp:
+        yield sp
+
+
+# ---------------------------------------------------------------------------
+# Framework plugins
+# ---------------------------------------------------------------------------
+
+PLUGINS: Dict[str, Callable] = {}
+
+
+def register_plugin(name: str):
+    def deco(cls):
+        PLUGINS[name] = cls
+        return cls
+    return deco
+
+
+def _set_path(tree: Dict, path: str, value) -> None:
+    *parents, last = path.split("/")
+    for key in parents:
+        tree = tree.setdefault(key, {})
+    tree[last] = value
+
+
+@register_plugin("repro-lm")
+class LMPlugin:
+    """Decoder LM from the model zoo. With no ``cfg`` it trains
+    ``reduce_for_smoke(get_arch(arch))``, as the reference does, so a
+    manifest means the same in both packages; ``cfg=`` runs any dense
+    config (the card trains full width this way). Opts as the
+    reference's plugin: ``xent_chunk`` 64, no remat."""
+
+    XENT_CHUNK = 64
+
+    def __init__(self, framework_cfg: Dict, *,
+                 cfg: Optional[ArchConfig] = None,
+                 device: DeviceLike = None):
+        if cfg is None:
+            cfg = reduce_for_smoke(get_arch(
+                framework_cfg.get("arch", "stablelm-1.6b")))
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = make_model(cfg)
+        self.vocab = cfg.vocab_size
+        self._layout = flat_layout(cfg)
+        self.flat_size = flat_size(cfg)
+
+    def flat_state(self, seed: int) -> torch.Tensor:
+        """Initial weights as one flat f32 vector on the device, in
+        ``weights.flat_layout`` order, drawn leaf by leaf from a
+        ``torch.Generator`` seeded with ``seed`` (the values of
+        ``model.init`` on that generator, rounded to the model dtype).
+        Not cached: at full width each copy is gigabytes of device
+        memory."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        defs = dict(iter_leaves(self.model.param_defs()))
+        flat = torch.empty(self.flat_size, dtype=torch.float32,
+                           device=self.device)
+        for path, shape, off in self._layout:
+            leaf = init_leaf(defs[path], gen, self.model.dtype)
+            flat[off: off + leaf.numel()].copy_(leaf.reshape(-1))
+        return flat
+
+    def _param_leaves(self, flat: torch.Tensor):
+        """(tree, leaves): the param tree as model-dtype copies of the flat
+        slices, each requiring grad, and every leaf with its flat offset.
+        Layer-stacked block weights become per-layer lists, so autograd
+        hands back one gradient per layer with no (L, ...) scatter."""
+        tree: Dict = {}
+        leaves = []
+        dt = self.model.dtype
+        for path, shape, off in self._layout:
+            n = int(np.prod(shape, dtype=np.int64))
+            src = flat[off: off + n].view(shape)
+            if path.startswith("blocks/"):
+                per = n // shape[0]
+                val = [src[l].detach().to(dt).requires_grad_()
+                       for l in range(shape[0])]
+                leaves += [(t, off + l * per) for l, t in enumerate(val)]
+            else:
+                val = src.detach().to(dt).requires_grad_()
+                leaves.append((val, off))
+            _set_path(tree, path, val)
+        return tree, leaves
+
+    def flat_loss_grad(self, flat, batch):
+        """One step on the flat vector: (loss (0-dim f32 tensor), flat
+        gradient on the device, in the same order). The flat slices are
+        cast to the model dtype, ``Model.loss`` runs forward and
+        backward, and each leaf's gradient is copied into its slice of a
+        flat vector in the model dtype. Its values are those of the
+        reference's f32 ``_flat_io`` ravel (widening is exact), and the
+        int8 push reads it as f32 in K2, so a bf16 model keeps no f32
+        copy of its gradient."""
+        flat = as_flat(flat, self.device)
+        tree, leaves = self._param_leaves(flat)
+        b = {k: torch.as_tensor(np.asarray(batch[k]), dtype=torch.int64)
+             .to(self.device) for k in ("tokens", "labels")}
+        loss = self.model.loss(tree, b, xent_chunk=self.XENT_CHUNK)
+        grads = torch.autograd.grad(loss, [t for t, _ in leaves])
+        offsets = [off for _, off in leaves]
+        del tree, leaves            # the model-dtype weights, before gflat
+        gflat = torch.empty(self.flat_size, dtype=self.model.dtype,
+                            device=self.device)
+        for off, g in zip(offsets, grads):
+            gflat[off: off + g.numel()].copy_(g.reshape(-1))
+        return loss.detach(), gflat
+
+    def dataset_spec(self, data_cfg: Dict) -> DatasetSpec:
+        return DatasetSpec(n_docs=data_cfg.get("n_docs", 512),
+                           seq_len=data_cfg.get("seq_len", 32),
+                           vocab_size=self.vocab,
+                           seed=data_cfg.get("seed", 0))
+
+
+# ---------------------------------------------------------------------------
+# Learner body
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class LearnerJobConfig:
+    job_id: str
+    framework: str = "repro-lm"
+    framework_cfg: Dict = field(default_factory=dict)
+    data_cfg: Dict = field(default_factory=dict)
+    n_learners: int = 1
+    batch_docs: int = 8
+    steps: int = 50
+    comm_every: int = 1
+    lr: float = 0.1
+    optimizer: str = "sgd"          # PS-side solver
+    solver: str = "psgd"            # psgd | modelavg | easgd | downpour
+    compression: str = "none"       # PS push wire format: none | int8
+    seed: int = 0
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 20
+    # (StorageManager, store_id, prefix): mirror every published
+    # checkpoint into the object store (backoff-wrapped uploads)
+    ckpt_mirror: Optional[tuple] = None
+    # test hooks
+    fail_at_step: Dict[int, int] = field(default_factory=dict)
+    user_error_at: Optional[int] = None
+
+
+def make_learner_body(cfg: LearnerJobConfig, ps: SoftwareParameterServer,
+                      cursor: GlobalCursor, storage: StorageManager,
+                      metrics: MetricsService,
+                      results: Optional[Dict] = None,
+                      control=None, plugin=None, tracer=None):
+    """Returns fn(watchdog, learner_idx) run under the watchdog.
+
+    ``control`` (optional, duck-typed: ``wait_while_paused`` and
+    ``take_checkpoint_request``) adds pause/resume and on-demand
+    checkpoints at step boundaries; ``tracer`` (optional, duck-typed:
+    ``start``/``end``/``span``) records sampled step spans. ``plugin``
+    reuses an already-built framework plugin; without one the body
+    builds ``PLUGINS[cfg.framework]``, which runs on CUDA (a CPU run
+    passes a plugin built with ``device="cpu"``)."""
+    plugin = plugin or PLUGINS[cfg.framework](cfg.framework_cfg)
+    corpus = SyntheticCorpus(plugin.dataset_spec(cfg.data_cfg))
+
+    def body(wd: Watchdog, idx: int):
+        ps.join(idx)
+        try:
+            _train(wd, idx)
+        finally:
+            ps.leave(idx)
+
+    def _train(wd: Watchdog, idx: int):
+        ckpt = None
+        start_step = 0
+        if cfg.checkpoint_dir and idx == 0:
+            ckpt = CheckpointManager(cfg.checkpoint_dir, keep=3,
+                                     mirror=cfg.ckpt_mirror)
+        # resume from checkpoint if one exists (any learner may restore
+        # the global params by pulling after learner-0 pushed them)
+        if cfg.checkpoint_dir:
+            probe = CheckpointManager(cfg.checkpoint_dir, keep=3)
+            last = probe.latest_valid()
+            if last is not None:
+                # the template only names the leaf (np.zeros touches no
+                # memory): the restored values are what count
+                tmpl = {"flat": np.zeros(plugin.flat_size, np.float32)}
+                tree, extra = probe.restore(last, tmpl)
+                start_step = int(extra.get("step", last))
+                # learner 0 republishes restored weights to the PS shards
+                if idx == 0:
+                    ps.load_flat(tree["flat"])
+                    cur_epoch = int(extra.get("epoch", 0))
+                    cur_off = int(extra.get("offset", 0))
+                    cursor.restore(cur_epoch, cur_off)
+                del tree
+                wd.log(f"resumed from checkpoint step={start_step}")
+
+        # the learner's state is the flat f32 vector in its device pull
+        # buffer, reused by every pull
+        client = ps.make_client(idx)
+        flat = client.pull()
+
+        def save_ckpt(step, flat):
+            wd.set_status(CHECKPOINTING)
+            with maybe_span(tracer, cfg.job_id, "checkpoint_publish",
+                            step=step):
+                epoch, offset = cursor.position()
+                # the save snapshots `flat` to the host before it returns
+                ckpt.save(step, {"flat": flat},
+                          extra={"step": step, "epoch": epoch,
+                                 "offset": offset})
+            metrics.event(cfg.job_id, "checkpoint", step)
+            wd.set_status(TRAINING)
+
+        loss = None
+        t_round = time.time()
+        for step in range(start_step, cfg.steps):
+            # step boundary: yield to the scheduler if preempted, honor
+            # pause, serve on-demand checkpoint requests
+            wd.maybe_preempt()
+            if control is not None:
+                control.wait_while_paused(should_abort=wd.maybe_preempt)
+                if ckpt is not None and control.take_checkpoint_request():
+                    save_ckpt(step, flat)
+            if cfg.fail_at_step.get(idx) == step:
+                cfg.fail_at_step.pop(idx)     # transient: fires once
+                wd.log(f"injected crash at step {step}")
+                wd.crash()
+                raise RuntimeError("simulated container crash")
+            if cfg.user_error_at is not None and step == cfg.user_error_at:
+                raise UserError("bad hyperparameter in user model")
+            chunks = cursor.next_chunk(cfg.batch_docs)
+            batch = corpus.batch_for(chunks)
+            step_sp = (tracer.start(cfg.job_id, "step", step=step,
+                                    learner=idx)
+                       if tracer is not None and idx == 0
+                       and step % TRACE_STEP_SAMPLE == 0 else None)
+            loss, gflat = plugin.flat_loss_grad(flat, batch)
+            if cfg.solver == "psgd":
+                t0 = time.time()
+                client.push(gflat)
+                del gflat               # free before the next step
+                flat = client.pull()
+                sync_s = time.time() - t0
+            else:
+                # local step; periodic weight sync (modelavg), in f32
+                flat = flat - cfg.lr * gflat.float()
+                del gflat
+                sync_s = 0.0
+                if (step + 1) % cfg.comm_every == 0:
+                    t0 = time.time()
+                    client.push(flat)
+                    flat = client.pull()
+                    sync_s = time.time() - t0
+            loss_f = float(loss)
+            if step_sp is not None:
+                tracer.end(step_sp, loss=loss_f)
+            wd.heartbeat(step, loss=loss_f)
+            wd.log(f"step={step} loss={loss_f:.4f}")
+            metrics.record(cfg.job_id, "loss", step, loss_f)
+            metrics.record(cfg.job_id, "lr", step, cfg.lr)
+            metrics.record(cfg.job_id, "sync_time_s", step, sync_s)
+            metrics.record(cfg.job_id, "round_time_s", step,
+                           time.time() - t_round)
+            t_round = time.time()
+            if ckpt is not None and (step + 1) % cfg.checkpoint_every == 0:
+                save_ckpt(step + 1, flat)
+        # store.sh: upload the trained model
+        if idx == 0:
+            host = flat.detach().cpu().numpy()
+            buf = io.BytesIO()
+            np.save(buf, host)
+            storage.upload("results", cfg.job_id, "trained_model.npy",
+                           buf.getbuffer())
+            del buf
+            if results is not None:
+                results["final_loss"] = (float(loss) if loss is not None
+                                         else None)
+                results["params"] = host
+        if ckpt is not None:
+            ckpt.wait()
+
+    return body

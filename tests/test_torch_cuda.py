@@ -128,3 +128,199 @@ def test_engine_on_cuda_matches_cpu(cuda):
     cpu_tokens, cpu_launches, _ = serve("cpu")
     assert gpu_tokens == cpu_tokens
     assert launches == cfg.n_layers * batches and cpu_launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The training slice: K4 with LSE, K4b, K1, K2, K3, and a training step
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.software_ps import SoftwareParameterServer  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as kfab  # noqa: E402
+from repro_torch.kernels import ps_aggregate as kagg  # noqa: E402
+from repro_torch.kernels import quantize as kq  # noqa: E402
+from repro_torch.runtime.learner import LMPlugin  # noqa: E402
+
+BWD_TOL = 2e-3           # tests/test_kernels.py:139-162 (f32)
+BWD_BF16_REL_L2 = 2e-2   # bf16: relative L2 per gradient
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,dtype,causal,q_offset", [
+    (2, 512, 32, 32, 64, torch.bfloat16, True, 0),   # training shape
+    (2, 256, 8, 2, 128, torch.float32, False, 0),    # GQA
+    (3, 37, 4, 2, 16, torch.float32, True, 9),       # ragged, q_offset
+    (2, 33, 4, 1, 32, torch.float32, True, 0),       # MQA, ragged
+])
+def test_flash_lse_and_bwd_kernels_vs_plain(cuda, B, S, H, KV, hd, dtype,
+                                            causal, q_offset):
+    q, k, v = _qkv(B, S, S, H, KV, hd, dtype, seed=4)
+    do = _qkv(B, S, S, H, H, hd, dtype, seed=5)[0]
+    o, lse = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                 return_lse=True)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal=causal,
+                                             q_offset=q_offset,
+                                             return_lse=True)
+    tol = TOL[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    before = kfab.launches
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert kfab.launches == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       q_offset=q_offset)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=BWD_TOL, rtol=BWD_TOL)
+        else:
+            rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
+            assert rel <= BWD_BF16_REL_L2, rel
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 9), (False, 0)])
+def test_flash_bwd_kernel_other_lengths(cuda, causal, q_offset):
+    """Sq != Sk, ragged tiles on both sides, GQA."""
+    q, k, v = _qkv(2, 23, 41, 4, 2, 64, torch.float32, seed=6)
+    do = _qkv(2, 23, 41, 4, 4, 64, torch.float32, seed=7)[0]
+    kw = dict(causal=causal, q_offset=q_offset)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=BWD_TOL, rtol=BWD_TOL)
+
+
+def _ties(n, seed):
+    """x, err with exact ties: y = x + err = (k + 0.5) * scale at every
+    even position (err = 0 there), each block's absmax 127 * scale."""
+    rng = np.random.RandomState(seed)
+    scale = np.float32(0.25)
+    y = ((rng.randint(-126, 126, size=n) + 0.5) * scale).astype(np.float32)
+    y[::256] = 127 * scale            # absmax of each block: scale exact
+    err = (rng.standard_normal(n) * 1e-3).astype(np.float32)
+    err[::2] = 0.0
+    return y - err, err
+
+
+@pytest.mark.parametrize("n", [768, 4096, 1 << 20])   # 768: a partial CTA
+@pytest.mark.parametrize("ties", [False, True])
+def test_quantize_kernels_vs_plain(cuda, n, ties):
+    if ties:
+        x, e = _ties(n, 6)
+    else:
+        rng = np.random.RandomState(7)
+        x = rng.standard_normal(n).astype(np.float32)
+        e = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    xc, ec = torch.from_numpy(x).cuda(), torch.from_numpy(e).cuda()
+    q, s, ne = ops.quantize_ef(xc, ec)
+    qr, sr, er = ref.quantize_ref(xc, ec)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qr)
+    torch.testing.assert_close(s, sr, rtol=1e-6, atol=0)
+    torch.testing.assert_close(ne, er, atol=1e-6, rtol=0)
+    # in place over err, and from a bf16 input
+    before = kq.QUANTIZE.launches
+    q2, _, ne2 = ops.quantize_ef(xc, ec.clone(), out_err=ec)
+    assert ne2.data_ptr() == ec.data_ptr() and torch.equal(q2, q)
+    xb = xc.to(torch.bfloat16)
+    qb, sb, eb = ops.quantize_ef(xb, er)
+    qbr, sbr, ebr = ref.quantize_ref(xb, er)
+    assert torch.equal(qb, qbr) and torch.equal(sb, sbr)
+    torch.testing.assert_close(eb, ebr, atol=1e-6, rtol=0)
+    assert kq.QUANTIZE.launches == before + 2
+    # K3 into a slice of a wider buffer, exactly equal
+    row = torch.full((2, n), 7.0, device="cuda")
+    before = kq.DEQUANTIZE.launches
+    out = ops.dequantize(q, s, out=row[1])
+    torch.cuda.synchronize()
+    assert kq.DEQUANTIZE.launches == before + 1
+    assert out.data_ptr() == row[1].data_ptr()
+    assert torch.equal(row[1], ref.dequantize_ref(q, s))
+    assert (row[0] == 7.0).all()
+
+
+@pytest.mark.parametrize("solver", ["sgd", "momentum", "adam",
+                                    "easgd_center", "average"])
+@pytest.mark.parametrize("nl,f", [(2, 2048), (8, 4096), (3, 9 * 256)])
+def test_ps_aggregate_kernel_vs_plain(cuda, solver, nl, f):
+    rng = np.random.RandomState(8)
+    wide = torch.from_numpy(rng.standard_normal((nl, f + 512))
+                            .astype(np.float32)).cuda()
+    rows = wide[:, 256:256 + f]               # strided column slice
+    state = [torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+        rng.standard_normal(f), rng.standard_normal(f) * 0.1,
+        np.abs(rng.standard_normal(f)) * 0.1)]
+    mine = [t.clone() for t in state]
+    plain = [t.clone() for t in state]
+    kw = dict(solver=solver, lr=0.01)
+    before = kagg.launches
+    for step in (1, 2, 3):
+        ops.ps_aggregate(rows, *mine, step, **kw)
+        ref.ps_aggregate_ref(rows, *plain, step, **kw)
+    torch.cuda.synchronize()
+    assert kagg.launches == before + 3
+    torch.testing.assert_close(mine[0], plain[0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(mine[1], plain[1], atol=1e-6, rtol=0)
+    torch.testing.assert_close(mine[2], plain[2], atol=1e-6, rtol=0)
+
+
+def test_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.zeros(300, device="cuda")
+    with pytest.raises(ValueError):               # not a multiple of 256
+        ops.quantize_ef(x, x)
+    with pytest.raises(TypeError):
+        ops.quantize_ef(torch.zeros(256, device="cuda").half(),
+                        torch.zeros(256, device="cuda"))
+    with pytest.raises(ValueError):               # CPU and CUDA mixed
+        ops.ps_aggregate(torch.zeros(2, 256, device="cuda"),
+                         *(torch.zeros(256) for _ in range(3)), 1)
+    with pytest.raises(ValueError):
+        ops.ps_aggregate(torch.zeros(2, 256, device="cuda"),
+                         *(torch.zeros(256, device="cuda")
+                           for _ in range(3)), 1, solver="adagrad")
+
+
+def test_training_step_on_cuda_matches_cpu(cuda):
+    """One flat vector, one batch: ``LMPlugin.flat_loss_grad`` on the
+    card (K4 with LSE, K4b) against the CPU (plain versions), f32 smoke
+    width; then one int8 + adam PS round with 2 learners on both."""
+    cfg = reduce_for_smoke(get_arch("stablelm-1.6b"))
+    gpu = LMPlugin({}, cfg=cfg, device="cuda")
+    cpu = LMPlugin({}, cfg=cfg, device="cpu")
+    flat = cpu.flat_state(0)
+    rng = np.random.RandomState(9)
+    toks = rng.randint(0, cfg.vocab_size, size=(2, 2, 65)).astype(np.int32)
+    batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+    ops.reset_launch_counts()
+    lg, gg = gpu.flat_loss_grad(flat.cuda(), batches[0])
+    lc, gc = cpu.flat_loss_grad(flat, batches[0])
+    counts = ops.launch_counts()
+    assert counts[kfa.NAME] == cfg.n_layers
+    assert counts[kfab.NAME] == cfg.n_layers
+    assert abs(lg.item() - lc.item()) <= 1e-4
+    torch.testing.assert_close(gg.cpu(), gc, atol=2e-3, rtol=2e-3)
+
+    # the same two pushes on both devices: K2 -> K3 -> K1 on the card
+    # against the plain versions on the CPU
+    grads = [gc, cpu.flat_loss_grad(flat, batches[1])[1]]
+
+    def ps_round(dev):
+        ps = SoftwareParameterServer(flat, n_shards=2, n_learners=2,
+                                     optimizer="adam", lr=1e-3,
+                                     compression="int8", device=dev)
+        clients = [ps.make_client(i) for i in range(2)]
+        for i in range(2):
+            ps.join(i)
+        ts = [threading.Thread(target=clients[i].push,
+                               args=(grads[i].to(dev),))
+              for i in range(2)]
+        [t.start() for t in ts]
+        [t.join(60) for t in ts]
+        assert not any(t.is_alive() for t in ts)
+        assert ps.stats()["agg_rounds"] == 1
+        return clients[0].pull().cpu()
+
+    torch.testing.assert_close(ps_round("cuda"), ps_round("cpu"),
+                               atol=1e-5, rtol=0)
