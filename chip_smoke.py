@@ -21,7 +21,21 @@ first failing phase (no phase catches an exception):
      tokens; at full width cut to 2 layers, prefill (kernel attention)
      agrees with decode (plain attention) in f32; then the kernel against
      its plain version at every prefill shape the serve gave it;
-  5. kernels — the training slice's kernels against their plain PyTorch
+  5. ssm     — K5, the SSD chunked scan, against its plain PyTorch
+     version in f32 and bf16 at the shapes of tests/test_kernels.py
+     (G = 2 included), ragged tails (300 at chunk 256, 7 at chunk 32)
+     and chunk 64 against 128; then full-width, full-depth mamba2-1.3b
+     (bf16, random weights from a seed) behind ``InferenceEngine``: 8
+     requests with prompts of 2,048 to 2 tokens, 4 slots, prefill
+     batches (2, 2048), (2, 512), (1, 300), (1, 256), (1, 33), (1, 2)
+     (four mid-flight joins); every request done, K5 launched 48 times
+     per prefill batch, three engines with one seed (cold, warm,
+     profiled: busy share and K5's share) give the same tokens; at full
+     width cut to 2 layers in f32, prefill of 301 tokens (K5) agrees with
+     prefill of 300 and one decode step (plain recurrence); then K5
+     against its plain version at every prefill shape of the serve, with
+     kernel, plain and bound ms;
+  6. kernels — the training slice's kernels against their plain PyTorch
      versions, each with kernel, plain, library and bound ms: the PS
      update (K1, all five solvers at three shapes, timed at a shard of
      the run), the int8 wire (K2 quantize with error feedback, K3
@@ -31,10 +45,10 @@ first failing phase (no phase catches an exception):
      (K4b) at both training shapes and two small ones, with
      ``scaled_dot_product_attention``'s forward and backward as
      yardsticks the port never calls;
-  6. step    — a training step on the card against the CPU at smoke
+  7. step    — a training step on the card against the CPU at smoke
      width in f32 (``LMPlugin.flat_loss_grad``: loss and flat gradient),
      then one int8 + adam PS round with 2 learners on both devices;
-  7. train   — full-width StableLM-1.6B cut to 12 layers (bf16, random
+  8. train   — full-width StableLM-1.6B cut to 12 layers (bf16, random
      weights from a seed): two learner threads run ``make_learner_body``
      under the port's ``Watchdog`` against one ``SoftwareParameterServer``
      on the card (4 shards, adam, int8 wire, BSP) for 6 rounds of
@@ -47,10 +61,10 @@ first failing phase (no phase catches an exception):
      step (the model's context), then 3 rounds of the first traffic with
      a device synchronise after every step, push and pull, for the
      per-phase breakdown (those timers are not in the other two runs);
-  8. result  — ``{"kernels": [...]}`` on the line before the last and
+  9. result  — ``{"kernels": [...]}`` on the line before the last and
      ``{"ok": true, "device": {...}}`` as the last line.
 
-About three minutes on an H100, the kernel builds included.
+About five minutes on an H100, the kernel builds included.
 """
 from __future__ import annotations
 
@@ -99,6 +113,19 @@ TRAIN_LONG = dict(TRAIN, batch_docs=1, seq_len=4096)
 # the per-phase breakdown: TRAIN's traffic with synchronised timers
 TRAIN_TIMED = dict(TRAIN, steps=3)
 PS_KERNELS = ("ps_aggregate", "quantize_ef", "dequantize")
+# the ssm serve: mamba2-1.3b at full width and depth. Prompts up to 2,048
+# tokens, the context of the Mamba-2 language models (arXiv:2405.21060);
+# equal-length neighbours prefill together, so the batches are (2, 2048),
+# (2, 512), then joins (1, 300), (1, 256), (1, 33), (1, 2): eight chunks
+# of 256, exactly one, a ragged tail, a prompt shorter than a chunk and
+# one shorter than the conv window
+SSM_ARCH = "mamba2-1.3b"
+SSM_REQUESTS = [(2048, 16), (2048, 32), (512, 24), (512, 16), (300, 32),
+                (256, 20), (33, 24), (2, 32)]           # (prompt, max_new)
+SSM_PREFILLS = [(2, 2048), (2, 512), (1, 300), (1, 256), (1, 33), (1, 2)]
+SSM_MAX_SEQ = 2080
+SSD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}    # tests/test_kernels.py:56
+SSD_KERNELS = ("ssd_",)    # K5's five device kernels share the prefix
 
 
 def card_line() -> str:
@@ -182,16 +209,26 @@ def check_attention(torch, ops, ref, shape, seed=0):
 
 class PrefillRecorder:
     """Duck-typed tracer for the engine: records each prefill batch's
-    (n, plen); request spans and decode events are ignored."""
+    (n, plen) and its host seconds (the span ends after the first
+    tokens' device-to-host copy, so it covers the device work); request
+    spans and decode events are ignored."""
 
     def __init__(self):
         self.prefills = []
+        self.prefill_s = []
 
     def span(self, job_id, name, **attrs):
         import contextlib
-        if name == "prefill":
-            self.prefills.append((attrs["n"], attrs["plen"]))
-        return contextlib.nullcontext()
+        if name != "prefill":
+            return contextlib.nullcontext()
+        self.prefills.append((attrs["n"], attrs["plen"]))
+
+        @contextlib.contextmanager
+        def timed():
+            t0 = time.perf_counter()
+            yield None
+            self.prefill_s.append(time.perf_counter() - t0)
+        return timed()
 
     def start(self, job_id, name, **attrs):
         return name
@@ -203,18 +240,19 @@ class PrefillRecorder:
         pass
 
 
-def serve(torch, cfg, ops, seed: int, card: str, profile: bool = False):
-    """One full serve through the engine's public API. Returns (tokens per
-    request, engine, prefill shapes, launches, wall seconds, profiler or
-    None)."""
+def serve(torch, cfg, ops, seed: int, card: str, profile: bool = False,
+          requests=SERVE_REQUESTS, max_seq: int = 1024):
+    """One full serve of ``requests`` (prompt length, max_new) through
+    the engine's public API. Returns (tokens per request, engine, the
+    ``PrefillRecorder``, launches, wall seconds, profiler or None)."""
     import numpy as np
     from repro_torch.serving.engine import InferenceEngine
     rng = np.random.RandomState(seed)
     prompts = [rng.randint(0, cfg.vocab_size, size=n).astype("int32")
-               for n, _ in SERVE_REQUESTS]
+               for n, _ in requests]
     torch.cuda.reset_peak_memory_stats()
     rec = PrefillRecorder()
-    eng = InferenceEngine(cfg, capacity=4, max_seq=1024, max_queue=16,
+    eng = InferenceEngine(cfg, capacity=4, max_seq=max_seq, max_queue=16,
                           seed=seed, device="cuda", tracer=rec,
                           endpoint_id="chip-smoke")
     t0 = time.perf_counter()
@@ -223,7 +261,7 @@ def serve(torch, cfg, ops, seed: int, card: str, profile: bool = False):
     print(f"[serve] {card}: weights + cache ready in "
           f"{time.perf_counter() - t0:.2f} s")
     reqs = [eng.submit(p, max_new=m)
-            for p, (_, m) in zip(prompts, SERVE_REQUESTS)]
+            for p, (_, m) in zip(prompts, requests)]
     failed = []
 
     def body():
@@ -260,13 +298,13 @@ def serve(torch, cfg, ops, seed: int, card: str, profile: bool = False):
     worker.join(60)
     if worker.is_alive():
         raise AssertionError("serve thread did not exit after drain")
-    for r, (plen, m) in zip(reqs, SERVE_REQUESTS):
+    for r, (plen, m) in zip(reqs, requests):
         if r.status != "DONE" or len(r.tokens) != m:
             raise AssertionError(f"request plen={plen}: {r.status}, "
                                  f"{len(r.tokens)}/{m} tokens {r.error}")
         if not all(0 <= t < cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"token out of vocab: {r.tokens}")
-    return [r.tokens for r in reqs], eng, rec.prefills, launches, wall, prof
+    return [r.tokens for r in reqs], eng, rec, launches, wall, prof
 
 
 def print_profile(prof, wall: float, card: str, top: int = 8,
@@ -327,7 +365,185 @@ def prefill_vs_decode(torch, cfg, prompt, seed=0):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the training slice's kernels against their plain versions
+# Phase 5: the ssm serve and K5
+# ---------------------------------------------------------------------------
+
+
+def ssd_inputs(torch, B, S, H, P, G, N, dtype, seed):
+    """tests/test_kernels.py:47-51's distributions: x 0.5 N(0, 1), dt
+    softplus(N(0, 1)), a_log 0, b/c 0.3 N(0, 1); x, b, c in ``dtype``."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt_ = getattr(torch, dtype)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device="cuda")
+    return (randn(B, S, H, P, scale=0.5).to(dt_),
+            F.softplus(randn(B, S, H)), torch.zeros(H, device="cuda"),
+            randn(B, S, G, N, scale=0.3).to(dt_),
+            randn(B, S, G, N, scale=0.3).to(dt_))
+
+
+def ssd_bound_ms(B, S, H, P, G, N, chunk, dtype):
+    """Least time for K5 at this shape: bytes (x, dt, a_log, b, c read
+    once; y and the f32 state written once) over the HBM rate vs the
+    products' FLOPs over the peak for the type. Per (b, h, chunk of q
+    positions): 2 P q(q+1)/2 for the masked quadratic form (s <= t
+    only), 2 q P N for the incoming state's term, 2 q P N for the
+    chunk's state; per (b, g, chunk): 2 N q(q+1)/2 for C.B^T."""
+    esize = 2 if dtype == "bfloat16" else 4
+    nbytes = ((2 * B * S * H * P + 2 * B * S * G * N) * esize
+              + 4 * B * S * H + 4 * H + 4 * B * H * P * N)
+    q = min(chunk, S)
+    pairs = sum(n * (n + 1) // 2
+                for n in (min(q, S - s0) for s0 in range(0, S, q)))
+    flops = B * H * (2 * P * pairs + 4 * S * P * N) + B * G * 2 * N * pairs
+    return bound(nbytes, flops, H100_BF16_FLOPS if dtype == "bfloat16"
+                 else H100_F32_FLOPS)
+
+
+def check_ssd(torch, ops, ref, shape, seed=0):
+    """K5 against its plain version at one shape: y and the final state
+    within SSD_TOL (atol = rtol), then kernel, plain and bound ms. No
+    single PyTorch call computes the SSD scan (library_ms null)."""
+    B, S, H, P, G, N, chunk, dtype = shape
+    args = ssd_inputs(torch, B, S, H, P, G, N, dtype, seed)
+    y, state = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    y_ref, state_ref = ref.ssd_scan_ref(*args, chunk=chunk)
+    tol = SSD_TOL[dtype]
+    errs = []
+    for name, a, b in (("y", y, y_ref), ("state", state, state_ref)):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all().item():
+            raise AssertionError(f"K5 {name} not finite at {shape}")
+        errs.append((a - b).abs().max().item())
+        if (a - b).abs().gt(tol + tol * b.abs()).any():
+            raise AssertionError(f"K5 {name} out of atol=rtol={tol} at "
+                                 f"{shape}: max abs err {errs[-1]}")
+    ms = time_ms(torch, lambda: ops.ssd_scan(*args, chunk=chunk), iters=20)
+    plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(*args, chunk=chunk),
+                       iters=5, warmup=1)
+    bound_ms, bound_by = ssd_bound_ms(B, S, H, P, G, N, chunk, dtype)
+    return {"shape": {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
+                      "chunk": chunk, "dtype": dtype},
+            "max_abs_err": max(errs), "y_max_abs_err": errs[0],
+            "state_max_abs_err": errs[1], "tol": tol, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def ssd_chunk_invariance(torch, ops):
+    """tests/test_kernels.py:122 on the card: slow decay (a_log -1, dt
+    0.5) across 512 positions, chunk 64 against chunk 128; returns the
+    largest difference of y and of the state."""
+    x, _, _, b, c = ssd_inputs(torch, 1, 512, 1, 8, 1, 8, "float32", 3)
+    dt = torch.full((1, 512, 1), 0.5, device="cuda")
+    a_log = torch.full((1,), -1.0, device="cuda")
+    y64, s64 = ops.ssd_scan(x, dt, a_log, b, c, chunk=64)
+    y128, s128 = ops.ssd_scan(x, dt, a_log, b, c, chunk=128)
+    tol = SSD_TOL["float32"]
+    for a, b_ in ((y64, y128), (s64, s128)):
+        if (a - b_).abs().gt(tol + tol * b_.abs()).any():
+            raise AssertionError("K5 differs across chunk 64 and 128")
+    return ((y64 - y128).abs().max().item(),
+            (s64 - s128).abs().max().item())
+
+
+def serve_ssm(torch, ops, ref, kssd, card):
+    """Phase 5: K5 against its plain version, the mamba2-1.3b serve
+    (cold, warm, profiled), prefill against decode at 2 layers in f32,
+    and K5 at every prefill shape of the serve. Returns (K5 results at
+    the main path's shapes, at the other shapes, the cold serve's
+    launches)."""
+    from repro_torch.configs.registry import get_arch
+    others = [check_ssd(torch, ops, ref, shape, seed=i)
+              for i, shape in enumerate(
+                  [(1, 128, 2, 16, 1, 16, 32, dt) for dt in TOL]
+                  + [(2, 256, 4, 32, 2, 16, 64, dt) for dt in TOL]
+                  + [(1, 128, 4, 64, 1, 32, 128, dt) for dt in TOL]
+                  + [(1, 300, 4, 64, 1, 128, 256, "float32"),
+                     (2, 7, 2, 16, 1, 16, 32, "float32")])]
+    for res in others:
+        print(f"[kernel] {card}: K5 {json.dumps(res)}")
+    print(f"[kernel] {card}: K5 chunk 64 vs 128 (y, state) max abs "
+          f"difference {ssd_chunk_invariance(torch, ops)} (limit "
+          f"{SSD_TOL['float32']})")
+    cfg = get_arch(SSM_ARCH)
+    runs = []
+    for label in ("cold", "warm", "profiled"):
+        tokens, eng, rec, launches, wall, prof = serve(
+            torch, cfg, ops, 0, card, profile=label == "profiled",
+            requests=SSM_REQUESTS, max_seq=SSM_MAX_SEQ)
+        st = eng.stats()
+        n_batches = eng.prefill_batches
+        if rec.prefills != SSM_PREFILLS or n_batches != len(SSM_PREFILLS):
+            raise AssertionError(f"prefill batches {rec.prefills}, want "
+                                 f"{SSM_PREFILLS}")
+        if launches[kssd.NAME] != cfg.n_layers * n_batches:
+            raise AssertionError(f"K5 launches {launches} != "
+                                 f"{cfg.n_layers} x {n_batches} prefill "
+                                 f"batches")
+        if runs and tokens != runs[0]:
+            raise AssertionError("same seed, same requests, different "
+                                 "tokens")
+        n_tok = st["tokens_out_total"]
+        by_batch = ", ".join(f"{nb}x{pl} {1e3 * t:.2f}" for (nb, pl), t in
+                             zip(rec.prefills, rec.prefill_s))
+        print(f"[serve-ssm] {card}: {label}: {SSM_ARCH} L={cfg.n_layers} "
+              f"d={cfg.d_model} bf16, capacity 4, max_seq {SSM_MAX_SEQ}: "
+              f"{st['completed_total']} requests, {n_tok} tokens in "
+              f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s; prefill ms by "
+              f"batch (n x plen): {by_batch}; mean "
+              f"{1e3 * eng.prefill_seconds / n_batches:.2f} ms per batch; "
+              f"decode {st['decode_steps']} steps: "
+              f"{1e3 * eng.decode_seconds / st['decode_steps']:.2f} ms per "
+              f"step; mean occupancy {st['mean_batch_occupancy']}; request "
+              f"latency p50 {st['p50_latency_s']} s, p99 "
+              f"{st['p99_latency_s']} s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel "
+              f"launches {launches}")
+        if prof is not None:
+            kernels = print_profile(prof, wall, card, ours=SSD_KERNELS)
+            if kernels:
+                busy = sum(kernels.values())
+                k5 = sum(us for n, us in kernels.items()
+                         if any(k in n for k in SSD_KERNELS))
+                print(f"[serve-ssm] {card}: profiled: device busy "
+                      f"{busy / 1e6 / wall:.3f} of the wall; K5 "
+                      f"{k5 / 1e3:.3f} ms = {k5 / busy:.3f} of busy, "
+                      f"{k5 / 1e6 / wall:.3f} of the wall")
+        eng.release()
+        runs.append(tokens)
+        if label == "cold":
+            cold_launches = launches
+        del eng, prof
+        torch.cuda.empty_cache()
+    print(f"[serve-ssm] {card}: {len(runs)} engines, same seed: identical "
+          f"tokens")
+    # the model's output against an independent path (the plain decode
+    # recurrence), across a chunk boundary: 301 = 256 + 45
+    cut = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    rel = prefill_vs_decode(torch, cut, list(range(1000, 1301)))
+    print(f"[serve-ssm] {card}: {SSM_ARCH} d={cfg.d_model} L=2 float32: "
+          f"prefill(301) vs prefill(300) + decode logits, relative L2 "
+          f"{rel:.3e} (limit {PREFILL_DECODE_RTOL})")
+    if rel > PREFILL_DECODE_RTOL:
+        raise AssertionError(f"ssm prefill vs decode logits differ by {rel}"
+                             f" > {PREFILL_DECODE_RTOL}")
+    s = cfg.ssm
+    heads = s.expand * cfg.d_model // s.head_dim
+    main_path = [check_ssd(torch, ops, ref,
+                           (n, plen, heads, s.head_dim, s.n_groups,
+                            s.d_state, s.chunk_size, "bfloat16"), seed=i)
+                 for i, (n, plen) in enumerate(SSM_PREFILLS)]
+    for res in main_path:
+        print(f"[kernel] {card}: K5 main path {json.dumps(res)}")
+    return main_path, others, cold_launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the training slice's kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -551,7 +767,7 @@ def time_quantize(torch, ops, ref, n, x_dtype):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: a training step on the card against the CPU (smoke width)
+# Phase 7: a training step on the card against the CPU (smoke width)
 # ---------------------------------------------------------------------------
 
 
@@ -604,7 +820,7 @@ def step_card_vs_cpu(torch, ops):
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: full-width training through the learner body and the PS
+# Phase 8: full-width training through the learner body and the PS
 # ---------------------------------------------------------------------------
 
 
@@ -769,7 +985,8 @@ def train_run(torch, ops, cfg, device, workdir, card, *, n_learners,
     want_launches = {"quantize_ef": pushes, "dequantize": pushes,
                      "ps_aggregate": rounds * n_shards,
                      "flash_attention": cfg.n_layers * pushes,
-                     "flash_attention_bwd": cfg.n_layers * pushes}
+                     "flash_attention_bwd": cfg.n_layers * pushes,
+                     "ssd_scan": 0}
     if torch.device(device).type == "cpu":
         want_launches = {k: 0 for k in want_launches}
     if launches != want_launches:
@@ -927,6 +1144,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention_bwd as kfab
     from repro_torch.kernels import ps_aggregate as kagg
     from repro_torch.kernels import quantize as kq
+    from repro_torch.kernels import ssd_scan as kssd
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -961,7 +1179,8 @@ def main() -> int:
     runs = []
     for label in ("cold", "warm", "profiled"):
         run = serve(torch, cfg, ops, 0, card, profile=label == "profiled")
-        tokens, eng, prefills, launches, wall = run[:5]
+        tokens, eng, rec, launches, wall = run[:5]
+        prefills = rec.prefills
         st = eng.stats()
         n_batches = eng.prefill_batches
         if launches[kfa.NAME] != cfg.n_layers * n_batches:
@@ -1019,7 +1238,14 @@ def main() -> int:
         print(f"[kernel] {card}: main path {json.dumps(res)}")
     head = max(main_path, key=lambda r: r["bound_ms"])
 
-    # 5. the training slice's kernels against their plain versions
+    # 5. the ssm serve: K5 against its plain version, mamba2-1.3b at full
+    # width and depth through the engine, prefill against decode
+    ssd_main, ssd_others, ssm_launches = serve_ssm(torch, ops, ref, kssd,
+                                                   card)
+    ssd_head = max(ssd_main, key=lambda r: r["bound_ms"])
+    torch.cuda.empty_cache()
+
+    # 6. the training slice's kernels against their plain versions
     tcfg = dataclasses.replace(get_arch(SERVE_ARCH),
                                n_layers=TRAIN_ARCH_LAYERS)
     from repro_torch.core.software_ps import ShardLayout
@@ -1071,7 +1297,7 @@ def main() -> int:
         print(f"[kernel] {card}: K4 at a training shape: {json.dumps(res)}")
     torch.cuda.empty_cache()
 
-    # 6. a training step on the card against the CPU (smoke width, f32)
+    # 7. a training step on the card against the CPU (smoke width, f32)
     loss_err, grad_err, round_err = step_card_vs_cpu(torch, ops)
     print(f"[step] {card}: stablelm-1.6b-smoke f32, card vs CPU: loss err "
           f"{loss_err:.3e} (limit {STEP_LOSS_TOL}), flat gradient max abs "
@@ -1079,7 +1305,7 @@ def main() -> int:
           f"PS round, 2 learners: params max abs err {round_err:.3e} "
           f"(limit {ROUND_PARAM_TOL})")
 
-    # 7. full-width training, 12 layers, through the learner body and PS:
+    # 8. full-width training, 12 layers, through the learner body and PS:
     # the main path (its launches go into the kernels line), the model's
     # context per learner step, and the per-phase breakdown with timers
     build_dir = ROOT / "build"
@@ -1100,7 +1326,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     train_launches = train["train"]["launches"]
 
-    # 8. result
+    # 9. result
     def entry(mod, launches, head, shapes):
         return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                 "replaces": mod.REPLACES, "launches": launches,
@@ -1122,6 +1348,10 @@ def main() -> int:
         entry(kq.QUANTIZE, train_launches[kq.QUANTIZE.NAME], k2, [k2]),
         entry(kq.DEQUANTIZE, train_launches[kq.DEQUANTIZE.NAME], k3, [k3]),
     ]
+    k5 = entry(kssd, ssm_launches[kssd.NAME], ssd_head,
+               ssd_main + ssd_others)
+    k5["launches_by_path"] = {"serve-ssm": ssm_launches[kssd.NAME]}
+    kernels.append(k5)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,10 @@ from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import ps_aggregate as _agg
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 # every kernel: NAME, SOURCE, REPLACES, launches
-KERNELS = (_fa, _fab, _agg, _q.QUANTIZE, _q.DEQUANTIZE)
+KERNELS = (_fa, _fab, _agg, _q.QUANTIZE, _q.DEQUANTIZE, _ssd)
 
 
 def _where(op: str, *ts) -> str:
@@ -57,6 +58,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool,
                                            causal=causal, q_offset=q_offset)
     return _fab.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
                                          q_offset=q_offset)
+
+
+def ssd_scan(x, dt, a_log, b, c, *, chunk: int):
+    """Mamba-2 SSD chunked scan in the model layout: x (B, S, H, P), dt
+    (B, S, H) after softplus, a_log (H,), b/c (B, S, G, N) with H % G ==
+    0 -> (y (B, S, H, P) in x's dtype, final state (B, H, P, N) f32). No
+    D-skip and no gating (the block adds them)."""
+    if _where("ssd_scan", x, dt, a_log, b, c) == "cpu":
+        _ssd.check_shapes(x, dt, a_log, b, c, chunk)
+        return ref.ssd_scan_ref(x, dt, a_log, b, c, chunk=chunk)
+    return _ssd.ssd_scan_cuda(x, dt, a_log, b, c, chunk=chunk)
 
 
 def quantize_ef(x, err, *, out_err=None):

@@ -123,6 +123,65 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool,
 
 
 # ---------------------------------------------------------------------------
+# The Mamba-2 SSD chunked scan (K5)
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan_ref(x, dt, a_log, b, c, *, chunk: int):
+    """x (B, S, H, P); dt (B, S, H) after softplus; a_log (H,); b/c
+    (B, S, G, N) with H % G == 0 -> (y (B, S, H, P) in x's dtype, final
+    state (B, H, P, N) f32).
+
+    The function of kernels/csrc/ssd_scan.cu, written as
+    ``repro.models.mamba.ssd_scan_ref`` writes it: ``chunk = min(chunk,
+    S)``; a ragged tail padded with dt = 0 (identity steps); ``A =
+    -exp(a_log)``; xdt = x * dt in f32; per chunk the inclusive cumulative
+    log decay ``cum``, the masked quadratic form ``(C B^T) *
+    exp(cum_t - cum_s)`` for s <= t (exp of -inf above the diagonal),
+    the incoming state decayed to each position, and the carry
+    ``state * exp(cum_Q) + sum_s exp(cum_Q - cum_s) xdt_s B_s^T``. B/C
+    groups are repeated to heads here (the kernel indexes them)."""
+    nb, seq, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    hg = h // g
+    chunk = min(chunk, seq)
+    pad = (-seq) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, 0, 0, pad))
+    A = -torch.exp(a_log.float())                            # (H,)
+    dt = dt.float()
+    xdt = x.float() * dt[..., None]                          # (B,S',H,P)
+    bf, cf = b.float(), c.float()
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    state = torch.zeros((nb, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for s0 in range(0, seq + pad, chunk):
+        xq = xdt[:, s0:s0 + chunk]                           # (B,Q,H,P)
+        bq, cq = bf[:, s0:s0 + chunk], cf[:, s0:s0 + chunk]  # (B,Q,G,N)
+        cum = torch.cumsum(dt[:, s0:s0 + chunk] * A, dim=1)  # (B,Q,H)
+        dec = cum[:, :, None, :] - cum[:, None, :, :]        # (B,Q,Q,H)
+        dec = torch.exp(torch.where(tri[None, :, :, None], dec,
+                                    float("-inf")))
+        scores = torch.einsum("bqgn,bsgn->bqsg", cq, bq)
+        scores = scores.repeat_interleave(hg, dim=3)         # (B,Q,Q,H)
+        y_intra = torch.einsum("bqsh,bshp->bqhp", scores * dec, xq)
+        ch = cq.repeat_interleave(hg, dim=2)                 # (B,Q,H,N)
+        y_inter = torch.einsum("bqhn,bhpn->bqhp", ch, state)
+        y_inter = y_inter * torch.exp(cum)[..., None]
+        tail = torch.exp(cum[:, -1:, :] - cum)               # (B,Q,H)
+        bh = bq.repeat_interleave(hg, dim=2)
+        s_chunk = torch.einsum("bqhp,bqh,bqhn->bhpn", xq, tail, bh)
+        state = state * torch.exp(cum[:, -1, :])[..., None, None] + s_chunk
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1)[:, :seq]
+    return y.to(x.dtype), state
+
+
+# ---------------------------------------------------------------------------
 # The int8 wire (K2, K3) and the PS update (K1)
 # ---------------------------------------------------------------------------
 

@@ -52,12 +52,11 @@ class Model:
         return tf.lm_decode(params, cache, batch, self.cfg)
 
     def cache_specs(self, B: int, S: int) -> Dict[str, CacheSpec]:
-        """k/v (L, B, S, KV, hd) in the cache dtype; pos (B,) int64, one
-        write position per slot."""
-        c = self.cfg
-        kv = CacheSpec((c.n_layers, B, S, c.n_kv_heads, c.hd),
-                       tf.cache_dtype(c))
-        return {"k": kv, "v": kv, "pos": CacheSpec((B,), torch.int64)}
+        """Dense: k/v (L, B, S, KV, hd) in the cache dtype. ssm: ssm
+        (L, B, H, P, N) f32, conv (L, B, K-1, d_in + 2 G N) in the model
+        dtype. Both: pos (B,) int64, one write position per slot."""
+        return {k: CacheSpec(*v)
+                for k, v in tf.cache_shapes(self.cfg, B, S).items()}
 
     def empty_cache(self, B: int, S: int, device) -> Dict[str, torch.Tensor]:
         return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)

@@ -1,6 +1,7 @@
-"""Decoder-only LM, dense family (and the vlm family fed with tokens):
-param defs, the training loss, prefill and decode. The counterpart of the
-dense path of ``repro.models.transformer``.
+"""Decoder-only LM, dense family (and the vlm family fed with tokens),
+and the attention-free ssm family (Mamba-2): param defs, the training
+loss (dense), prefill and decode. The counterpart of the dense and ssm
+paths of ``repro.models.transformer``.
 
 Differences from the JAX module, by design:
   * layers run in a Python loop over the stacked ``(L, ...)`` weights
@@ -18,25 +19,28 @@ Differences from the JAX module, by design:
     writes each slot at its own position: one batched call replaces the
     serving engine's ``jit(vmap(decode_one))``;
   * caches are updated in place (JAX returns new, donated buffers), and
-    prefill can write its K/V straight into chosen slots of a batched
-    cache.
-The moe, ssm, hybrid and encdec families, and vlm ``embeds`` inputs,
-raise ``UserError``: they are not ported yet.
+    prefill can write its K/V (ssm: its state and conv tail) straight
+    into chosen slots of a batched cache;
+  * ssm prefill runs the SSD scan through ``kernels.ops.ssd_scan`` (the
+    CUDA kernel on the card) where JAX calls the jnp ``ssd_scan_ref``.
+The moe, hybrid and encdec families, vlm ``embeds`` inputs and the ssm
+training loss raise ``UserError``: they are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.errors import UserError
+from repro_torch.models import mamba as mam
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.layers import (ParamDef, apply_rope, chunked_xent,
                                        embed_tokens, gated_mlp,
                                        last_token_logits, rms_norm)
 
-PORTED_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "vlm", "ssm")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -100,13 +104,16 @@ def mlp_param_defs(cfg: ArchConfig, scan_dims=()) -> dict:
 def decoder_param_defs(cfg: ArchConfig) -> dict:
     check_ported(cfg)
     L = cfg.n_layers
+    if cfg.family == "ssm":
+        blocks = {"ln1": norm_param_defs(cfg, (L,)),
+                  "mamba": mam.mamba_param_defs(cfg, (L,))}
+    else:
+        blocks = {"ln1": norm_param_defs(cfg, (L,)),
+                  "ln2": norm_param_defs(cfg, (L,)),
+                  "attn": attn_param_defs(cfg, (L,)),
+                  "mlp": mlp_param_defs(cfg, (L,))}
     return {
-        "blocks": {
-            "ln1": norm_param_defs(cfg, (L,)),
-            "ln2": norm_param_defs(cfg, (L,)),
-            "attn": attn_param_defs(cfg, (L,)),
-            "mlp": mlp_param_defs(cfg, (L,)),
-        },
+        "blocks": blocks,
         "final_norm": norm_param_defs(cfg),
         "head": ParamDef((cfg.d_model, cfg.vocab_size), ("embed", "vocab")),
         "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed")),
@@ -201,41 +208,65 @@ def _tokens(batch: Dict[str, Any]):
     return batch["tokens"]
 
 
+def cache_shapes(cfg: ArchConfig, B: int, S: int) -> Dict[str, Tuple]:
+    """(shape, dtype) of each cache leaf, as ``repro.models.model``'s
+    ``cache_specs``: dense k/v (L, B, S, KV, hd) in the cache dtype; ssm
+    state (L, B, H, P, N) f32 and conv tail (L, B, K-1, d_in + 2 G N) in
+    the model dtype; pos (B,) int64, one position per slot."""
+    pos = ((B,), torch.int64)
+    if cfg.family == "ssm":
+        d_in, nheads, gn, k = mam.mamba_dims(cfg)
+        L, s = cfg.n_layers, cfg.ssm
+        return {"ssm": ((L, B, nheads, s.head_dim, s.d_state),
+                        torch.float32),
+                "conv": ((L, B, k - 1, d_in + 2 * gn), model_dtype(cfg)),
+                "pos": pos}
+    kv = ((cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd), cache_dtype(cfg))
+    return {"k": kv, "v": kv, "pos": pos}
+
+
 def lm_prefill(params, batch, cfg: ArchConfig, *,
                cache: Optional[Dict] = None, slots=None):
     """Prefill ``batch["tokens"]`` (B, S). Returns (logits (B,1,V) f32,
     cache).
 
-    With ``cache=None`` a new cache {k, v: (L,B,S,KV,hd), pos: (B,)} is
+    With ``cache=None`` a new cache (``cache_shapes(cfg, B, S)``) is
     built, as JAX's ``lm_prefill`` returns. With a batched cache and
-    ``slots`` (B,) the K/V of row b go straight into slot ``slots[b]``
-    (positions 0..S-1) and its ``pos`` becomes S; positions past S keep
-    what they held, which decode masks."""
+    ``slots`` (B,) row b goes straight into slot ``slots[b]``: its K/V
+    at positions 0..S-1 (positions past S keep what they held, which
+    decode masks), or its ssm state and conv tail; its ``pos`` becomes
+    S."""
     tokens = _tokens(batch)
     B, S = tokens.shape
     dev = tokens.device
     h = embed_tokens(tokens, params["embed"])
-    positions = _positions(batch, B, S, cfg, dev)
     blocks = params["blocks"]
-    L = cfg.n_layers
-    cd = cache_dtype(cfg)
     if cache is None:
-        kv_shape = (L, B, S, cfg.n_kv_heads, cfg.hd)
-        cache = {"k": torch.empty(kv_shape, dtype=cd, device=dev),
-                 "v": torch.empty(kv_shape, dtype=cd, device=dev),
-                 "pos": torch.zeros((B,), dtype=torch.int64, device=dev)}
+        cache = {k: (torch.zeros if k == "pos" else torch.empty)(
+                     shape, dtype=dt, device=dev)
+                 for k, (shape, dt) in cache_shapes(cfg, B, S).items()}
         slots = torch.arange(B, device=dev)
     elif slots is None:
         raise ValueError("lm_prefill into a batched cache needs slots")
-    for l in range(L):
-        bp = layer_params(blocks, l)
-        x = norm_apply(h, bp["ln1"], cfg)
-        a, (k, v) = attn_prefill(x, bp["attn"], cfg, positions)
-        h = h + a
-        x = norm_apply(h, bp["ln2"], cfg)
-        h = h + ffn_apply(x, bp, cfg)
-        cache["k"][l, slots, :S] = k
-        cache["v"][l, slots, :S] = v
+    if cfg.family == "ssm":
+        for l in range(cfg.n_layers):
+            bp = layer_params(blocks, l)
+            x = norm_apply(h, bp["ln1"], cfg)
+            out, state, tail = mam.mamba_block(x, bp["mamba"], cfg)
+            h = h + out
+            cache["ssm"][l, slots] = state
+            cache["conv"][l, slots] = tail
+    else:
+        positions = _positions(batch, B, S, cfg, dev)
+        for l in range(cfg.n_layers):
+            bp = layer_params(blocks, l)
+            x = norm_apply(h, bp["ln1"], cfg)
+            a, (k, v) = attn_prefill(x, bp["attn"], cfg, positions)
+            h = h + a
+            x = norm_apply(h, bp["ln2"], cfg)
+            h = h + ffn_apply(x, bp, cfg)
+            cache["k"][l, slots, :S] = k
+            cache["v"][l, slots, :S] = v
     cache["pos"][slots] = S
     h = norm_apply(h, params["final_norm"], cfg)
     logits = last_token_logits(h[:, -1:], params["head"])
@@ -243,15 +274,22 @@ def lm_prefill(params, batch, cfg: ArchConfig, *,
 
 
 def lm_decode(params, cache, batch, cfg: ArchConfig):
-    """One decode step for every slot. batch: tokens (B,1). cache: {k, v:
-    (L,B,S,KV,hd), pos: (B,)}, updated in place (pos advances by one).
-    Returns (logits (B,1,V) f32, cache)."""
+    """One decode step for every slot. batch: tokens (B,1). cache: as
+    ``cache_shapes``, updated in place (pos advances by one). Returns
+    (logits (B,1,V) f32, cache)."""
     h = embed_tokens(_tokens(batch), params["embed"])
     pos = cache["pos"]
     blocks = params["blocks"]
     for l in range(cfg.n_layers):
         bp = layer_params(blocks, l)
         x = norm_apply(h, bp["ln1"], cfg)
+        if cfg.family == "ssm":
+            out, state, tail = mam.mamba_decode(
+                x, bp["mamba"], cfg, cache["ssm"][l], cache["conv"][l])
+            h = h + out
+            cache["ssm"][l] = state
+            cache["conv"][l] = tail
+            continue
         a, _, _ = attn_decode(x, bp["attn"], cfg, pos, cache["k"][l],
                               cache["v"][l])
         h = h + a
@@ -278,6 +316,9 @@ def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512):
     residual -> norm -> SwiGLU -> residual; final norm; chunked CE with
     chunk ``min(xent_chunk, S)``. No remat of the layers (the learner's
     ``remat: none``)."""
+    if cfg.family == "ssm":
+        raise UserError(f"{cfg.arch_id!r}: training the ssm family is not "
+                        "yet ported to repro_torch (it serves)")
     tokens = _tokens(batch)
     B, S = tokens.shape
     h = embed_tokens(tokens, params["embed"])

@@ -1,9 +1,11 @@
 """Continuous-batching inference runtime — the serving data plane of the
 port, mirroring ``repro.serving.engine``'s public behaviour:
 
-  * **slot-based KV cache** — one batched cache of ``capacity`` slots,
-    each slot with its own write position (``pos`` is a (capacity,)
-    vector), so slots at different depths decode in one call;
+  * **slot-based cache** — one batched cache of ``capacity`` slots (K/V
+    for the dense family, the SSD state and conv tail for the ssm
+    family), each slot with its own write position (``pos`` is a
+    (capacity,) vector), so slots at different depths decode in one
+    call;
   * **continuous batching** — finished sequences retire at once and
     queued requests are prefilled into the freed slots mid-flight
     (equal-length queue neighbours prefill together as one batch);
@@ -14,8 +16,8 @@ port, mirroring ``repro.serving.engine``'s public behaviour:
 Where the JAX engine differs in mechanism:
   * decode is one batched ``model.decode`` over the slot dimension with a
     per-slot position vector; it replaces ``jit(vmap(decode_one))``;
-  * prefill writes each request's K/V straight into its slot of the
-    batched cache; it replaces ``_pad_prefill`` + ``_splice``;
+  * prefill writes each request's cache rows straight into its slot of
+    the batched cache; it replaces ``_pad_prefill`` + ``_splice``;
   * weights and cache live on an explicit ``device`` (CUDA unless the
     caller passes ``device="cpu"``), and ``seed`` drives a
     ``torch.Generator`` on that device.
@@ -88,7 +90,7 @@ def _maybe_span(tracer, job_id: str, name: str, **attrs):
 
 
 class InferenceEngine:
-    """Continuous-batching greedy decoder over a slot-based KV cache.
+    """Continuous-batching greedy decoder over a slot-based cache.
 
     Thread model: ``submit``/``stats``/``drain`` are safe from any
     thread; ``start`` + ``run`` belong to the single server thread.
@@ -141,7 +143,7 @@ class InferenceEngine:
         self._cache = None
         # SLO remediation knobs: a shed limit tightens admission below
         # max_queue; pended slots grow capacity at the NEXT start() (the
-        # KV cache is shaped by capacity)
+        # slot cache is shaped by capacity)
         self._shed_limit: Optional[int] = None
         self._pending_slots = 0
         self.params = None
@@ -217,7 +219,7 @@ class InferenceEngine:
         self._wake.set()
 
     def release(self):
-        """Teardown: free the weights and slot KV cache and fail any
+        """Teardown: free the weights and slot cache and fail any
         still-queued requests closed."""
         with self._lock:
             self._draining = True
@@ -325,7 +327,7 @@ class InferenceEngine:
     # ---- internals --------------------------------------------------------
     def _admit(self):
         """Prefill queued requests into free slots. Equal-length queue
-        neighbours are prefilled together as one batch, each row's K/V
+        neighbours are prefilled together as one batch, each row's cache
         written straight into its slot."""
         while True:
             with self._lock:

@@ -8,6 +8,12 @@ depth first, each layer's weights stacked on a leading ``L`` dimension:
 
     blocks/attn/{bk,bq,bv,wk,wo,wq,wv}, blocks/ln1/w, blocks/ln2/w,
     blocks/mlp/{wd,wg,wu}, embed, final_norm/w, head
+
+and for the ssm family (upper case sorts first, as in JAX):
+
+    blocks/ln1/w, blocks/mamba/{A_log, D_skip, conv_B, conv_C, conv_x,
+    dt_bias, norm, out_proj, wB, wC, wdt, wx, wz}, embed, final_norm/w,
+    head
 """
 from __future__ import annotations
 

@@ -324,3 +324,113 @@ def test_training_step_on_cuda_matches_cpu(cuda):
 
     torch.testing.assert_close(ps_round("cuda"), ps_round("cpu"),
                                atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The ssm serving slice: K5 (SSD chunked scan) and the mamba2 engine
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
+
+SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}  # test_kernels.py:56
+
+
+def _ssd_inputs(B, S, H, P, G, N, dtype, seed=0, a_log=None):
+    """The inputs of tests/test_kernels.py:47-51, made with numpy."""
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((B, S, H, P)) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H))))   # softplus
+    b = rng.standard_normal((B, S, G, N)) * 0.3
+    c = rng.standard_normal((B, S, G, N)) * 0.3
+    al = np.zeros(H) if a_log is None else np.full(H, a_log)
+    to = lambda a, dt_: torch.from_numpy(a.astype(np.float32)).to(
+        "cuda", dt_)
+    return (to(x, dtype), to(dt, torch.float32), to(al, torch.float32),
+            to(b, dtype), to(c, dtype))
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (1, 128, 2, 16, 1, 16, 32),       # tests/test_kernels.py:41-45
+    (2, 256, 4, 32, 2, 16, 64),       # G = 2
+    (1, 128, 4, 64, 1, 32, 128),
+    (1, 300, 4, 64, 1, 128, 256),     # ragged tail at chunk 256
+    (2, 7, 2, 16, 1, 16, 32),         # shorter than a chunk
+    (2, 512, 64, 64, 1, 128, 256),    # mamba2-1.3b widths
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_vs_plain(cuda, B, S, H, P, G, N, chunk, dtype):
+    args = _ssd_inputs(B, S, H, P, G, N, dtype)
+    before = kssd.launches
+    y, state = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert kssd.launches == before + 1
+    y_ref, state_ref = ref.ssd_scan_ref(*args, chunk=chunk)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, state_ref, atol=tol, rtol=tol)
+
+
+def test_ssd_scan_kernel_chunk_invariance(cuda):
+    """tests/test_kernels.py:122: the state carries across 8 and 4
+    chunks alike (slow decay couples far positions)."""
+    x, dt, _, b, c = _ssd_inputs(1, 512, 1, 8, 1, 8, torch.float32, seed=2)
+    dt = torch.full_like(dt, 0.5)
+    a_log = torch.full((1,), -1.0, device="cuda")
+    y64, s64 = ops.ssd_scan(x, dt, a_log, b, c, chunk=64)
+    y128, s128 = ops.ssd_scan(x, dt, a_log, b, c, chunk=128)
+    torch.testing.assert_close(y64, y128, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(s64, s128, atol=1e-3, rtol=1e-3)
+
+
+def test_ssd_scan_kernel_rejects_what_it_does_not_take(cuda):
+    x, dt, a_log, b, c = _ssd_inputs(1, 64, 4, 16, 2, 16, torch.float32)
+    with pytest.raises(TypeError):                # fp16
+        ops.ssd_scan(x.half(), dt, a_log, b.half(), c.half(), chunk=32)
+    with pytest.raises(TypeError):                # dt not f32
+        ops.ssd_scan(x, dt.bfloat16(), a_log, b, c, chunk=32)
+    with pytest.raises(ValueError):               # H % G != 0
+        ops.ssd_scan(x[:, :, :3].contiguous(), dt[:, :, :3].contiguous(),
+                     a_log[:3], b, c, chunk=32)
+    with pytest.raises(ValueError):               # not contiguous
+        ops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
+                     a_log, b, c, chunk=32)
+    with pytest.raises(ValueError):               # chunk past the kernel's
+        ops.ssd_scan(*_ssd_inputs(1, 600, 2, 8, 1, 8, torch.float32),
+                     chunk=512)
+    with pytest.raises(ValueError):               # CPU and CUDA mixed
+        ops.ssd_scan(x, dt.cpu(), a_log, b, c, chunk=32)
+
+
+def test_mamba2_engine_on_cuda_matches_cpu(cuda):
+    """One flat vector served by the mamba2 smoke model on the card (K5
+    in the prefill) and on the CPU (plain scan): same greedy tokens, K5
+    launched once per layer per prefill batch."""
+    cfg = reduce_for_smoke(get_arch("mamba2-1.3b"))
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (40, 40, 2, 33, 7)]
+    max_news = [3, 6, 4, 5, 7]
+    flat = rng.standard_normal(
+        InferenceEngine(cfg, device="cpu").flat_size).astype(np.float32)
+    flat *= 0.1
+
+    def serve(device):
+        eng = InferenceEngine(cfg, capacity=2, max_seq=64, device=device)
+        eng.start(flat)
+        reqs = [eng.submit(p, max_new=m) for p, m in zip(prompts, max_news)]
+        ops.reset_launch_counts()
+        t = threading.Thread(target=eng.run, daemon=True)
+        t.start()
+        for r in reqs:
+            assert r.wait(120) and r.status == "DONE"
+        launches = ops.launch_counts()[kssd.NAME]
+        eng.drain()
+        t.join(20)
+        assert not t.is_alive()
+        return [r.tokens for r in reqs], launches, eng.prefill_batches
+
+    gpu_tokens, launches, batches = serve("cuda")
+    cpu_tokens, cpu_launches, _ = serve("cpu")
+    assert gpu_tokens == cpu_tokens
+    assert launches == cfg.n_layers * batches and cpu_launches == 0
