@@ -8,7 +8,11 @@ first failing phase (no phase catches an exception):
 
   1. device  — card name and power limit (nvidia-smi), torch/CUDA versions;
   2. build   — every kernel of ``src/repro_torch/kernels/csrc`` built with
-     nvcc into ``build/kernels/``;
+     nvcc into ``build/kernels/``; for each device kernel of K4 and K4b
+     its registers, shared memory and spills (the ptxas report kept
+     beside the library) and its tensor-core (HGMMA) instructions counted
+     in the machine code (cuobjdump -sass): the bf16 instances must hold
+     some;
   3. kernel  — the flash-attention kernel against its plain PyTorch
      version at three shapes (StableLM-1.6B prefill in bf16, GQA and
      ragged in f32), with times of kernel, plain version and
@@ -18,7 +22,8 @@ first failing phase (no phase catches an exception):
      behind ``InferenceEngine``: 8 requests, 4 slots, mid-flight joins;
      every request done, the kernel launched 24 times per prefill batch,
      three engines with one seed (cold, warm, profiled) give the same
-     tokens; at full width cut to 2 layers, prefill (kernel attention)
+     tokens (the profiled serve's flash kernels all tensor-core
+     instances); at full width cut to 2 layers, prefill (kernel attention)
      agrees with decode (plain attention) in f32; then the kernel against
      its plain version at every prefill shape the serve gave it;
   5. ssm     — K5, the SSD chunked scan, against its plain PyTorch
@@ -44,7 +49,9 @@ first failing phase (no phase catches an exception):
      computes it), and the flash forward with its LSE (K4) and backward
      (K4b) at both training shapes and two small ones, with
      ``scaled_dot_product_attention``'s forward and backward as
-     yardsticks the port never calls;
+     yardsticks the port never calls (each K4/K4b line has its share of
+     bound and its multiple of SDPA; at 1 x 4,096 both must be within
+     4 x SDPA); two calls on one input give the same bits;
   7. step    — a training step on the card against the CPU at smoke
      width in f32 (``LMPlugin.flat_loss_grad``: loss and flat gradient),
      then one int8 + adam PS round with 2 learners on both devices;
@@ -53,7 +60,8 @@ first failing phase (no phase catches an exception):
      under the port's ``Watchdog`` against one ``SoftwareParameterServer``
      on the card (4 shards, adam, int8 wire, BSP) for 6 rounds of
      2 x 512 tokens per learner, checkpointing every 3 steps; asserts the
-     push/round counts, every kernel's launches, and that the newest
+     push/round counts, every kernel's launches (every flash kernel in
+     the profiled rounds a tensor-core instance), and that the newest
      checkpoint, the PS params and ``trained_model.npy`` are bit for bit
      one vector; prints round and agg times, tokens per second, peak
      device memory, and a profiled extra round (busy share, the PS
@@ -95,6 +103,14 @@ PREFILL_DECODE_RTOL = 1e-4
 LSE_TOL = 1e-4             # row log-sum-exp, f32 (abs; 1e-5 relative)
 BWD_TOL = 2e-3             # K4b in f32 (tests/test_kernels.py:139-162)
 BWD_BF16_REL_L2 = 2e-2     # K4b in bf16: relative L2 per gradient
+# the bf16 instances of K4 and K4b (hd 64 and 128) run these device
+# kernels, each of which must hold tensor-core (HGMMA) instructions
+FLASH_LIBS = ("flash_attention", "flash_attention_bwd")
+TC_KERNELS = ("flash_fwd_kernel_tc", "flash_bwd_dq_tc_kernel",
+              "flash_bwd_dkv_tc_kernel")
+# K4 and K4b at the model's context (1 x 4,096, bf16 causal) take at most
+# this many times SDPA's forward / backward, timed in the same run
+TC_MAX_X_SDPA = 4.0
 # K1 (tests/test_kernels.py:71-73): params 1e-5, m/v 1e-6
 AGG_TOL = {"params": 1e-5, "m": 1e-6, "v": 1e-6}
 # K2 (tests/test_compression.py:112-122): q equal, scales rtol 1e-6,
@@ -151,6 +167,81 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def demangle(names):
+    """{mangled: readable} through cu++filt beside nvcc (the mangled
+    name where that tool is missing)."""
+    from repro_torch.kernels import build
+    names = sorted(names)
+    tool = Path(build.find_nvcc()).with_name("cu++filt")
+    if not tool.exists():
+        return {n: n for n in names}
+    out = subprocess.run([str(tool)], input="\n".join(names) + "\n",
+                         capture_output=True, text=True, timeout=60).stdout
+    readable = out.splitlines()
+    if len(readable) != len(names):
+        return {n: n for n in names}
+    def short(r):
+        for noise in ("(anonymous namespace)::", "<unnamed>::", "(int)"):
+            r = r.replace(noise, "")
+        return r.split("(")[0].removeprefix("void ").strip()
+    return {n: short(r) for n, r in zip(names, readable)}
+
+
+def report_flash_build(build, built, card):
+    """For K4 and K4b: each device kernel's registers, shared memory and
+    spills (nvcc's ptxas report, kept beside the library) and its count
+    of tensor-core instructions in the machine code (cuobjdump -sass).
+    Raises if a tensor-core kernel holds no HGMMA. Returns the counts."""
+    import ctypes
+    dyn = {}
+    fwd = ctypes.CDLL(str(built["flash_attention"].library))
+    bwd = ctypes.CDLL(str(built["flash_attention_bwd"].library))
+    for hd in (64, 128):
+        dyn[f"flash_fwd_kernel_tc<{hd}>"] = fwd.flash_attention_fwd_tc_smem(hd)
+        dyn[f"flash_bwd_dq_tc_kernel<{hd}>"] = \
+            bwd.flash_attention_bwd_tc_smem(hd, 0)
+        dyn[f"flash_bwd_dkv_tc_kernel<{hd}>"] = \
+            bwd.flash_attention_bwd_tc_smem(hd, 1)
+    counts = {}
+    for lib in FLASH_LIBS:
+        res = built[lib]
+        ptxas = build.ptxas_report(res.log)
+        sass = build.sass_counts(res.library)
+        names = demangle(set(ptxas) | set(sass))
+        if not ptxas:
+            print(f"[build] {card}: {lib}: no ptxas report kept beside "
+                  f"{res.library.name}: registers not captured")
+        for fn in sorted(names, key=names.get):
+            rep = ptxas.get(fn, {})
+            ops = sass.get(fn, {})
+            name = names[fn]
+            counts[name] = ops.get("HGMMA", 0)
+            print(f"[build] {card}: {lib}: {name}: registers "
+                  f"{rep.get('registers', 'n/a')}, static smem "
+                  f"{rep.get('smem', 'n/a')} B, dynamic smem "
+                  f"{dyn.get(name, 0)} B, spill stores/loads "
+                  f"{rep.get('spill_stores', 'n/a')}/"
+                  f"{rep.get('spill_loads', 'n/a')} B; SASS HGMMA "
+                  f"{ops.get('HGMMA', 0)}, HMMA {ops.get('HMMA', 0)}")
+    for base in TC_KERNELS:
+        found = {n: c for n, c in counts.items()
+                 if n.split("<")[0].endswith(base)}
+        if len(found) != 2 or not all(found.values()):
+            raise AssertionError(f"tensor-core kernel {base}: HGMMA "
+                                 f"counts {found} (want > 0 at hd 64 "
+                                 f"and 128)")
+    return counts
+
+
+def check_tc_names(kernels, where):
+    """Every flash kernel the profiler saw in a bf16 hd-64 run is a
+    tensor-core instance."""
+    other = [n for n in kernels if "flash_" in n and "_tc" not in n]
+    if other:
+        raise AssertionError(f"{where}: flash kernels off the tensor "
+                             f"cores: {other}")
+
+
 def attention_bound_ms(B, Sq, Sk, H, KV, hd, dtype, causal, q_offset=0):
     """Least time for this call on an H100: bytes (q, k, v read once, o
     written once) over HBM rate vs FLOPs of the unmasked score pairs
@@ -204,7 +295,9 @@ def check_attention(torch, ops, ref, shape, seed=0):
                       "dtype": dtype, "causal": causal},
             "max_abs_err": max_err, "tol": tol, "ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / kernel_ms,
+            "x_library": kernel_ms / library_ms}
 
 
 class PrefillRecorder:
@@ -578,7 +671,14 @@ def check_attention_bwd(torch, ops, ref, shape, seed=0):
         raise AssertionError(f"flash forward with LSE disagrees at {shape}: "
                              f"o err {fwd_err}, lse err {lse_err}")
     got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    o2, lse2 = ops.flash_attention(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
+    deterministic = all(torch.equal(a, b) for a, b in
+                        zip(got + (o, lse), again + (o2, lse2)))
+    if not deterministic:
+        raise AssertionError(f"K4/K4b: two calls on one input differ in "
+                             f"their bits at {shape}")
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     errs, rels = [], []
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -633,7 +733,10 @@ def check_attention_bwd(torch, ops, ref, shape, seed=0):
             "lse_max_abs_err": lse_err,
             "max_abs_err": max(errs), "rel_l2": rels, "ms": bwd_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / bwd_ms,
+            "x_library": bwd_ms / library_ms,
+            "deterministic": deterministic}
 
 
 def check_ps_aggregate(torch, ops, ref, nl, f, solver, seed=0, steps=3,
@@ -1077,6 +1180,7 @@ def profiled_round(torch, ps, plugin, cursor, corpus, batch_docs, card):
             failed[0] if failed else None)
     kernels = print_profile(prof, wall, card, top=10,
                             ours=("flash_",) + PS_KERNELS)
+    check_tc_names(kernels, "profiled round")
 
     def device_ms(names):
         return sum(us for n, us in kernels.items()
@@ -1161,9 +1265,12 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s: "
           + ", ".join(f"{n} {r.seconds:.2f} s" for n, r in built.items()))
     for r in built.values():
+        if r.name in FLASH_LIBS:
+            continue                  # per kernel below, by name
         for line in r.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {r.name}: {line.strip()}")
+    hgmma = report_flash_build(build, built, card)
 
     # 3. kernel against its plain version
     for shape in [(1, 512, 32, 32, 64, "bfloat16", True),
@@ -1209,7 +1316,7 @@ def main() -> int:
               f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
               f" GiB; kernel launches {launches}")
         if label == "profiled":
-            print_profile(run[5], wall, card)
+            check_tc_names(print_profile(run[5], wall, card), "serve")
         eng.release()
         runs.append((tokens, prefills, launches))
         del eng, run
@@ -1236,7 +1343,6 @@ def main() -> int:
                  for i, (n, plen) in enumerate(sorted(set(prefills)))]
     for res in main_path:
         print(f"[kernel] {card}: main path {json.dumps(res)}")
-    head = max(main_path, key=lambda r: r["bound_ms"])
 
     # 5. the ssm serve: K5 against its plain version, mamba2-1.3b at full
     # width and depth through the engine, prefill against decode
@@ -1295,6 +1401,15 @@ def main() -> int:
     train_fwd = [check_attention(torch, ops, ref, s) for s in train_shapes]
     for res in train_fwd:
         print(f"[kernel] {card}: K4 at a training shape: {json.dumps(res)}")
+    for label, res in (("K4", train_fwd[-1]), ("K4b", bwd[-1])):
+        print(f"[kernel] {card}: {label} at {res['shape']}: "
+              f"{res['ms']:.4f} ms = {res['x_library']:.2f} x SDPA "
+              f"({res['library_ms']:.4f} ms; limit {TC_MAX_X_SDPA} x), "
+              f"{res['share_of_bound']:.3f} of its bound")
+        if res["x_library"] > TC_MAX_X_SDPA:
+            raise AssertionError(f"{label} takes {res['x_library']:.2f} x "
+                                 f"SDPA at the model's context (limit "
+                                 f"{TC_MAX_X_SDPA})")
     torch.cuda.empty_cache()
 
     # 7. a training step on the card against the CPU (smoke width, f32)
@@ -1337,13 +1452,21 @@ def main() -> int:
                 "library_ms": head["library_ms"], "shape": head["shape"],
                 "card": card, "shapes": shapes}
 
+    # each entry's head: the main-path shape with the largest bound
     k4 = entry(kfa, serve_launches[kfa.NAME] + train_launches[kfa.NAME],
-               head, main_path + train_fwd)
+               max(main_path + train_fwd, key=lambda r: r["bound_ms"]),
+               main_path + train_fwd)
     k4["launches_by_path"] = {"serve": serve_launches[kfa.NAME],
                               "train": train_launches[kfa.NAME]}
+    k4b = entry(kfab, train_launches[kfab.NAME], bwd[-1], bwd)
+    for e, names in ((k4, TC_KERNELS[:1]), (k4b, TC_KERNELS[1:])):
+        e["share_of_bound"] = e["bound_ms"] / e["ms"]
+        e["x_library"] = e["ms"] / e["library_ms"]
+        e["sass_hgmma"] = {n: c for n, c in hgmma.items()
+                           if n.split("<")[0] in names}
     kernels = [
         k4,
-        entry(kfab, train_launches[kfab.NAME], bwd[0], bwd),
+        k4b,
         entry(kagg, train_launches[kagg.NAME], k1, [k1]),
         entry(kq.QUANTIZE, train_launches[kq.QUANTIZE.NAME], k2, [k2]),
         entry(kq.DEQUANTIZE, train_launches[kq.DEQUANTIZE.NAME], k3, [k3]),

@@ -34,29 +34,55 @@
 // (H = 32, hd = 64, S = 128..512, bf16) the work is 4*S^2*hd/2 FLOP per
 // head against 4*S*hd*2 bytes per head moved, about S/4 FLOP per byte:
 // below the card's ~295 FLOP/byte ridge, so the least time is the bytes
-// of q, k, v and o over 3.35 TB/s. This first version does its
-// arithmetic in f32 FMAs on the CUDA cores (no tensor cores, no wgmma),
-// so in practice it is bound by those FMAs and by shared-memory reads,
-// not by device memory. What the design does about it:
-//   * every k/v element is read from device memory once per q-tile and
-//     staged, converted to f32, in shared memory; the reads are coalesced
-//     along hd;
-//   * a query row is split over hd/32 neighbouring threads, each holding
-//     32 of its q and accumulator values in registers, so registers stay
-//     well under the limit for hd = 128; a thread owns every (hd/32)-th
-//     dimension, so a warp reads consecutive shared-memory words with no
-//     bank conflicts, and the partial dot products meet in a shuffle;
-//   * the online-softmax rescale (one expf per row) is paid once per 16
-//     keys, not once per key;
-//   * k-tiles past the causal limit of the q-tile are never loaded.
-// Moving the products onto the tensor cores (wgmma with TMA-fed tiles and
-// a warp-specialised pipeline) is the next step and is left for later.
+// of q, k, v and o over 3.35 TB/s; at the training context (S = 4,096)
+// it is ~1,000 FLOP per byte and the tensor cores' 989 TFLOP/s bound it.
+//
+// Two instances, chosen by dtype and head dim inside the C entry point
+// (a choice of design, not a fallback):
+//
+// * bf16 at hd 64 and 128: `flash_fwd_kernel_tc`, on the tensor cores.
+//   One block of two warpgroups owns 128 query rows of one (b, h), each
+//   warpgroup 64 of them, and walks the key tiles of 64 up to the causal
+//   limit of its rows; tiles wholly above the diagonal are never loaded,
+//   and only the diagonal tiles and the ragged tail are masked. Q goes
+//   into shared memory once; K and V tiles go through a ring of two
+//   stages, filled with 16-byte cp.async copies (zero-filled past Sk)
+//   that overlap the current tile's products. S = Q.K^T is `wgmma`
+//   m64n64k16 with both operands in shared memory (flash_tc.cuh); the
+//   online softmax runs on the f32 accumulator in registers (row max and
+//   sum over the four lanes of a quad), on raw scores with the scale
+//   folded into one FMA before each exponential (one MUFU.EX2 each: at
+//   hd 64 the exponentials, not the products, are the scarcest work);
+//   P is rounded to bf16 in registers and is the register A operand of
+//   O += P.V, whose B is the V tile read MN-major with the transpose bit.
+//   l sums the unrounded f32 p. At hd 64 a thread holds at most 128
+//   registers, so two blocks share an SM and one block's softmax runs
+//   while the other's products do (faster on the card than key tiles of
+//   128 at one block per SM). Causal blocks start with the longest
+//   rows (highest q-tile first), so the last wave is the short tiles.
+//   The wrapper requires 16-byte aligned rows (strides multiples of 8
+//   elements) for the copies and raises otherwise.
+// * float32 (any hd), and bf16 at hd 16 and 32: `flash_fwd_kernel`, the
+//   first version, on the CUDA cores. f32 keeps it because TF32 would
+//   break the f32 tolerance (2e-5); hd 16/32 are only the smoke configs.
+//   Each k/v element is staged once per q-tile in shared memory as f32;
+//   a query row is split over hd/32 neighbouring threads (32 of its q and
+//   accumulator values each), whose partial dot products meet in a
+//   shuffle; the online-softmax rescale is paid once per 16 keys; k-tiles
+//   past the causal limit are never loaded.
+//
+// Later work, not here: a producer warp with TMA and `setmaxnreg`,
+// overlap of one warpgroup's softmax with its own next products,
+// persistent blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -180,6 +206,196 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, hd 64 / 128: the tensor-core instance
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD> struct TcFwd {
+  static constexpr int kThreads = 256;                 // two warpgroups
+  static constexpr int kBQ = 128;                      // 64 rows each
+  static constexpr int kBK = 64;                       // keys per tile
+  // at hd 64 two blocks share an SM (<= 128 registers a thread), so one
+  // block's softmax overlaps the other's products
+  static constexpr int kMinBlocks = HD == 64 ? 2 : 1;
+  static constexpr int kQBytes = kBQ * HD * 2;
+  static constexpr int kKVBytes = kBK * HD * 2;        // one K or V tile
+  // Q, then two stages of (K, V); +1024 to align the base
+  static constexpr int kSmem = kQBytes + 4 * kKVBytes + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(256, TcFwd<HD>::kMinBlocks)
+flash_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int H, int group, int Sq,
+                    int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+                    int causal, int q_offset, float scale) {
+  using P = TcFwd<HD>;
+  constexpr int BQ = P::kBQ, BK = P::kBK, NT = P::kThreads;
+  constexpr int NS = BK / 2, NO = HD / 2;   // accumulator floats / thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (tc::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t skv = sq + P::kQBytes;     // stage s: K at skv + 2 s KV
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / group;
+  const int wq0 = q0 + wg * 64;              // this warpgroup's rows
+  const int r0 = wq0 + warp * 16 + g;        // this thread's: r0, r0 + 8
+
+  int k_end = Sk;
+  if (causal) k_end = min(Sk, min(q0 + BQ, Sq) + q_offset);
+  const int n_tiles = (k_end + BK - 1) / BK;
+  // keys a row of this warpgroup may see: < wg_end; all rows see < wg_all
+  const int wg_end = wq0 >= Sq ? 0 : causal ? min(wq0 + 64, Sq) + q_offset
+                                            : Sk;
+  const int wg_all = causal ? wq0 + 1 + q_offset : Sk;
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+  tc::load_tile<BQ, HD, NT>(sq, qb, qs.s, q0, Sq, tid);
+  tc::load_tile<BK, HD, NT>(skv, kb, ks.s, 0, Sk, tid);
+  tc::load_tile<BK, HD, NT>(skv + P::kKVBytes, vb, vs.s, 0, Sk, tid);
+  tc::cp_commit();
+
+  float oacc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) oacc[i] = 0.f;
+  // running max of the raw scores (m) and partial row sums (l); every
+  // row sees key 0 in tile 0, so m is finite from the first tile on
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float c = scale * kLog2e;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BK;
+    const uint32_t sk = skv + (j & 1) * 2 * P::kKVBytes;
+    const uint32_t sv = sk + P::kKVBytes;
+    tc::cp_wait<0>();
+    tc::fence_to_async();
+    __syncthreads();                 // tile j landed; tile j - 1 consumed
+    if (j + 1 < n_tiles) {           // next tile into the other stage
+      const uint32_t nk = skv + ((j + 1) & 1) * 2 * P::kKVBytes;
+      tc::load_tile<BK, HD, NT>(nk, kb, ks.s, k0 + BK, Sk, tid);
+      tc::load_tile<BK, HD, NT>(nk + P::kKVBytes, vb, vs.s, k0 + BK, Sk,
+                                tid);
+      tc::cp_commit();
+    }
+    if (k0 >= wg_end) continue;      // above this warpgroup's diagonal
+
+    float s[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      tc::mma_ss<BK>(s, tc::desc_k<BQ>(sq + wg * 64 * 128, kk),
+                     tc::desc_k<BK>(sk, kk), kk > 0);
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::reg_fence(s);
+
+    // raw scores: mask (diagonal and ragged tiles only) to -1e30, row
+    // max; the scale folds into one FMA before each exponential:
+    // p = exp(scale s - scale m) = 2^(c s - c m), c = scale log2(e)
+    const bool masked = k0 + BK > Sk || k0 + BK > wg_all;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      if (masked) {
+        const int col = k0 + (i / 4) * 8 + 2 * t + (i & 1);
+        const int row = r0 + ((i >> 1) & 1) * 8;
+        if (col >= Sk || (causal && col > row + q_offset)) s[i] = kNegInf;
+      }
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+    float corr[2], mc[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = tc::ex2((m[r] - mx[r]) * c);
+      m[r] = mx[r];
+      mc[r] = mx[r] * c;
+    }
+    // p summed unrounded, rounded to bf16 as P.V's A operand
+    uint32_t pa[NS / 2];
+#pragma unroll
+    for (int i = 0; i < NS; i += 2) {
+      const int r = (i >> 1) & 1;
+      const float p0 = tc::ex2(fmaf(s[i], c, -mc[r]));
+      const float p1 = tc::ex2(fmaf(s[i + 1], c, -mc[r]));
+      lsum[r] += p0 + p1;
+      pa[i / 2] = tc::pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + lsum[r];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) oacc[i] *= corr[(i >> 1) & 1];
+
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      tc::mma_rs<HD>(oacc, &pa[4 * kk], tc::desc_mn<BK>(sv, kk), 1);
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::reg_fence(oacc);
+    tc::reg_fence(pa);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lt = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float denom = fmaxf(lt, 1e-30f);
+    const int row = r0 + 8 * r;
+    if (row >= Sq) continue;
+    bf16* orow = o + b * os.b + (int64_t)row * os.s + h * os.h;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      const int i = 4 * jj + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj + 2 * t) =
+          __floats2bfloat162_rn(oacc[i] / denom, oacc[i + 1] / denom);
+    }
+    if (lse != nullptr && t == 0)
+      lse[((int64_t)b * H + h) * Sq + row] = m[r] * scale + logf(denom);
+  }
+}
+
+template <int HD>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int B, int Sq, int Sk, int H, int KV,
+                      const Strides* st, int causal, int q_offset,
+                      float scale, cudaStream_t stream) {
+  using P = TcFwd<HD>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      P::kSmem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((Sq + P::kBQ - 1) / P::kBQ, B * H);
+  flash_fwd_kernel_tc<HD><<<grid, P::kThreads, P::kSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, H / KV,
+      Sq, Sk, st[0], st[1], st[2], st[3], causal, q_offset, scale);
+  return cudaGetLastError();
+}
+
+// 16-byte aligned rows: what the tensor-core instance's copies need
+bool rows_aligned(const void* const* ptrs, int n, const Strides* st) {
+  for (int i = 0; i < n; ++i) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0 || st[i].b % 8 ||
+        st[i].s % 8 || st[i].h % 8)
+      return false;
+  }
+  return true;
+}
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int Sq, int Sk, int H, int KV,
@@ -202,8 +418,13 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
   switch (hd) {
     case 16: return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
     case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
+    case 64:
+    case 128:
+      // bf16 at hd 64 / 128 runs the tensor-core instance instead
+      if constexpr (std::is_same_v<T, float>)
+        return hd == 64 ? launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream)
+                        : launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -211,6 +432,10 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. dtype: 0 = float32, 1 = bf16.
+// bf16 at hd 64 / 128 runs the tensor-core instance, which needs 16-byte
+// aligned pointers and strides that are multiples of 8 elements
+// (cudaErrorMisalignedAddress otherwise); every other case runs the
+// CUDA-core instance.
 // strides: 12 element strides, (B, S, H) of q, k, v, o in that order.
 // lse: null, or (B, H, Sq) contiguous f32 for the row log-sum-exp.
 // Launches on `stream`, does not synchronise, allocates nothing, and
@@ -232,10 +457,24 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 0)
     err = dispatch_hd<float>(hd, q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal,
                              q_offset, scale, s);
-  else if (dtype == 1)
+  else if (dtype == 1 && (hd == 64 || hd == 128)) {
+    const void* ptrs[4] = {q, k, v, o};
+    if (!rows_aligned(ptrs, 4, st))
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    err = hd == 64 ? launch_tc<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, st,
+                                   causal, q_offset, scale, s)
+                   : launch_tc<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, st,
+                                    causal, q_offset, scale, s);
+  } else if (dtype == 1)
     err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, Sq, Sk, H, KV, st,
                                      causal, q_offset, scale, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory (bytes) of the tensor-core instance at head dim
+// `hd` (64 or 128; 0 otherwise), for reports.
+extern "C" int flash_attention_fwd_tc_smem(int hd) {
+  return hd == 64 ? TcFwd<64>::kSmem : hd == 128 ? TcFwd<128>::kSmem : 0;
 }

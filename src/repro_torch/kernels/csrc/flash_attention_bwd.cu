@@ -13,47 +13,74 @@
 //   dS[i,j] = P[i,j] * (dP[i,j] - delta_i) * scale
 //   dq_i = sum_j dS[i,j] k_j;  dk_j = sum_i dS[i,j] q_i;  dv_j = sum_i P[i,j] dO_i
 //
-// with scale = hd^-0.5, all products in f32 from the stored values (the
-// reference casts dO to f32 and promotes q/k/v), the causal mask "key j
-// visible to query i iff j <= i + q_offset", and dq/dk/dv written in the
-// input type. GQA by index: KV head = h / (H/KV), and dk/dv of a KV head sum
-// over its group of query heads inside the kernel, with no repeated copy
-// of k/v and no atomics.
+// with scale = hd^-0.5, the causal mask "key j visible to query i iff
+// j <= i + q_offset", and dq/dk/dv written in the input type. GQA by
+// index: KV head = h / (H/KV), and dk/dv of a KV head sum over its group
+// of query heads inside the kernel, with no repeated copy of k/v and no
+// atomics: each output element is written once, so two calls on one
+// input give the same bits.
 //
-// Design (simple first):
-//   * `flash_bwd_dq_kernel`: one block per (q-tile, b, h). A query row
-//     is split over hd/16 neighbouring threads (16 of its q, dO and dq
-//     values in registers each); it computes delta for its rows (and
-//     writes it for the second kernel), then walks the k-tiles up to the
-//     causal limit, staging k and v (as f32) in shared memory, and
-//     accumulates dq in registers.
-//   * `flash_bwd_dkv_kernel`: one block per (k-tile, b, kv head). A key
-//     row holds k, v, dk, dv (16 values each per thread); the block walks
-//     the query heads of its group and, for each, the q-tiles from the
-//     first query that can see the tile, staging q, dO, lse and delta in
-//     shared memory, and accumulates dk and dv in f32 registers. Each
-//     output element is written once.
-//   * Ragged lengths: any Sq/Sk. Staged rows past the end are zero and
-//     masked (P = 0); rows past the end are never written.
-//   * The two kernels launch back to back on one stream from one C call
-//     (one K4b launch for the wrapper's count); the dq kernel writes the
-//     delta scratch the dk/dv kernel reads.
+// Both instances are two kernels launched back to back on one stream
+// from one C call (one K4b launch for the wrapper's count): a dq kernel
+// over (q-tile, b, h), which also computes delta and writes it to the
+// scratch the dk/dv kernel over (k-tile, b, kv head) reads; the latter
+// walks the query heads of its group and, for each, the q-tiles from the
+// first query that can see its keys. Ragged lengths: any Sq/Sk; staged
+// rows past the end are zero and masked (P = 0) and never written.
+// The split recomputes Q.K^T and dO.V^T in both kernels (7 products
+// where 5 would do) and buys determinism without atomics.
 //
 // What bounds it on the H100. At the training shape (B 2, S 512, H 32,
 // hd 64, bf16, causal) the work is about 5 * 2 * S^2/2 * hd FLOP per head
-// (QK^T and dO.V^T recomputed, dq, dk, dv) against ~8 * S * hd * 2 bytes per
-// head, ~S/3 FLOP per byte: below the ~295 FLOP/byte ridge, so the least
-// time is the bytes over 3.35 TB/s. Like the forward, this first version
-// does its products in f32 FMAs on the CUDA cores (no tensor cores), so it
-// is bound by those FMAs, the shuffles that finish each dot product, and
-// shared-memory reads, not by device memory. Moving the five products onto
-// `wgmma` is left for a later PR.
+// against ~8 * S * hd * 2 bytes per head, ~S/3 FLOP per byte: below the
+// ~295 FLOP/byte ridge, so the least time is the bytes over 3.35 TB/s; at
+// S = 4,096 the tensor cores' 989 TFLOP/s bound it.
+//
+// Two instances, chosen by dtype and head dim inside the C entry point
+// (a choice of design, not a fallback):
+//
+// * bf16 at hd 64 and 128: `flash_bwd_dq_tc_kernel` and
+//   `flash_bwd_dkv_tc_kernel`, on the tensor cores (flash_tc.cuh). Blocks
+//   of two warpgroups; the dq kernel owns 128 query rows (64 per
+//   warpgroup) with Q and dO in shared memory and walks key tiles of 64
+//   through a two-stage cp.async ring: S = Q.K^T and dP = dO.V^T with
+//   both operands in shared memory, P = exp(S scale - lse) and dS = P
+//   (dP - delta) scale in f32 registers, then dQ += dS.K with dS rounded
+//   to bf16 as the register A operand and the K tile read MN-major. The
+//   dk/dv kernel owns 128 keys (64 per warpgroup) with K and V in shared
+//   memory and walks (head, q-tile) steps of 64 queries (32 at hd 128, to
+//   hold four accumulators in registers) through the ring: S^T = K.Q^T,
+//   dP^T = V.dO^T, then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T
+//   rounded to bf16 as register operands. P and dS reach their products
+//   in bf16 where the reference keeps f32, as FlashAttention 2 and 3 do;
+//   the sums stay f32 (relative L2 ~2.6e-3 per gradient against the f32
+//   plain version, limit 2e-2). Each exponential is one FMA and one
+//   MUFU.EX2. Tiles above a warpgroup's diagonal are skipped, and only
+//   diagonal and ragged tiles are masked. At hd 64 the dq kernel holds at
+//   most 128 registers a thread (two blocks per SM; ptxas spills a few
+//   bytes, and it was still faster on the card than one block). The
+//   wrapper requires 16-byte aligned rows for the copies and raises
+//   otherwise.
+// * float32 (any hd), and bf16 at hd 16 and 32: `flash_bwd_dq_kernel` and
+//   `flash_bwd_dkv_kernel`, the first version, every product in f32 FMAs
+//   on the CUDA cores from the stored values (the f32 tolerance 2e-3 rules
+//   out TF32; hd 16/32 are only the smoke configs). A query (key) row is
+//   split over hd/16 neighbouring threads, 16 of its values each; k and v
+//   (q and dO) are staged as f32 in shared memory; partial dot products
+//   meet in shuffles.
+//
+// Later work, not here: a producer warp with TMA and `setmaxnreg`, the
+// overlap of one warpgroup's exponentials with its own next products,
+// persistent blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -278,6 +305,360 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, hd 64 / 128: the tensor-core instance
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD> struct TcBwd {
+  static constexpr int kThreads = 256;                 // two warpgroups
+  // dq kernel: 128 query rows (64 per warpgroup), key tiles of 64
+  static constexpr int kBQ = 128, kBK = 64;
+  static constexpr int kQBytes = kBQ * HD * 2, kKBytes = kBK * HD * 2;
+  // Q, dO, two stages of (K, V), lse and delta of the rows
+  static constexpr int kDqSmem = 2 * kQBytes + 4 * kKBytes + 2 * kBQ * 4
+                                 + 1024;
+  // at hd 64 two dq blocks share an SM (<= 128 registers a thread)
+  static constexpr int kDqMinBlocks = HD == 64 ? 2 : 1;
+  // dk/dv kernel: 128 keys (64 per warpgroup), query tiles of 64 (32 at
+  // hd 128, for registers)
+  static constexpr int kBKV = 128, kBQT = HD == 64 ? 64 : 32;
+  static constexpr int kKVBytes = kBKV * HD * 2, kQTBytes = kBQT * HD * 2;
+  // K, V, two stages of (Q, dO), then two stages of (lse, delta)
+  static constexpr int kDkvSmem = 2 * kKVBytes + 4 * kQTBytes
+                                  + 4 * kBQT * 4 + 1024;
+};
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw,
+                                                 uint32_t* addr) {
+  const uint32_t a = tc::smem_addr(raw);
+  *addr = (a + 1023) & ~1023u;
+  return raw + (*addr - a);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(256, TcBwd<HD>::kDqMinBlocks)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ o,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       float* __restrict__ delta_out, bf16* __restrict__ dq,
+                       int H, int group, int Sq, int Sk, Strides qs,
+                       Strides ks, Strides vs, Strides os, Strides dos,
+                       Strides dqs, int causal, int q_offset, float scale) {
+  using P = TcBwd<HD>;
+  constexpr int BQ = P::kBQ, BK = P::kBK, NT = P::kThreads;
+  constexpr int NS = BK / 2, NO = HD / 2;   // accumulator floats / thread
+  extern __shared__ uint8_t smem_raw[];
+  uint32_t sq;
+  uint8_t* base = aligned_smem(smem_raw, &sq);
+  const uint32_t sdo = sq + P::kQBytes;
+  const uint32_t skv = sdo + P::kQBytes;    // stage s: K at skv + 2 s K
+  float* s_lse = reinterpret_cast<float*>(base + 2 * P::kQBytes +
+                                          4 * P::kKBytes);
+  float* s_delta = s_lse + BQ;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / group;
+  const int wq0 = q0 + wg * 64;
+  const int r0 = wq0 + warp * 16 + g;       // this thread's: r0, r0 + 8
+
+  int k_end = Sk;
+  if (causal) k_end = min(Sk, min(q0 + BQ, Sq) + q_offset);
+  const int n_tiles = (k_end + BK - 1) / BK;
+  const int wg_end = wq0 >= Sq ? 0 : causal ? min(wq0 + 64, Sq) + q_offset
+                                            : Sk;
+  const int wg_all = causal ? wq0 + 1 + q_offset : Sk;
+
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+  tc::load_tile<BQ, HD, NT>(sq, q + b * qs.b + h * qs.h, qs.s, q0, Sq, tid);
+  tc::load_tile<BQ, HD, NT>(sdo, dout + b * dos.b + h * dos.h, dos.s, q0,
+                            Sq, tid);
+  tc::load_tile<BK, HD, NT>(skv, kb, ks.s, 0, Sk, tid);
+  tc::load_tile<BK, HD, NT>(skv + P::kKBytes, vb, vs.s, 0, Sk, tid);
+  tc::cp_commit();
+
+  // delta = rowsum(dO * O) in f32, two threads per row; written for the
+  // dk/dv kernel too
+  const int64_t lrow0 = ((int64_t)b * H + h) * Sq;
+  {
+    const int rl = tid / 2, half = tid % 2, row = q0 + rl;
+    float d = 0.f;
+    if (row < Sq) {
+      const bf16* orow = o + b * os.b + (int64_t)row * os.s + h * os.h;
+      const bf16* drow = dout + b * dos.b + (int64_t)row * dos.s +
+                         h * dos.h;
+#pragma unroll
+      for (int c = half * (HD / 2); c < (half + 1) * (HD / 2); c += 8) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]);
+          const float2 df = __bfloat1622float2(d2[e]);
+          d = fmaf(df.x, of.x, d);
+          d = fmaf(df.y, of.y, d);
+        }
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (half == 0) {
+      s_delta[rl] = d;
+      s_lse[rl] = row < Sq ? lse[lrow0 + row] : 0.f;
+      if (row < Sq) delta_out[lrow0 + row] = d;
+    }
+  }
+  __syncthreads();
+  // P = exp(scale s - lse) = 2^(c s - lse log2(e)), c = scale log2(e)
+  const float c = scale * kLog2e;
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse_r[r] = s_lse[r0 - q0 + 8 * r] * kLog2e;
+    dl_r[r] = s_delta[r0 - q0 + 8 * r];
+  }
+
+  float dqacc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dqacc[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BK;
+    const uint32_t sk = skv + (j & 1) * 2 * P::kKBytes;
+    const uint32_t sv = sk + P::kKBytes;
+    tc::cp_wait<0>();
+    tc::fence_to_async();
+    __syncthreads();                 // tile j landed; tile j - 1 consumed
+    if (j + 1 < n_tiles) {
+      const uint32_t nk = skv + ((j + 1) & 1) * 2 * P::kKBytes;
+      tc::load_tile<BK, HD, NT>(nk, kb, ks.s, k0 + BK, Sk, tid);
+      tc::load_tile<BK, HD, NT>(nk + P::kKBytes, vb, vs.s, k0 + BK, Sk,
+                                tid);
+      tc::cp_commit();
+    }
+    if (k0 >= wg_end) continue;      // above this warpgroup's diagonal
+
+    float s[NS], dp[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      tc::mma_ss<BK>(s, tc::desc_k<BQ>(sq + wg * 64 * 128, kk),
+                     tc::desc_k<BK>(sk, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      tc::mma_ss<BK>(dp, tc::desc_k<BQ>(sdo + wg * 64 * 128, kk),
+                     tc::desc_k<BK>(sv, kk), kk > 0);
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::reg_fence(s);
+    tc::reg_fence(dp);
+
+    // P = exp(s * scale - lse), 0 where masked; dS = P (dP - delta) scale,
+    // rounded to bf16 as dS.K's A
+    const bool masked = k0 + BK > Sk || k0 + BK > wg_all;
+    uint32_t dsa[NS / 2];
+#pragma unroll
+    for (int i = 0; i < NS; i += 2) {
+      const int r = (i >> 1) & 1;
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p = tc::ex2(fmaf(s[i + e], c, -lse_r[r]));
+        if (masked) {
+          const int col = k0 + (i / 4) * 8 + 2 * t + e;
+          if (col >= Sk || (causal && col > r0 + 8 * r + q_offset)) p = 0.f;
+        }
+        ds[e] = p * (dp[i + e] - dl_r[r]) * scale;
+      }
+      dsa[i / 2] = tc::pack_bf16(ds[0], ds[1]);
+    }
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      tc::mma_rs<HD>(dqacc, &dsa[4 * kk], tc::desc_mn<BK>(sk, kk), 1);
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::reg_fence(dqacc);
+    tc::reg_fence(dsa);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= Sq) continue;
+    bf16* out = dq + b * dqs.b + (int64_t)row * dqs.s + h * dqs.h;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      const int i = 4 * jj + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * jj + 2 * t) =
+          __floats2bfloat162_rn(dqacc[i], dqacc[i + 1]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv,
+                        int H, int KV, int Sq, int Sk, Strides qs,
+                        Strides ks, Strides vs, Strides dos, Strides dks,
+                        Strides dvs, int causal, int q_offset, float scale) {
+  using P = TcBwd<HD>;
+  constexpr int BKV = P::kBKV, BQT = P::kBQT, NT = P::kThreads;
+  constexpr int NS = BQT / 2, NO = HD / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint32_t sk;
+  uint8_t* base = aligned_smem(smem_raw, &sk);
+  const uint32_t sv = sk + P::kKVBytes;
+  const uint32_t sst = sv + P::kKVBytes;    // stage s: Q, dO at sst + 2 s QT
+  const int f_off = 2 * P::kKVBytes + 4 * P::kQTBytes;
+  const uint32_t sf = sk + f_off;           // stage s: lse, delta
+  const float* f_base = reinterpret_cast<const float*>(base + f_off);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int group = H / KV;
+  const int k0 = blockIdx.x * BKV;
+  const int b = blockIdx.y / KV, hk = blockIdx.y % KV;
+  const int wk0 = k0 + wg * 64;             // this warpgroup's keys
+  const int kr0 = wk0 + warp * 16 + g;      // this thread's: kr0, kr0 + 8
+
+  // the first query that can see any key of this block
+  const int q_begin = causal ? max(0, k0 - q_offset) : 0;
+  const int nqt = q_begin < Sq ? (Sq - q_begin + BQT - 1) / BQT : 0;
+  const int total = group * nqt;            // (head, q-tile) steps
+
+  auto load_stage = [&](int it) {
+    const int hh = hk * group + it / nqt;
+    const int qs0 = q_begin + (it % nqt) * BQT;
+    const uint32_t st = sst + (it & 1) * 2 * P::kQTBytes;
+    tc::load_tile<BQT, HD, NT>(st, q + b * qs.b + hh * qs.h, qs.s, qs0, Sq,
+                               tid);
+    tc::load_tile<BQT, HD, NT>(st + P::kQTBytes, dout + b * dos.b +
+                               hh * dos.h, dos.s, qs0, Sq, tid);
+    const int64_t lrow = ((int64_t)b * H + hh) * Sq;
+    const uint32_t fs = sf + (it & 1) * 2 * BQT * 4;
+    tc::load_row_f32<BQT, NT>(fs, lse + lrow, qs0, Sq, tid);
+    tc::load_row_f32<BQT, NT>(fs + BQT * 4, delta + lrow, qs0, Sq, tid);
+  };
+
+  tc::load_tile<BKV, HD, NT>(sk, k + b * ks.b + hk * ks.h, ks.s, k0, Sk,
+                             tid);
+  tc::load_tile<BKV, HD, NT>(sv, v + b * vs.b + hk * vs.h, vs.s, k0, Sk,
+                             tid);
+  if (total > 0) load_stage(0);
+  tc::cp_commit();
+
+  float dkacc[NO], dvacc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dkacc[i] = dvacc[i] = 0.f;
+
+  for (int it = 0; it < total; ++it) {
+    const int qs0 = q_begin + (it % nqt) * BQT;
+    const uint32_t sq = sst + (it & 1) * 2 * P::kQTBytes;
+    const uint32_t sdo = sq + P::kQTBytes;
+    const float* fl = f_base + (it & 1) * 2 * BQT;   // lse; delta after
+    tc::cp_wait<0>();
+    tc::fence_to_async();
+    __syncthreads();                 // stage it landed; it - 1 consumed
+    if (it + 1 < total) {
+      load_stage(it + 1);
+      tc::cp_commit();
+    }
+    // no query of the tile sees a key of this warpgroup, or no key
+    if (wk0 >= Sk || (causal && qs0 + BQT - 1 + q_offset < wk0)) continue;
+
+    float s[NS], dp[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      tc::mma_ss<BQT>(s, tc::desc_k<BKV>(sk + wg * 64 * 128, kk),
+                      tc::desc_k<BQT>(sq, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      tc::mma_ss<BQT>(dp, tc::desc_k<BKV>(sv + wg * 64 * 128, kk),
+                      tc::desc_k<BQT>(sdo, kk), kk > 0);
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::reg_fence(s);
+    tc::reg_fence(dp);
+
+    // rows are keys, columns queries: P^T and dS^T, rounded to bf16 as
+    // the A operands of dV += P^T.dO and dK += dS^T.Q
+    const bool masked = qs0 + BQT > Sq || wk0 + 64 > Sk ||
+                        (causal && wk0 + 63 > qs0 + q_offset);
+    const float cs = scale * kLog2e;       // P = 2^(cs s - lse log2(e))
+    uint32_t pa[NS / 2], dsa[NS / 2];
+#pragma unroll
+    for (int i = 0; i < NS; i += 2) {
+      const int r = (i >> 1) & 1;
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = (i / 4) * 8 + 2 * t + e;
+        p[e] = tc::ex2(fmaf(s[i + e], cs, -fl[c] * kLog2e));
+        if (masked) {
+          const int qi = qs0 + c, kj = kr0 + 8 * r;
+          if (qi >= Sq || kj >= Sk || (causal && kj > qi + q_offset))
+            p[e] = 0.f;
+        }
+        ds[e] = p[e] * (dp[i + e] - fl[BQT + c]) * scale;
+      }
+      pa[i / 2] = tc::pack_bf16(p[0], p[1]);
+      dsa[i / 2] = tc::pack_bf16(ds[0], ds[1]);
+    }
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk)
+      tc::mma_rs<HD>(dvacc, &pa[4 * kk], tc::desc_mn<BQT>(sdo, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk)
+      tc::mma_rs<HD>(dkacc, &dsa[4 * kk], tc::desc_mn<BQT>(sq, kk), 1);
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::reg_fence(dvacc);
+    tc::reg_fence(dkacc);
+    tc::reg_fence(pa);
+    tc::reg_fence(dsa);
+  }
+  tc::cp_wait<0>();                  // no copy outlives the block
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kr0 + 8 * r;
+    if (row >= Sk) continue;
+    bf16* ko = dk + b * dks.b + (int64_t)row * dks.s + hk * dks.h;
+    bf16* vo = dv + b * dvs.b + (int64_t)row * dvs.s + hk * dvs.h;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      const int i = 4 * jj + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(ko + 8 * jj + 2 * t) =
+          __floats2bfloat162_rn(dkacc[i], dkacc[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(vo + 8 * jj + 2 * t) =
+          __floats2bfloat162_rn(dvacc[i], dvacc[i + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *o, *dout;
   const float* lse;
@@ -312,13 +693,60 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
+  using P = TcBwd<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tc_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::kDqSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             P::kDkvSmem);
+  if (err != cudaSuccess) return err;
+  const Strides* st = a.st;
+  const dim3 grid_q((a.Sq + P::kBQ - 1) / P::kBQ, a.B * a.H);
+  flash_bwd_dq_tc_kernel<HD><<<grid_q, P::kThreads, P::kDqSmem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
+      static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      static_cast<bf16*>(a.dq), a.H, a.H / a.KV, a.Sq, a.Sk, st[0], st[1],
+      st[2], st[3], st[4], st[5], a.causal, a.q_offset, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_k((a.Sk + P::kBKV - 1) / P::kBKV, a.B * a.KV);
+  flash_bwd_dkv_tc_kernel<HD><<<grid_k, P::kThreads, P::kDkvSmem,
+                                stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+      a.H, a.KV, a.Sq, a.Sk, st[0], st[1], st[2], st[4], st[6], st[7],
+      a.causal, a.q_offset, a.scale);
+  return cudaGetLastError();
+}
+
+// 16-byte aligned rows: what the tensor-core instance's copies need
+bool rows_aligned(const Args& a) {
+  const void* ptrs[8] = {a.q, a.k, a.v, a.o, a.dout, a.dq, a.dk, a.dv};
+  for (int i = 0; i < 8; ++i) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0 || a.st[i].b % 8 ||
+        a.st[i].s % 8 || a.st[i].h % 8)
+      return false;
+  }
+  return true;
+}
+
 template <typename T>
 cudaError_t dispatch_hd(int hd, const Args& a, cudaStream_t stream) {
   switch (hd) {
     case 16: return launch<T, 16>(a, stream);
     case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
+    case 64:
+    case 128:
+      // bf16 at hd 64 / 128 runs the tensor-core instance instead
+      if constexpr (std::is_same_v<T, float>)
+        return hd == 64 ? launch<T, 64>(a, stream) : launch<T, 128>(a, stream);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -349,7 +777,22 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                B, Sq, Sk, H, KV, st, causal, q_offset, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(dispatch_hd<float>(hd, a, s));
+  if (dtype == 1 && (hd == 64 || hd == 128)) {
+    if (!rows_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
+    return static_cast<int>(hd == 64 ? launch_tc<64>(a, s)
+                                     : launch_tc<128>(a, s));
+  }
   if (dtype == 1)
     return static_cast<int>(dispatch_hd<__nv_bfloat16>(hd, a, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory (bytes) of the tensor-core instance's dq
+// (kernel 0) or dk/dv (kernel 1) kernel at head dim `hd` (64 or 128; 0
+// otherwise), for reports.
+extern "C" int flash_attention_bwd_tc_smem(int hd, int kernel) {
+  if (hd == 64) return kernel == 0 ? TcBwd<64>::kDqSmem : TcBwd<64>::kDkvSmem;
+  if (hd == 128)
+    return kernel == 0 ? TcBwd<128>::kDqSmem : TcBwd<128>::kDkvSmem;
+  return 0;
 }

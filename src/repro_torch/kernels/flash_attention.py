@@ -2,11 +2,15 @@
 (``csrc/flash_attention.cu``), the port of the Pallas TPU kernel
 ``repro/kernels/flash_attention.py:_flash_kernel``.
 
-The wrapper checks what the kernel takes, allocates the output with
-``torch.empty``, launches on the current stream and raises if the launch
-is refused. ``launches`` counts the launches, so a run can show that its
-main path went through the kernel. Nothing is built or loaded at import
-time; the first call builds the library (``kernels/build.py``).
+The C entry point picks the instance by dtype and head dim: bf16 at hd
+64 and 128 runs on the tensor cores (``wgmma``, ``flash_fwd_kernel_tc``),
+float32 and bf16 at hd 16/32 on the CUDA cores (``flash_fwd_kernel``).
+The wrapper checks what the kernel takes (for the tensor-core instance,
+16-byte aligned rows), allocates the output with ``torch.empty``,
+launches on the current stream and raises if the launch is refused.
+``launches`` counts the launches, so a run can show that its main path
+went through the kernel. Nothing is built or loaded at import time; the
+first call builds the library (``kernels/build.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,9 @@ SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:23"
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# bf16 at these head dims runs on the tensor cores (wgmma), whose 16-byte
+# copies need aligned rows; every other case runs on the CUDA cores
+TENSOR_CORE_HEAD_DIMS = (64, 128)
 
 launches = 0          # kernel launches in this process (see ops.py)
 _fn = None
@@ -55,6 +62,19 @@ def check_shapes(q, k, v, q_offset: int):
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
 
 
+def check_tensor_core_rows(named):
+    """The tensor-core instance copies 16-byte chunks of each row: every
+    tensor's data pointer must be 16-byte aligned and its (B, S, H)
+    strides multiples of 8 elements. Raises rather than copying."""
+    for name, t in named.items():
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(
+                f"{name}: the bf16 tensor-core kernel needs 16-byte aligned "
+                f"rows (data_ptr % 16 == 0, strides multiples of 8), got "
+                f"data_ptr % 16 = {t.data_ptr() % 16}, strides "
+                f"{tuple(t.stride())}")
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool, q_offset: int = 0,
                          return_lse: bool = False):
     """Launch the kernel on CUDA tensors; raises on anything it does not
@@ -81,6 +101,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool, q_offset: int = 0,
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in head_dim "
                              f"(stride {t.stride(3)})")
+    if q.dtype == torch.bfloat16 and hd in TENSOR_CORE_HEAD_DIMS:
+        check_tensor_core_rows({"q": q, "k": k, "v": v})
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
            if return_lse else None)

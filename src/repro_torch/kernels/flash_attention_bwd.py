@@ -3,9 +3,13 @@
 for it: it replaces the plain-jnp custom VJP ``_flash_vjp_bwd`` of
 ``repro/models/attention.py:232``.
 
-The wrapper checks what the kernel takes, allocates dq/dk/dv and the
-delta scratch with ``torch.empty``, launches on the current stream and
-raises if the launch is refused. One call launches the kernel's two
+The C entry point picks the instance as the forward does: bf16 at hd
+64 and 128 on the tensor cores (``flash_bwd_dq_tc_kernel``,
+``flash_bwd_dkv_tc_kernel``), everything else on the CUDA cores. The
+wrapper checks what the kernel takes (for the tensor-core instance,
+16-byte aligned rows), allocates dq/dk/dv and the delta scratch with
+``torch.empty``, launches on the current stream and raises if the launch
+is refused. One call launches the kernel's two
 passes (dq, then dk/dv) and counts as one launch in ``launches``. Nothing
 is built or loaded at import time.
 """
@@ -80,6 +84,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool,
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in head_dim "
                              f"(stride {t.stride(3)})")
+    if q.dtype == torch.bfloat16 and hd in _fa.TENSOR_CORE_HEAD_DIMS:
+        _fa.check_tensor_core_rows(ts)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)

@@ -192,6 +192,71 @@ def test_flash_bwd_kernel_other_lengths(cuda, causal, q_offset):
         torch.testing.assert_close(g, w, atol=BWD_TOL, rtol=BWD_TOL)
 
 
+# the bf16 tensor-core instance (hd 64 and 128): forward with LSE and
+# backward at shapes the training shape above does not reach
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,q_offset", [
+    (2, 256, 256, 8, 2, 128, False, 0),     # hd 128, GQA
+    (2, 256, 256, 8, 2, 128, True, 0),      # hd 128, GQA, causal
+    (1, 300, 300, 4, 2, 64, True, 0),       # ragged tile tail
+    (3, 37, 37, 4, 2, 64, True, 0),         # shorter than one tile
+    (2, 23, 41, 4, 2, 64, True, 9),         # Sq != Sk, q_offset
+    (2, 23, 41, 4, 2, 128, False, 0),       # Sq != Sk, hd 128
+    (2, 33, 33, 4, 1, 128, True, 0),        # MQA
+    (2, 200, 200, 8, 1, 64, True, 0),       # MQA, two key blocks
+])
+def test_flash_tensor_core_kernels_vs_plain(cuda, B, Sq, Sk, H, KV, hd,
+                                            causal, q_offset):
+    q, k, v = _qkv(B, Sq, Sk, H, KV, hd, torch.bfloat16, seed=8)
+    do = _qkv(B, Sq, Sq, H, H, hd, torch.bfloat16, seed=9)[0]
+    kw = dict(causal=causal, q_offset=q_offset)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
+        assert rel <= BWD_BF16_REL_L2, rel
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_tensor_core_kernels_are_deterministic(cuda, hd):
+    """Two calls on one input give the same bits (no atomics)."""
+    q, k, v = _qkv(2, 300, 300, 8, 2, hd, torch.bfloat16, seed=10)
+    do = _qkv(2, 300, 300, 8, 8, hd, torch.bfloat16, seed=11)[0]
+    o1, l1 = ops.flash_attention(q, k, v, causal=True, return_lse=True)
+    o2, l2 = ops.flash_attention(q, k, v, causal=True, return_lse=True)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    g1 = ops.flash_attention_bwd(q, k, v, o1, l1, do, causal=True)
+    g2 = ops.flash_attention_bwd(q, k, v, o1, l1, do, causal=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_flash_tensor_core_kernels_reject_unaligned_rows(cuda):
+    """bf16 at hd 64 reads 16-byte chunks: a view whose rows are not
+    16-byte aligned raises (no silent copy); f32 reads it as it is."""
+    q, k, v = _qkv(1, 16, 16, 2, 2, 64, torch.float32, seed=12)
+    wide = torch.zeros(1, 16, 2, 68, device="cuda")
+    wide[..., 4:] = q
+    qv = wide[..., 4:]                      # rows start 8 bytes in (f32)
+    _check(qv, k, v, True)                  # f32: CUDA-core instance
+    wb = torch.zeros(1, 16, 2, 68, device="cuda", dtype=torch.bfloat16)
+    wb[..., 4:] = q.to(torch.bfloat16)
+    qb = wb[..., 4:]                        # rows start 8 bytes in
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        ops.flash_attention(qb, kb, vb, causal=True)
+    o, lse = ops.flash_attention(qb.contiguous(), kb, vb, causal=True,
+                                 return_lse=True)
+    with pytest.raises(ValueError):
+        ops.flash_attention_bwd(qb, kb, vb, o, lse, o, causal=True)
+
+
 def _ties(n, seed):
     """x, err with exact ties: y = x + err = (k + 0.5) * scale at every
     even position (err = 0 there), each block's absmax 127 * scale."""
