@@ -8,11 +8,11 @@ first failing phase (no phase catches an exception):
 
   1. device  — card name and power limit (nvidia-smi), torch/CUDA versions;
   2. build   — every kernel of ``src/repro_torch/kernels/csrc`` built with
-     nvcc into ``build/kernels/``; for each device kernel of K4 and K4b
-     its registers, shared memory and spills (the ptxas report kept
+     nvcc into ``build/kernels/``; for each device kernel of K4, K4b and
+     K5 its registers, shared memory and spills (the ptxas report kept
      beside the library) and its tensor-core (HGMMA) instructions counted
-     in the machine code (cuobjdump -sass): the bf16 instances must hold
-     some;
+     in the machine code (cuobjdump -sass): every ``_tc`` kernel of the
+     bf16 instances must hold some;
   3. kernel  — the flash-attention kernel against its plain PyTorch
      version at three shapes (StableLM-1.6B prefill in bf16, GQA and
      ragged in f32), with times of kernel, plain version and
@@ -28,18 +28,24 @@ first failing phase (no phase catches an exception):
      its plain version at every prefill shape the serve gave it;
   5. ssm     — K5, the SSD chunked scan, against its plain PyTorch
      version in f32 and bf16 at the shapes of tests/test_kernels.py
-     (G = 2 included), ragged tails (300 at chunk 256, 7 at chunk 32)
-     and chunk 64 against 128; then full-width, full-depth mamba2-1.3b
+     (G = 2 included), ragged tails (300 at chunk 256, 7 at chunk 32),
+     the tensor-core instance's ragged and G = 2 shapes (1, 300) and
+     (2, 700) at P 64 / N 128, and chunk 64 against 128 (each shape with
+     relative L2 and two calls giving equal bits); then full-width,
+     full-depth mamba2-1.3b
      (bf16, random weights from a seed) behind ``InferenceEngine``: 8
      requests with prompts of 2,048 to 2 tokens, 4 slots, prefill
      batches (2, 2048), (2, 512), (1, 300), (1, 256), (1, 33), (1, 2)
      (four mid-flight joins); every request done, K5 launched 48 times
-     per prefill batch, three engines with one seed (cold, warm,
-     profiled: busy share and K5's share) give the same tokens; at full
+     per prefill batch, every launch on the tensor-core instance, three
+     engines with one seed (cold, warm, profiled: busy share, K5's share
+     and its split by device kernel, every K5 product kernel a ``_tc``
+     one) give the same tokens; at full
      width cut to 2 layers in f32, prefill of 301 tokens (K5) agrees with
      prefill of 300 and one decode step (plain recurrence); then K5
      against its plain version at every prefill shape of the serve, with
-     kernel, plain and bound ms;
+     kernel, plain and bound ms; K5 at (2, 2048) must take at most
+     K5_MAX_MS;
   6. kernels — the training slice's kernels against their plain PyTorch
      versions, each with kernel, plain, library and bound ms: the PS
      update (K1, all five solvers at three shapes, timed at a shard of
@@ -108,6 +114,10 @@ BWD_BF16_REL_L2 = 2e-2     # K4b in bf16: relative L2 per gradient
 FLASH_LIBS = ("flash_attention", "flash_attention_bwd")
 TC_KERNELS = ("flash_fwd_kernel_tc", "flash_bwd_dq_tc_kernel",
               "flash_bwd_dkv_tc_kernel")
+# K5's bf16 instance (P 64, N 64 and 128): its product kernels
+SSD_TC_KERNELS = ("ssd_chunk_cb_tc", "ssd_chunk_state_tc",
+                  "ssd_chunk_scan_tc")
+TC_LIBS = FLASH_LIBS + ("ssd_scan",)
 # K4 and K4b at the model's context (1 x 4,096, bf16 causal) take at most
 # this many times SDPA's forward / backward, timed in the same run
 TC_MAX_X_SDPA = 4.0
@@ -141,7 +151,10 @@ SSM_REQUESTS = [(2048, 16), (2048, 32), (512, 24), (512, 16), (300, 32),
 SSM_PREFILLS = [(2, 2048), (2, 512), (1, 300), (1, 256), (1, 33), (1, 2)]
 SSM_MAX_SEQ = 2080
 SSD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}    # tests/test_kernels.py:56
-SSD_KERNELS = ("ssd_",)    # K5's five device kernels share the prefix
+SSD_KERNELS = ("ssd_",)    # K5's device kernels share the prefix
+# K5 at the serve's (2, 2048) bf16 takes at most half its PR 14 time
+# (1.1903 ms, the CUDA-core kernels)
+K5_MAX_MS = 0.6
 
 
 def card_line() -> str:
@@ -187,23 +200,28 @@ def demangle(names):
     return {n: short(r) for n, r in zip(names, readable)}
 
 
-def report_flash_build(build, built, card):
-    """For K4 and K4b: each device kernel's registers, shared memory and
-    spills (nvcc's ptxas report, kept beside the library) and its count
-    of tensor-core instructions in the machine code (cuobjdump -sass).
-    Raises if a tensor-core kernel holds no HGMMA. Returns the counts."""
+def report_tc_build(build, built, card):
+    """For the libraries with tensor-core instances (K4, K4b, K5): each
+    device kernel's registers, shared memory and spills (nvcc's ptxas
+    report, kept beside the library) and its count of tensor-core
+    instructions in the machine code (cuobjdump -sass). Raises if a
+    ``_tc`` kernel holds no HGMMA at either of its two widths. Returns
+    the counts by readable kernel name."""
     import ctypes
     dyn = {}
     fwd = ctypes.CDLL(str(built["flash_attention"].library))
     bwd = ctypes.CDLL(str(built["flash_attention_bwd"].library))
+    ssd = ctypes.CDLL(str(built["ssd_scan"].library))
     for hd in (64, 128):
         dyn[f"flash_fwd_kernel_tc<{hd}>"] = fwd.flash_attention_fwd_tc_smem(hd)
         dyn[f"flash_bwd_dq_tc_kernel<{hd}>"] = \
             bwd.flash_attention_bwd_tc_smem(hd, 0)
         dyn[f"flash_bwd_dkv_tc_kernel<{hd}>"] = \
             bwd.flash_attention_bwd_tc_smem(hd, 1)
+        for i, name in enumerate(SSD_TC_KERNELS):
+            dyn[f"{name}<{hd}>"] = ssd.ssd_scan_tc_smem(i, hd)
     counts = {}
-    for lib in FLASH_LIBS:
+    for lib in TC_LIBS:
         res = built[lib]
         ptxas = build.ptxas_report(res.log)
         sass = build.sass_counts(res.library)
@@ -223,22 +241,23 @@ def report_flash_build(build, built, card):
                   f"{rep.get('spill_stores', 'n/a')}/"
                   f"{rep.get('spill_loads', 'n/a')} B; SASS HGMMA "
                   f"{ops.get('HGMMA', 0)}, HMMA {ops.get('HMMA', 0)}")
-    for base in TC_KERNELS:
+    for base in TC_KERNELS + SSD_TC_KERNELS:
         found = {n: c for n, c in counts.items()
                  if n.split("<")[0].endswith(base)}
         if len(found) != 2 or not all(found.values()):
             raise AssertionError(f"tensor-core kernel {base}: HGMMA "
-                                 f"counts {found} (want > 0 at hd 64 "
-                                 f"and 128)")
+                                 f"counts {found} (want > 0 at both "
+                                 f"widths, 64 and 128)")
     return counts
 
 
-def check_tc_names(kernels, where):
-    """Every flash kernel the profiler saw in a bf16 hd-64 run is a
-    tensor-core instance."""
-    other = [n for n in kernels if "flash_" in n and "_tc" not in n]
+def check_tc_names(kernels, where, family="flash_"):
+    """Every product kernel of a family (``flash_``; ``ssd_chunk`` for
+    K5, whose carry pass has no products) the profiler saw in a bf16 run
+    at tensor-core widths is a tensor-core instance."""
+    other = [n for n in kernels if family in n and "_tc" not in n]
     if other:
-        raise AssertionError(f"{where}: flash kernels off the tensor "
+        raise AssertionError(f"{where}: {family} kernels off the tensor "
                              f"cores: {other}")
 
 
@@ -495,22 +514,30 @@ def ssd_bound_ms(B, S, H, P, G, N, chunk, dtype):
                  else H100_F32_FLOPS)
 
 
-def check_ssd(torch, ops, ref, shape, seed=0):
+def check_ssd(torch, ops, ref, kssd, shape, seed=0):
     """K5 against its plain version at one shape: y and the final state
-    within SSD_TOL (atol = rtol), then kernel, plain and bound ms. No
-    single PyTorch call computes the SSD scan (library_ms null)."""
+    within SSD_TOL (atol = rtol), with their relative L2 and the instance
+    that ran; two calls give equal bits; then kernel, plain and bound ms.
+    No single PyTorch call computes the SSD scan (library_ms null)."""
     B, S, H, P, G, N, chunk, dtype = shape
     args = ssd_inputs(torch, B, S, H, P, G, N, dtype, seed)
+    before_tc = kssd.launches_tc
     y, state = ops.ssd_scan(*args, chunk=chunk)
+    y2, state2 = ops.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
+    tensor_cores = kssd.launches_tc == before_tc + 2
+    if not (torch.equal(y, y2) and torch.equal(state, state2)):
+        raise AssertionError(f"K5: two calls on one input differ in their "
+                             f"bits at {shape}")
     y_ref, state_ref = ref.ssd_scan_ref(*args, chunk=chunk)
     tol = SSD_TOL[dtype]
-    errs = []
+    errs, rels = [], []
     for name, a, b in (("y", y, y_ref), ("state", state, state_ref)):
         a, b = a.float(), b.float()
         if not torch.isfinite(a).all().item():
             raise AssertionError(f"K5 {name} not finite at {shape}")
         errs.append((a - b).abs().max().item())
+        rels.append(((a - b).norm() / b.norm()).item())
         if (a - b).abs().gt(tol + tol * b.abs()).any():
             raise AssertionError(f"K5 {name} out of atol=rtol={tol} at "
                                  f"{shape}: max abs err {errs[-1]}")
@@ -520,10 +547,12 @@ def check_ssd(torch, ops, ref, shape, seed=0):
     bound_ms, bound_by = ssd_bound_ms(B, S, H, P, G, N, chunk, dtype)
     return {"shape": {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
                       "chunk": chunk, "dtype": dtype},
+            "instance": "tensor cores" if tensor_cores else "CUDA cores",
             "max_abs_err": max(errs), "y_max_abs_err": errs[0],
-            "state_max_abs_err": errs[1], "tol": tol, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "state_max_abs_err": errs[1], "rel_l2": rels, "tol": tol,
+            "deterministic": True, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms}
 
 
 def ssd_chunk_invariance(torch, ops):
@@ -550,12 +579,13 @@ def serve_ssm(torch, ops, ref, kssd, card):
     the main path's shapes, at the other shapes, the cold serve's
     launches)."""
     from repro_torch.configs.registry import get_arch
-    others = [check_ssd(torch, ops, ref, shape, seed=i)
+    others = [check_ssd(torch, ops, ref, kssd, shape, seed=i)
               for i, shape in enumerate(
                   [(1, 128, 2, 16, 1, 16, 32, dt) for dt in TOL]
                   + [(2, 256, 4, 32, 2, 16, 64, dt) for dt in TOL]
                   + [(1, 128, 4, 64, 1, 32, 128, dt) for dt in TOL]
-                  + [(1, 300, 4, 64, 1, 128, 256, "float32"),
+                  + [(1, 300, 4, 64, 1, 128, 256, dt) for dt in TOL]
+                  + [(2, 700, 8, 64, 2, 128, 256, "bfloat16"),
                      (2, 7, 2, 16, 1, 16, 32, "float32")])]
     for res in others:
         print(f"[kernel] {card}: K5 {json.dumps(res)}")
@@ -568,6 +598,10 @@ def serve_ssm(torch, ops, ref, kssd, card):
         tokens, eng, rec, launches, wall, prof = serve(
             torch, cfg, ops, 0, card, profile=label == "profiled",
             requests=SSM_REQUESTS, max_seq=SSM_MAX_SEQ)
+        if kssd.launches_tc != launches[kssd.NAME]:
+            raise AssertionError(f"K5: {kssd.launches_tc} of "
+                                 f"{launches[kssd.NAME]} launches on the "
+                                 f"tensor-core instance, want all")
         st = eng.stats()
         n_batches = eng.prefill_batches
         if rec.prefills != SSM_PREFILLS or n_batches != len(SSM_PREFILLS):
@@ -598,14 +632,19 @@ def serve_ssm(torch, ops, ref, kssd, card):
               f"launches {launches}")
         if prof is not None:
             kernels = print_profile(prof, wall, card, ours=SSD_KERNELS)
+            check_tc_names(kernels, "ssm serve", family="ssd_chunk")
             if kernels:
                 busy = sum(kernels.values())
-                k5 = sum(us for n, us in kernels.items()
-                         if any(k in n for k in SSD_KERNELS))
+                mine = {n: us for n, us in kernels.items()
+                        if any(k in n for k in SSD_KERNELS)}
+                k5 = sum(mine.values())
                 print(f"[serve-ssm] {card}: profiled: device busy "
                       f"{busy / 1e6 / wall:.3f} of the wall; K5 "
                       f"{k5 / 1e3:.3f} ms = {k5 / busy:.3f} of busy, "
                       f"{k5 / 1e6 / wall:.3f} of the wall")
+                for n, us in sorted(mine.items(), key=lambda kv: -kv[1]):
+                    print(f"[serve-ssm] {card}: K5 split: {us / 1e3:9.3f} "
+                          f"ms {us / k5:6.3f} of K5  {n[:100]}")
         eng.release()
         runs.append(tokens)
         if label == "cold":
@@ -626,12 +665,21 @@ def serve_ssm(torch, ops, ref, kssd, card):
                              f" > {PREFILL_DECODE_RTOL}")
     s = cfg.ssm
     heads = s.expand * cfg.d_model // s.head_dim
-    main_path = [check_ssd(torch, ops, ref,
+    main_path = [check_ssd(torch, ops, ref, kssd,
                            (n, plen, heads, s.head_dim, s.n_groups,
                             s.d_state, s.chunk_size, "bfloat16"), seed=i)
                  for i, (n, plen) in enumerate(SSM_PREFILLS)]
     for res in main_path:
         print(f"[kernel] {card}: K5 main path {json.dumps(res)}")
+    head = main_path[0]
+    print(f"[kernel] {card}: K5 at {head['shape']}: {head['ms']:.4f} ms "
+          f"(limit {K5_MAX_MS}), {head['share_of_bound']:.3f} of its "
+          f"bound, on the {head['instance']}")
+    if head["ms"] > K5_MAX_MS or head["instance"] != "tensor cores":
+        raise AssertionError(f"K5 at {head['shape']} takes "
+                             f"{head['ms']:.4f} ms on the "
+                             f"{head['instance']} (limit {K5_MAX_MS} ms "
+                             f"on the tensor cores)")
     return main_path, others, cold_launches
 
 
@@ -1265,12 +1313,12 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s: "
           + ", ".join(f"{n} {r.seconds:.2f} s" for n, r in built.items()))
     for r in built.values():
-        if r.name in FLASH_LIBS:
+        if r.name in TC_LIBS:
             continue                  # per kernel below, by name
         for line in r.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {r.name}: {line.strip()}")
-    hgmma = report_flash_build(build, built, card)
+    hgmma = report_tc_build(build, built, card)
 
     # 3. kernel against its plain version
     for shape in [(1, 512, 32, 32, 64, "bfloat16", True),
@@ -1474,6 +1522,9 @@ def main() -> int:
     k5 = entry(kssd, ssm_launches[kssd.NAME], ssd_head,
                ssd_main + ssd_others)
     k5["launches_by_path"] = {"serve-ssm": ssm_launches[kssd.NAME]}
+    k5["share_of_bound"] = k5["bound_ms"] / k5["ms"]
+    k5["sass_hgmma"] = {n: c for n, c in hgmma.items()
+                        if n.split("<")[0] in SSD_TC_KERNELS}
     kernels.append(k5)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

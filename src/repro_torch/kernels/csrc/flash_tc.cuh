@@ -1,5 +1,6 @@
 // Hopper tensor-core building blocks of the bf16 flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): 16-byte cp.async copies
+// (flash_attention.cu, flash_attention_bwd.cu) and of the SSD scan's
+// tensor-core instance (ssd_scan.cu): 16-byte cp.async copies
 // into swizzled shared-memory tiles, wgmma matrix descriptors for those
 // tiles, and the warpgroup matrix multiplies themselves (inline PTX,
 // sm_90a only).
@@ -18,7 +19,9 @@
 //   * MN-major (reduced over the rows, HD is N: the B of P.V, dS.K,
 //     P^T.dO, dS^T.Q, read with the transpose bit): the k-step kk of 16
 //     rows starts at row 16 * kk; 8-row groups lie 1024 bytes apart, and
-//     the 64-wide column blocks ROWS * 128 bytes apart.
+//     the 64-wide column blocks ROWS * 128 bytes apart. The same layout
+//     and descriptor serve as a transposed A operand (`mma_ss_mn`), its
+//     64 M values one column block: the SSD state's B^T.x.
 //
 // Register fragments. A warpgroup's m64nN f32 accumulator gives thread
 // (warp w, lane l) rows 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4)
@@ -172,6 +175,12 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
 template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t* a,
                                        uint64_t b, int acc);
+// d (m64 x N, f32) (+)= A (m64 x k16, shared, MN-major: read with the
+// transpose bit, its descriptor as desc_mn's with M as N) . B (k16 x N,
+// shared, MN-major)
+template <int N>
+__device__ __forceinline__ void mma_ss_mn(float (&d)[N / 2], uint64_t a,
+                                          uint64_t b, int acc);
 
 template <> __device__ __forceinline__ void mma_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int acc) {
   asm volatile(
@@ -193,6 +202,24 @@ template <> __device__ __forceinline__ void mma_ss<64>(float (&d)[32], uint64_t 
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <> __device__ __forceinline__ void mma_ss_mn<64>(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),

@@ -117,3 +117,4 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for m in KERNELS:
         m.launches = 0
+    _ssd.launches_tc = 0

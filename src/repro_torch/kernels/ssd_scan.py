@@ -2,10 +2,15 @@
 (``csrc/ssd_scan.cu``), the port of the Pallas TPU kernel
 ``repro/kernels/ssd_scan.py:_ssd_kernel``.
 
-The wrapper checks what the kernel takes, allocates the outputs and the
-kernel's scratch with ``torch.empty``, launches on the current stream
-and raises if a launch is refused. ``launches`` counts the calls that
-launched the kernel. Nothing is built or loaded at import time.
+The wrapper picks the instance from dtype and widths: bf16 at P 64 and
+N 64 or 128 (mamba2-1.3b, jamba) runs on the tensor cores (``wgmma``,
+the ``ssd_*_tc`` kernels), float32 at any width and bf16 at other widths
+on the CUDA cores. It checks what the instance takes (for the
+tensor-core one, 16-byte aligned x, b and c), allocates the outputs and
+one scratch workspace with ``torch.empty``, launches on the current
+stream and raises if a launch is refused. ``launches`` counts the calls
+that launched the kernel, ``launches_tc`` those of them that ran the
+tensor-core instance. Nothing is built or loaded at import time.
 """
 from __future__ import annotations
 
@@ -14,26 +19,37 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import check_tensor_core_rows
 
 NAME = "ssd_scan"
 SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 REPLACES = "src/repro/kernels/ssd_scan.py:23"
 MAX_CHUNK = 256       # one block scans a chunk's cumulative decay
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# bf16 at this head dim and these state widths runs on the tensor cores
+TENSOR_CORE_HEAD_DIM = 64
+TENSOR_CORE_STATE_DIMS = (64, 128)
+CUDA_CORES, TENSOR_CORES = 0, 1      # the C entry point's `instance`
 
 launches = 0          # kernel launches in this process (see ops.py)
-_fn = None
+launches_tc = 0       # of them, on the tensor-core instance
+_fns = None
 
 
 def _entry():
-    global _fn
-    if _fn is None:
-        fn = build.load(NAME).ssd_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
-            ctypes.c_void_p]
+    """(ssd_scan_fwd, ssd_scan_workspace_bytes) of the built library."""
+    global _fns
+    if _fns is None:
+        lib = build.load(NAME)
+        fn = lib.ssd_scan_fwd
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] + [
+            ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        ws = lib.ssd_scan_workspace_bytes
+        ws.argtypes = [ctypes.c_int] * 8
+        ws.restype = ctypes.c_int64
+        _fns = fn, ws
+    return _fns
 
 
 def check_shapes(x, dt, a_log, b, c, chunk: int):
@@ -59,11 +75,20 @@ def check_shapes(x, dt, a_log, b, c, chunk: int):
                          f", chunk={chunk}")
 
 
+def instance(x, b) -> int:
+    """TENSOR_CORES for bf16 x at P 64 with N 64 or 128, else
+    CUDA_CORES: a choice by dtype and widths alone."""
+    if x.dtype == torch.bfloat16 and x.shape[3] == TENSOR_CORE_HEAD_DIM \
+            and b.shape[3] in TENSOR_CORE_STATE_DIMS:
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
 def ssd_scan_cuda(x, dt, a_log, b, c, *, chunk: int):
     """Launch the kernel on CUDA tensors; returns (y (B, S, H, P) in x's
     dtype, state (B, H, P, N) f32). Raises on anything it does not take
-    (no fallback to the plain version)."""
-    global launches
+    (no fallback to the plain version or to the other instance)."""
+    global launches, launches_tc
     check_shapes(x, dt, a_log, b, c, chunk)
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in (dt, a_log, b, c)):
@@ -90,23 +115,24 @@ def ssd_scan_cuda(x, dt, a_log, b, c, *, chunk: int):
         raise ValueError(f"chunk {Q} exceeds the kernel's {MAX_CHUNK}")
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the grid limit 65535")
-    nc = -(-S // Q)
-    f32 = dict(dtype=torch.float32, device=dev)
+    inst = instance(x, b)
+    if inst == TENSOR_CORES:
+        check_tensor_core_rows({"x": x, "b": b, "c": c})
+    fn, ws_bytes = _entry()
+    nbytes = ws_bytes(inst, B, S, H, P, G, N, Q)
     y = torch.empty_like(x)
-    state = torch.empty((B, H, P, N), **f32)
-    cum = torch.empty((B, H, S), **f32)
-    cb = torch.empty((B, G, nc, Q, Q), **f32)
-    states = torch.empty((B, H, nc, N, P), **f32)
-    a32 = a_log.float()               # (H,): A = -exp(a_log) in f32
-    fn = _entry()
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), a32.data_ptr(), b.data_ptr(),
-                 c.data_ptr(), y.data_ptr(), state.data_ptr(),
-                 cum.data_ptr(), cb.data_ptr(), states.data_ptr(),
-                 DTYPE_CODES[x.dtype], B, S, H, P, G, N, Q, stream)
+        err = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
+                 b.data_ptr(), c.data_ptr(), y.data_ptr(), state.data_ptr(),
+                 ws.data_ptr(), nbytes, DTYPE_CODES[x.dtype],
+                 DTYPE_CODES[a_log.dtype], inst, B, S, H, P, G, N, Q,
+                 stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError_t "
                            f"{err}")
     launches += 1
+    launches_tc += inst == TENSOR_CORES
     return y, state

@@ -105,3 +105,40 @@ def test_flash_sources_hold_the_tensor_core_instances():
     assert "flash_bwd_dq_tc_kernel(" in bwd
     assert "flash_bwd_dkv_tc_kernel(" in bwd
     assert "wgmma.mma_async" in (csrc / "flash_tc.cuh").read_text()
+
+
+def test_ssd_sources_hold_the_tensor_core_instances():
+    """K5's bf16 instance: its product kernels exist as ``_tc`` kernels
+    (the names chip_smoke checks for HGMMA and in the profiled serve),
+    each issuing ``wgmma`` through the shared header, and the transposed
+    A operand of the state product is a ``wgmma`` of its own."""
+    csrc = Path(build.CSRC)
+    src = (csrc / "ssd_scan.cu").read_text()
+    hdr = (csrc / "flash_tc.cuh").read_text()
+    assert '#include "flash_tc.cuh"' in src
+    for name, mma in (("ssd_chunk_cb_tc", "tc::mma_ss<64>"),
+                      ("ssd_chunk_state_tc", "tc::mma_ss_mn<64>"),
+                      ("ssd_chunk_scan_tc", "tc::mma_rs<64>")):
+        body = src.split(f"\n{name}(", 1)[1].split("\n}\n", 1)[0]
+        assert mma in body, name
+    assert "launch_tc<64>" in src and "launch_tc<128>" in src
+    mn = hdr.split("void mma_ss_mn<64>", 1)[1].split("\n}\n", 1)[0]
+    assert "wgmma.mma_async" in mn and "p, 1, 1, 1, 1;" in mn
+
+
+def test_ssd_wrapper_picks_the_instance_by_dtype_and_width():
+    """bf16 at P 64 with N 64 or 128 takes the tensor-core instance,
+    everything else the CUDA-core one; the choice reads dtype and widths
+    only."""
+    from repro_torch.kernels import ssd_scan as kssd
+
+    def pick(dtype, P, N):
+        x = torch.zeros(1, 4, 2, P, dtype=dtype)
+        b = torch.zeros(1, 4, 1, N, dtype=dtype)
+        return kssd.instance(x, b)
+
+    assert pick(torch.bfloat16, 64, 128) == kssd.TENSOR_CORES
+    assert pick(torch.bfloat16, 64, 64) == kssd.TENSOR_CORES
+    for args in ((torch.float32, 64, 128), (torch.bfloat16, 32, 128),
+                 (torch.bfloat16, 64, 32), (torch.bfloat16, 16, 16)):
+        assert pick(*args) == kssd.CUDA_CORES, args

@@ -467,6 +467,103 @@ def test_ssd_scan_kernel_rejects_what_it_does_not_take(cuda):
         ops.ssd_scan(x, dt.cpu(), a_log, b, c, chunk=32)
 
 
+# the bf16 tensor-core instance (P 64, N 64 or 128): ragged tails, G = 2,
+# N 64 and 128, chunk 128 and 256, one chunk and several
+TC_SSD_SHAPES = [
+    (1, 300, 4, 64, 1, 128, 256),     # ragged tail at chunk 256
+    (2, 700, 8, 64, 2, 128, 256),     # G = 2, three chunks, ragged
+    (1, 33, 2, 64, 1, 64, 256),       # shorter than a chunk, N 64
+    (2, 2, 4, 64, 1, 128, 256),       # two positions
+    (2, 512, 4, 64, 1, 64, 128),      # four chunks of 128, N 64
+    (1, 384, 4, 64, 2, 128, 128),     # G = 2, chunk 128
+]
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", TC_SSD_SHAPES)
+def test_ssd_scan_tensor_core_instance_vs_plain(cuda, B, S, H, P, G, N,
+                                                chunk):
+    args = _ssd_inputs(B, S, H, P, G, N, torch.bfloat16, seed=3,
+                       a_log=-0.5)
+    before, before_tc = kssd.launches, kssd.launches_tc
+    y, state = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (kssd.launches, kssd.launches_tc) == (before + 1, before_tc + 1)
+    y_ref, state_ref = ref.ssd_scan_ref(*args, chunk=chunk)
+    tol = SSD_TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, state_ref, atol=tol, rtol=tol)
+    # W, the scaled x and S_in are rounded to bf16: ~2e-3 expected
+    assert _rel_l2(y, y_ref) < 1e-2 and _rel_l2(state, state_ref) < 1e-2
+
+
+def test_ssd_scan_tensor_core_instance_is_deterministic(cuda):
+    """Two calls on one input give the same bits (no atomics)."""
+    args = _ssd_inputs(2, 700, 8, 64, 2, 128, torch.bfloat16, seed=4)
+    y1, s1 = ops.ssd_scan(*args, chunk=256)
+    y2, s2 = ops.ssd_scan(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.parametrize("dtype,P,N,tc", [
+    (torch.bfloat16, 64, 128, True), (torch.bfloat16, 64, 64, True),
+    (torch.float32, 64, 128, False), (torch.bfloat16, 16, 16, False),
+    (torch.bfloat16, 64, 32, False)])
+def test_ssd_scan_instance_by_dtype_and_width(cuda, dtype, P, N, tc):
+    """bf16 at P 64 / N 64|128 takes the tensor-core instance; f32 and
+    other widths the CUDA-core one, shown by the per-instance count."""
+    args = _ssd_inputs(1, 130, 2, P, 1, N, dtype, seed=5)
+    before, before_tc = kssd.launches, kssd.launches_tc
+    y, state = ops.ssd_scan(*args, chunk=64)
+    torch.cuda.synchronize()
+    assert kssd.launches == before + 1
+    assert kssd.launches_tc == before_tc + int(tc)
+    y_ref, state_ref = ref.ssd_scan_ref(*args, chunk=64)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, state_ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("P,N", [(64, 128), (16, 16)])
+def test_ssd_scan_reads_bf16_a_log(cuda, P, N):
+    """The model keeps A_log in its dtype: both instances read a bf16
+    a_log as the f32 one of the same values (no cast launched)."""
+    x, dt, _, b, c = _ssd_inputs(1, 300, 4, P, 1, N, torch.bfloat16, seed=7)
+    a16 = torch.linspace(-1.0, 0.5, 4, device="cuda").to(torch.bfloat16)
+    y16, s16 = ops.ssd_scan(x, dt, a16, b, c, chunk=256)
+    y32, s32 = ops.ssd_scan(x, dt, a16.float(), b, c, chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(y16, y32) and torch.equal(s16, s32)
+
+
+def test_ssd_scan_tensor_core_instance_rejects_unaligned_rows(cuda):
+    """The tensor-core instance copies 16-byte chunks: a contiguous x
+    that starts 8 bytes into its storage raises (no silent copy), while
+    f32 reads it as it is."""
+    x, dt, a_log, b, c = _ssd_inputs(1, 64, 2, 64, 1, 128, torch.bfloat16,
+                                     seed=6)
+    store = torch.zeros(x.numel() + 4, dtype=torch.bfloat16, device="cuda")
+    xv = store[4:].view(x.shape)
+    xv.copy_(x)
+    assert xv.is_contiguous() and xv.data_ptr() % 16 == 8
+    before = kssd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.ssd_scan(xv, dt, a_log, b, c, chunk=64)
+    assert kssd.launches == before
+    f32 = [t.float() for t in (x, b, c)]
+    s32 = torch.zeros(x.numel() + 1, device="cuda")
+    xf = s32[1:].view(x.shape)
+    xf.copy_(f32[0])
+    y, _ = ops.ssd_scan(xf, dt, a_log, f32[1], f32[2], chunk=64)
+    torch.testing.assert_close(
+        y, ref.ssd_scan_ref(xf, dt, a_log, f32[1], f32[2], chunk=64)[0],
+        atol=1e-3, rtol=1e-3)
+
+
 def test_mamba2_engine_on_cuda_matches_cpu(cuda):
     """One flat vector served by the mamba2 smoke model on the card (K5
     in the prefill) and on the CPU (plain scan): same greedy tokens, K5
