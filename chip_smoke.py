@@ -75,14 +75,34 @@ first failing phase (no phase catches an exception):
      step (the model's context), then 3 rounds of the first traffic with
      a device synchronise after every step, push and pull, for the
      per-phase breakdown (those timers are not in the other two runs);
-  9. result  — ``{"kernels": [...]}`` on the line before the last and
-     ``{"ok": true, "device": {...}}`` as the last line.
+  9. platform — train -> deploy -> predict through the port's platform:
+     phase 8's first traffic as a ``repro-lm`` manifest, planned by
+     ``SoftwarePSBackend`` with ``BackendContext.cfg`` the 12-layer
+     full-width config and launched under the ``LifecycleManager`` and
+     ``Scheduler`` on one simulated node of 4 accounted GPUs, ticked to
+     COMPLETED; asserts the PS app deployed before the learners, no
+     restart, the push/round and launch counts (every flash launch on the
+     tensor cores), and the newest checkpoint = the PS params =
+     ``trained_model.npy`` bit for bit; drops the training platform and
+     its device state; then a ``ServingBackend`` endpoint with
+     ``source_training`` that job (capacity 4, max_seq 1024) goes
+     DEPLOYING -> READY, serves the 8 requests of phase 4 (K4 launched 12
+     times per prefill batch), drains to STOPPED with its engine
+     released, and its tokens equal a bare ``InferenceEngine``'s on the
+     PS params with the same seed; prints launch -> COMPLETED, the median
+     round beside phase 8's, deploy -> READY split into download and
+     start, tokens/s and device memory;
+ 10. result  — ``{"kernels": [...]}`` on the line before the last (each
+     kernel's launches summed over the main paths, with
+     ``launches_by_path``) and ``{"ok": true, "device": {...}}`` as the
+     last line.
 
-About five minutes on an H100, the kernel builds included.
+Six to seven minutes on an H100, the kernel builds included.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import io
 import json
 import shutil
@@ -139,6 +159,21 @@ TRAIN_LONG = dict(TRAIN, batch_docs=1, seq_len=4096)
 # the per-phase breakdown: TRAIN's traffic with synchronised timers
 TRAIN_TIMED = dict(TRAIN, steps=3)
 PS_KERNELS = ("ps_aggregate", "quantize_ef", "dequantize")
+# phase 9: TRAIN's traffic as a manifest, planned by the software-ps
+# backend on one simulated node whose GPUs are accounted only (one card)
+PLATFORM_JOB = "chip-smoke-training"
+PLATFORM_ENDPOINT = "chip-smoke-endpoint"
+PLATFORM_GPUS = 4
+PLATFORM_MANIFEST = {
+    "name": "chip-smoke", "learners": TRAIN["n_learners"],
+    "optimizer": TRAIN["optimizer"], "lr": TRAIN["lr"],
+    "compression": TRAIN["compression"], "ps_shards": TRAIN["n_shards"],
+    "batch_docs": TRAIN["batch_docs"], "steps": TRAIN["steps"],
+    "checkpoint_every": TRAIN["checkpoint_every"], "seed": 0,
+    "data": {"n_docs": 512, "seq_len": TRAIN["seq_len"], "seed": 0},
+    "framework": {"name": "repro-lm", "arch": SERVE_ARCH}}
+ENDPOINT_SERVING = {"capacity": 4, "max_seq": 1024, "max_queue": 16,
+                    "seed": 0}
 # the ssm serve: mamba2-1.3b at full width and depth. Prompts up to 2,048
 # tokens, the context of the Mamba-2 language models (arXiv:2405.21060);
 # equal-length neighbours prefill together, so the batches are (2, 2048),
@@ -319,27 +354,31 @@ def check_attention(torch, ops, ref, shape, seed=0):
             "x_library": kernel_ms / library_ms}
 
 
-class PrefillRecorder:
-    """Duck-typed tracer for the engine: records each prefill batch's
+class SpanRecorder:
+    """Duck-typed tracer for the engine and the platform: records every
+    span's (name, start, end) on the host clock, and each prefill batch's
     (n, plen) and its host seconds (the span ends after the first
-    tokens' device-to-host copy, so it covers the device work); request
-    spans and decode events are ignored."""
+    tokens' device-to-host copy, so it covers the device work); started
+    spans (requests, sampled steps) and point events are ignored."""
 
     def __init__(self):
         self.prefills = []
         self.prefill_s = []
+        self.spans = []
 
     def span(self, job_id, name, **attrs):
         import contextlib
-        if name != "prefill":
-            return contextlib.nullcontext()
-        self.prefills.append((attrs["n"], attrs["plen"]))
+        if name == "prefill":
+            self.prefills.append((attrs["n"], attrs["plen"]))
 
         @contextlib.contextmanager
         def timed():
             t0 = time.perf_counter()
             yield None
-            self.prefill_s.append(time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            self.spans.append((name, t0, t1))
+            if name == "prefill":
+                self.prefill_s.append(t1 - t0)
         return timed()
 
     def start(self, job_id, name, **attrs):
@@ -352,23 +391,30 @@ class PrefillRecorder:
         pass
 
 
-def serve(torch, cfg, ops, seed: int, card: str, profile: bool = False,
-          requests=SERVE_REQUESTS, max_seq: int = 1024):
-    """One full serve of ``requests`` (prompt length, max_new) through
-    the engine's public API. Returns (tokens per request, engine, the
-    ``PrefillRecorder``, launches, wall seconds, profiler or None)."""
+def serve_prompts(cfg, seed: int, requests=SERVE_REQUESTS):
+    """The prompts of ``requests`` (prompt length, max_new), drawn from
+    ``seed``."""
     import numpy as np
-    from repro_torch.serving.engine import InferenceEngine
     rng = np.random.RandomState(seed)
-    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype("int32")
-               for n, _ in requests]
+    return [rng.randint(0, cfg.vocab_size, size=n).astype("int32")
+            for n, _ in requests]
+
+
+def serve(torch, cfg, ops, seed: int, card: str, profile: bool = False,
+          requests=SERVE_REQUESTS, max_seq: int = 1024, flat=None):
+    """One full serve of ``requests`` (prompt length, max_new) through
+    the engine's public API, on the weights ``flat`` (None: fresh from
+    ``seed``). Returns (tokens per request, engine, the
+    ``SpanRecorder``, launches, wall seconds, profiler or None)."""
+    from repro_torch.serving.engine import InferenceEngine
+    prompts = serve_prompts(cfg, seed, requests)
     torch.cuda.reset_peak_memory_stats()
-    rec = PrefillRecorder()
+    rec = SpanRecorder()
     eng = InferenceEngine(cfg, capacity=4, max_seq=max_seq, max_queue=16,
                           seed=seed, device="cuda", tracer=rec,
                           endpoint_id="chip-smoke")
     t0 = time.perf_counter()
-    eng.start(None)
+    eng.start(flat)
     torch.cuda.synchronize()
     print(f"[serve] {card}: weights + cache ready in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -410,13 +456,18 @@ def serve(torch, cfg, ops, seed: int, card: str, profile: bool = False,
     worker.join(60)
     if worker.is_alive():
         raise AssertionError("serve thread did not exit after drain")
+    check_requests(reqs, requests, cfg)
+    return [r.tokens for r in reqs], eng, rec, launches, wall, prof
+
+
+def check_requests(reqs, requests, cfg):
+    """Every request DONE with its ``max_new`` tokens, all in the vocab."""
     for r, (plen, m) in zip(reqs, requests):
         if r.status != "DONE" or len(r.tokens) != m:
             raise AssertionError(f"request plen={plen}: {r.status}, "
                                  f"{len(r.tokens)}/{m} tokens {r.error}")
         if not all(0 <= t < cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"token out of vocab: {r.tokens}")
-    return [r.tokens for r in reqs], eng, rec, launches, wall, prof
 
 
 def print_profile(prof, wall: float, card: str, top: int = 8,
@@ -1284,6 +1335,294 @@ def print_train(label, res, card, cfg, traffic):
           f"(bit for bit)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: train -> deploy -> predict through the port's platform
+# ---------------------------------------------------------------------------
+
+
+class ChipPlatform:
+    """The port's platform on one simulated node of ``PLATFORM_GPUS``
+    accounted GPUs: ZooKeeper, storage (``local``, ``objectstore`` and
+    ``results`` under ``workdir``, as ``DLaaSCore`` registers them),
+    metrics that stamp the end of every PS round on the host clock, a
+    cluster, scheduler and Lifecycle Manager, and a ``BackendContext`` on
+    the card with ``cfg``. ``drive`` is the tick loop ``DLaaSCore`` runs
+    (``scheduler.tick()`` then ``lcm.monitor``)."""
+
+    def __init__(self, workdir, cfg, tracer):
+        from repro_torch.platform.cluster import (Cluster, Node, Resources,
+                                                  Scheduler)
+        from repro_torch.platform.lcm import LifecycleManager
+        from repro_torch.platform.metrics import MetricsService
+        from repro_torch.platform.storage import (LocalFSStore, ObjectStore,
+                                                  StorageManager)
+        from repro_torch.platform.zookeeper import ZooKeeper
+        from repro_torch.runtime.backend import BackendContext
+
+        class Metrics(MetricsService):
+            # the PS records a round's agg time as the round ends: the
+            # moment phase 8's PS subclass stamps
+            def record(self, job_id, metric, step, value):
+                if metric == "agg_time_ms":
+                    self.round_end.append(time.perf_counter())
+                super().record(job_id, metric, step, value)
+
+        self.zk = ZooKeeper()
+        self.storage = StorageManager()
+        self.storage.register("local", LocalFSStore(f"{workdir}/local"))
+        self.storage.register("objectstore",
+                              ObjectStore(f"{workdir}/objectstore"))
+        self.storage.register("results", LocalFSStore(f"{workdir}/results"))
+        self.metrics = Metrics()
+        self.metrics.round_end = []
+        self.scheduler = Scheduler(Cluster([Node(
+            "node-0", Resources(cpus=32.0, gpus=PLATFORM_GPUS,
+                                memory_mb=96 * 1024))]))
+        self.lcm = LifecycleManager(self.zk, self.scheduler)
+        self.ctx = BackendContext(zk=self.zk, storage=self.storage,
+                                  metrics=self.metrics, workdir=str(workdir),
+                                  tracer=tracer, device="cuda", cfg=cfg)
+
+    def plan(self, job_id, manifest, backend):
+        """(backend, admitted plan), as ``DLaaSCore`` plans and admits."""
+        from repro_torch.platform.lcm import JobSpec
+        from repro_torch.runtime.backend import get_backend
+        be = get_backend(backend)
+        spec = JobSpec(job_id=job_id,
+                       learners=int(manifest.get("learners", 1)))
+        plan = be.plan(spec, manifest, self.ctx)
+        self.scheduler.check_admission(plan.tenant, plan.total_resources())
+        return be, plan
+
+    def drive(self, job_id, until=("COMPLETED", "FAILED", "KILLED"),
+              timeout=900.0):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            self.scheduler.tick()
+            st = self.lcm.monitor(job_id)
+            if st in until:
+                return st
+            time.sleep(0.01)
+        raise AssertionError(f"{job_id} still {self.lcm.job_state(job_id)} "
+                             f"after {timeout} s: "
+                             f"{self.lcm.member_statuses(job_id)}")
+
+    def restarts(self, job_id):
+        return sum(t.restarts for app in self.scheduler.apps.values()
+                   if app.app_id.startswith(job_id)
+                   for t in app.tasks.values())
+
+
+def memory_line(torch, label):
+    return (f"{label} {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            f"allocated")
+
+
+def platform_train(torch, ops, cfg, workdir, card):
+    """Plan ``PLATFORM_MANIFEST`` with ``SoftwarePSBackend`` at ``cfg``,
+    launch it under the LCM and scheduler, tick until it ends; check the
+    deployment order, the end state, the PS and launch counts, every
+    flash launch on the tensor cores, and the newest checkpoint = the PS
+    params = ``trained_model.npy``, bit for bit. Returns (what the run
+    measured, the trained flat vector on the host)."""
+    import numpy as np
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_attention_bwd as kfab
+    job, m = PLATFORM_JOB, PLATFORM_MANIFEST
+    rec = SpanRecorder()
+    plat = ChipPlatform(workdir, cfg, rec)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    be, plan = plat.plan(job, m, "software-ps")
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    handle = be.launch(plan, plat.lcm)
+    state = plat.drive(job)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    tc = {kfa.NAME: kfa.launches_tc, kfab.NAME: kfab.launches_tc}
+    if state != "COMPLETED" or plat.restarts(job):
+        raise AssertionError(f"{job}: {state}, {plat.restarts(job)} "
+                             f"restarts: {plat.lcm.member_statuses(job)}")
+    # the PS app is deployed first, then the learners (lcm.deploy)
+    order = list(plat.scheduler.apps)
+    if order != [f"{job}-ps", f"{job}-learners"]:
+        raise AssertionError(f"deployment order {order}")
+    ps = plan.meta["ps"]
+    st = ps.stats()
+    n, steps, shards = m["learners"], m["steps"], m["ps_shards"]
+    want = {"push_count": n * steps, "agg_rounds": steps,
+            "push_timeouts": 0}
+    if any(st[k] != v for k, v in want.items()) or \
+            st["compression_ratio"] < 3.9:
+        raise AssertionError(f"PS stats {st}, want {want}")
+    pushes = n * steps
+    want_launches = {"quantize_ef": pushes, "dequantize": pushes,
+                     "ps_aggregate": steps * shards,
+                     "flash_attention": cfg.n_layers * pushes,
+                     "flash_attention_bwd": cfg.n_layers * pushes,
+                     "ssd_scan": 0}
+    if launches != want_launches:
+        raise AssertionError(f"launches {launches}, want {want_launches}")
+    if tc != {k: launches[k] for k in tc}:
+        raise AssertionError(f"flash launches on the tensor cores {tc} of "
+                             f"{launches}")
+    probe = CheckpointManager(f"{workdir}/ckpt/{job}")
+    last = probe.latest_valid()
+    if last != steps:
+        raise AssertionError(f"latest valid checkpoint {last} != {steps}")
+    tree, _ = probe.restore(last, {"flat": np.zeros(ps.size, np.float32)})
+    ps_flat = ps.pull(0).cpu().numpy()
+    uploaded = np.load(io.BytesIO(plat.storage.download(
+        "results", job, "trained_model.npy")))
+    if not (tree["flat"].tobytes() == ps_flat.tobytes()
+            == uploaded.tobytes()):
+        raise AssertionError("checkpoint, PS params and trained_model.npy "
+                             "differ")
+    mirrored = plat.storage.get_store("objectstore").list(f"ckpt/{job}")
+    rounds = [1e3 * (b - a) for a, b in
+              zip([t0] + plat.metrics.round_end[:-1], plat.metrics.round_end)]
+    out = {"plan_s": plan_s, "wall_s": wall, "round_ms": rounds,
+           "agg_ms": list(plat.metrics.series(job, "agg_time_ms").values),
+           "stats": st, "launches": launches, "launches_tc": tc,
+           "losses": plat.metrics.series(job, "loss").values,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "checkpoint_step": last, "mirrored": len(mirrored),
+           "checkpoint_s": [end - start for name, start, end in rec.spans
+                            if name == "checkpoint_publish"],
+           "tokens": n * steps * m["batch_docs"] * m["data"]["seq_len"]}
+    # drop every reference to the training's device state: the PS (in the
+    # plan, its groups' learner body and the scheduler's apps), the
+    # plugin, the whole training platform
+    before = memory_line(torch, "before")
+    del tree, ps_flat, ps, plan, handle, be, plat
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["freed"] = f"{before}, {memory_line(torch, 'after')}"
+    return out, uploaded
+
+
+def platform_serve(torch, ops, cfg, workdir, card):
+    """Deploy a ``ServingBackend`` endpoint from ``PLATFORM_JOB`` with
+    ``cfg``, tick it READY, serve ``SERVE_REQUESTS`` (the endpoint paused
+    while they are submitted, so its run loop admits them as the bare
+    engine's does), drain it to STOPPED. Returns what it measured."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.runtime.backend import get_backend
+    from repro_torch.serving.endpoint import ModelEndpoint
+    ep_id = PLATFORM_ENDPOINT
+    rec = SpanRecorder()
+    plat = ChipPlatform(workdir, cfg, rec)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    manifest = {"framework": {"name": "repro-lm", "arch": SERVE_ARCH},
+                "source_training": PLATFORM_JOB,
+                "serving": ENDPOINT_SERVING}
+    be, plan = plat.plan(ep_id, manifest, "serving")
+    ep = ModelEndpoint(ep_id, plan)
+    ep.handle = be.launch(plan, plat.lcm)
+    seen = [ep.state()]
+    deadline = time.time() + 600
+    while ep.state() != "READY":
+        plat.scheduler.tick()
+        if plat.lcm.monitor(ep_id) in ("FAILED", "KILLED", "COMPLETED"):
+            raise AssertionError(f"endpoint {ep.status()}: "
+                                 f"{plat.lcm.member_statuses(ep_id)}")
+        if time.time() > deadline:
+            raise AssertionError(f"endpoint not READY: {ep.status()}")
+        time.sleep(0.01)
+    t_ready = time.perf_counter()
+    seen.append(ep.state())
+    if seen != ["DEPLOYING", "READY"]:
+        raise AssertionError(f"endpoint states {seen}")
+    (_, dl0, dl1), = [s for s in rec.spans if s[0] == "weights_download"]
+    eng = ep.engine
+    get_backend("serving").pause(ep.handle)
+    time.sleep(0.2)            # the run loop now waits at its pause gate
+    prompts = serve_prompts(cfg, 0)
+    ops.reset_launch_counts()
+    t0s = time.perf_counter()
+    reqs = [eng.submit(p, max_new=mn)
+            for p, (_, mn) in zip(prompts, SERVE_REQUESTS)]
+    get_backend("serving").resume(ep.handle)
+    deadline = time.time() + 600
+    for r in reqs:
+        while not r.wait(0.5):
+            if ep.state() != "READY" or time.time() > deadline:
+                raise AssertionError(f"request {r.req_id} {r.status}; "
+                                     f"endpoint {ep.status()}")
+    wall = time.perf_counter() - t0s
+    launches = ops.launch_counts()
+    tc = kfa.launches_tc
+    check_requests(reqs, SERVE_REQUESTS, cfg)
+    n_batches = eng.prefill_batches
+    want = dict.fromkeys(launches, 0)
+    want[kfa.NAME] = cfg.n_layers * n_batches
+    if launches != want or tc != want[kfa.NAME]:
+        raise AssertionError(f"endpoint launches {launches} ({tc} on the "
+                             f"tensor cores), want {want}: {cfg.n_layers} "
+                             f"per prefill batch, all on the tensor cores")
+    stats = eng.stats()
+    peak = torch.cuda.max_memory_allocated()
+    ep.drain()
+    seen = [ep.state()]
+    st = plat.drive(ep_id, timeout=120)
+    ep.finalize(plat.metrics)
+    seen.append(ep.state())
+    if st != "COMPLETED" or seen != ["DRAINING", "STOPPED"] or \
+            not eng.released or eng._cache is not None:
+        raise AssertionError(f"drain: job {st}, states {seen}, released "
+                             f"{eng.released}, cache {eng._cache is None}")
+    prefills = list(rec.prefills)
+    del ep, plan, be, plat, eng
+    torch.cuda.empty_cache()
+    return {"ready_s": t_ready - t0, "download_s": dl1 - dl0,
+            "start_s": t_ready - dl1, "wall_s": wall, "stats": stats,
+            "tokens": [r.tokens for r in reqs], "prefills": prefills,
+            "launches": launches, "peak_bytes": peak,
+            "after_teardown": memory_line(torch, "after teardown")}
+
+
+def print_platform(tr, sv, hand, card, cfg):
+    tag = f"[platform] {card}:"
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+    print(f"{tag} {PLATFORM_JOB}: software-ps plan of {cfg.arch_id} "
+          f"L={cfg.n_layers} d={cfg.d_model} {cfg.dtype} (weights init, PS, "
+          f"warm build started) {tr['plan_s']:.2f} s; launch -> COMPLETED "
+          f"{tr['wall_s']:.3f} s = {tr['tokens'] / tr['wall_s']:.1f} "
+          f"tokens/s; PS app deployed before the learners; checkpoint step "
+          f"{tr['checkpoint_step']} == PS params == trained_model.npy (bit "
+          f"for bit), {tr['mirrored']} checkpoint objects mirrored; "
+          f"checkpoint publish (learner 0, inside its step) "
+          f"{[round(x, 3) for x in tr['checkpoint_s']]} s")
+    print(f"{tag} rounds {[round(x, 2) for x in tr['round_ms']]} ms: median "
+          f"{med(tr['round_ms']):.2f} ms (phase 8's hand loop at the same "
+          f"traffic, this run: median {med(hand['round_ms']):.2f} ms); agg "
+          f"(device) median {med(tr['agg_ms']):.2f} ms; peak device memory "
+          f"{tr['peak_bytes'] / 2**30:.2f} GiB; losses "
+          f"{[round(x, 4) for x in tr['losses']]}; PS "
+          f"{json.dumps(tr['stats'])}; launches {json.dumps(tr['launches'])}"
+          f", on the tensor cores {json.dumps(tr['launches_tc'])}")
+    print(f"{tag} training's device state dropped: {tr['freed']}")
+    st = sv["stats"]
+    n_tok = st["tokens_out_total"]
+    print(f"{tag} {PLATFORM_ENDPOINT}: deploy -> READY {sv['ready_s']:.3f} s "
+          f"(download of trained_model.npy {sv['download_s']:.3f} s, then "
+          f"start {sv['start_s']:.3f} s); DEPLOYING -> READY -> DRAINING -> "
+          f"STOPPED; {st['completed_total']} requests, {n_tok} tokens in "
+          f"{sv['wall_s']:.3f} s = {n_tok / sv['wall_s']:.1f} tokens/s; "
+          f"prefill batches {sv['prefills']}; decode {st['decode_steps']} "
+          f"steps; peak device memory {sv['peak_bytes'] / 2**30:.2f} GiB; "
+          f"{sv['after_teardown']} (engine released); launches "
+          f"{json.dumps(sv['launches'])}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1489,7 +1828,34 @@ def main() -> int:
         torch.cuda.empty_cache()
     train_launches = train["train"]["launches"]
 
-    # 9. result
+    # 9. platform: the same traffic planned by the software-ps backend and
+    # run under the LCM and scheduler, then a managed endpoint deployed on
+    # its trained_model.npy, its tokens held against a bare engine's
+    workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-platform-",
+                                    dir=build_dir))
+    try:
+        ptrain, trained = platform_train(torch, ops, tcfg, workdir, card)
+        psv = platform_serve(torch, ops, tcfg, workdir, card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print_platform(ptrain, psv, train["train"], card, tcfg)
+    tokens, eng, rec, _, bare_wall = serve(torch, tcfg, ops, 0, card,
+                                           flat=trained)[:5]
+    bare_tok = eng.stats()["tokens_out_total"]
+    eng.release()
+    del eng, trained
+    torch.cuda.empty_cache()
+    if rec.prefills != psv["prefills"] or tokens != psv["tokens"]:
+        raise AssertionError(f"endpoint tokens differ from a bare engine's "
+                             f"on the PS params (prefill batches "
+                             f"{psv['prefills']} vs {rec.prefills})")
+    print(f"[platform] {card}: the endpoint's tokens for its "
+          f"{len(tokens)} requests == a bare InferenceEngine's on the PS "
+          f"params with seed 0 (prefill batches {rec.prefills}; the bare "
+          f"engine {bare_tok} tokens in {bare_wall:.3f} s = "
+          f"{bare_tok / bare_wall:.1f} tokens/s)")
+
+    # 10. result
     def entry(mod, launches, head, shapes):
         return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                 "replaces": mod.REPLACES, "launches": launches,
@@ -1500,25 +1866,31 @@ def main() -> int:
                 "library_ms": head["library_ms"], "shape": head["shape"],
                 "card": card, "shapes": shapes}
 
-    # each entry's head: the main-path shape with the largest bound
-    k4 = entry(kfa, serve_launches[kfa.NAME] + train_launches[kfa.NAME],
+    # each entry's head: the main-path shape with the largest bound;
+    # launches: the sum over the main paths that run the kernel
+    def by_path(name, paths):
+        return {p: ls[name] for p, ls in paths.items()}
+    train_paths = {"train": train_launches,
+                   "platform-train": ptrain["launches"]}
+    k4_paths = by_path(kfa.NAME, {"serve": serve_launches, **train_paths,
+                                  "platform-serve": psv["launches"]})
+    k4 = entry(kfa, sum(k4_paths.values()),
                max(main_path + train_fwd, key=lambda r: r["bound_ms"]),
                main_path + train_fwd)
-    k4["launches_by_path"] = {"serve": serve_launches[kfa.NAME],
-                              "train": train_launches[kfa.NAME]}
-    k4b = entry(kfab, train_launches[kfab.NAME], bwd[-1], bwd)
+    k4["launches_by_path"] = k4_paths
+    k4b = entry(kfab, 0, bwd[-1], bwd)
     for e, names in ((k4, TC_KERNELS[:1]), (k4b, TC_KERNELS[1:])):
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
         e["x_library"] = e["ms"] / e["library_ms"]
         e["sass_hgmma"] = {n: c for n, c in hgmma.items()
                            if n.split("<")[0] in names}
-    kernels = [
-        k4,
-        k4b,
-        entry(kagg, train_launches[kagg.NAME], k1, [k1]),
-        entry(kq.QUANTIZE, train_launches[kq.QUANTIZE.NAME], k2, [k2]),
-        entry(kq.DEQUANTIZE, train_launches[kq.DEQUANTIZE.NAME], k3, [k3]),
-    ]
+    kernels = [k4, k4b,
+               entry(kagg, 0, k1, [k1]),
+               entry(kq.QUANTIZE, 0, k2, [k2]),
+               entry(kq.DEQUANTIZE, 0, k3, [k3])]
+    for e in kernels[1:]:
+        e["launches_by_path"] = by_path(e["name"], train_paths)
+        e["launches"] = sum(e["launches_by_path"].values())
     k5 = entry(kssd, ssm_launches[kssd.NAME], ssd_head,
                ssd_main + ssd_others)
     k5["launches_by_path"] = {"serve-ssm": ssm_launches[kssd.NAME]}

@@ -4,12 +4,28 @@ Sits beside the JAX package ``repro``, which stays the reference. This
 package imports ``torch``, numpy and the standard library only: never
 ``jax`` and nothing of ``repro``.
 
-Layout (first slice: serving):
-  * ``device``      — ``resolve_device``: CUDA unless the caller asks for CPU.
-  * ``configs``     — architecture configs (copy of ``repro.configs``).
-  * ``models``      — dense decoder: layers, attention, transformer, facade.
-  * ``kernels``     — hand-written CUDA kernels, their build, wrappers and
-    plain PyTorch versions.
-  * ``weights``     — the flat f32 weight vector shared with ``repro``.
-  * ``serving``     — the continuous-batching ``InferenceEngine``.
+Layout:
+  * ``device``        — ``resolve_device``: CUDA unless the caller asks for
+    the CPU; ``errors`` — ``UserError``, ``Preempted``.
+  * ``configs``       — architecture configs (copy of ``repro.configs``).
+  * ``models``        — dense decoder and the ssm family (Mamba-2): layers,
+    attention, transformer, ``Model.loss``, facade.
+  * ``kernels``       — hand-written CUDA kernels (K1-K5, K4b), their
+    build, wrappers and plain PyTorch versions.
+  * ``weights``       — the flat f32 weight vector shared with ``repro``.
+  * ``core``          — the device-resident software parameter server,
+    the int8 wire, the global data cursor; ``data`` — the synthetic
+    corpus; ``checkpoint`` — ``repro``'s on-disk layout.
+  * ``platform``      — copies of ``repro.platform``: journal, ZooKeeper,
+    watchdog, storage, metrics, the cluster and scheduler, the fair-share
+    queue, the Lifecycle Manager.
+  * ``observability`` — copies of ``stream`` and ``trace``;
+    ``service.manifest`` — the manifest parser and resolvers (copy);
+    ``analysis.perf`` — ``JobPerf``, a disabled stand-in.
+  * ``runtime``       — framework plugins and the learner body
+    (``learner``), the execution backends (``backend``: ``software-ps``;
+    ``pjit`` raises, not ported).
+  * ``serving``       — the continuous-batching ``InferenceEngine`` and
+    managed endpoints (``endpoint``: ``ServingBackend``,
+    ``ModelEndpoint``).
 """

@@ -9,7 +9,8 @@ The wrapper checks what the kernel takes (for the tensor-core instance,
 16-byte aligned rows), allocates the output with ``torch.empty``,
 launches on the current stream and raises if the launch is refused.
 ``launches`` counts the launches, so a run can show that its main path
-went through the kernel. Nothing is built or loaded at import time; the
+went through the kernel, and ``launches_tc`` those of them on the
+tensor-core instance. Nothing is built or loaded at import time; the
 first call builds the library (``kernels/build.py``).
 """
 from __future__ import annotations
@@ -30,6 +31,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TENSOR_CORE_HEAD_DIMS = (64, 128)
 
 launches = 0          # kernel launches in this process (see ops.py)
+launches_tc = 0       # of them, on the tensor-core instance
 _fn = None
 
 
@@ -62,6 +64,12 @@ def check_shapes(q, k, v, q_offset: int):
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
 
 
+def uses_tensor_cores(q) -> bool:
+    """Whether the C entry point runs the tensor-core instance for ``q``
+    (bf16 at a head dim of ``TENSOR_CORE_HEAD_DIMS``)."""
+    return q.dtype == torch.bfloat16 and q.shape[3] in TENSOR_CORE_HEAD_DIMS
+
+
 def check_tensor_core_rows(named):
     """The tensor-core instance copies 16-byte chunks of each row: every
     tensor's data pointer must be 16-byte aligned and its (B, S, H)
@@ -80,7 +88,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool, q_offset: int = 0,
     """Launch the kernel on CUDA tensors; raises on anything it does not
     take (no fallback to the plain version). With ``return_lse`` it
     returns (o, lse) with the row log-sum-exp lse (B, H, Sq) f32."""
-    global launches
+    global launches, launches_tc
     check_shapes(q, k, v, q_offset)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
@@ -101,7 +109,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool, q_offset: int = 0,
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in head_dim "
                              f"(stride {t.stride(3)})")
-    if q.dtype == torch.bfloat16 and hd in TENSOR_CORE_HEAD_DIMS:
+    tc = uses_tensor_cores(q)
+    if tc:
         check_tensor_core_rows({"q": q, "k": k, "v": v})
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
@@ -122,4 +131,5 @@ def flash_attention_cuda(q, k, v, *, causal: bool, q_offset: int = 0,
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError_t {err}")
     launches += 1
+    launches_tc += tc
     return (o, lse) if return_lse else o

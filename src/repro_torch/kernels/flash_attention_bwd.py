@@ -10,8 +10,9 @@ wrapper checks what the kernel takes (for the tensor-core instance,
 16-byte aligned rows), allocates dq/dk/dv and the delta scratch with
 ``torch.empty``, launches on the current stream and raises if the launch
 is refused. One call launches the kernel's two
-passes (dq, then dk/dv) and counts as one launch in ``launches``. Nothing
-is built or loaded at import time.
+passes (dq, then dk/dv) and counts as one launch in ``launches``
+(``launches_tc`` counts those on the tensor-core instance). Nothing is
+built or loaded at import time.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 REPLACES = "src/repro/models/attention.py:232"
 
 launches = 0          # kernel launches in this process (see ops.py)
+launches_tc = 0       # of them, on the tensor-core instance
 _fn = None
 
 
@@ -59,7 +61,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool,
                              q_offset: int = 0):
     """(dq, dk, dv) on CUDA tensors; raises on anything the kernel does
     not take (no fallback to the plain version)."""
-    global launches
+    global launches, launches_tc
     check_shapes(q, k, v, o, lse, do, q_offset)
     dev = q.device
     ts = {"q": q, "k": k, "v": v, "o": o, "do": do}
@@ -84,7 +86,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool,
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in head_dim "
                              f"(stride {t.stride(3)})")
-    if q.dtype == torch.bfloat16 and hd in _fa.TENSOR_CORE_HEAD_DIMS:
+    tc = _fa.uses_tensor_cores(q)
+    if tc:
         _fa.check_tensor_core_rows(ts)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
@@ -107,4 +110,5 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool,
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
                            f"cudaError_t {err}")
     launches += 1
+    launches_tc += tc
     return dq, dk, dv

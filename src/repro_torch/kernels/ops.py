@@ -117,4 +117,5 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for m in KERNELS:
         m.launches = 0
-    _ssd.launches_tc = 0
+    for m in (_fa, _fab, _ssd):
+        m.launches_tc = 0

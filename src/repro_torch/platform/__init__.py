@@ -1,2 +1,3 @@
-"""Copies of the ``repro.platform`` modules the learner body needs:
-journal, ZooKeeper, watchdog, storage and metrics."""
+"""Copies of the ``repro.platform`` modules the learner body, the
+execution backends and the endpoints need: journal, ZooKeeper, watchdog,
+storage, metrics, cluster (scheduler), queue (fair share) and lcm."""

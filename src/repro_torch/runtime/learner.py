@@ -1,8 +1,9 @@
 """Learner runtime — the ``train.sh`` analogue executed under watchdog
 supervision: the counterpart of ``repro/runtime/learner.py``.
 
-Pluggable "frameworks" (paper §Extensibility) register in ``PLUGINS``;
-the port has ``repro-lm`` (``LMPlugin``). ``make_learner_body`` returns
+Pluggable "frameworks" (paper §Extensibility) register in ``PLUGINS``:
+``repro-lm`` (``LMPlugin``) and ``repro-mlp`` (``MLPPlugin``), as in the
+reference. ``make_learner_body`` returns
 the learner body with the reference's semantics (learner.py:311-448):
 resume from the newest valid checkpoint (learner 0 republishes through
 ``ps.load_flat`` and restores the cursor), pull, the psgd and modelavg
@@ -13,15 +14,17 @@ learner 0, and ``results``.
 The learner's state is the flat f32 weight vector, as in the reference,
 but it lives on the device: the PS pull buffer, the gradient, the push
 and the checkpoint snapshot all start from device tensors, and only the
-checkpoint and the uploaded model go to the host. Left out of the port
-so far: ``MLPPlugin``, and ``LMPlugin.warm_async`` / ``lowered_hlo``
-(XLA compile warming and HLO for ``JobPerf``).
+checkpoint and the uploaded model go to the host. ``LMPlugin.warm_async``
+starts the first-use ``nvcc`` build of the step's kernels, the port's
+counterpart of the reference's XLA warm compile. Left out: the plugins'
+``lowered_hlo`` (HLO for ``JobPerf``; the port's ``JobPerf`` is a
+disabled stand-in).
 """
 from __future__ import annotations
 
-import contextlib
 import io
-import os
+import logging
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
@@ -37,27 +40,21 @@ from repro_torch.core.software_ps import SoftwareParameterServer, as_flat
 from repro_torch.data.pipeline import DatasetSpec, SyntheticCorpus
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.errors import UserError
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as _kfa
+from repro_torch.kernels import flash_attention_bwd as _kfab
 from repro_torch.models import make_model
 from repro_torch.models.layers import init_leaf, iter_leaves
+from repro_torch.observability.trace import TRACE_STEP_SAMPLE, maybe_span
 from repro_torch.platform.metrics import MetricsService
 from repro_torch.platform.storage import StorageManager
 from repro_torch.platform.watchdog import CHECKPOINTING, TRAINING, Watchdog
 from repro_torch.weights import flat_layout, flat_size
 
-# one sampled step span every this many steps (repro/observability/
-# trace.py:48)
-TRACE_STEP_SAMPLE = int(os.environ.get("DLAAS_TRACE_STEP_SAMPLE", "8"))
+log = logging.getLogger("repro_torch.learner")
 
-
-@contextlib.contextmanager
-def maybe_span(tracer, job_id: str, name: str, **attrs):
-    """Span context that is a no-op when no tracer is wired."""
-    if tracer is None:
-        yield None
-        return
-    with tracer.span(job_id, name, **attrs) as sp:
-        yield sp
-
+# the kernel libraries an LM step launches on CUDA: K4 forward, K4b
+STEP_LIBRARIES = (_kfa.NAME, _kfab.NAME)
 
 # ---------------------------------------------------------------------------
 # Framework plugins
@@ -102,6 +99,37 @@ class LMPlugin:
         self.vocab = cfg.vocab_size
         self._layout = flat_layout(cfg)
         self.flat_size = flat_size(cfg)
+        self._warming: Optional[threading.Event] = None
+
+    def warm_async(self, batch_docs: int, data_cfg: Dict):
+        """Build the step's kernel libraries (``STEP_LIBRARIES``, the
+        first-use ``nvcc`` build of ``kernels/build.py``) on a background
+        thread, so the build overlaps plan-time weight init and
+        deployment instead of stalling the learner's first step, which
+        waits on the build's lock if it is still running. ``_warming`` is
+        set when the build ends; on the CPU, where the step launches no
+        kernel, at once. The build does not depend on the batch, so
+        ``batch_docs`` and ``data_cfg`` (the reference's compile shapes)
+        are unused. A failed build is logged, as the reference logs a
+        failed warm compile; the step's first launch then builds again
+        and raises."""
+        ev = threading.Event()
+        self._warming = ev
+        if self.device.type != "cuda":
+            ev.set()
+            return
+
+        def run():
+            try:
+                for name in STEP_LIBRARIES:
+                    build.load(name)
+            except Exception as e:          # advisory: log, never crash
+                log.warning("warm kernel build failed: %s: %s",
+                            type(e).__name__, e)
+            finally:
+                ev.set()
+        threading.Thread(target=run, daemon=True,
+                         name="plugin-warm").start()
 
     def flat_state(self, seed: int) -> torch.Tensor:
         """Initial weights as one flat f32 vector on the device, in
@@ -169,6 +197,83 @@ class LMPlugin:
                            seq_len=data_cfg.get("seq_len", 32),
                            vocab_size=self.vocab,
                            seed=data_cfg.get("seed", 0))
+
+
+@register_plugin("repro-mlp")
+class MLPPlugin:
+    """Minimal classifier used by the colloquium-style hyperparameter
+    sweep (CIFAR-like synthetic task): the reference's ``MLPPlugin``.
+    Its flat vector has ``ravel_pytree``'s layout of the params, sorted
+    keys ``b1, b2, w1, w2``, in f32 on ``device`` (the learner's)."""
+
+    def __init__(self, framework_cfg: Dict, *, device: DeviceLike = None):
+        self.d_in = framework_cfg.get("d_in", 32)
+        self.d_hidden = framework_cfg.get("d_hidden", 64)
+        self.n_classes = framework_cfg.get("n_classes", 10)
+        self.vocab = self.n_classes
+        self.device = resolve_device(device)
+        self._shapes = (("b1", (self.d_hidden,)),
+                        ("b2", (self.n_classes,)),
+                        ("w1", (self.d_in, self.d_hidden)),
+                        ("w2", (self.d_hidden, self.n_classes)))
+        self.flat_size = sum(int(np.prod(s)) for _, s in self._shapes)
+
+    def _unflat(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out, off = {}, 0
+        for name, shape in self._shapes:
+            n = int(np.prod(shape))
+            out[name] = flat[off: off + n].view(shape)
+            off += n
+        return out
+
+    def flat_state(self, seed: int) -> torch.Tensor:
+        """Initial weights as one flat f32 vector on the device: biases
+        zero, ``w1`` then ``w2`` drawn N(0, 1) from a ``torch.Generator``
+        seeded with ``seed`` and scaled by 1/sqrt of their fan-in."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        flat = torch.zeros(self.flat_size, dtype=torch.float32,
+                           device=self.device)
+        p = self._unflat(flat)
+        for name, fan_in in (("w1", self.d_in), ("w2", self.d_hidden)):
+            p[name].copy_(torch.randn(p[name].shape, generator=gen,
+                                      device=self.device)
+                          / np.sqrt(fan_in))
+        return flat
+
+    def flat_loss_grad(self, flat, batch):
+        """(mean NLL (0-dim f32 tensor), flat f32 gradient on the
+        device); sets ``last_acc``, the batch's accuracy."""
+        f = as_flat(flat, self.device).float().detach().requires_grad_()
+        p = self._unflat(f)
+        x, y = _synthetic_features(batch["tokens"], self.d_in,
+                                   self.n_classes, self.device)
+        h = torch.tanh(x @ p["w1"] + p["b1"])
+        logits = h @ p["w2"] + p["b2"]
+        nll = -torch.log_softmax(logits, -1)[torch.arange(len(y)), y]
+        loss = nll.mean()
+        (g,) = torch.autograd.grad(loss, f)
+        self.last_acc = float((logits.argmax(-1) == y).float().mean())
+        return loss.detach(), g
+
+    def dataset_spec(self, data_cfg: Dict) -> DatasetSpec:
+        return DatasetSpec(n_docs=data_cfg.get("n_docs", 2048),
+                           seq_len=2, vocab_size=1024,
+                           seed=data_cfg.get("seed", 0))
+
+
+def _synthetic_features(tokens: np.ndarray, d_in: int, n_classes: int,
+                        device: torch.device):
+    """Deterministic vision-like task: class = doc token hash; features =
+    class prototype + noise (learnable, accuracy can approach 1.0). The
+    reference's numpy draws, as (x f32, y int64) tensors on ``device``."""
+    rng = np.random.Generator(np.random.Philox(key=1234))
+    protos = rng.normal(size=(n_classes, d_in)).astype(np.float32)
+    seed_tokens = np.asarray(tokens)[:, 0]
+    y = (seed_tokens % n_classes).astype(np.int64)
+    noise_rng = np.random.Generator(np.random.Philox(key=99))
+    noise = noise_rng.normal(size=(len(y), d_in)).astype(np.float32)
+    x = protos[y] + 0.5 * noise
+    return torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -312,8 +417,13 @@ def make_learner_body(cfg: LearnerJobConfig, ps: SoftwareParameterServer,
             if step_sp is not None:
                 tracer.end(step_sp, loss=loss_f)
             wd.heartbeat(step, loss=loss_f)
-            wd.log(f"step={step} loss={loss_f:.4f}")
+            wd.log(f"step={step} loss={loss_f:.4f}"
+                   + (f" acc={plugin.last_acc:.4f}"
+                      if hasattr(plugin, "last_acc") else ""))
             metrics.record(cfg.job_id, "loss", step, loss_f)
+            if hasattr(plugin, "last_acc"):
+                metrics.record(cfg.job_id, "accuracy", step,
+                               plugin.last_acc)
             metrics.record(cfg.job_id, "lr", step, cfg.lr)
             metrics.record(cfg.job_id, "sync_time_s", step, sync_s)
             metrics.record(cfg.job_id, "round_time_s", step,

@@ -1,2 +1,24 @@
-from repro_torch.serving.engine import (  # noqa: F401
-    EndpointClosed, InferenceEngine, InferenceRequest, QueueFull)
+"""Model-serving subsystem of the port: managed inference endpoints over
+the same control plane that runs training.
+
+  engine.py    — InferenceEngine: continuous-batching decode runtime
+                 (slot-based cache, bounded admission queue, per-request
+                 deadlines)
+  endpoint.py  — ModelEndpoint lifecycle (DEPLOYING→READY→DRAINING→
+                 STOPPED) + the ``serving`` execution backend that plans
+                 endpoints as LCM jobs
+
+What the reference's ``repro/serving/__init__.py`` exports, except
+``DeadlineExceeded``, which the port's engine does not define yet.
+"""
+from repro_torch.serving.engine import (EndpointClosed, InferenceEngine,
+                                        InferenceRequest, QueueFull)
+from repro_torch.serving.endpoint import (DEPLOYING_E, DRAINING_E,
+                                          FAILED_E, ModelEndpoint, READY_E,
+                                          ServingBackend, STOPPED_E)
+
+__all__ = [
+    "EndpointClosed", "InferenceEngine", "InferenceRequest", "QueueFull",
+    "ModelEndpoint", "ServingBackend",
+    "DEPLOYING_E", "READY_E", "DRAINING_E", "STOPPED_E", "FAILED_E",
+]

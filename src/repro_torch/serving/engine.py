@@ -21,13 +21,13 @@ Where the JAX engine differs in mechanism:
   * weights and cache live on an explicit ``device`` (CUDA unless the
     caller passes ``device="cpu"``), and ``seed`` drives a
     ``torch.Generator`` on that device.
-Greedy (argmax) sampling keeps the engine deterministic. The roofline
-estimate of the JAX engine (``JobPerf``) is not ported yet.
+Greedy (argmax) sampling keeps the engine deterministic. ``perf`` is the
+port's ``JobPerf`` stand-in, disabled until the port has a roofline of
+its own (``analysis/perf.py``).
 """
 from __future__ import annotations
 
 import collections
-import contextlib
 import logging
 import threading
 import time
@@ -38,16 +38,16 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.perf import JobPerf
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.errors import UserError
 from repro_torch.models import make_model
+from repro_torch.observability.trace import TRACE_STEP_SAMPLE, maybe_span
 from repro_torch.weights import flat_size, params_from_flat
 
 log = logging.getLogger("repro_torch.serving")
 job_log = logging.getLogger("repro_torch.job")
-
-TRACE_STEP_SAMPLE = 8      # a decode event every N steps (JAX's default)
 
 # request states
 R_QUEUED, R_RUNNING, R_DONE, R_REJECTED, R_EXPIRED, R_FAILED = (
@@ -77,16 +77,6 @@ class InferenceRequest:
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         return self.done.wait(timeout)
-
-
-@contextlib.contextmanager
-def _maybe_span(tracer, job_id: str, name: str, **attrs):
-    """``tracer.span`` when a tracer is wired, else a no-op."""
-    if tracer is None:
-        yield None
-        return
-    with tracer.span(job_id, name, **attrs) as sp:
-        yield sp
 
 
 class InferenceEngine:
@@ -159,6 +149,9 @@ class InferenceEngine:
         self.prefill_batches = 0
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
+        # status.perf of the decode step (disabled stand-in)
+        self.perf = JobPerf(endpoint_id or "endpoint", metrics,
+                            unit="decode_step")
 
     @property
     def flat_size(self) -> int:
@@ -347,7 +340,7 @@ class InferenceEngine:
             self._gauge("queue_depth", depth)
             slots = free[:len(batch)]
             t0 = time.perf_counter()
-            with _maybe_span(self.tracer, self.endpoint_id, "prefill",
+            with maybe_span(self.tracer, self.endpoint_id, "prefill",
                              n=len(batch), plen=int(plen)), \
                     torch.no_grad():
                 toks = torch.from_numpy(

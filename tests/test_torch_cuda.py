@@ -45,11 +45,17 @@ def _qkv(B, Sq, Sk, H, KV, hd, dtype, seed=0):
             for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
 
 
+def _on_tensor_cores(q):
+    """bf16 at head dim 64 or 128: the tensor-core instances of K4/K4b."""
+    return q.dtype == torch.bfloat16 and q.shape[3] in (64, 128)
+
+
 def _check(q, k, v, causal, q_offset=0):
-    before = kfa.launches
+    before, before_tc = kfa.launches, kfa.launches_tc
     got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
     assert kfa.launches == before + 1
+    assert kfa.launches_tc == before_tc + _on_tensor_cores(q)
     want = ref.flash_attention_ref(q, k, v, causal=causal,
                                    q_offset=q_offset)
     tol = TOL[q.dtype]
@@ -162,11 +168,12 @@ def test_flash_lse_and_bwd_kernels_vs_plain(cuda, B, S, H, KV, hd, dtype,
     tol = TOL[dtype]
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
-    before = kfab.launches
+    before, before_tc = kfab.launches, kfab.launches_tc
     got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                   q_offset=q_offset)
     torch.cuda.synchronize()
     assert kfab.launches == before + 1
+    assert kfab.launches_tc == before_tc + _on_tensor_cores(q)
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        q_offset=q_offset)
     for g, w in zip(got, want):
@@ -596,3 +603,65 @@ def test_mamba2_engine_on_cuda_matches_cpu(cuda):
     cpu_tokens, cpu_launches, _ = serve("cpu")
     assert gpu_tokens == cpu_tokens
     assert launches == cfg.n_layers * batches and cpu_launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The platform slice: the software-ps backend and a managed endpoint
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import build  # noqa: E402
+from util_platform import Platform  # noqa: E402
+
+
+def test_warm_async_builds_the_step_kernels(cuda):
+    """``LMPlugin.warm_async`` on the card builds and loads the step's
+    kernel libraries (K4, K4b) in the background and then sets
+    ``_warming``."""
+    from repro_torch.runtime.learner import STEP_LIBRARIES
+    plugin = LMPlugin({}, device="cuda")
+    plugin.warm_async(2, {})
+    assert plugin._warming.wait(300)
+    assert all(name in build._libs for name in STEP_LIBRARIES)
+
+
+def test_platform_trains_and_serves_on_cuda(cuda, tmp_path):
+    """A repro-lm manifest planned by the software-ps backend with no
+    device (CUDA) runs under the LCM and scheduler through K1-K4b; an
+    endpoint deployed on its trained_model.npy goes READY, answers
+    through K4 with the trained weights (the CPU engine's tokens on the
+    same file) and drains to STOPPED with its engine released."""
+    p = Platform("repro_torch", tmp_path)
+    assert p.ctx.device.type == "cuda"
+    manifest = {"name": "cuda-lm", "learners": 2, "steps": 4,
+                "checkpoint_every": 2, "lr": 3e-4, "optimizer": "adam",
+                "compression": "int8", "ps_shards": 2, "batch_docs": 2,
+                "data": {"n_docs": 64, "seq_len": 32},
+                "framework": {"name": "repro-lm", "arch": "stablelm-1.6b"}}
+    ops.reset_launch_counts()
+    p.launch("job-1", manifest)
+    assert p.drive("job-1", timeout=300) == "COMPLETED"
+    cfg = reduce_for_smoke(get_arch("stablelm-1.6b"))
+    pushes = 2 * 4
+    assert ops.launch_counts() == {
+        "flash_attention": cfg.n_layers * pushes,
+        "flash_attention_bwd": cfg.n_layers * pushes,
+        "ps_aggregate": 4 * 2, "quantize_ef": pushes,
+        "dequantize": pushes, "ssd_scan": 0}
+    ep = p.deploy("ep-1", source_training="job-1", capacity=2, max_new=4,
+                  max_seq=32)
+    p.drive_endpoint(ep, "READY", timeout=300)
+    prompt = np.arange(1, 9, dtype=np.int32)
+    req = ep.engine.submit(prompt, max_new=4)
+    assert req.wait(120) and req.status == "DONE"
+    cpu = InferenceEngine(cfg, capacity=2, max_seq=32, device="cpu")
+    cpu.start(np.load(tmp_path / "results" / "job-1" / "trained_model.npy"))
+    want = cpu.submit(prompt, max_new=4)
+    t = threading.Thread(target=cpu.run, daemon=True)
+    t.start()
+    assert want.wait(120)
+    cpu.drain()
+    t.join(20)
+    assert req.tokens == want.tokens
+    ep.drain()
+    assert p.drive_endpoint(ep, "STOPPED") == "STOPPED"
+    assert ep.engine.released and ep.engine._cache is None
