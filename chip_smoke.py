@@ -92,12 +92,28 @@ first failing phase (no phase catches an exception):
      PS params with the same seed; prints launch -> COMPLETED, the median
      round beside phase 8's, deploy -> READY split into download and
      start, tokens/s and device memory;
- 10. result  — ``{"kernels": [...]}`` on the line before the last (each
+ 10. service — the same train -> deploy -> predict as a tenant runs it:
+     the port's ``DLaaSServer`` (``DLaaSCore`` with ``device="cuda"``,
+     ``arch_cfgs`` the 12-layer config, one node of 4 accounted GPUs,
+     the health controller's remediation off) driven over HTTP: upload
+     ``PLATFORM_MANIFEST`` as YAML, train it to COMPLETED with no
+     restart (six steps, ``data_plane``, the timeline's plan/queue_wait/
+     run/checkpoint_publish spans, ``/metrics`` parses), the parameter
+     server freed while the server stays up (``memory_allocated`` within
+     0.5 GiB of its value before the submit), deploy the trained model
+     (capacity 4, max_seq 1024) to READY, two requests one at a time
+     (tokens equal to a bare ``InferenceEngine``'s on the downloaded
+     ``trained_model.npy``, each request alone), the 8 requests of phase
+     4 from 8 client threads at once (all DONE, latency p50/p99,
+     tokens/s), DELETE to STOPPED with the engine released; the phase's
+     K1-K4b launches (K4 12 x pushes + 12 x prefill batches, all on the
+     tensor cores);
+ 11. result  — ``{"kernels": [...]}`` on the line before the last (each
      kernel's launches summed over the main paths, with
      ``launches_by_path``) and ``{"ok": true, "device": {...}}`` as the
      last line.
 
-Six to seven minutes on an H100, the kernel builds included.
+About seven minutes on an H100, the kernel builds included.
 """
 from __future__ import annotations
 
@@ -174,6 +190,14 @@ PLATFORM_MANIFEST = {
     "framework": {"name": "repro-lm", "arch": SERVE_ARCH}}
 ENDPOINT_SERVING = {"capacity": 4, "max_seq": 1024, "max_queue": 16,
                     "seed": 0}
+# phase 10: PLATFORM_MANIFEST through the port's REST server. First the
+# requests of SERVE_REQUESTS at these indices (128 and 7 tokens), one at a
+# time, then all of them from one client thread each
+SERVICE_ALONE = (0, 7)
+SERVICE_SPANS = ("plan", "queue_wait", "run", "checkpoint_publish")
+# device memory one tick after COMPLETED against before the submit: the
+# parameter server (26.93 GiB at 12 layers) must be freed
+SERVICE_MEMORY_SLACK = 0.5 * 2**30
 # the ssm serve: mamba2-1.3b at full width and depth. Prompts up to 2,048
 # tokens, the context of the Mamba-2 language models (arXiv:2405.21060);
 # equal-length neighbours prefill together, so the batches are (2, 2048),
@@ -1623,6 +1647,301 @@ def print_platform(tr, sv, hand, card, cfg):
           f"{json.dumps(sv['launches'])}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the service entry point, driven over HTTP
+# ---------------------------------------------------------------------------
+
+
+def manifest_yaml(m, indent=0) -> str:
+    """``m`` (nested dicts of scalars) as the YAML a tenant uploads."""
+    lines = []
+    for key, value in m.items():
+        if isinstance(value, dict):
+            lines.append(f"{' ' * indent}{key}:")
+            lines.append(manifest_yaml(value, indent + 2))
+        else:
+            lines.append(f"{' ' * indent}{key}: {value}")
+    return "\n".join(lines)
+
+
+def http(url, method="GET", body=None):
+    """One REST call as a tenant makes it: JSON in, JSON (or bytes) out."""
+    import urllib.request
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method)
+    req.add_header("Authorization", "Bearer chip-smoke")
+    if data is not None:
+        req.add_header("Content-Type", "application/json")
+    with urllib.request.urlopen(req, timeout=900) as r:
+        raw = r.read()
+        json_body = r.headers.get("Content-Type", "").startswith(
+            "application/json")
+    return json.loads(raw) if json_body else raw
+
+
+def poll(fn, done, timeout, what):
+    """``fn()`` every 50 ms until ``done`` holds of it; returns it."""
+    deadline = time.time() + timeout
+    while True:
+        out = fn()
+        if done(out):
+            return out
+        if time.time() > deadline:
+            raise AssertionError(f"{what} after {timeout} s: {out}")
+        time.sleep(0.05)
+
+
+def stamp_rounds(metrics):
+    """Stamp the host clock where the PS records a round's agg time (the
+    round's end) on a service's own ``MetricsService``, as phase 9's
+    subclass does; returns the list the stamps go into."""
+    stamps = []
+    record = metrics.record
+
+    def stamped(job_id, metric, step, value):
+        if metric == "agg_time_ms":
+            stamps.append(time.perf_counter())
+        record(job_id, metric, step, value)
+    metrics.record = stamped
+    return stamps
+
+
+def service_run(torch, cfg, workdir):
+    """Phase 10: train -> deploy -> predict through the port's REST server
+    on the card at ``cfg``. Returns (what it measured, the trained flat
+    vector downloaded over HTTP)."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_attention_bwd as kfab
+    from repro_torch.kernels import ops
+    from repro_torch.observability.export import parse_prometheus_text
+    from repro_torch.platform.cluster import Cluster, Node, Resources
+    from repro_torch.service.rest import DLaaSServer
+    m = PLATFORM_MANIFEST
+    cluster = Cluster([Node("node-0", Resources(
+        cpus=32.0, gpus=PLATFORM_GPUS, memory_mb=96 * 1024))])
+    out = {}
+    with DLaaSServer(str(workdir), device="cuda",
+                     arch_cfgs={SERVE_ARCH: cfg}, cluster=cluster) as srv:
+        core, url = srv.core, srv.url
+        # the SLO engine's remediations act on timing (shed load past a
+        # 2 s p99, recycle the endpoint, preempt a straggling learner),
+        # which would make this run's checks depend on the host's speed;
+        # alerts are still evaluated and printed
+        core.health.remediate = False
+        round_end = stamp_rounds(core.metrics)
+        mid = http(f"{url}/v1/models", "POST",
+                   {"manifest": manifest_yaml(m)})["model_id"]
+
+        # 2. train, monitor until COMPLETED
+        gc.collect()
+        out["mem_before"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sub = http(f"{url}/v1/trainings", "POST", {"model_id": mid})
+        tid = sub["training_id"]
+        t_launched = time.perf_counter()
+        st = poll(lambda: http(f"{url}/v1/trainings/{tid}"),
+                  lambda s: s["status"] in ("COMPLETED", "FAILED",
+                                            "KILLED"), 900, tid)
+        out["train_s"] = time.perf_counter() - t0
+        out["peak_train"] = torch.cuda.max_memory_allocated()
+        restarts = sum(t.restarts for app in core.scheduler.apps.values()
+                       if app.app_id.startswith(tid)
+                       for t in app.tasks.values())
+        if st["status"] != "COMPLETED" or restarts or \
+                st["steps_done"] != m["steps"] or "data_plane" not in st:
+            raise AssertionError(f"{tid}: {st}, {restarts} restarts")
+        # one tick after COMPLETED, the server still up: the PS is freed
+        plan = core.trainings[tid]["plan"]
+        poll(lambda: plan.meta["ps"] is None, bool, 10,
+             "parameter server not released")
+        out["mem_completed"] = torch.cuda.memory_allocated()
+        if abs(out["mem_completed"] - out["mem_before"]) > \
+                SERVICE_MEMORY_SLACK:
+            raise AssertionError(
+                f"{out['mem_completed'] / 2**30:.2f} GiB allocated after "
+                f"COMPLETED, {out['mem_before'] / 2**30:.2f} GiB before "
+                f"the submit")
+        st = http(f"{url}/v1/trainings/{tid}")
+        dp = st["data_plane"]
+        n, steps = m["learners"], m["steps"]
+        if dp["push_count"] != n * steps or dp["agg_rounds"] != steps:
+            raise AssertionError(f"data_plane {dp}")
+        spans = {s["name"] for s in http(
+            f"{url}/v1/trainings/{tid}/timeline")["spans"]}
+        if not set(SERVICE_SPANS) <= spans:
+            raise AssertionError(f"timeline spans {sorted(spans)} lack "
+                                 f"{set(SERVICE_SPANS) - spans}")
+        fams = parse_prometheus_text(http(f"{url}/metrics").decode())[
+            "families"]
+        out.update(
+            training_id=tid, status=st, metric_families=len(fams),
+            train_launches=ops.launch_counts(),
+            round_ms=[1e3 * (b - a) for a, b in
+                      zip([t_launched] + round_end[:-1], round_end)],
+            losses=list(core.metrics.series(tid, "loss").values),
+            tokens=n * steps * m["batch_docs"] * m["data"]["seq_len"])
+
+        out["ps_lag_s"] = [
+            [round(v, 3) for v in core.metrics.series(
+                tid, f"ps_lag_s.{slot}").values] for slot in range(n)]
+
+        # 3. deploy the trained model, monitor until READY
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eid = http(f"{url}/v1/models", "POST",
+                   {"from_training": tid, "capacity": 4,
+                    "max_seq": 1024})["endpoint_id"]
+        ep = poll(lambda: http(f"{url}/v1/models/{eid}"),
+                  lambda s: s["state"] in ("READY", "FAILED", "STOPPED"),
+                  600, eid)
+        out["ready_s"] = time.perf_counter() - t0
+        if ep["state"] != "READY":
+            raise AssertionError(f"endpoint {ep}")
+        prompts = serve_prompts(cfg, 0)
+
+        def predict(i):
+            t = time.perf_counter()
+            r = http(f"{url}/v1/models/{eid}/predict", "POST",
+                     {"tokens": prompts[i].tolist(),
+                      "max_new": SERVE_REQUESTS[i][1]})
+            return r, time.perf_counter() - t
+
+        # 4. one request at a time
+        out["alone"] = [predict(i)[0]["tokens"] for i in SERVICE_ALONE]
+        # 5. all at once, one client thread each
+        got = [None] * len(SERVE_REQUESTS)
+        errors = []
+
+        def client(i):
+            try:
+                got[i] = predict(i)
+            except Exception as e:      # re-raised on the main thread
+                errors.append(e)
+        clients = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(len(SERVE_REQUESTS))]
+        t0 = time.perf_counter()
+        for th in clients:
+            th.start()
+        for th in clients:
+            th.join(600)
+        out["burst_s"] = time.perf_counter() - t0
+        if errors or any(th.is_alive() for th in clients):
+            raise AssertionError(f"concurrent predicts: {errors}")
+        for (r, _), (plen, mn) in zip(got, SERVE_REQUESTS):
+            if len(r["tokens"]) != mn or r["n_prompt"] != plen or \
+                    not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
+                raise AssertionError(f"predict plen={plen}: {r}")
+        out["latency_s"] = sorted(lat for _, lat in got)
+        out["burst_tokens"] = sum(len(r["tokens"]) for r, _ in got)
+        eng = core.endpoints[eid].engine
+        out["prefill_batches"] = eng.prefill_batches
+        out["launches"] = ops.launch_counts()
+        out["launches_tc"] = {kfa.NAME: kfa.launches_tc,
+                              kfab.NAME: kfab.launches_tc}
+        out["peak_serve"] = torch.cuda.max_memory_allocated()
+
+        # 6. stop: drain to STOPPED, the engine released
+        http(f"{url}/v1/models/{eid}", "DELETE")
+        poll(lambda: http(f"{url}/v1/models/{eid}"),
+             lambda s: s["state"] == "STOPPED", 120, f"{eid} stop")
+        if not eng.released or eng.params is not None:
+            raise AssertionError(f"{eid} STOPPED, engine not released")
+        del eng
+        out["mem_stopped"] = torch.cuda.memory_allocated()
+        out["alerts"] = core.alerts()["history"] + core.alerts()["active"]
+        if core._tick_errors:
+            raise AssertionError(f"tick-loop errors {core._tick_errors}")
+        trained = np.load(io.BytesIO(http(f"{url}/v1/trainings/{tid}/model")))
+    return out, trained
+
+
+def check_service_launches(svc, cfg):
+    """Phase 10's launches: the training's K1-K4b as phase 9's, then K4
+    once per layer per prefill batch of the endpoint; every flash launch
+    on the tensor cores."""
+    m = PLATFORM_MANIFEST
+    pushes = m["learners"] * m["steps"]
+    want = {"quantize_ef": pushes, "dequantize": pushes,
+            "ps_aggregate": m["steps"] * m["ps_shards"],
+            "flash_attention": cfg.n_layers * (pushes
+                                               + svc["prefill_batches"]),
+            "flash_attention_bwd": cfg.n_layers * pushes, "ssd_scan": 0}
+    got = svc["launches"]
+    if got != want or svc["launches_tc"] != {
+            k: got[k] for k in svc["launches_tc"]}:
+        raise AssertionError(f"service launches {got} (on the tensor cores "
+                             f"{svc['launches_tc']}), want {want}")
+
+
+def serve_alone(cfg, flat, prompts, max_news):
+    """A bare ``InferenceEngine`` on ``flat`` (capacity 4, max_seq 1024,
+    seed 0) serving each prompt alone in turn; their tokens."""
+    from repro_torch.serving.engine import InferenceEngine
+    eng = InferenceEngine(cfg, capacity=4, max_seq=1024, max_queue=16,
+                          seed=0, device="cuda")
+    eng.start(flat)
+    worker = threading.Thread(target=eng.run, name="serve-alone",
+                              daemon=True)
+    worker.start()
+    tokens = []
+    try:
+        for p, mn in zip(prompts, max_news):
+            r = eng.submit(p, max_new=mn)
+            if not r.wait(600) or r.status != "DONE":
+                raise AssertionError(f"bare engine: {r.status} {r.error}")
+            tokens.append(r.tokens)
+    finally:
+        eng.drain()
+        worker.join(60)
+        eng.release()
+    return tokens
+
+
+def print_service(svc, ptrain, card, cfg):
+    tag = f"[service] {card}:"
+    gib = 2**30
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+    st = svc["status"]
+    print(f"{tag} DLaaSServer (device cuda, {cfg.arch_id} L={cfg.n_layers} "
+          f"d={cfg.d_model} {cfg.dtype}): POST /v1/trainings -> COMPLETED "
+          f"{svc['train_s']:.3f} s = {svc['tokens'] / svc['train_s']:.1f} "
+          f"tokens/s, no restart, {st['steps_done']} steps, last loss "
+          f"{st['last_loss']:.4f}; rounds "
+          f"{[round(x, 2) for x in svc['round_ms']]} ms: median "
+          f"{med(svc['round_ms']):.2f} ms (phase 9 in this run: "
+          f"{med(ptrain['round_ms']):.2f} ms); data_plane "
+          f"{json.dumps(st['data_plane'])}; /metrics "
+          f"{svc['metric_families']} families; timeline spans "
+          f"{list(SERVICE_SPANS)} present")
+    print(f"{tag} device memory: before the submit "
+          f"{svc['mem_before'] / gib:.2f} GiB, training peak "
+          f"{svc['peak_train'] / gib:.2f} GiB, one tick after COMPLETED "
+          f"(PS released, server up) {svc['mem_completed'] / gib:.2f} GiB "
+          f"(limit +-{SERVICE_MEMORY_SLACK / gib:.1f} GiB), serving peak "
+          f"{svc['peak_serve'] / gib:.2f} GiB, after STOPPED "
+          f"{svc['mem_stopped'] / gib:.2f} GiB allocated")
+    lat = svc["latency_s"]
+    print(f"{tag} deploy -> READY {svc['ready_s']:.3f} s; two requests "
+          f"alone ({[SERVE_REQUESTS[i][0] for i in SERVICE_ALONE]} tokens "
+          f"prompt); then {len(lat)} concurrent clients: "
+          f"{svc['burst_tokens']} tokens in {svc['burst_s']:.3f} s = "
+          f"{svc['burst_tokens'] / svc['burst_s']:.1f} tokens/s, request "
+          f"latency p50 {lat[len(lat) // 2]:.3f} s, p99 "
+          f"{lat[min(len(lat) - 1, int(0.99 * len(lat)))]:.3f} s (client "
+          f"side, HTTP included); {svc['prefill_batches']} prefill batches;"
+          f" DELETE -> STOPPED, engine released")
+    print(f"{tag} launches {json.dumps(svc['launches'])}, on the tensor "
+          f"cores {json.dumps(svc['launches_tc'])} (training alone "
+          f"{json.dumps(svc['train_launches'])}); BSP arrival lag by "
+          f"learner {svc['ps_lag_s']} s; alerts (remediation off) "
+          f"{sorted({a['name'] for a in svc['alerts']})}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1855,7 +2174,31 @@ def main() -> int:
           f"engine {bare_tok} tokens in {bare_wall:.3f} s = "
           f"{bare_tok / bare_wall:.1f} tokens/s)")
 
-    # 10. result
+    # 10. service: the same manifest through the port's REST server, the
+    # trained model deployed and served over HTTP
+    workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-service-",
+                                    dir=build_dir))
+    try:
+        svc, trained = service_run(torch, tcfg, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    check_service_launches(svc, tcfg)
+    print_service(svc, ptrain, card, tcfg)
+    prompts = serve_prompts(tcfg, 0)
+    bare = serve_alone(tcfg, trained,
+                       [prompts[i] for i in SERVICE_ALONE],
+                       [SERVE_REQUESTS[i][1] for i in SERVICE_ALONE])
+    del trained
+    torch.cuda.empty_cache()
+    if bare != svc["alone"]:
+        raise AssertionError("the service's tokens differ from a bare "
+                             "engine's on trained_model.npy")
+    print(f"[service] {card}: the tokens of the {len(bare)} requests served "
+          f"alone == a bare InferenceEngine's on the downloaded "
+          f"trained_model.npy, each request alone")
+
+    # 11. result
     def entry(mod, launches, head, shapes):
         return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                 "replaces": mod.REPLACES, "launches": launches,
@@ -1871,7 +2214,8 @@ def main() -> int:
     def by_path(name, paths):
         return {p: ls[name] for p, ls in paths.items()}
     train_paths = {"train": train_launches,
-                   "platform-train": ptrain["launches"]}
+                   "platform-train": ptrain["launches"],
+                   "service": svc["launches"]}
     k4_paths = by_path(kfa.NAME, {"serve": serve_launches, **train_paths,
                                   "platform-serve": psv["launches"]})
     k4 = entry(kfa, sum(k4_paths.values()),

@@ -18,10 +18,15 @@ Layout:
     corpus; ``checkpoint`` — ``repro``'s on-disk layout.
   * ``platform``      — copies of ``repro.platform``: journal, ZooKeeper,
     watchdog, storage, metrics, the cluster and scheduler, the fair-share
-    queue, the Lifecycle Manager.
-  * ``observability`` — copies of ``stream`` and ``trace``;
-    ``service.manifest`` — the manifest parser and resolvers (copy);
+    queue, the Lifecycle Manager, the health controller, the autoscaler,
+    fault injection.
+  * ``observability`` — copies of ``stream``, ``trace``, ``log`` (the
+    ``"repro_torch"`` logger tree), ``slo`` and ``export``;
     ``analysis.perf`` — ``JobPerf``, a disabled stand-in.
+  * ``service``       — the manifest parser and the CLI (copies),
+    ``DLaaSCore`` (``core``) and the REST server (``rest``), the entry
+    point: ``python -m repro_torch.service.rest <workdir> [port]
+    [device]``.
   * ``runtime``       — framework plugins and the learner body
     (``learner``), the execution backends (``backend``: ``software-ps``;
     ``pjit`` raises, not ported).

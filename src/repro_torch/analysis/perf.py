@@ -10,6 +10,10 @@ disabled state, the one ``DLAAS_PERF=0`` gives there
 ``snapshot`` returns ``{"state": "disabled", "unit": unit}``. The
 constructor and both signatures are the reference's, so backends and
 endpoints call it as they call the reference's.
+
+``measured_rate_from_metrics`` is a copy of the reference's
+(``perf.py:184-197``): the live rate the service layer hands to
+``snapshot``.
 """
 from __future__ import annotations
 
@@ -33,3 +37,17 @@ class JobPerf:
     def snapshot(self, measured_per_s: Optional[float] = None) -> Dict:
         """The ``status.perf`` payload of the disabled state."""
         return {"state": self.state, "unit": self.unit}
+
+
+def measured_rate_from_metrics(metrics, job_id: str,
+                               metric: str = "round_time_s",
+                               tail: int = 10) -> Optional[float]:
+    """Mean live rate (1/round-time) over the last ``tail`` recorded
+    rounds — the measured term of ``pct_of_attainable``."""
+    if metrics is None:
+        return None
+    series = metrics.series(job_id, metric)
+    vals = [v for v in series.values[-tail:] if v > 0]
+    if not vals:
+        return None
+    return len(vals) / sum(vals)

@@ -34,6 +34,13 @@ buffer that its push writes outside any lock. What differs, by design:
     is shorter than the padded layout, staging) buffers on the device
     and quantizes through K2; on a timeout it puts the signal back with
     K3 and an add.
+  * ``release()`` frees all of that device state once a job has ended:
+    the job's plan, learner body and scheduler apps keep referencing the
+    server and its clients, and at full width it holds tens of GiB.
+    ``stats()`` then answers from a snapshot taken at release; ``push``,
+    ``pull`` and ``load_flat`` raise ``RuntimeError``. The reference has
+    no such method: its ``training_status`` drops the server from the
+    plan when a terminal job is polled.
 
 Solver math is that of ``kernels/ref.py:ps_aggregate_ref`` (K1's plain
 version), which CPU tensors take.
@@ -43,6 +50,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Union
 
@@ -164,6 +172,10 @@ class SoftwareParameterServer:
         self.bytes_pulled = 0
         self.agg_rounds = 0
         self.agg_time_s = 0.0
+        # the clients made on this server (their buffers are freed by
+        # release), and stats() frozen at release (None while live)
+        self._clients = weakref.WeakSet()
+        self._final_stats: Optional[Dict] = None
 
     # ---- fused aggregation ------------------------------------------------
     def _apply_slots(self, slots: List[int]):
@@ -229,6 +241,11 @@ class SoftwareParameterServer:
         with self._lock:
             return len(self._members)
 
+    def _live(self):
+        if self._final_stats is not None:
+            raise RuntimeError(f"parameter server of job {self.job_id} was "
+                               f"released")
+
     def make_client(self, learner_id: int) -> "PSClient":
         """Learner-side endpoint carrying the per-learner staging and
         error-feedback state for this server's compression setting."""
@@ -263,6 +280,7 @@ class SoftwareParameterServer:
         Returns False iff a BSP push timed out and its contribution was
         withdrawn (never aggregated) — callers with error-feedback state
         must put the signal back."""
+        self._live()
         slot = learner_id % self.n_learners
         # injected slowdown (fault drills): sleep outside every lock so
         # a slow slot delays only itself — exactly like a degraded host
@@ -345,6 +363,7 @@ class SoftwareParameterServer:
         """Fetch global weights into this learner's device pull buffer
         (one copy, shard-consistent). The buffer is reused by the
         learner's next pull — consume (or copy) before pulling again."""
+        self._live()
         buf = self._pull_bufs.get(learner_id)
         if buf is None:
             buf = self._pull_bufs.setdefault(
@@ -379,6 +398,7 @@ class SoftwareParameterServer:
     # ---- state management -------------------------------------------------
     def load_flat(self, flat):
         """Overwrite the global weights (checkpoint-restore republish)."""
+        self._live()
         flat = as_flat(flat, self.device)
         if flat.numel() != self.size:
             raise ValueError(f"load_flat of {flat.numel()} values; the "
@@ -392,6 +412,37 @@ class SoftwareParameterServer:
                                     s * lay.shard_len + k])
                 view[k:] = 0.0
 
+    # ---- teardown ---------------------------------------------------------
+    @property
+    def released(self) -> bool:
+        return self._final_stats is not None
+
+    def release(self):
+        """Free the device state of a job that has ended: params, optimizer
+        moments, receive rows, pull buffers, and the error-feedback and
+        staging buffers of every client made on this server. ``stats()``
+        answers from a snapshot taken here; ``push``, ``pull`` and
+        ``load_flat`` raise from now on. Idempotent. Call it only when no
+        learner runs any more: a push in flight would lose its round."""
+        if self._final_stats is not None:
+            return
+        snap = self.stats()
+        # every shard lock, ascending as pull/load_flat take them, so no
+        # aggregation or pull is half done when the tensors go
+        for lock in self._shard_locks:
+            lock.acquire()
+        try:
+            self._final_stats = snap
+            self._params = self._m = self._v = self._recv = None
+            self._pull_bufs = {}
+        finally:
+            for lock in reversed(self._shard_locks):
+                lock.release()
+        with self._lock:
+            clients = list(self._clients)
+        for client in clients:
+            client.release()
+
     # ---- data-plane stats -------------------------------------------------
     @property
     def bytes_moved(self) -> int:
@@ -400,6 +451,8 @@ class SoftwareParameterServer:
 
     def stats(self) -> Dict:
         """JSON-ready data-plane counters for status surfaces."""
+        if self._final_stats is not None:
+            return dict(self._final_stats)
         with self._stats_lock:
             wire, dense = self.bytes_pushed_wire, self.bytes_pushed_dense
             rounds, agg_s = self.agg_rounds, self.agg_time_s
@@ -434,13 +487,21 @@ class PSClient:
         self.ps = ps
         self.learner_id = learner_id
         self.compression = compression
+        with ps._lock:
+            ps._clients.add(self)
         if compression == "int8":
             self._stage: Optional[torch.Tensor] = None
             self._err = torch.zeros(ps.layout.padded, dtype=torch.float32,
                                     device=ps.device)
             self._compress = make_compressor()
 
+    def release(self):
+        """Free the error-feedback and staging buffers (the server's
+        ``release`` calls this for each of its clients)."""
+        self._err = self._stage = None
+
     def push(self, flat, timeout: float = 30.0) -> bool:
+        self.ps._live()
         if self.compression == "none":
             return self.ps.push(self.learner_id, flat, timeout=timeout)
         flat = as_flat(flat, self.ps.device)

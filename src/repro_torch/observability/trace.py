@@ -27,6 +27,10 @@ matter how many jobs flow through.
 
 Copied from ``repro/observability/trace.py`` unchanged: the port imports
 nothing of ``repro``.
+
+Its logger is named under the port's own ``"repro_torch"`` tree (see
+``observability/log.py``), so in a process that loads both packages the
+reference's log hubs receive none of the port's records.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ from typing import Callable, Dict, List, Optional
 # the slice of this trace that overlaps the job's lifetime
 CLUSTER_TRACE = "cluster"
 
-log = logging.getLogger("repro.trace")
+log = logging.getLogger("repro_torch.trace")
 
 # sampled step spans: every Nth training step / decode batch gets a span
 # (all steps would swamp the ring for zero extra insight)

@@ -19,6 +19,10 @@ but are ``repro_torch.errors``' ``UserError`` and ``Preempted``, the classes
 the port's ``Watchdog`` re-raises. Classes of its own would make
 ``_run_task`` restart a learner that hit a user error instead of failing
 the job. The port imports nothing of ``repro``.
+
+Its logger is named under the port's own ``"repro_torch"`` tree (see
+``observability/log.py``), so in a process that loads both packages the
+reference's log hubs receive none of the port's records.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from typing import Callable, Dict, List, Optional
 from repro_torch.errors import Preempted as _Preempted
 from repro_torch.errors import UserError as _UserError
 
-log = logging.getLogger("repro.cluster")
+log = logging.getLogger("repro_torch.cluster")
 
 
 @dataclass

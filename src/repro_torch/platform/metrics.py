@@ -18,6 +18,10 @@ component consumes (paper §Platform Architecture (2)).
 
 Copied from ``repro/platform/metrics.py`` unchanged apart from import paths:
 the port imports nothing of ``repro``.
+
+Its logger is named under the port's own ``"repro_torch"`` tree (see
+``observability/log.py``), so in a process that loads both packages the
+reference's log hubs receive none of the port's records.
 """
 from __future__ import annotations
 
@@ -31,10 +35,10 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
-from repro_torch.observability import DEFAULT_BUCKETS
+from repro_torch.observability.export import DEFAULT_BUCKETS
 from repro_torch.observability.stream import BoundedStream
 
-log = logging.getLogger("repro.metrics")
+log = logging.getLogger("repro_torch.metrics")
 
 # every Series is a bounded ring: long jobs emit one loss per step
 # forever, and an unbounded list was the platform's slowest memory leak

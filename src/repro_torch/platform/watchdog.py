@@ -13,6 +13,10 @@ exit (which deletes the ephemeral and wakes the LCM).
 
 Copied from ``repro/platform/watchdog.py`` unchanged apart from import paths:
 the port imports nothing of ``repro``.
+
+Its logger is named under the port's own ``"repro_torch"`` tree (see
+``observability/log.py``), so in a process that loads both packages the
+reference's log hubs receive none of the port's records.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from repro_torch.platform.zookeeper import ZooKeeper, zk_retry
 # the per-job structured log channel: records carry job_id/trace_id/
 # member extras, and the observability HubHandler fans them into the
 # live ``logs?follow=1`` streams
-job_log = logging.getLogger("repro.job")
+job_log = logging.getLogger("repro_torch.job")
 
 # learner status values (paper: e.g. JOB_FAILED)
 PENDING, DOWNLOADING, TRAINING, CHECKPOINTING, JOB_DONE, JOB_FAILED = (

@@ -19,6 +19,10 @@ their session, and after a process crash every session is gone.
 
 Copied from ``repro/platform/zookeeper.py`` unchanged apart from import paths:
 the port imports nothing of ``repro``.
+
+Its logger is named under the port's own ``"repro_torch"`` tree (see
+``observability/log.py``), so in a process that loads both packages the
+reference's log hubs receive none of the port's records.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from .journal import Journal
 
-log = logging.getLogger("repro.zk")
+log = logging.getLogger("repro_torch.zk")
 
 
 class ZKError(Exception):

@@ -8,17 +8,18 @@ the same control plane that runs training.
                  STOPPED) + the ``serving`` execution backend that plans
                  endpoints as LCM jobs
 
-What the reference's ``repro/serving/__init__.py`` exports, except
-``DeadlineExceeded``, which the port's engine does not define yet.
+What the reference's ``repro/serving/__init__.py`` exports.
 """
-from repro_torch.serving.engine import (EndpointClosed, InferenceEngine,
-                                        InferenceRequest, QueueFull)
+from repro_torch.serving.engine import (DeadlineExceeded, EndpointClosed,
+                                        InferenceEngine, InferenceRequest,
+                                        QueueFull)
 from repro_torch.serving.endpoint import (DEPLOYING_E, DRAINING_E,
                                           FAILED_E, ModelEndpoint, READY_E,
                                           ServingBackend, STOPPED_E)
 
 __all__ = [
-    "EndpointClosed", "InferenceEngine", "InferenceRequest", "QueueFull",
+    "DeadlineExceeded", "EndpointClosed", "InferenceEngine",
+    "InferenceRequest", "QueueFull",
     "ModelEndpoint", "ServingBackend",
     "DEPLOYING_E", "READY_E", "DRAINING_E", "STOPPED_E", "FAILED_E",
 ]

@@ -62,6 +62,10 @@ class EndpointClosed(Exception):
     """Endpoint draining/stopped: no new requests accepted (HTTP 409)."""
 
 
+class DeadlineExceeded(Exception):
+    """Request deadline elapsed before completion (HTTP 504)."""
+
+
 @dataclass
 class InferenceRequest:
     req_id: str

@@ -9,7 +9,7 @@ fallback.
 
 All on the CPU (``device="cpu"``) at the reference's smoke sizes. Torch
 cannot reproduce ``jax.random``, so the port's plan is given JAX's
-initial vector through a test-side plugin (``_from_jax``)."""
+initial vector through a test-side plugin (``util_parity``)."""
 import time
 
 import numpy as np
@@ -26,6 +26,7 @@ from repro_torch.platform.watchdog import JOB_FAILED
 from repro_torch.runtime import backend as port_backend
 from repro_torch.runtime import learner as port_learner
 from repro_torch.serving import endpoint as port_endpoint  # noqa: F401
+from util_parity import use_jax_vector
 from util_platform import Platform
 
 PARAM_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -61,30 +62,6 @@ def _no_jax_roofline(monkeypatch):
 def jax_lm():
     """One JAX LM plugin for the module (its jits compile once)."""
     return jax_learner.LMPlugin({"arch": "stablelm-1.6b"})
-
-
-def _use_plugins(monkeypatch, manifest, jax_lm):
-    """Both packages' plans start from JAX's initial vector: the JAX plan
-    reuses the module's LM plugin, the port's plan builds its own plugin
-    with ``flat_state`` returning that vector. Returns the vector."""
-    fw = manifest["framework"]["name"]
-    if fw == "repro-lm":
-        monkeypatch.setitem(jax_learner.PLUGINS, fw, lambda cfg: jax_lm)
-        jp = jax_lm
-    else:
-        jp = jax_learner.PLUGINS[fw](
-            {k: v for k, v in manifest["framework"].items() if k != "name"})
-    flat = jp.flat_state(int(manifest.get("seed", 0)))
-    monkeypatch.setitem(port_learner.PLUGINS, fw,
-                        _from_jax(port_learner.PLUGINS[fw], flat))
-    return flat
-
-
-def _from_jax(cls, flat):
-    class FromJax(cls):
-        def flat_state(self, seed):
-            return torch.from_numpy(flat.copy()).to(self.device)
-    return FromJax
 
 
 def _train(pkg, workdir, manifest, job="job-1"):
@@ -125,7 +102,7 @@ def test_plan_layout_matches_jax(tmp_path, monkeypatch, jax_lm, framework,
     """Group roles, counts, resources and order, and the meta keys."""
     make = lm_manifest if framework == "repro-lm" else mlp_manifest
     manifest = make(learners=learners, tenant="t")
-    _use_plugins(monkeypatch, manifest, jax_lm)
+    use_jax_vector(monkeypatch, manifest, jax_lm)
     plans = []
     for pkg in ("repro", "repro_torch"):
         kw = {"device": "cpu"} if pkg == "repro_torch" else {}
@@ -169,7 +146,7 @@ def test_plan_layout_matches_jax(tmp_path, monkeypatch, jax_lm, framework,
 ], ids=["lm-sgd", "lm-adam", "lm-int8", "mlp-sgd"])
 def test_training_through_the_backend_matches_jax(tmp_path, monkeypatch,
                                                   jax_lm, manifest):
-    flat = _use_plugins(monkeypatch, manifest, jax_lm)
+    flat = use_jax_vector(monkeypatch, manifest, jax_lm)
     jstate, jlosses, want, _, _ = _train("repro", tmp_path / "jax",
                                           manifest)
     state, losses, got, handle, p = _train("repro_torch",

@@ -1,6 +1,7 @@
 """Tests of the port that need the card: the CUDA flash-attention kernel
-against its plain PyTorch version, the wrapper's checks, and the serving
-engine on CUDA against the same engine on the CPU.
+against its plain PyTorch version, the wrapper's checks, the serving
+engine on CUDA against the same engine on the CPU, and the platform and
+the service (``DLaaSCore``) training and serving on CUDA.
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is false (the kernel has no CPU mode). This file imports no JAX, so it
@@ -13,6 +14,7 @@ tests/test_kernels.py:34. TF32 is switched off so that the plain
 version's float32 products are full float32.
 """
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -665,3 +667,88 @@ def test_platform_trains_and_serves_on_cuda(cuda, tmp_path):
     ep.drain()
     assert p.drive_endpoint(ep, "STOPPED") == "STOPPED"
     assert ep.engine.released and ep.engine._cache is None
+
+
+def test_ps_release_frees_its_device_memory(cuda):
+    """``SoftwareParameterServer.release`` gives back the params, moments,
+    receive rows, pull buffers and the clients' error-feedback buffers."""
+    from repro_torch.core.software_ps import SoftwareParameterServer
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ps = SoftwareParameterServer(torch.zeros(1 << 20), n_shards=2,
+                                 n_learners=2, optimizer="adam",
+                                 compression="int8", device="cuda")
+    clients = [ps.make_client(i) for i in range(2)]
+    for i in range(2):
+        ps.join(i)
+    pushes = [threading.Thread(target=c.push,
+                               args=(torch.ones(1 << 20, device="cuda"),))
+              for c in clients]
+    for t in pushes:
+        t.start()
+    for t in pushes:
+        t.join(60)
+        assert not t.is_alive()
+    flat = clients[0].pull()
+    del flat
+    torch.cuda.synchronize()
+    # params, m, v, 2 receive rows, a pull buffer, 2 error buffers
+    assert torch.cuda.memory_allocated() - before >= 8 * 4 * (1 << 20)
+    ps.release()
+    assert torch.cuda.memory_allocated() - before < 1 << 20
+    assert ps.stats()["agg_rounds"] == 1
+
+
+def test_service_trains_releases_and_serves_on_cuda(cuda, tmp_path):
+    """The port's ``DLaaSCore`` with no device (CUDA): a repro-lm training
+    to COMPLETED whose PS is then freed with the core still up, and an
+    endpoint on its trained_model.npy answering with the CPU engine's
+    tokens on the same file."""
+    from repro_torch.platform.cluster import Cluster, Node, Resources
+    from repro_torch.service.core import DLaaSCore
+    core = DLaaSCore(str(tmp_path), cluster=Cluster([Node(
+        "node-0", Resources(cpus=16.0, gpus=4, memory_mb=65536))]))
+    try:
+        assert core.device.type == "cuda"
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        mid = core.deploy_model(
+            '{"name": "cuda-lm", "learners": 2, "steps": 4, '
+            '"checkpoint_every": 2, "lr": 3e-4, "optimizer": "adam", '
+            '"compression": "int8", "ps_shards": 2, "batch_docs": 2, '
+            '"data": {"n_docs": 64, "seq_len": 32}, "framework": '
+            '{"name": "repro-lm", "arch": "stablelm-1.6b"}}')["model_id"]
+        tid = core.create_training(mid)["training_id"]
+        plan = core.trainings[tid]["plan"]
+        assert core.wait_for(tid, timeout=300) == "COMPLETED"
+        deadline = time.time() + 10
+        while plan.meta["ps"] is not None and time.time() < deadline:
+            time.sleep(0.02)
+        assert plan.meta["ps"] is None
+        assert abs(torch.cuda.memory_allocated() - before) < 1 << 20
+        assert core.training_status(tid)["data_plane"]["push_count"] == 8
+        eid = core.deploy_endpoint(from_training=tid, capacity=2,
+                                   max_seq=32)["endpoint_id"]
+        deadline = time.time() + 300
+        while core.endpoint_status(eid)["state"] != "READY":
+            assert time.time() < deadline
+            time.sleep(0.05)
+        got = core.predict(eid, list(range(1, 9)), max_new=4)
+        cpu = InferenceEngine(reduce_for_smoke(get_arch("stablelm-1.6b")),
+                              capacity=2, max_seq=32, device="cpu")
+        cpu.start(np.load(tmp_path / "results" / tid / "trained_model.npy"))
+        want = cpu.submit(np.arange(1, 9, dtype=np.int32), max_new=4)
+        t = threading.Thread(target=cpu.run, daemon=True)
+        t.start()
+        assert want.wait(120)
+        cpu.drain()
+        t.join(20)
+        assert got["tokens"] == want.tokens
+        core.stop_endpoint(eid)
+        deadline = time.time() + 120
+        while core.endpoint_status(eid)["state"] != "STOPPED":
+            assert time.time() < deadline
+            time.sleep(0.05)
+        assert core.endpoints[eid].engine.released
+    finally:
+        core.close()

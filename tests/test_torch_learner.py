@@ -214,27 +214,76 @@ def test_user_error_fails_the_learner(plugins, tmp_path):
 COPIES = ["platform/journal.py", "platform/zookeeper.py",
           "platform/watchdog.py", "platform/storage.py",
           "platform/metrics.py", "platform/queue.py", "platform/lcm.py",
-          "platform/cluster.py", "observability/stream.py",
-          "observability/trace.py", "service/manifest.py",
-          "core/cursor.py", "data/pipeline.py"]
+          "platform/cluster.py", "platform/faults.py",
+          "platform/autoscale.py", "platform/health.py",
+          "observability/stream.py", "observability/trace.py",
+          "observability/log.py", "observability/slo.py",
+          "observability/export.py", "service/manifest.py",
+          "service/cli.py", "core/cursor.py", "data/pipeline.py"]
 
-# The one stated difference of a copy beyond imports: the port's
-# platform/cluster.py takes ``_UserError`` and ``_Preempted`` from
-# ``repro_torch.errors`` (the classes its Watchdog re-raises), so the
-# reference's own definitions of the two classes are absent from it.
+
+def _logger(name, var="log", indent=""):
+    """A logger of the ``"repro"`` tree renamed into ``"repro_torch"``."""
+    sub = f".{name}" if name else ""
+    return ([f'{indent}{var} = logging.getLogger("repro{sub}")'],
+            [f'{indent}{var} = logging.getLogger("repro_torch{sub}")'])
+
+
+# The stated differences of the copies beyond their docstrings and their
+# imports of the package: (the reference's lines, the port's lines in
+# their place).
+#   * platform/cluster.py takes ``_UserError`` and ``_Preempted`` from
+#     ``repro_torch.errors`` (the classes its Watchdog re-raises), so the
+#     reference's own definitions of the two classes are absent from it.
+#   * Every logger of the port is under the ``"repro_torch"`` tree that
+#     its observability/log.py sets up, never the reference's ``"repro"``:
+#     one tree for both packages would hand the port's job lines to the
+#     reference's log hubs in a process that loads both.
+#   * observability/export.py has no autotune-cache families: the port
+#     has no autotune cache (``kernels/autotune.py`` is not ported).
 REFERENCE_ONLY = {
     "platform/cluster.py": [
-        "class _UserError(Exception):",
-        '    """Raised by task bodies for errors in user input/code '
-        '(no restart)."""',
-        "",
-        "class _Preempted(Exception):",
-        '    """Raised inside a task body when the scheduler preempted the '
-        'task;',
-        "    the task is already back in the queue and resumes from "
-        'checkpoint."""',
-        "",
-    ],
+        (["class _UserError(Exception):",
+          '    """Raised by task bodies for errors in user input/code '
+          '(no restart)."""',
+          "",
+          "class _Preempted(Exception):",
+          '    """Raised inside a task body when the scheduler preempted '
+          'the task;',
+          "    the task is already back in the queue and resumes from "
+          'checkpoint."""',
+          ""], []),
+        _logger("cluster")],
+    "platform/zookeeper.py": [_logger("zk")],
+    "platform/watchdog.py": [_logger("job", var="job_log")],
+    "platform/metrics.py": [_logger("metrics")],
+    "platform/health.py": [_logger("health")],
+    "observability/trace.py": [_logger("trace")],
+    "observability/log.py": [_logger("", var="root", indent="    ")],
+    "observability/slo.py": [_logger("slo")],
+    "observability/export.py": [
+        _logger("export"),
+        (["    # -- autotune cache -----------------------------------------"
+          "----------",
+          '    fae = Family("dlaas_autotune_cache_entries", "gauge",',
+          '                 "Autotune cache entries loaded in process.")',
+          '    fah = Family("dlaas_autotune_cache_hits_total", "counter",',
+          '                 "Autotune cache hits this process.")',
+          '    fam_ = Family("dlaas_autotune_cache_misses_total", '
+          '"counter",',
+          '                  "Autotune cache misses this process.")',
+          "    fams += [fae, fah, fam_]",
+          "    try:",
+          "        cache = get_cache()",
+          "        fae.add(cache.size())",
+          "        fah.add(cache.hits)",
+          "        fam_.add(cache.misses)",
+          "    except Exception as e:",
+          "        # a broken surface degrades to an empty family;",
+          "        # a scrape must never 500",
+          '        log.debug("%s collector failed: %s: %s",',
+          "                  'autotune', type(e).__name__, e)",
+          ""], [])],
 }
 
 
@@ -262,26 +311,26 @@ def _code_after_docstring(path: Path):
     return out
 
 
-def _without(lines, block):
-    """``lines`` with the one run of consecutive lines equal to ``block``
-    taken out (an AssertionError when there is no such run)."""
-    for i in range(len(lines) - len(block) + 1):
-        if lines[i:i + len(block)] == block:
-            return lines[:i] + lines[i + len(block):]
-    raise AssertionError(f"reference lines not found: {block[:1]}")
+def _replaced(lines, old, new):
+    """``lines`` with the one run of consecutive lines equal to ``old``
+    replaced by ``new`` (an AssertionError when there is no such run)."""
+    for i in range(len(lines) - len(old) + 1):
+        if lines[i:i + len(old)] == old:
+            return lines[:i] + new + lines[i + len(old):]
+    raise AssertionError(f"reference lines not found: {old[:1]}")
 
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_modules_are_the_reference_code(rel):
     """The port's copies differ from the reference only in their
-    docstring, their imports of the package itself and, for
-    platform/cluster.py, the absent definitions of REFERENCE_ONLY."""
+    docstring, their imports of the package itself and the differences
+    REFERENCE_ONLY names."""
     port = ROOT / "src" / "repro_torch" / rel
     assert f"``repro/{rel}``" in ast.get_docstring(ast.parse(
         port.read_text()))
     want = _code_after_docstring(ROOT / "src" / "repro" / rel)
-    if rel in REFERENCE_ONLY:
-        want = _without(want, REFERENCE_ONLY[rel])
+    for old, new in REFERENCE_ONLY.get(rel, ()):
+        want = _replaced(want, old, new)
     assert _code_after_docstring(port) == want
 
 
