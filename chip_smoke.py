@@ -91,7 +91,11 @@ first failing phase (no phase catches an exception):
      released, and its tokens equal a bare ``InferenceEngine``'s on the
      PS params with the same seed; prints launch -> COMPLETED, the median
      round beside phase 8's, deploy -> READY split into download and
-     start, tokens/s and device memory;
+     start, tokens/s and device memory; prints the training's and the
+     endpoint's ``status.perf`` (ready before COMPLETED, ``0 <
+     pct_of_attainable <= 100``, the learner step's FLOPs within
+     PERF_FLOPS_RANGE of ``model_flops``), each count repeated alone with
+     no device allocation and no launch;
  10. service — the same train -> deploy -> predict as a tenant runs it:
      the port's ``DLaaSServer`` (``DLaaSCore`` with ``device="cuda"``,
      ``arch_cfgs`` the 12-layer config, one node of 4 accounted GPUs,
@@ -107,7 +111,9 @@ first failing phase (no phase catches an exception):
      4 from 8 client threads at once (all DONE, latency p50/p99,
      tokens/s), DELETE to STOPPED with the engine released; the phase's
      K1-K4b launches (K4 12 x pushes + 12 x prefill batches, all on the
-     tensor cores);
+     tensor cores); ``status.perf`` ready in the first status that reads
+     COMPLETED, ``GET /v1/trainings/<id>/perf`` and the endpoint's, with
+     the checks of phase 9, and the ``slo_throughput`` alerts;
  11. result  — ``{"kernels": [...]}`` on the line before the last (each
      kernel's launches summed over the main paths, with
      ``launches_by_path``) and ``{"ok": true, "device": {...}}`` as the
@@ -132,9 +138,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-H100_BF16_FLOPS = 989e12       # dense tensor-core peak, H100 SXM data sheet
-H100_F32_FLOPS = 67e12         # f32 outside the tensor cores
-H100_HBM_BYTES = 3.35e12       # HBM3 bytes/s
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # tests/test_kernels.py:34
 SERVE_ARCH = "stablelm-1.6b"
 SERVE_REQUESTS = [(128, 16), (128, 32), (128, 24), (128, 20),
@@ -198,6 +201,10 @@ SERVICE_SPANS = ("plan", "queue_wait", "run", "checkpoint_publish")
 # device memory one tick after COMPLETED against before the submit: the
 # parameter server (26.93 GiB at 12 layers) must be freed
 SERVICE_MEMORY_SLACK = 0.5 * 2**30
+# status.perf (phases 9 and 10): the learner step's FLOPs counted on the
+# meta device against model_flops (6 N T plus attention; the count has
+# no embedding product, 0.870 of it at this config)
+PERF_FLOPS_RANGE = (0.85, 1.15)
 # the ssm serve: mamba2-1.3b at full width and depth. Prompts up to 2,048
 # tokens, the context of the Mamba-2 language models (arXiv:2405.21060);
 # equal-length neighbours prefill together, so the batches are (2, 2048),
@@ -320,21 +327,23 @@ def check_tc_names(kernels, where, family="flash_"):
                              f"cores: {other}")
 
 
+def bound(name, **shape):
+    """(bound ms, what bounds it) of one call of kernel ``name`` at
+    ``shape`` on an H100: the larger of its bytes (inputs read once,
+    outputs written once) over the HBM rate and its operations over the
+    peak rate for their type, from the port's roofline
+    (``analysis/roofline.py:kernel_cost``, the formulas its
+    ``status.perf`` counts the kernel by)."""
+    from repro_torch.analysis.roofline import kernel_cost
+    cost = kernel_cost(name, **shape)
+    return 1e3 * cost.bound_s, cost.bound_by
+
+
 def attention_bound_ms(B, Sq, Sk, H, KV, hd, dtype, causal, q_offset=0):
-    """Least time for this call on an H100: bytes (q, k, v read once, o
-    written once) over HBM rate vs FLOPs of the unmasked score pairs
-    (QK^T and PV, 2 FLOP per multiply-add) over the peak for the type."""
-    esize = 2 if dtype == "bfloat16" else 4
-    nbytes = (2 * B * Sq * H + 2 * B * Sk * KV) * hd * esize
-    if causal:
-        pairs = sum(min(Sk, i + 1 + q_offset) for i in range(Sq))
-    else:
-        pairs = Sq * Sk
-    flops = 4 * B * H * hd * pairs
-    peak = H100_BF16_FLOPS if dtype == "bfloat16" else H100_F32_FLOPS
-    t_bytes, t_ops = nbytes / H100_HBM_BYTES, flops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """Least time for this call on an H100: q, k, v read once, o written
+    once; QK^T and PV over the unmasked score pairs."""
+    return bound("flash_attention", B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, hd=hd,
+                 dtype=dtype, causal=causal, q_offset=q_offset)
 
 
 def check_attention(torch, ops, ref, shape, seed=0):
@@ -572,21 +581,10 @@ def ssd_inputs(torch, B, S, H, P, G, N, dtype, seed):
 
 
 def ssd_bound_ms(B, S, H, P, G, N, chunk, dtype):
-    """Least time for K5 at this shape: bytes (x, dt, a_log, b, c read
-    once; y and the f32 state written once) over the HBM rate vs the
-    products' FLOPs over the peak for the type. Per (b, h, chunk of q
-    positions): 2 P q(q+1)/2 for the masked quadratic form (s <= t
-    only), 2 q P N for the incoming state's term, 2 q P N for the
-    chunk's state; per (b, g, chunk): 2 N q(q+1)/2 for C.B^T."""
-    esize = 2 if dtype == "bfloat16" else 4
-    nbytes = ((2 * B * S * H * P + 2 * B * S * G * N) * esize
-              + 4 * B * S * H + 4 * H + 4 * B * H * P * N)
-    q = min(chunk, S)
-    pairs = sum(n * (n + 1) // 2
-                for n in (min(q, S - s0) for s0 in range(0, S, q)))
-    flops = B * H * (2 * P * pairs + 4 * S * P * N) + B * G * 2 * N * pairs
-    return bound(nbytes, flops, H100_BF16_FLOPS if dtype == "bfloat16"
-                 else H100_F32_FLOPS)
+    """Least time for K5 at this shape: x, dt, a_log, b, c read once, y
+    and the f32 state written once; the chunked scan's products."""
+    return bound("ssd_scan", B=B, S=S, H=H, P=P, G=G, N=N, chunk=chunk,
+                 dtype=dtype)
 
 
 def check_ssd(torch, ops, ref, kssd, shape, seed=0):
@@ -763,14 +761,6 @@ def serve_ssm(torch, ops, ref, kssd, card):
 # ---------------------------------------------------------------------------
 
 
-def bound(nbytes: float, flops: float = 0.0, peak=H100_BF16_FLOPS):
-    """(bound ms, what bounds it): the larger of bytes over the HBM rate
-    and operations over the peak rate for their type."""
-    t_bytes, t_ops = nbytes / H100_HBM_BYTES, flops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def check_attention_bwd(torch, ops, ref, shape, seed=0):
     """K4 with LSE and K4b against their plain versions at one shape;
     SDPA forward + backward through autograd as the yardstick."""
@@ -839,16 +829,10 @@ def check_attention_bwd(torch, ops, ref, shape, seed=0):
     dot = do.transpose(1, 2)
     library_ms = time_ms(torch, lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), iters=20)
-    esize = 2 if dtype == "bfloat16" else 4
-    if causal:
-        pairs = sum(min(S, i + 1 + q_offset) for i in range(S))
-    else:
-        pairs = S * S
     # read q, k, v, o, dO and lse, write dq, dk, dv; five products
-    nbytes = (4 * B * S * H + 4 * B * S * KV) * hd * esize + 4 * B * H * S
-    flops = 10 * B * H * hd * pairs
-    bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOPS
-                               if dtype == "bfloat16" else H100_F32_FLOPS)
+    bound_ms, bound_by = bound("flash_attention_bwd", B=B, Sq=S, Sk=S, H=H,
+                               KV=KV, hd=hd, dtype=dtype, causal=causal,
+                               q_offset=q_offset)
     return {"shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
                       "dtype": dtype, "causal": causal,
                       "q_offset": q_offset},
@@ -910,7 +894,7 @@ def time_ps_aggregate(torch, ops, ref, nl, f):
     plain_ms = time_ms(torch, lambda: ref.ps_aggregate_ref(
         rows, p, m, v, 2, **kw), iters=3, warmup=1)
     # adam: read NL rows and p/m/v, write p/m/v, f32
-    bound_ms, bound_by = bound((nl + 6) * 4 * f, 0)
+    bound_ms, bound_by = bound("ps_aggregate", NL=nl, F=f, solver="adam")
     return {"shape": {"NL": nl, "F": f, "solver": "adam"},
             "max_abs_err": max(errs.values()), "errors": errs, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
@@ -978,10 +962,8 @@ def time_quantize(torch, ops, ref, n, x_dtype):
     k3_lib = time_ms(torch, lambda: torch.mul(qb, sb, out=lb), iters=10)
     ops.dequantize(q, s, out=out)
     lib_err = (out - lib).abs().max().item()
-    nb = n // 256
-    xb = x.element_size()
-    k2_bound = bound(n * (xb + 4 + 1 + 4) + 4 * nb)  # x, err -> q, err, s
-    k3_bound = bound(n * (1 + 4) + 4 * nb)           # q, s -> x
+    k2_bound = bound("quantize_ef", F=n, x_dtype=x_dtype)  # x, err -> q,
+    k3_bound = bound("dequantize", F=n)                     # err, s; q, s -> x
     return ({"shape": {"F": n, "x_dtype": str(x_dtype).split(".")[-1]},
              "max_abs_err": max(s_err, e_err),
              "ms": k2_ms, "plain_ms": k2_plain, "library_ms": None,
@@ -1442,6 +1424,54 @@ def memory_line(torch, label):
             f"allocated")
 
 
+def estimate_alone(torch, ops, cost_fn):
+    """Run one ``status.perf`` count (``cost_fn``: ``program_cost`` or an
+    engine's decode cost) alone on this thread: (its analysis, seconds,
+    what the card saw). It runs on the meta device, so the card's
+    allocated memory, its allocation count and every launch count must
+    not move."""
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    allocs0 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    launches0 = ops.launch_counts()
+    t0 = time.perf_counter()
+    analysis = cost_fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    allocs1 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    if mem1 != mem0 or allocs1 != allocs0 or \
+            ops.launch_counts() != launches0:
+        raise AssertionError(f"the estimate touched the card: allocated "
+                             f"{mem0} -> {mem1} B, {allocs1 - allocs0} "
+                             f"allocations, launches {launches0} -> "
+                             f"{ops.launch_counts()}")
+    return analysis, secs, (f"memory_allocated {mem0} B before and after, "
+                            f"0 allocations, 0 launches")
+
+
+def check_perf(snap, label, cfg=None, m=None):
+    """A ``status.perf`` payload: ready, with ``0 < pct_of_attainable <=
+    100`` (a measured rate above the roofline means the count left work
+    out). With the manifest ``m`` of a training, its FLOPs per learner
+    step within ``PERF_FLOPS_RANGE`` of ``model_flops``; returns that
+    ratio."""
+    from repro_torch.analysis.roofline import model_flops
+    from repro_torch.configs.base import ShapeSpec
+    pct = snap.get("pct_of_attainable")
+    if snap.get("state") != "ready" or pct is None or not 0 < pct <= 100:
+        raise AssertionError(f"{label}: status.perf {snap}")
+    if m is None:
+        return None
+    shape = ShapeSpec(label, m["data"]["seq_len"], m["batch_docs"], "train")
+    ratio = snap["flops_per_step_per_device"] / model_flops(cfg, shape)
+    lo, hi = PERF_FLOPS_RANGE
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"{label}: {ratio:.4f} of model_flops, outside "
+                             f"{PERF_FLOPS_RANGE}: {snap}")
+    return ratio
+
+
 def platform_train(torch, ops, cfg, workdir, card):
     """Plan ``PLATFORM_MANIFEST`` with ``SoftwarePSBackend`` at ``cfg``,
     launch it under the LCM and scheduler, tick until it ends; check the
@@ -1453,7 +1483,13 @@ def platform_train(torch, ops, cfg, workdir, card):
     from repro_torch.checkpoint.checkpoint import CheckpointManager
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import flash_attention_bwd as kfab
+    from repro_torch.analysis.perf import measured_rate_from_metrics
+    from repro_torch.runtime.learner import LMPlugin
     job, m = PLATFORM_JOB, PLATFORM_MANIFEST
+    # the learner step's estimate alone, as the plan's JobPerf counts it
+    estimate = estimate_alone(torch, ops, lambda: LMPlugin(
+        m["framework"], cfg=cfg, device="cuda").program_cost(
+            m["batch_docs"], m["data"]))
     rec = SpanRecorder()
     plat = ChipPlatform(workdir, cfg, rec)
     torch.cuda.reset_peak_memory_stats()
@@ -1465,6 +1501,7 @@ def platform_train(torch, ops, cfg, workdir, card):
     t0 = time.perf_counter()
     handle = be.launch(plan, plat.lcm)
     state = plat.drive(job)
+    perf_state = plan.meta["perf"].state       # when COMPLETED was seen
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -1508,6 +1545,13 @@ def platform_train(torch, ops, cfg, workdir, card):
         raise AssertionError("checkpoint, PS params and trained_model.npy "
                              "differ")
     mirrored = plat.storage.get_store("objectstore").list(f"ckpt/{job}")
+    perf = plan.meta["perf"].snapshot(
+        measured_rate_from_metrics(plat.metrics, job))
+    if perf_state != "ready" or perf["flops_per_step_per_device"] != \
+            estimate[0]["flops_per_device"]:
+        raise AssertionError(f"status.perf {perf_state} at COMPLETED, "
+                             f"{perf}; alone {estimate[0]}")
+    ratio = check_perf(perf, job, cfg, m)
     rounds = [1e3 * (b - a) for a, b in
               zip([t0] + plat.metrics.round_end[:-1], plat.metrics.round_end)]
     out = {"plan_s": plan_s, "wall_s": wall, "round_ms": rounds,
@@ -1518,7 +1562,9 @@ def platform_train(torch, ops, cfg, workdir, card):
            "checkpoint_step": last, "mirrored": len(mirrored),
            "checkpoint_s": [end - start for name, start, end in rec.spans
                             if name == "checkpoint_publish"],
-           "tokens": n * steps * m["batch_docs"] * m["data"]["seq_len"]}
+           "tokens": n * steps * m["batch_docs"] * m["data"]["seq_len"],
+           "perf": perf, "perf_model_ratio": ratio,
+           "estimate_s": estimate[1], "estimate_card": estimate[2]}
     # drop every reference to the training's device state: the PS (in the
     # plan, its groups' learner body and the scheduler's apps), the
     # plugin, the whole training platform
@@ -1565,6 +1611,14 @@ def platform_serve(torch, ops, cfg, workdir, card):
         raise AssertionError(f"endpoint states {seen}")
     (_, dl0, dl1), = [s for s in rec.spans if s[0] == "weights_download"]
     eng = ep.engine
+    # the decode step's estimate, started by the engine; then the same
+    # count alone (the endpoint idles READY)
+    poll(lambda: eng.perf.state, lambda st: st in ("ready", "error"), 120,
+         "decode-step estimate")
+    estimate = estimate_alone(torch, ops, eng._decode_cost(eng.params))
+    if estimate[0] != eng.perf.analysis:
+        raise AssertionError(f"decode-step estimate {eng.perf.analysis}; "
+                             f"alone {estimate[0]}")
     get_backend("serving").pause(ep.handle)
     time.sleep(0.2)            # the run loop now waits at its pause gate
     prompts = serve_prompts(cfg, 0)
@@ -1592,6 +1646,8 @@ def platform_serve(torch, ops, cfg, workdir, card):
                              f"per prefill batch, all on the tensor cores")
     stats = eng.stats()
     peak = torch.cuda.max_memory_allocated()
+    perf = ep.status()["perf"]
+    check_perf(perf, ep_id)
     ep.drain()
     seen = [ep.state()]
     st = plat.drive(ep_id, timeout=120)
@@ -1608,7 +1664,9 @@ def platform_serve(torch, ops, cfg, workdir, card):
             "start_s": t_ready - dl1, "wall_s": wall, "stats": stats,
             "tokens": [r.tokens for r in reqs], "prefills": prefills,
             "launches": launches, "peak_bytes": peak,
-            "after_teardown": memory_line(torch, "after teardown")}
+            "after_teardown": memory_line(torch, "after teardown"),
+            "perf": perf, "estimate_s": estimate[1],
+            "estimate_card": estimate[2]}
 
 
 def print_platform(tr, sv, hand, card, cfg):
@@ -1634,6 +1692,13 @@ def print_platform(tr, sv, hand, card, cfg):
           f"{json.dumps(tr['stats'])}; launches {json.dumps(tr['launches'])}"
           f", on the tensor cores {json.dumps(tr['launches_tc'])}")
     print(f"{tag} training's device state dropped: {tr['freed']}")
+    print(f"{tag} status.perf of {PLATFORM_JOB} (the learner step, "
+          f"{cfg.arch_id} L={cfg.n_layers}, {PLATFORM_MANIFEST['batch_docs']}"
+          f" x {PLATFORM_MANIFEST['data']['seq_len']} tokens; ready before "
+          f"COMPLETED; FLOPs {tr['perf_model_ratio']:.4f} of model_flops; "
+          f"counted alone in {tr['estimate_s']:.3f} s, "
+          f"{tr['estimate_card']}):")
+    print(json.dumps(tr["perf"]))
     st = sv["stats"]
     n_tok = st["tokens_out_total"]
     print(f"{tag} {PLATFORM_ENDPOINT}: deploy -> READY {sv['ready_s']:.3f} s "
@@ -1645,6 +1710,11 @@ def print_platform(tr, sv, hand, card, cfg):
           f"steps; peak device memory {sv['peak_bytes'] / 2**30:.2f} GiB; "
           f"{sv['after_teardown']} (engine released); launches "
           f"{json.dumps(sv['launches'])}")
+    print(f"{tag} status.perf of {PLATFORM_ENDPOINT} (one decode step of "
+          f"{ENDPOINT_SERVING['capacity']} slots over max_seq "
+          f"{ENDPOINT_SERVING['max_seq']}; counted alone in "
+          f"{sv['estimate_s']:.3f} s, {sv['estimate_card']}):")
+    print(json.dumps(sv["perf"]))
 
 
 # ---------------------------------------------------------------------------
@@ -1746,6 +1816,10 @@ def service_run(torch, cfg, workdir):
                   lambda s: s["status"] in ("COMPLETED", "FAILED",
                                             "KILLED"), 900, tid)
         out["train_s"] = time.perf_counter() - t0
+        # status.perf in the first status that reads COMPLETED
+        if st.get("perf", {}).get("state") != "ready":
+            raise AssertionError(f"{tid} COMPLETED, status.perf "
+                                 f"{st.get('perf')}")
         out["peak_train"] = torch.cuda.max_memory_allocated()
         restarts = sum(t.restarts for app in core.scheduler.apps.values()
                        if app.app_id.startswith(tid)
@@ -1774,6 +1848,12 @@ def service_run(torch, cfg, workdir):
         if not set(SERVICE_SPANS) <= spans:
             raise AssertionError(f"timeline spans {sorted(spans)} lack "
                                  f"{set(SERVICE_SPANS) - spans}")
+        out["perf"] = http(f"{url}/v1/trainings/{tid}/perf")["perf"]
+        out["perf_model_ratio"] = check_perf(out["perf"], tid, cfg, m)
+        if out["perf"]["flops_per_step_per_device"] != \
+                st["perf"]["flops_per_step_per_device"]:
+            raise AssertionError(f"GET .../perf {out['perf']} against "
+                                 f"status.perf {st['perf']}")
         fams = parse_prometheus_text(http(f"{url}/metrics").decode())[
             "families"]
         out.update(
@@ -1837,6 +1917,8 @@ def service_run(torch, cfg, workdir):
         out["latency_s"] = sorted(lat for _, lat in got)
         out["burst_tokens"] = sum(len(r["tokens"]) for r, _ in got)
         eng = core.endpoints[eid].engine
+        out["endpoint_perf"] = http(f"{url}/v1/models/{eid}")["perf"]
+        check_perf(out["endpoint_perf"], eid)
         out["prefill_batches"] = eng.prefill_batches
         out["launches"] = ops.launch_counts()
         out["launches_tc"] = {kfa.NAME: kfa.launches_tc,
@@ -1935,6 +2017,16 @@ def print_service(svc, ptrain, card, cfg):
           f"{lat[min(len(lat) - 1, int(0.99 * len(lat)))]:.3f} s (client "
           f"side, HTTP included); {svc['prefill_batches']} prefill batches;"
           f" DELETE -> STOPPED, engine released")
+    print(f"{tag} GET /v1/trainings/{svc['training_id']}/perf (the learner "
+          f"step; ready in the first status that read COMPLETED; FLOPs "
+          f"{svc['perf_model_ratio']:.4f} of model_flops):")
+    print(json.dumps(svc["perf"]))
+    print(f"{tag} the endpoint's status.perf after the burst:")
+    print(json.dumps(svc["endpoint_perf"]))
+    throughput = [a for a in svc["alerts"] if a["name"] == "slo_throughput"]
+    print(f"{tag} slo_throughput alerts (steps/s against half the "
+          f"attainable rate; a diagnosis ticket, no remediation): "
+          f"{json.dumps(throughput)}")
     print(f"{tag} launches {json.dumps(svc['launches'])}, on the tensor "
           f"cores {json.dumps(svc['launches_tc'])} (training alone "
           f"{json.dumps(svc['train_launches'])}); BSP arrival lag by "

@@ -22,7 +22,9 @@ Layout:
     fault injection.
   * ``observability`` — copies of ``stream``, ``trace``, ``log`` (the
     ``"repro_torch"`` logger tree), ``slo`` and ``export``;
-    ``analysis.perf`` — ``JobPerf``, a disabled stand-in.
+    ``analysis`` — ``roofline`` (a program's FLOPs and bytes counted on
+    the meta device against H100 constants, ``kernel_cost``,
+    ``model_flops``) and ``perf`` (``JobPerf``: ``status.perf``).
   * ``service``       — the manifest parser and the CLI (copies),
     ``DLaaSCore`` (``core``) and the REST server (``rest``), the entry
     point: ``python -m repro_torch.service.rest <workdir> [port]

@@ -1,1 +1,2 @@
-"""Per-job performance estimates (``perf``: the ``JobPerf`` stand-in)."""
+"""Roofline estimates of the port's programs on H100 constants
+(``roofline``) and the per-job ``status.perf`` service (``perf``)."""

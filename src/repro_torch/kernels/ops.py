@@ -4,11 +4,21 @@ Each op picks its path from where its tensors lie, and from nothing
 else: a CPU tensor goes to the plain PyTorch version (``ref.py``), a
 CUDA tensor to the hand-written kernel, which either launches or raises.
 There is no ``try`` that falls back from the kernel to the plain version.
+
+A meta tensor (``analysis.roofline.count_program`` runs a program on the
+meta device to count it) takes a third path that computes nothing: the
+op adds its kernel's ``kernel_cost`` at these shapes to the active count
+and returns empty meta tensors of the kernel's output shapes and dtypes
+(in-place outputs are the tensors given). No launch count moves, and a
+meta tensor never reaches a plain version.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
+from repro_torch.analysis import roofline
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import ps_aggregate as _agg
@@ -21,12 +31,18 @@ KERNELS = (_fa, _fab, _agg, _q.QUANTIZE, _q.DEQUANTIZE, _ssd)
 
 
 def _where(op: str, *ts) -> str:
-    """'cpu' or 'cuda' when every tensor lies there; raises otherwise."""
+    """'cpu', 'cuda' or 'meta' when every tensor lies there; raises
+    otherwise."""
     devs = {t.device.type for t in ts}
-    if devs == {"cpu"} or devs == {"cuda"}:
+    if len(devs) == 1 and devs <= {"cpu", "cuda", "meta"}:
         return devs.pop()
     raise ValueError(f"{op}: tensors on {sorted(devs)}; want all on the "
-                     "CPU (plain version) or all on CUDA (kernel)")
+                     "CPU (plain version), all on CUDA (kernel) or all on "
+                     "meta (counted)")
+
+
+def _count(name: str, **shape) -> None:
+    roofline.record_kernel(name, roofline.kernel_cost(name, **shape))
 
 
 def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
@@ -37,7 +53,18 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     by index (KV head = h // (H // KV)); causal masking lets query i see
     keys j <= i + q_offset. Any Sq/Sk. With ``return_lse``, returns
     (o, lse) with the row log-sum-exp lse (B, H, Sq) f32."""
-    if _where("flash_attention", q, k, v) == "cpu":
+    where = _where("flash_attention", q, k, v)
+    if where == "meta":
+        _fa.check_shapes(q, k, v, q_offset)
+        B, Sq, H, hd = q.shape
+        _count(_fa.NAME, B=B, Sq=Sq, Sk=k.shape[1], H=H, KV=k.shape[2],
+               hd=hd, dtype=q.dtype, causal=causal, q_offset=q_offset,
+               lse=return_lse)
+        o = q.new_empty((B, Sq, H, hd))
+        if return_lse:
+            return o, q.new_empty((B, H, Sq), dtype=torch.float32)
+        return o
+    if where == "cpu":
         _fa.check_shapes(q, k, v, q_offset)
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_offset=q_offset,
@@ -52,7 +79,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool,
     """(dq, dk, dv) of ``flash_attention`` from its output ``o``, row
     log-sum-exp ``lse`` and the output gradient ``do``; each in its
     input's dtype, dk/dv summed over each KV head's group."""
-    if _where("flash_attention_bwd", q, k, v, o, lse, do) == "cpu":
+    where = _where("flash_attention_bwd", q, k, v, o, lse, do)
+    if where == "meta":
+        _fab.check_shapes(q, k, v, o, lse, do, q_offset)
+        B, Sq, H, hd = q.shape
+        _count(_fab.NAME, B=B, Sq=Sq, Sk=k.shape[1], H=H, KV=k.shape[2],
+               hd=hd, dtype=q.dtype, causal=causal, q_offset=q_offset)
+        return (torch.empty_like(q, memory_format=torch.contiguous_format),
+                torch.empty_like(k, memory_format=torch.contiguous_format),
+                torch.empty_like(v, memory_format=torch.contiguous_format))
+    if where == "cpu":
         _fab.check_shapes(q, k, v, o, lse, do, q_offset)
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                            causal=causal, q_offset=q_offset)
@@ -65,7 +101,16 @@ def ssd_scan(x, dt, a_log, b, c, *, chunk: int):
     (B, S, H) after softplus, a_log (H,), b/c (B, S, G, N) with H % G ==
     0 -> (y (B, S, H, P) in x's dtype, final state (B, H, P, N) f32). No
     D-skip and no gating (the block adds them)."""
-    if _where("ssd_scan", x, dt, a_log, b, c) == "cpu":
+    where = _where("ssd_scan", x, dt, a_log, b, c)
+    if where == "meta":
+        _ssd.check_shapes(x, dt, a_log, b, c, chunk)
+        B, S, H, P = x.shape
+        G, N = b.shape[2], b.shape[3]
+        _count(_ssd.NAME, B=B, S=S, H=H, P=P, G=G, N=N, chunk=chunk,
+               dtype=x.dtype)
+        return (torch.empty_like(x, memory_format=torch.contiguous_format),
+                x.new_empty((B, H, P, N), dtype=torch.float32))
+    if where == "cpu":
         _ssd.check_shapes(x, dt, a_log, b, c, chunk)
         return ref.ssd_scan_ref(x, dt, a_log, b, c, chunk=chunk)
     return _ssd.ssd_scan_cuda(x, dt, a_log, b, c, chunk=chunk)
@@ -76,7 +121,15 @@ def quantize_ef(x, err, *, out_err=None):
     scales f32 (F/256,), new_err f32 (F,)): int8 block quantization of
     ``x + err`` with error feedback. ``out_err`` (may be ``err``) takes
     new_err in place."""
-    if _where("quantize_ef", x, err) == "cpu":
+    where = _where("quantize_ef", x, err)
+    if where == "meta":
+        _q.check_quantize(x, err)
+        n = x.numel()
+        _count(_q.QUANTIZE.NAME, F=n, x_dtype=x.dtype)
+        return (x.new_empty(n, dtype=torch.int8),
+                x.new_empty(n // _q.QBLOCK, dtype=torch.float32),
+                out_err if out_err is not None else torch.empty_like(err))
+    if where == "cpu":
         _q.check_quantize(x, err)
         q, scales, new_err = ref.quantize_ref(x, err)
         if out_err is not None:
@@ -88,7 +141,13 @@ def quantize_ef(x, err, *, out_err=None):
 def dequantize(q, scales, *, out=None):
     """q int8 (F,), scales f32 (F/256,) -> q * scale per block, f32
     (F,), written into ``out`` when given."""
-    if _where("dequantize", q, scales) == "cpu":
+    where = _where("dequantize", q, scales)
+    if where == "meta":
+        _q.check_dequantize(q, scales, out)
+        _count(_q.DEQUANTIZE.NAME, F=q.numel())
+        return out if out is not None else q.new_empty(
+            q.numel(), dtype=torch.float32)
+    if where == "cpu":
         _q.check_dequantize(q, scales, out)
         return ref.dequantize_ref(q, scales, out=out)
     return _q.dequantize_cuda(q, scales, out=out)
@@ -103,7 +162,12 @@ def ps_aggregate(rows, params, m, v, step, *, solver: str = "adam",
     params/m/v. Returns (params, m, v)."""
     kw = dict(solver=solver, lr=lr, b1=b1, b2=b2, eps=eps,
               momentum=momentum, beta=beta)
-    if _where("ps_aggregate", rows, params, m, v) == "cpu":
+    where = _where("ps_aggregate", rows, params, m, v)
+    if where == "meta":
+        _agg.check_args(rows, params, m, v, solver)
+        _count(_agg.NAME, NL=rows.shape[0], F=rows.shape[1], solver=solver)
+        return params, m, v
+    if where == "cpu":
         _agg.check_args(rows, params, m, v, solver)
         return ref.ps_aggregate_ref(rows, params, m, v, step, **kw)
     return _agg.ps_aggregate_cuda(rows, params, m, v, step, **kw)

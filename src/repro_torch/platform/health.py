@@ -37,8 +37,8 @@ on the ``AlertManager`` streams behind ``GET /v1/alerts?follow=1``.
 Copied from ``repro/platform/health.py`` unchanged apart from import
 paths and the logger's name (under ``"repro_torch"``, see
 ``observability/log.py``): the port imports nothing of ``repro``. Its
-throughput SLO reads ``status.perf``, which the port's ``JobPerf``
-stand-in leaves disabled, so that tracker stays idle.
+throughput SLO reads ``status.perf``, the port's roofline of the
+learner step on H100 constants (``analysis/perf.py``).
 """
 from __future__ import annotations
 

@@ -15,8 +15,12 @@ the paper: auxiliary groups (the PS app) are deployed first; the primary
 group (learners/workers) last. The legacy ``JobSpec`` entry point is kept
 as a thin adapter that builds the equivalent plan.
 
-Copied from ``repro/platform/lcm.py`` unchanged apart from import paths:
-the port imports nothing of ``repro``.
+Copied from ``repro/platform/lcm.py`` unchanged apart from import paths
+and one fix: ``_set`` checks for a znode, then creates it, so two
+threads in ``monitor()`` at once (the service's tick loop and a status
+request) could both miss it and the second ``create`` raised
+``NodeExistsError``; the port's ``_set`` then writes the node instead.
+The port imports nothing of ``repro``.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ from repro_torch.platform.cluster import (App, Resources, Scheduler,
                                           PREEMPTED as TASK_PREEMPTED,
                                           STAGING as TASK_STAGING)
 from repro_torch.platform.watchdog import JOB_DONE, JOB_FAILED
-from repro_torch.platform.zookeeper import NoNodeError, ZooKeeper, zk_retry
+from repro_torch.platform.zookeeper import (NodeExistsError, NoNodeError,
+                                            ZooKeeper, zk_retry)
 
 # job states (PREEMPTED is non-terminal: the scheduler requeues the
 # job's tasks and they resume from the last checkpoint — bounding the
@@ -191,7 +196,10 @@ class LifecycleManager:
             if self.zk.exists(path):
                 self.zk.set(path, data)
             else:
-                self.zk.create(path, data, makepath=True)
+                try:
+                    self.zk.create(path, data, makepath=True)
+                except NodeExistsError:     # created since the check
+                    self.zk.set(path, data)
         # monitor()/submit run on the tick thread: a brief quorum outage
         # (kill_replica chaos) must not crash the control loop
         zk_retry(write)

@@ -207,6 +207,12 @@ class SoftwarePSBackend(ExecutionBackend):
         # the plugin is handed to the learner body below: the model is
         # built once per job, not once per learner
         flat0 = plugin.flat_state(jcfg.seed)
+        # roofline estimate of the learner step (status.perf), counted on
+        # the meta device on a background thread: it needs no kernel
+        # build, so it starts at once
+        perf = JobPerf(spec.job_id, ctx.metrics)
+        perf.start_async(lambda: plugin.program_cost(jcfg.batch_docs,
+                                                     jcfg.data_cfg))
         ps = SoftwareParameterServer(
             flat0, n_shards=ps_shards,
             n_learners=spec.learners,
@@ -244,7 +250,7 @@ class SoftwarePSBackend(ExecutionBackend):
             results=results, control=control,
             meta={"ps": ps, "framework": fw_name, "steps": jcfg.steps,
                   "compression": compression, "ps_shards": ps_shards,
-                  "perf": JobPerf(spec.job_id, ctx.metrics)})
+                  "perf": perf})
 
 
 # ---------------------------------------------------------------------------

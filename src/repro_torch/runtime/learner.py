@@ -16,12 +16,14 @@ but it lives on the device: the PS pull buffer, the gradient, the push
 and the checkpoint snapshot all start from device tensors, and only the
 checkpoint and the uploaded model go to the host. ``LMPlugin.warm_async``
 starts the first-use ``nvcc`` build of the step's kernels, the port's
-counterpart of the reference's XLA warm compile. Left out: the plugins'
-``lowered_hlo`` (HLO for ``JobPerf``; the port's ``JobPerf`` is a
-disabled stand-in).
+counterpart of the reference's XLA warm compile. Each plugin's
+``program_cost`` counts its step on the meta device for ``JobPerf``
+(``analysis/roofline.py:count_program``), where the reference's
+``lowered_hlo`` hands it the step's compiled HLO.
 """
 from __future__ import annotations
 
+import copy
 import io
 import logging
 import threading
@@ -32,6 +34,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.roofline import count_program
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig, reduce_for_smoke
 from repro_torch.configs.registry import get_arch
@@ -68,6 +71,18 @@ def register_plugin(name: str):
         PLUGINS[name] = cls
         return cls
     return deco
+
+
+def _meta_twin(plugin):
+    """The plugin on the meta device: a shallow copy sharing its model
+    and layout, built once per plugin, so its step runs on meta tensors
+    for ``count_program``."""
+    twin = getattr(plugin, "_meta", None)
+    if twin is None:
+        twin = copy.copy(plugin)
+        twin.device = torch.device("meta")
+        plugin._meta = twin
+    return twin
 
 
 def _set_path(tree: Dict, path: str, value) -> None:
@@ -130,6 +145,19 @@ class LMPlugin:
                 ev.set()
         threading.Thread(target=run, daemon=True,
                          name="plugin-warm").start()
+
+    def program_cost(self, batch_docs: int, data_cfg: Dict) -> Dict:
+        """``count_program`` of one ``flat_loss_grad`` at ``batch_docs`` x
+        the data's ``seq_len``, on the meta device: the forward,
+        autograd's backward and the gradient's copies into the flat
+        vector. The counterpart of the reference's ``lowered_hlo``; it
+        touches no device memory and launches nothing."""
+        seq_len = self.dataset_spec(data_cfg).seq_len
+        tokens = np.zeros((batch_docs, seq_len), np.int64)
+        flat = torch.empty(self.flat_size, dtype=torch.float32,
+                           device="meta")
+        return count_program(_meta_twin(self).flat_loss_grad, flat,
+                             {"tokens": tokens, "labels": tokens})
 
     def flat_state(self, seed: int) -> torch.Tensor:
         """Initial weights as one flat f32 vector on the device, in
@@ -240,20 +268,36 @@ class MLPPlugin:
                           / np.sqrt(fan_in))
         return flat
 
-    def flat_loss_grad(self, flat, batch):
-        """(mean NLL (0-dim f32 tensor), flat f32 gradient on the
-        device); sets ``last_acc``, the batch's accuracy."""
+    def _step(self, flat, batch):
+        """(loss, flat f32 gradient, accuracy), each a tensor on the
+        device: the step ``program_cost`` counts."""
         f = as_flat(flat, self.device).float().detach().requires_grad_()
         p = self._unflat(f)
         x, y = _synthetic_features(batch["tokens"], self.d_in,
                                    self.n_classes, self.device)
         h = torch.tanh(x @ p["w1"] + p["b1"])
         logits = h @ p["w2"] + p["b2"]
-        nll = -torch.log_softmax(logits, -1)[torch.arange(len(y)), y]
+        nll = -torch.log_softmax(logits, -1)[
+            torch.arange(len(y), device=self.device), y]
         loss = nll.mean()
         (g,) = torch.autograd.grad(loss, f)
-        self.last_acc = float((logits.argmax(-1) == y).float().mean())
-        return loss.detach(), g
+        return loss.detach(), g, (logits.argmax(-1) == y).float().mean()
+
+    def flat_loss_grad(self, flat, batch):
+        """(mean NLL (0-dim f32 tensor), flat f32 gradient on the
+        device); sets ``last_acc``, the batch's accuracy."""
+        loss, g, acc = self._step(flat, batch)
+        self.last_acc = float(acc)
+        return loss, g
+
+    def program_cost(self, batch_docs: int, data_cfg: Dict) -> Dict:
+        """``count_program`` of one step at ``batch_docs`` documents, on
+        the meta device (the reference's ``lowered_hlo``)."""
+        tokens = np.zeros((batch_docs, 2), np.int64)
+        flat = torch.empty(self.flat_size, dtype=torch.float32,
+                           device="meta")
+        return count_program(_meta_twin(self)._step, flat,
+                             {"tokens": tokens})
 
     def dataset_spec(self, data_cfg: Dict) -> DatasetSpec:
         return DatasetSpec(n_docs=data_cfg.get("n_docs", 2048),

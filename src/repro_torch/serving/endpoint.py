@@ -217,6 +217,6 @@ class ModelEndpoint:
             "max_queue": self.engine.max_queue,
             "stats": (self.stats_final if self.stats_final is not None
                       else self.engine.stats()),
-            # the decode step's perf estimate (disabled stand-in)
+            # the decode step's roofline estimate
             "perf": self.engine.perf.snapshot(self.engine.decode_rate()),
         }

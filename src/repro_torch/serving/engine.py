@@ -21,9 +21,12 @@ Where the JAX engine differs in mechanism:
   * weights and cache live on an explicit ``device`` (CUDA unless the
     caller passes ``device="cpu"``), and ``seed`` drives a
     ``torch.Generator`` on that device.
-Greedy (argmax) sampling keeps the engine deterministic. ``perf`` is the
-port's ``JobPerf`` stand-in, disabled until the port has a roofline of
-its own (``analysis/perf.py``).
+Greedy (argmax) sampling keeps the engine deterministic. ``perf`` is
+the decode step's roofline estimate (``status.perf``, unit
+``decode_step``): ``start`` counts one batched ``model.decode`` of
+``capacity`` slots over the slot cache on the meta device
+(``analysis/roofline.py:count_program``) on a background thread, where
+the JAX engine analyses the decode jit's compiled HLO.
 """
 from __future__ import annotations
 
@@ -39,10 +42,12 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.perf import JobPerf
+from repro_torch.analysis.roofline import count_program
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.errors import UserError
 from repro_torch.models import make_model
+from repro_torch.models.layers import map_leaves
 from repro_torch.observability.trace import TRACE_STEP_SAMPLE, maybe_span
 from repro_torch.weights import flat_size, params_from_flat
 
@@ -153,7 +158,8 @@ class InferenceEngine:
         self.prefill_batches = 0
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
-        # status.perf of the decode step (disabled stand-in)
+        # roofline estimate of the decode step (status.perf), counted in
+        # the background once the weights are built
         self.perf = JobPerf(endpoint_id or "endpoint", metrics,
                             unit="decode_step")
 
@@ -195,6 +201,25 @@ class InferenceEngine:
             self._cache = cache
             self._released = False
             self._ready.set()
+        self.perf.start_async(self._decode_cost(params))
+
+    def _decode_cost(self, params):
+        """A callable that counts one batched decode step of
+        ``capacity`` slots over a ``max_seq`` slot cache on the meta
+        device. The weights' shapes are snapshot now (the live ones are
+        dropped at release); nothing touches the card."""
+        meta = map_leaves(lambda _, t: torch.empty_like(t, device="meta"),
+                          params)
+        capacity, max_seq = self.capacity, self.max_seq
+
+        def cost():
+            cache = self.model.empty_cache(capacity, max_seq, "meta")
+            toks = torch.zeros((capacity, 1), dtype=torch.int64,
+                               device="meta")
+            with torch.no_grad():
+                return count_program(self.model.decode, meta, cache,
+                                     {"tokens": toks})
+        return cost
 
     @property
     def ready(self) -> bool:

@@ -95,9 +95,8 @@ def test_plain_version_chunking_invariant():
 
 def test_flash_attention_rejects_mixed_or_other_devices():
     _, (tq, tk, tv) = _both(_inputs(0, 1, 8, 8, 2, 2, 16), "float32")
-    with pytest.raises(ValueError):
-        ops.flash_attention(tq.to("meta"), tk.to("meta"), tv.to("meta"),
-                            causal=True)
+    with pytest.raises(ValueError):             # mixed: meta and CPU
+        ops.flash_attention(tq.to("meta"), tk, tv, causal=True)
     _, (q3, k2, v2) = _both(_inputs(0, 1, 8, 8, 3, 2, 16), "float32")
     with pytest.raises(ValueError):             # H % KV != 0
         ops.flash_attention(q3, k2, v2, causal=True)

@@ -752,3 +752,26 @@ def test_service_trains_releases_and_serves_on_cuda(cuda, tmp_path):
         assert core.endpoints[eid].engine.released
     finally:
         core.close()
+
+
+def test_estimates_touch_no_device_memory(cuda):
+    """``status.perf``'s counts of a CUDA plugin's learner step and a CUDA
+    engine's decode step run on the meta device: no allocation on the
+    card, no launch, and the CPU plugin's count."""
+    from repro_torch.runtime.learner import LMPlugin
+    cfg = reduce_for_smoke(get_arch("stablelm-1.6b"))
+    eng = InferenceEngine(cfg, capacity=2, max_seq=64, device="cuda")
+    eng.start()
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    before = ops.launch_counts()
+    train = LMPlugin({}, device="cuda").program_cost(2, {})
+    decode = eng._decode_cost(eng.params)()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == mem
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs
+    assert ops.launch_counts() == before
+    assert train == LMPlugin({}, device="cpu").program_cost(2, {})
+    assert decode["flops_per_device"] > 0
+    eng.release()

@@ -241,7 +241,17 @@ def _logger(name, var="log", indent=""):
 #     reference's log hubs in a process that loads both.
 #   * observability/export.py has no autotune-cache families: the port
 #     has no autotune cache (``kernels/autotune.py`` is not ported).
+#   * platform/lcm.py's ``_set`` writes a znode that another thread
+#     created between its check and its create, where the reference's
+#     raises ``NodeExistsError`` (test_lcm_set_survives_a_concurrent_create).
 REFERENCE_ONLY = {
+    "platform/lcm.py": [
+        (["                self.zk.create(path, data, makepath=True)"],
+         ["                try:",
+          "                    self.zk.create(path, data, makepath=True)",
+          "                except NodeExistsError:     # created since the "
+          "check",
+          "                    self.zk.set(path, data)"])],
     "platform/cluster.py": [
         (["class _UserError(Exception):",
           '    """Raised by task bodies for errors in user input/code '
@@ -339,3 +349,37 @@ def test_cluster_copy_raises_the_ports_error_classes():
     from repro_torch.platform import cluster
     assert cluster.UserError is cluster._UserError is errors.UserError
     assert cluster.Preempted is cluster._Preempted is errors.Preempted
+
+
+@pytest.mark.parametrize("pkg", ["repro", "repro_torch"])
+def test_lcm_set_survives_a_concurrent_create(pkg):
+    """Two threads in ``LifecycleManager.monitor`` (the service's tick
+    loop and a status request) both find no ``progress`` znode, and one
+    creates it first: the port's ``_set`` then writes it, where the
+    reference's create raises ``NodeExistsError``."""
+    import importlib
+    import json
+    zkmod = importlib.import_module(f"{pkg}.platform.zookeeper")
+    cluster = importlib.import_module(f"{pkg}.platform.cluster")
+    lcm_mod = importlib.import_module(f"{pkg}.platform.lcm")
+    zk = zkmod.ZooKeeper()
+    lcm = lcm_mod.LifecycleManager(zk, cluster.Scheduler(cluster.Cluster(
+        [cluster.Node("n0", cluster.Resources(cpus=4, gpus=1,
+                                              memory_mb=1024))])))
+    path = "/dlaas/jobs/job-r/progress"
+    checked = zk.exists
+
+    def exists(p):
+        # the other thread's create lands between this check and ours
+        found = checked(p)
+        if p == path and not found:
+            zk.create(path, b"{}", makepath=True)
+        return found
+    zk.exists = exists
+    write = lambda: lcm._set("job-r", "progress", {"alive": 1})
+    if pkg == "repro":
+        with pytest.raises(zkmod.NodeExistsError):
+            write()
+        return
+    write()
+    assert json.loads(zk.get(path)[0]) == {"alive": 1}
