@@ -8,11 +8,11 @@ first failing phase (no phase catches an exception):
 
   1. device  — card name and power limit (nvidia-smi), torch/CUDA versions;
   2. build   — every kernel of ``src/repro_torch/kernels/csrc`` built with
-     nvcc into ``build/kernels/``; for each device kernel of K4, K4b and
-     K5 its registers, shared memory and spills (the ptxas report kept
-     beside the library) and its tensor-core (HGMMA) instructions counted
-     in the machine code (cuobjdump -sass): every ``_tc`` kernel of the
-     bf16 instances must hold some;
+     nvcc into ``build/kernels/``; for each device kernel of K4, K4b,
+     K5 and K5b its registers, shared memory and spills (the ptxas report
+     kept beside the library), and for K4, K4b and K5 its tensor-core
+     (HGMMA) instructions counted in the machine code (cuobjdump -sass):
+     every ``_tc`` kernel of the bf16 instances must hold some;
   3. kernel  — the flash-attention kernel against its plain PyTorch
      version at three shapes (StableLM-1.6B prefill in bf16, GQA and
      ragged in f32), with times of kernel, plain version and
@@ -83,8 +83,10 @@ first failing phase (no phase catches an exception):
      COMPLETED; asserts the PS app deployed before the learners, no
      restart, the push/round and launch counts (every flash launch on the
      tensor cores), and the newest checkpoint = the PS params =
-     ``trained_model.npy`` bit for bit; drops the training platform and
-     its device state; then a ``ServingBackend`` endpoint with
+     ``trained_model.npy`` bit for bit; releases the PS as ``DLaaSCore``
+     does (the device memory one tick later within 0.5 GiB of before the
+     plan) and drops the training platform and its device state; then a
+     ``ServingBackend`` endpoint with
      ``source_training`` that job (capacity 4, max_seq 1024) goes
      DEPLOYING -> READY, serves the 8 requests of phase 4 (K4 launched 12
      times per prefill batch), drains to STOPPED with its engine
@@ -114,12 +116,43 @@ first failing phase (no phase catches an exception):
      tensor cores); ``status.perf`` ready in the first status that reads
      COMPLETED, ``GET /v1/trainings/<id>/perf`` and the endpoint's, with
      the checks of phase 9, and the ``slo_throughput`` alerts;
- 11. result  — ``{"kernels": [...]}`` on the line before the last (each
+ 11. ssm-kernel — K5b, the SSD scan backward, against its plain PyTorch
+     version (autograd through the plain scan) at the full-width learner
+     shapes (2, 512) and (1, 2048) in bf16, the f32 smoke width (64 and a
+     ragged 50 positions), a ragged tail (300), a sequence shorter than
+     a chunk, G = 2 and a nonzero final-state gradient: every gradient
+     within K5B_TOL of the plain version run in float64, two calls give
+     equal bits; kernel, plain and bound ms, library null; its
+     device kernels' registers, shared memory and spills in phase 2;
+ 12. ssm-step — the ssm learner step on the card (K5, K5b) against the
+     CPU: mamba2-1.3b's smoke reduction in f32, 2 layers, 64 and a
+     ragged 50 positions (loss 1e-4, flat gradient 2e-3);
+ 13. ssm-train — full-width mamba2-1.3b cut to 32 of 48 layers (bf16,
+     random weights from a seed) through the learner body and the PS as
+     phase 8 (2 learners, 4 shards, adam, int8, BSP, 6 rounds, a
+     checkpoint every 3 steps) at 2 x 512 and at 1 x 2,048 tokens per
+     learner step: K5 (on the tensor cores) and K5b launched once per
+     layer per step, every loss finite, the loss of a batch the run
+     trained on lower under the trained weights than under the initial
+     ones (the update moves along its gradient; a held-out batch's two
+     losses printed beside it), checkpoint = PS params =
+     ``trained_model.npy`` bit for bit; round ms, tokens/s, peak memory
+     and a profiled round (busy share, K5 + K5b and K1-K3 shares);
+ 14. ssm-platform — the 2 x 512 traffic as a ``repro-lm`` manifest with
+     ``arch: mamba2-1.3b`` and the 32-layer config through
+     ``SoftwarePSBackend`` under the LCM and scheduler to COMPLETED (the
+     checks of phase 9, the PS's release included); its
+     ``trained_model.npy`` deployed as a managed endpoint (capacity
+     4, max_seq 2080) serving the ssm serve's 8 requests, its tokens
+     equal to a bare engine's on the same weights; the training's and the
+     endpoint's ``status.perf`` (``0 < pct_of_attainable <= 100``);
+     launch -> COMPLETED and deploy -> READY seconds;
+ 15. result  — ``{"kernels": [...]}`` on the line before the last (each
      kernel's launches summed over the main paths, with
      ``launches_by_path``) and ``{"ok": true, "device": {...}}`` as the
      last line.
 
-About seven minutes on an H100, the kernel builds included.
+About ten minutes on an H100, the kernel builds included.
 """
 from __future__ import annotations
 
@@ -221,6 +254,51 @@ SSD_KERNELS = ("ssd_",)    # K5's device kernels share the prefix
 # K5 at the serve's (2, 2048) bf16 takes at most half its PR 14 time
 # (1.1903 ms, the CUDA-core kernels)
 K5_MAX_MS = 0.6
+# phases 11-14: ssm training. K5b against its plain version run in
+# float64 on float64 copies of the same inputs (the exact gradient of the
+# values the kernel reads), every gradient elementwise at atol = rtol: f32
+# at SSD_TOL (the kernel sums in f32); bf16, compared in f32, at 2e-2: the
+# kernel computes in f32 from the same values and rounds dx, db and dc to
+# bf16 (2^-8 relative) at the end
+K5B_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+SSM_STEP_SEQS = (64, 50)   # the smoke step: two chunks of 32; ragged
+# mamba2-1.3b at full width cut to 32 of its 48 layers: F = 1,032,986,624,
+# within 0.6% of the dense train's F, which fits one card with its PS at
+# ~50 B/param (48 layers, F = 1,446,505,472, would take ~72 GB)
+SSM_TRAIN_LAYERS = 32
+SSM_TRAIN = dict(TRAIN)    # 2 x 512 tokens per learner step: two chunks
+# one sequence at the model's context (2,048, the ssm serve's longest
+# prompt) per learner step: eight chunks, K5 and K5b at their largest
+SSM_TRAIN_LONG = dict(TRAIN, batch_docs=1, seq_len=2048)
+SSM_PLATFORM_JOB = "chip-smoke-ssm-training"
+SSM_PLATFORM_ENDPOINT = "chip-smoke-ssm-endpoint"
+SSM_PLATFORM_MANIFEST = dict(PLATFORM_MANIFEST, name="chip-smoke-ssm",
+                             framework={"name": "repro-lm",
+                                        "arch": SSM_ARCH})
+SSM_ENDPOINT_SERVING = dict(ENDPOINT_SERVING, max_seq=SSM_MAX_SEQ)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlatformRun:
+    """One train -> deploy -> predict run through the platform: its
+    printed tag, the training's id and manifest, the endpoint's id,
+    serving block and requests, and the phase whose hand loop ran the
+    same traffic."""
+    label: str
+    job: str
+    manifest: dict
+    endpoint: str
+    serving: dict
+    requests: list
+    hand_phase: str
+
+
+PLATFORM = PlatformRun("platform", PLATFORM_JOB, PLATFORM_MANIFEST,
+                       PLATFORM_ENDPOINT, ENDPOINT_SERVING, SERVE_REQUESTS,
+                       "phase 8")
+SSM_PLATFORM = PlatformRun("ssm-platform", SSM_PLATFORM_JOB,
+                           SSM_PLATFORM_MANIFEST, SSM_PLATFORM_ENDPOINT,
+                           SSM_ENDPOINT_SERVING, SSM_REQUESTS, "phase 13")
 
 
 def card_line() -> str:
@@ -262,6 +340,7 @@ def demangle(names):
     def short(r):
         for noise in ("(anonymous namespace)::", "<unnamed>::", "(int)"):
             r = r.replace(noise, "")
+        r = r.replace("(bool)0", "false").replace("(bool)1", "true")
         return r.split("(")[0].removeprefix("void ").strip()
     return {n: short(r) for n, r in zip(names, readable)}
 
@@ -337,6 +416,42 @@ def bound(name, **shape):
     from repro_torch.analysis.roofline import kernel_cost
     cost = kernel_cost(name, **shape)
     return 1e3 * cost.bound_s, cost.bound_by
+
+
+def family_kernels(cfg):
+    """(forward, backward) kernel of ``cfg``'s learner step, and the
+    prefix of their device kernels' names."""
+    if cfg.family == "ssm":
+        return "ssd_scan", "ssd_scan_bwd", "ssd_"
+    return "flash_attention", "flash_attention_bwd", "flash_"
+
+
+def step_launches(ops, cfg, pushes, rounds, shards, prefills=0):
+    """Every kernel's launches for ``pushes`` learner steps of ``cfg``
+    through the PS (``rounds`` rounds over ``shards`` shards) and
+    ``prefills`` prefill batches: K2 and K3 once per push, K1 once per
+    shard per round, the family's forward kernel (K4 or K5) once per
+    layer per step and per prefill batch, its backward (K4b or K5b) once
+    per layer per step, nothing else."""
+    fwd, bwd, _ = family_kernels(cfg)
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want.update(quantize_ef=pushes, dequantize=pushes,
+                ps_aggregate=rounds * shards)
+    want[fwd] = cfg.n_layers * (pushes + prefills)
+    want[bwd] = cfg.n_layers * pushes
+    return want
+
+
+def tensor_core_launches(cfg):
+    """{kernel: launches on its tensor-core instance} of the family's
+    kernels that have one: K4 and K4b (dense), K5 (ssm; K5b runs on the
+    CUDA cores)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_attention_bwd as kfab
+    from repro_torch.kernels import ssd_scan as kssd
+    if cfg.family == "ssm":
+        return {kssd.NAME: kssd.launches_tc}
+    return {kfa.NAME: kfa.launches_tc, kfab.NAME: kfab.launches_tc}
 
 
 def attention_bound_ms(B, Sq, Sk, H, KV, hd, dtype, causal, q_offset=0):
@@ -1102,6 +1217,18 @@ def stamped_ps(torch, timers: bool):
     return PS
 
 
+def batch_loss(torch, plugin, flat, batch):
+    """The loss of ``batch`` under the flat weights ``flat``: the
+    plugin's forward alone, no gradient."""
+    with torch.no_grad():
+        tree, _ = plugin._param_leaves(flat)
+        b = {k: torch.as_tensor(batch[k], dtype=torch.int64,
+                                device=plugin.device)
+             for k in ("tokens", "labels")}
+        return float(plugin.model.loss(tree, b,
+                                       xent_chunk=plugin.XENT_CHUNK))
+
+
 def train_run(torch, ops, cfg, device, workdir, card, *, n_learners,
               n_shards, steps, batch_docs, seq_len, checkpoint_every, lr,
               optimizer, compression, timers=False, profile=False):
@@ -1113,7 +1240,7 @@ def train_run(torch, ops, cfg, device, workdir, card, *, n_learners,
     synchronise and is timed (the per-phase breakdown)."""
     import numpy as np
     from repro_torch.checkpoint.checkpoint import CheckpointManager
-    from repro_torch.core.cursor import GlobalCursor
+    from repro_torch.core.cursor import Chunk, GlobalCursor
     from repro_torch.data.pipeline import SyntheticCorpus
     from repro_torch.platform.metrics import MetricsService
     from repro_torch.platform.storage import LocalFSStore, StorageManager
@@ -1190,15 +1317,44 @@ def train_run(torch, ops, cfg, device, workdir, card, *, n_learners,
     if compression == "int8" and st["compression_ratio"] < 3.9:
         raise AssertionError(f"compression ratio {st['compression_ratio']}")
     pushes = n_learners * steps
-    want_launches = {"quantize_ef": pushes, "dequantize": pushes,
-                     "ps_aggregate": rounds * n_shards,
-                     "flash_attention": cfg.n_layers * pushes,
-                     "flash_attention_bwd": cfg.n_layers * pushes,
-                     "ssd_scan": 0}
+    want_launches = step_launches(ops, cfg, pushes, rounds, n_shards)
     if torch.device(device).type == "cpu":
         want_launches = {k: 0 for k in want_launches}
     if launches != want_launches:
         raise AssertionError(f"launches {launches}, want {want_launches}")
+    tc = tensor_core_launches(cfg)
+    if cfg.family == "ssm" and torch.device(device).type == "cuda" and \
+            tc != {k: launches[k] for k in tc}:
+        raise AssertionError(f"K5 launches on the tensor cores {tc} of "
+                             f"{launches}")
+    # the loss over the rounds: each round's batches differ, so its mean
+    # per round moves by their spread
+    series = metrics.series(job, "loss")
+    by_step = {}
+    for st_, v in zip(series.steps, series.values):
+        by_step.setdefault(st_, []).append(v)
+    first, last_loss = (float(np.mean(by_step[k]))
+                        for k in (min(by_step), max(by_step)))
+    # ssm: the loss of a batch the run trained on (the first documents of
+    # the epoch, a batch of the first round) under the initial and the
+    # trained weights must fall. That shows only that the update, through
+    # K5b, the int8 push and the PS, moves along that batch's gradient;
+    # beside it the same for a batch no round reads (the last documents)
+    eval_loss = None
+    if cfg.family == "ssm":
+        corpus = SyntheticCorpus(base.dataset_spec(data_cfg))
+        n_docs = data_cfg["n_docs"]
+        batches = {"trained-on": [Chunk(0, 0, batch_docs)],
+                   "held-out": [Chunk(0, n_docs - batch_docs, n_docs)]}
+        batches = {k: corpus.batch_for(v) for k, v in batches.items()}
+        flats = (base.flat_state(jcfg.seed), ps.pull(0))
+        eval_loss = {k: tuple(batch_loss(torch, base, f, b) for f in flats)
+                     for k, b in batches.items()}
+        del flats
+        if not eval_loss["trained-on"][1] < eval_loss["trained-on"][0]:
+            raise AssertionError(f"the loss of a batch the run trained on "
+                                 f"did not fall: {eval_loss}; by round "
+                                 f"{by_step}")
     # the newest checkpoint, the PS params and the uploaded model are one
     # vector, bit for bit
     probe = CheckpointManager(jcfg.checkpoint_dir)
@@ -1218,7 +1374,9 @@ def train_run(torch, ops, cfg, device, workdir, card, *, n_learners,
     # copies: the profiled round below adds to the PS's own lists
     agg_ms = list(metrics.series(job, "agg_time_ms").values)
     out = {"wall_s": wall, "init_s": init_s, "stats": st,
-           "launches": launches, "losses": losses, "peak_bytes": peak,
+           "launches": launches, "launches_tc": tc, "losses": losses,
+           "loss_first_last": (first, last_loss), "eval_loss": eval_loss,
+           "peak_bytes": peak,
            "agg_ms": agg_ms,
            "sync_ms": [1e3 * s for s in
                        metrics.series(job, "sync_time_s").values],
@@ -1235,17 +1393,19 @@ def train_run(torch, ops, cfg, device, workdir, card, *, n_learners,
         out["profile"] = profiled_round(torch, ps, base, cursor,
                                         SyntheticCorpus(
                                             base.dataset_spec(data_cfg)),
-                                        batch_docs, card)
+                                        batch_docs, card, cfg)
     del ps
     return out
 
 
-def profiled_round(torch, ps, plugin, cursor, corpus, batch_docs, card):
+def profiled_round(torch, ps, plugin, cursor, corpus, batch_docs, card,
+                   cfg):
     """One more BSP round (every learner: step, push, pull) under the
     profiler, after the run's checks, through the port's own plugin and
     client (no added synchronise). Returns its wall seconds and device
     ms: busy, the PS kernels (K1, K2, K3), device-to-device copies (the
-    pulls and the gradient's flat copies) and attention (K4, K4b)."""
+    pulls and the gradient's flat copies) and the family's kernels
+    (attention K4, K4b; the SSD scan K5, K5b)."""
     from torch.profiler import ProfilerActivity
     n = ps.n_learners
     clients = [ps.make_client(i) for i in range(n)]
@@ -1283,9 +1443,11 @@ def profiled_round(torch, ps, plugin, cursor, corpus, batch_docs, card):
     if failed or any(t.is_alive() for t in ts):
         raise RuntimeError("profiled round failed") from (
             failed[0] if failed else None)
+    prefix = family_kernels(cfg)[2]
     kernels = print_profile(prof, wall, card, top=10,
-                            ours=("flash_",) + PS_KERNELS)
-    check_tc_names(kernels, "profiled round")
+                            ours=(prefix,) + PS_KERNELS)
+    check_tc_names(kernels, "profiled round",
+                   family="ssd_chunk" if cfg.family == "ssm" else "flash_")
 
     def device_ms(names):
         return sum(us for n, us in kernels.items()
@@ -1295,7 +1457,9 @@ def profiled_round(torch, ps, plugin, cursor, corpus, batch_docs, card):
             "busy_ms": sum(kernels.values()) / 1e3 if kernels else None,
             "ps_ms": device_ms(PS_KERNELS) if kernels else None,
             "dtod_ms": device_ms(("DtoD",)) if kernels else None,
-            "attention_ms": device_ms(("flash_",)) if kernels else None}
+            "model_ms": device_ms((prefix,)) if kernels else None,
+            "model_label": ("SSD scan K5+K5b" if cfg.family == "ssm"
+                            else "attention K4+K4b")}
 
 
 def print_train(label, res, card, cfg, traffic):
@@ -1325,18 +1489,26 @@ def print_train(label, res, card, cfg, traffic):
               f"{stats(res['push_ms'])}; pull {stats(res['pull_ms'])}")
     prof = res.get("profile")
     if prof and prof["busy_ms"] is not None:
-        w = prof["wall_ms"]
+        w, b = prof["wall_ms"], prof["busy_ms"]
         print(f"{tag} profiled round {w:.3f} ms wall: device busy "
               f"{prof['busy_ms']:.3f} ms ({prof['busy_ms'] / w:.3f}; idle "
               f"{1 - prof['busy_ms'] / w:.3f}); PS kernels K1+K2+K3 "
               f"{prof['ps_ms']:.3f} ms ({prof['ps_ms'] / w:.3f} of the "
               f"round); device-to-device copies (pulls, gradient flat) "
               f"{prof['dtod_ms']:.3f} ms ({prof['dtod_ms'] / w:.3f}); "
-              f"attention K4+K4b {prof['attention_ms']:.3f} ms "
-              f"({prof['attention_ms'] / w:.3f})")
-    print(f"{tag} losses {[round(x, 4) for x in res['losses']]};"
-          f" PS {json.dumps(res['stats'])}; launches "
-          f"{json.dumps(res['launches'])}; checkpoint step "
+              f"{prof['model_label']} {prof['model_ms']:.3f} ms "
+              f"({prof['model_ms'] / w:.3f}; {prof['model_ms'] / b:.3f} of "
+              f"busy)")
+    ev = res["eval_loss"]
+    held = "" if ev is None else "; " + "; ".join(
+        f"a {k} batch under the initial weights {a:.4f}, under the trained "
+        f"{b:.4f}" for k, (a, b) in ev.items())
+    print(f"{tag} losses {[round(x, 4) for x in res['losses']]} (mean "
+          f"of the first round {res['loss_first_last'][0]:.4f}, of the "
+          f"last {res['loss_first_last'][1]:.4f}{held}); PS "
+          f"{json.dumps(res['stats'])}; launches "
+          f"{json.dumps(res['launches'])}, on the tensor cores "
+          f"{json.dumps(res['launches_tc'])}; checkpoint step "
           f"{res['checkpoint_step']} == PS params == trained_model.npy "
           f"(bit for bit)")
 
@@ -1472,20 +1644,21 @@ def check_perf(snap, label, cfg=None, m=None):
     return ratio
 
 
-def platform_train(torch, ops, cfg, workdir, card):
-    """Plan ``PLATFORM_MANIFEST`` with ``SoftwarePSBackend`` at ``cfg``,
+def platform_train(torch, ops, cfg, workdir, card, run):
+    """Plan ``run``'s manifest with ``SoftwarePSBackend`` at ``cfg``,
     launch it under the LCM and scheduler, tick until it ends; check the
     deployment order, the end state, the PS and launch counts, every
-    flash launch on the tensor cores, and the newest checkpoint = the PS
-    params = ``trained_model.npy``, bit for bit. Returns (what the run
-    measured, the trained flat vector on the host)."""
+    launch of a kernel with a tensor-core instance on it, and the newest
+    checkpoint = the PS params = ``trained_model.npy``, bit for bit. Then
+    free the PS as ``DLaaSCore`` does once a training is terminal and
+    check the device memory one tick later against before the plan
+    (within SERVICE_MEMORY_SLACK). Returns (what the run measured, the
+    trained flat vector on the host)."""
     import numpy as np
     from repro_torch.checkpoint.checkpoint import CheckpointManager
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import flash_attention_bwd as kfab
     from repro_torch.analysis.perf import measured_rate_from_metrics
     from repro_torch.runtime.learner import LMPlugin
-    job, m = PLATFORM_JOB, PLATFORM_MANIFEST
+    job, m = run.job, run.manifest
     # the learner step's estimate alone, as the plan's JobPerf counts it
     estimate = estimate_alone(torch, ops, lambda: LMPlugin(
         m["framework"], cfg=cfg, device="cuda").program_cost(
@@ -1493,6 +1666,8 @@ def platform_train(torch, ops, cfg, workdir, card):
     rec = SpanRecorder()
     plat = ChipPlatform(workdir, cfg, rec)
     torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     be, plan = plat.plan(job, m, "software-ps")
     torch.cuda.synchronize()
@@ -1505,7 +1680,7 @@ def platform_train(torch, ops, cfg, workdir, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    tc = {kfa.NAME: kfa.launches_tc, kfab.NAME: kfab.launches_tc}
+    tc = tensor_core_launches(cfg)
     if state != "COMPLETED" or plat.restarts(job):
         raise AssertionError(f"{job}: {state}, {plat.restarts(job)} "
                              f"restarts: {plat.lcm.member_statuses(job)}")
@@ -1522,15 +1697,11 @@ def platform_train(torch, ops, cfg, workdir, card):
             st["compression_ratio"] < 3.9:
         raise AssertionError(f"PS stats {st}, want {want}")
     pushes = n * steps
-    want_launches = {"quantize_ef": pushes, "dequantize": pushes,
-                     "ps_aggregate": steps * shards,
-                     "flash_attention": cfg.n_layers * pushes,
-                     "flash_attention_bwd": cfg.n_layers * pushes,
-                     "ssd_scan": 0}
+    want_launches = step_launches(ops, cfg, pushes, steps, shards)
     if launches != want_launches:
         raise AssertionError(f"launches {launches}, want {want_launches}")
     if tc != {k: launches[k] for k in tc}:
-        raise AssertionError(f"flash launches on the tensor cores {tc} of "
+        raise AssertionError(f"launches on the tensor cores {tc} of "
                              f"{launches}")
     probe = CheckpointManager(f"{workdir}/ckpt/{job}")
     last = probe.latest_valid()
@@ -1565,33 +1736,45 @@ def platform_train(torch, ops, cfg, workdir, card):
            "tokens": n * steps * m["batch_docs"] * m["data"]["seq_len"],
            "perf": perf, "perf_model_ratio": ratio,
            "estimate_s": estimate[1], "estimate_card": estimate[2]}
+    # DLaaSCore's tick loop frees a terminal training's PS; one tick
+    # later the card holds what it held before the plan
+    del tree, ps_flat
+    ps.release()
+    plat.scheduler.tick()
+    plat.lcm.monitor(job)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - mem_before
+    out["released"] = (f"{held / 2**30:.3f} GiB more than before the plan "
+                       f"one tick after COMPLETED and the PS's release "
+                       f"(limit {SERVICE_MEMORY_SLACK / 2**30:.1f} GiB)")
+    if held > SERVICE_MEMORY_SLACK:
+        raise AssertionError(f"{job}: {out['released']}")
     # drop every reference to the training's device state: the PS (in the
     # plan, its groups' learner body and the scheduler's apps), the
     # plugin, the whole training platform
     before = memory_line(torch, "before")
-    del tree, ps_flat, ps, plan, handle, be, plat
+    del ps, plan, handle, be, plat
     gc.collect()
     torch.cuda.empty_cache()
     out["freed"] = f"{before}, {memory_line(torch, 'after')}"
     return out, uploaded
 
 
-def platform_serve(torch, ops, cfg, workdir, card):
-    """Deploy a ``ServingBackend`` endpoint from ``PLATFORM_JOB`` with
-    ``cfg``, tick it READY, serve ``SERVE_REQUESTS`` (the endpoint paused
-    while they are submitted, so its run loop admits them as the bare
-    engine's does), drain it to STOPPED. Returns what it measured."""
-    from repro_torch.kernels import flash_attention as kfa
+def platform_serve(torch, ops, cfg, workdir, card, run):
+    """Deploy a ``ServingBackend`` endpoint from ``run``'s training with
+    ``cfg``, tick it READY, serve its requests (the endpoint paused while
+    they are submitted, so its run loop admits them as the bare engine's
+    does), drain it to STOPPED. Returns what it measured."""
     from repro_torch.runtime.backend import get_backend
     from repro_torch.serving.endpoint import ModelEndpoint
-    ep_id = PLATFORM_ENDPOINT
+    ep_id, requests = run.endpoint, run.requests
     rec = SpanRecorder()
     plat = ChipPlatform(workdir, cfg, rec)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    manifest = {"framework": {"name": "repro-lm", "arch": SERVE_ARCH},
-                "source_training": PLATFORM_JOB,
-                "serving": ENDPOINT_SERVING}
+    arch = cfg.arch_id.removesuffix("-smoke")
+    manifest = {"framework": {"name": "repro-lm", "arch": arch},
+                "source_training": run.job, "serving": run.serving}
     be, plan = plat.plan(ep_id, manifest, "serving")
     ep = ModelEndpoint(ep_id, plan)
     ep.handle = be.launch(plan, plat.lcm)
@@ -1621,11 +1804,11 @@ def platform_serve(torch, ops, cfg, workdir, card):
                              f"alone {estimate[0]}")
     get_backend("serving").pause(ep.handle)
     time.sleep(0.2)            # the run loop now waits at its pause gate
-    prompts = serve_prompts(cfg, 0)
+    prompts = serve_prompts(cfg, 0, requests)
     ops.reset_launch_counts()
     t0s = time.perf_counter()
     reqs = [eng.submit(p, max_new=mn)
-            for p, (_, mn) in zip(prompts, SERVE_REQUESTS)]
+            for p, (_, mn) in zip(prompts, requests)]
     get_backend("serving").resume(ep.handle)
     deadline = time.time() + 600
     for r in reqs:
@@ -1635,12 +1818,13 @@ def platform_serve(torch, ops, cfg, workdir, card):
                                      f"endpoint {ep.status()}")
     wall = time.perf_counter() - t0s
     launches = ops.launch_counts()
-    tc = kfa.launches_tc
-    check_requests(reqs, SERVE_REQUESTS, cfg)
+    fwd = family_kernels(cfg)[0]
+    tc = tensor_core_launches(cfg)[fwd]
+    check_requests(reqs, requests, cfg)
     n_batches = eng.prefill_batches
     want = dict.fromkeys(launches, 0)
-    want[kfa.NAME] = cfg.n_layers * n_batches
-    if launches != want or tc != want[kfa.NAME]:
+    want[fwd] = cfg.n_layers * n_batches
+    if launches != want or tc != want[fwd]:
         raise AssertionError(f"endpoint launches {launches} ({tc} on the "
                              f"tensor cores), want {want}: {cfg.n_layers} "
                              f"per prefill batch, all on the tensor cores")
@@ -1669,12 +1853,13 @@ def platform_serve(torch, ops, cfg, workdir, card):
             "estimate_card": estimate[2]}
 
 
-def print_platform(tr, sv, hand, card, cfg):
-    tag = f"[platform] {card}:"
+def print_platform(tr, sv, hand, card, cfg, run):
+    job, m, ep_id, serving = run.job, run.manifest, run.endpoint, run.serving
+    tag = f"[{run.label}] {card}:"
 
     def med(xs):
         return sorted(xs)[len(xs) // 2]
-    print(f"{tag} {PLATFORM_JOB}: software-ps plan of {cfg.arch_id} "
+    print(f"{tag} {job}: software-ps plan of {cfg.arch_id} "
           f"L={cfg.n_layers} d={cfg.d_model} {cfg.dtype} (weights init, PS, "
           f"warm build started) {tr['plan_s']:.2f} s; launch -> COMPLETED "
           f"{tr['wall_s']:.3f} s = {tr['tokens'] / tr['wall_s']:.1f} "
@@ -1684,24 +1869,26 @@ def print_platform(tr, sv, hand, card, cfg):
           f"checkpoint publish (learner 0, inside its step) "
           f"{[round(x, 3) for x in tr['checkpoint_s']]} s")
     print(f"{tag} rounds {[round(x, 2) for x in tr['round_ms']]} ms: median "
-          f"{med(tr['round_ms']):.2f} ms (phase 8's hand loop at the same "
-          f"traffic, this run: median {med(hand['round_ms']):.2f} ms); agg "
+          f"{med(tr['round_ms']):.2f} ms ({run.hand_phase}'s hand loop at "
+          f"the same traffic, this run: median "
+          f"{med(hand['round_ms']):.2f} ms); agg "
           f"(device) median {med(tr['agg_ms']):.2f} ms; peak device memory "
           f"{tr['peak_bytes'] / 2**30:.2f} GiB; losses "
           f"{[round(x, 4) for x in tr['losses']]}; PS "
           f"{json.dumps(tr['stats'])}; launches {json.dumps(tr['launches'])}"
           f", on the tensor cores {json.dumps(tr['launches_tc'])}")
+    print(f"{tag} {tr['released']}")
     print(f"{tag} training's device state dropped: {tr['freed']}")
-    print(f"{tag} status.perf of {PLATFORM_JOB} (the learner step, "
-          f"{cfg.arch_id} L={cfg.n_layers}, {PLATFORM_MANIFEST['batch_docs']}"
-          f" x {PLATFORM_MANIFEST['data']['seq_len']} tokens; ready before "
+    print(f"{tag} status.perf of {job} (the learner step, "
+          f"{cfg.arch_id} L={cfg.n_layers}, {m['batch_docs']}"
+          f" x {m['data']['seq_len']} tokens; ready before "
           f"COMPLETED; FLOPs {tr['perf_model_ratio']:.4f} of model_flops; "
           f"counted alone in {tr['estimate_s']:.3f} s, "
           f"{tr['estimate_card']}):")
     print(json.dumps(tr["perf"]))
     st = sv["stats"]
     n_tok = st["tokens_out_total"]
-    print(f"{tag} {PLATFORM_ENDPOINT}: deploy -> READY {sv['ready_s']:.3f} s "
+    print(f"{tag} {ep_id}: deploy -> READY {sv['ready_s']:.3f} s "
           f"(download of trained_model.npy {sv['download_s']:.3f} s, then "
           f"start {sv['start_s']:.3f} s); DEPLOYING -> READY -> DRAINING -> "
           f"STOPPED; {st['completed_total']} requests, {n_tok} tokens in "
@@ -1710,11 +1897,133 @@ def print_platform(tr, sv, hand, card, cfg):
           f"steps; peak device memory {sv['peak_bytes'] / 2**30:.2f} GiB; "
           f"{sv['after_teardown']} (engine released); launches "
           f"{json.dumps(sv['launches'])}")
-    print(f"{tag} status.perf of {PLATFORM_ENDPOINT} (one decode step of "
-          f"{ENDPOINT_SERVING['capacity']} slots over max_seq "
-          f"{ENDPOINT_SERVING['max_seq']}; counted alone in "
+    print(f"{tag} status.perf of {ep_id} (one decode step of "
+          f"{serving['capacity']} slots over max_seq "
+          f"{serving['max_seq']}; counted alone in "
           f"{sv['estimate_s']:.3f} s, {sv['estimate_card']}):")
     print(json.dumps(sv["perf"]))
+
+
+# ---------------------------------------------------------------------------
+# Phases 11-12: K5b, the SSD scan backward, and the ssm learner step
+# ---------------------------------------------------------------------------
+
+SSD_GRADS = ("dx", "ddt", "da_log", "db", "dc")
+
+
+def report_kernels(build, res, card):
+    """Each device kernel of one library: registers, static shared
+    memory and spills (nvcc's ptxas report kept beside the library).
+    Returns the report by readable kernel name."""
+    ptxas = build.ptxas_report(res.log)
+    if not ptxas:
+        print(f"[build] {card}: {res.name}: no ptxas report kept beside "
+              f"{res.library.name}: registers not captured")
+    names = demangle(set(ptxas))
+    for fn in sorted(names, key=names.get):
+        rep = ptxas[fn]
+        print(f"[build] {card}: {res.name}: {names[fn]}: registers "
+              f"{rep['registers']}, static smem {rep['smem']} B, spill "
+              f"stores/loads {rep['spill_stores']}/{rep['spill_loads']} B")
+    return {names[fn]: ptxas[fn] for fn in ptxas}
+
+
+def check_ssd_bwd(torch, ops, ref, kssdb, shape, dstate=False, seed=0):
+    """K5b against its plain version at one shape, dy (and with
+    ``dstate`` the final state's gradient) N(0, 1) from the seed: every
+    gradient finite and within K5B_TOL (atol = rtol) of the plain version
+    run in float64 on float64 copies of the same inputs, with its
+    relative L2; two calls give equal bits; then kernel, plain (f32, the
+    inputs as given) and bound ms. No single PyTorch call computes it
+    (library_ms null)."""
+    from repro_torch.analysis.roofline import kernel_cost
+    B, S, H, P, G, N, chunk, dtype = shape
+    args = ssd_inputs(torch, B, S, H, P, G, N, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    dy = torch.randn(B, S, H, P, generator=g, device="cuda").to(
+        args[0].dtype)
+    ds = (torch.randn(B, H, P, N, generator=g, device="cuda") if dstate
+          else None)
+    before = kssdb.launches
+    got = ops.ssd_scan_bwd(*args, dy, ds, chunk=chunk)
+    again = ops.ssd_scan_bwd(*args, dy, ds, chunk=chunk)
+    torch.cuda.synchronize()
+    if kssdb.launches != before + 2:
+        raise AssertionError(f"K5b: {kssdb.launches - before} launches "
+                             f"for 2 calls at {shape}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K5b: two calls on one input differ in "
+                             f"their bits at {shape}")
+    want = ref.ssd_scan_bwd_ref(*(t.double() for t in args), dy.double(),
+                                None if ds is None else ds.double(),
+                                chunk=chunk)
+    tol = K5B_TOL[dtype]
+    errs, rels = {}, {}
+    for name, a, b, inp in zip(SSD_GRADS, got, want, args):
+        if a.dtype != inp.dtype or a.shape != inp.shape:
+            raise AssertionError(f"K5b {name}: {a.dtype} {tuple(a.shape)}"
+                                 f" for {inp.dtype} {tuple(inp.shape)}")
+        a = a.double()
+        if not torch.isfinite(a).all().item():
+            raise AssertionError(f"K5b {name} not finite at {shape}")
+        errs[name] = (a - b).abs().max().item()
+        rels[name] = ((a - b).norm() / b.norm()).item()
+        if (a - b).abs().gt(tol + tol * b.abs()).any().item():
+            raise AssertionError(f"K5b {name} out of atol=rtol={tol} at "
+                                 f"{shape}, dstate {dstate}: max abs err "
+                                 f"{errs[name]}")
+    ms = time_ms(torch, lambda: ops.ssd_scan_bwd(*args, dy, ds,
+                                                 chunk=chunk), iters=10)
+    plain_ms = time_ms(torch, lambda: ref.ssd_scan_bwd_ref(
+        *args, dy, ds, chunk=chunk), iters=3, warmup=1)
+    dims = dict(B=B, S=S, H=H, P=P, G=G, N=N, chunk=chunk, dtype=dtype)
+    bound_ms, bound_by = bound("ssd_scan_bwd", dstate=dstate, **dims)
+    cost = kernel_cost("ssd_scan_bwd", dstate=dstate, **dims)
+    return {"shape": {**dims, "dstate": dstate},
+            "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
+            "rel_l2": rels, "tol": tol, "deterministic": True, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+            "flops": cost.flops, "bytes": cost.bytes}
+
+
+def ssm_step_card_vs_cpu(torch, ops):
+    """``LMPlugin.flat_loss_grad`` of mamba2-1.3b's smoke reduction (f32,
+    2 layers, chunk 32) on the card (K5, K5b) against the CPU (plain
+    versions) at each of SSM_STEP_SEQS positions: loss and flat gradient
+    errors, K5 and K5b launched once per layer each."""
+    import numpy as np
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.runtime.learner import LMPlugin
+    cfg = reduce_for_smoke(get_arch(SSM_ARCH))
+    gpu = LMPlugin({}, cfg=cfg, device="cuda")
+    cpu = LMPlugin({}, cfg=cfg, device="cpu")
+    flat = cpu.flat_state(0)
+    out = {}
+    for seq in SSM_STEP_SEQS:
+        toks = np.random.RandomState(seq).randint(
+            0, cfg.vocab_size, size=(2, seq + 1)).astype("int32")
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        ops.reset_launch_counts()
+        lg, gg = gpu.flat_loss_grad(flat.cuda(), batch)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        lc, gc = cpu.flat_loss_grad(flat, batch)
+        want = dict.fromkeys(launches, 0)
+        want.update(ssd_scan=cfg.n_layers, ssd_scan_bwd=cfg.n_layers)
+        if launches != want:
+            raise AssertionError(f"ssm step launches {launches}, want "
+                                 f"{want}")
+        loss_err = abs(lg.item() - lc.item())
+        diff = (gg.cpu() - gc).abs()
+        if loss_err > STEP_LOSS_TOL or diff.gt(
+                STEP_GRAD_TOL + STEP_GRAD_TOL * gc.abs()).any():
+            raise AssertionError(f"ssm step at S={seq}, card vs CPU: loss "
+                                 f"err {loss_err}, grad err "
+                                 f"{diff.max().item()}")
+        out[seq] = (loss_err, diff.max().item())
+    return cfg, out
 
 
 # ---------------------------------------------------------------------------
@@ -1944,13 +2253,11 @@ def check_service_launches(svc, cfg):
     """Phase 10's launches: the training's K1-K4b as phase 9's, then K4
     once per layer per prefill batch of the endpoint; every flash launch
     on the tensor cores."""
+    from repro_torch.kernels import ops
     m = PLATFORM_MANIFEST
     pushes = m["learners"] * m["steps"]
-    want = {"quantize_ef": pushes, "dequantize": pushes,
-            "ps_aggregate": m["steps"] * m["ps_shards"],
-            "flash_attention": cfg.n_layers * (pushes
-                                               + svc["prefill_batches"]),
-            "flash_attention_bwd": cfg.n_layers * pushes, "ssd_scan": 0}
+    want = step_launches(ops, cfg, pushes, m["steps"], m["ps_shards"],
+                         prefills=svc["prefill_batches"])
     got = svc["launches"]
     if got != want or svc["launches_tc"] != {
             k: got[k] for k in svc["launches_tc"]}:
@@ -2047,6 +2354,7 @@ def main() -> int:
     from repro_torch.kernels import ps_aggregate as kagg
     from repro_torch.kernels import quantize as kq
     from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.kernels import ssd_scan_bwd as kssdb
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2063,12 +2371,13 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s: "
           + ", ".join(f"{n} {r.seconds:.2f} s" for n, r in built.items()))
     for r in built.values():
-        if r.name in TC_LIBS:
+        if r.name in TC_LIBS + ("ssd_scan_bwd",):
             continue                  # per kernel below, by name
         for line in r.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {r.name}: {line.strip()}")
     hgmma = report_tc_build(build, built, card)
+    k5b_ptxas = report_kernels(build, built["ssd_scan_bwd"], card)
 
     # 3. kernel against its plain version
     for shape in [(1, 512, 32, 32, 64, "bfloat16", True),
@@ -2245,11 +2554,12 @@ def main() -> int:
     workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-platform-",
                                     dir=build_dir))
     try:
-        ptrain, trained = platform_train(torch, ops, tcfg, workdir, card)
-        psv = platform_serve(torch, ops, tcfg, workdir, card)
+        ptrain, trained = platform_train(torch, ops, tcfg, workdir, card,
+                                         PLATFORM)
+        psv = platform_serve(torch, ops, tcfg, workdir, card, PLATFORM)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    print_platform(ptrain, psv, train["train"], card, tcfg)
+    print_platform(ptrain, psv, train["train"], card, tcfg, PLATFORM)
     tokens, eng, rec, _, bare_wall = serve(torch, tcfg, ops, 0, card,
                                            flat=trained)[:5]
     bare_tok = eng.stats()["tokens_out_total"]
@@ -2290,7 +2600,95 @@ def main() -> int:
           f"alone == a bare InferenceEngine's on the downloaded "
           f"trained_model.npy, each request alone")
 
-    # 11. result
+    # 11. K5b, the SSD scan backward, against its plain version: the
+    # learner's full-width shapes, the smoke width, a ragged tail, a
+    # sequence shorter than a chunk, G = 2, and a final-state gradient
+    ssm = get_arch(SSM_ARCH)
+    heads = ssm.ssm.expand * ssm.d_model // ssm.ssm.head_dim
+    wide = (heads, ssm.ssm.head_dim, ssm.ssm.n_groups, ssm.ssm.d_state,
+            ssm.ssm.chunk_size, "bfloat16")
+    k5b_main = [check_ssd_bwd(torch, ops, ref, kssdb,
+                              (t["batch_docs"], t["seq_len"]) + wide,
+                              seed=i)
+                for i, t in enumerate((SSM_TRAIN, SSM_TRAIN_LONG))]
+    k5b_others = [check_ssd_bwd(torch, ops, ref, kssdb, shape, dstate=d,
+                                seed=10 + i)
+                  for i, (shape, d) in enumerate([
+                      ((2, 64, 8, 16, 1, 16, 32, "float32"), False),
+                      ((2, 50, 8, 16, 1, 16, 32, "float32"), True),
+                      ((1, 300) + wide, False),
+                      ((1, 300) + wide, True),
+                      ((2, 7, 2, 16, 1, 16, 32, "float32"), False),
+                      ((2, 256, 4, 32, 2, 16, 64, "float32"), True),
+                      ((2, 700, 8, 64, 2, 128, 256, "bfloat16"), True)])]
+    for res in k5b_main:
+        print(f"[kernel] {card}: K5b main path {json.dumps(res)}")
+    for res in k5b_others:
+        print(f"[kernel] {card}: K5b {json.dumps(res)}")
+    k5b_head = max(k5b_main, key=lambda r: r["bound_ms"])
+    print(f"[kernel] {card}: K5b at {k5b_head['shape']}: "
+          f"{k5b_head['ms']:.4f} ms, bound {k5b_head['bound_ms']:.5f} ms "
+          f"({k5b_head['bound_by']}), {k5b_head['share_of_bound']:.4f} of "
+          f"it; plain {k5b_head['plain_ms']:.3f} ms; library null (no "
+          f"single PyTorch call computes it)")
+    torch.cuda.empty_cache()
+
+    # 12. the ssm learner step on the card against the CPU
+    scfg_smoke, ssm_step = ssm_step_card_vs_cpu(torch, ops)
+    for seq, (loss_err, grad_err) in ssm_step.items():
+        print(f"[ssm-step] {card}: {scfg_smoke.arch_id} f32 L="
+              f"{scfg_smoke.n_layers}, 2 x {seq} tokens, card (K5, K5b) vs "
+              f"CPU: loss err {loss_err:.3e} (limit {STEP_LOSS_TOL}), flat "
+              f"gradient max abs err {grad_err:.3e} (atol=rtol "
+              f"{STEP_GRAD_TOL})")
+
+    # 13. full-width mamba2-1.3b, 32 of 48 layers, through the learner
+    # body and the PS at 2 x 512 and 1 x 2,048 tokens per learner step
+    scfg = dataclasses.replace(ssm, n_layers=SSM_TRAIN_LAYERS)
+    for label, traffic in (("ssm-train", SSM_TRAIN),
+                           ("ssm-train-2k", SSM_TRAIN_LONG)):
+        workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-train-",
+                                        dir=build_dir))
+        try:
+            train[label] = train_run(torch, ops, scfg, "cuda", workdir,
+                                     card, profile=True, **traffic)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print_train(label, train[label], card, scfg, traffic)
+        torch.cuda.empty_cache()
+
+    # 14. ssm platform: the 2 x 512 traffic as a manifest through the
+    # software-ps backend, the LCM and the scheduler, the PS released,
+    # then a managed endpoint on its trained_model.npy serving the ssm
+    # serve's 8 requests, its tokens held against a bare engine's
+    workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-platform-",
+                                    dir=build_dir))
+    try:
+        sptrain, trained = platform_train(torch, ops, scfg, workdir, card,
+                                          SSM_PLATFORM)
+        spsv = platform_serve(torch, ops, scfg, workdir, card, SSM_PLATFORM)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print_platform(sptrain, spsv, train["ssm-train"], card, scfg,
+                   SSM_PLATFORM)
+    tokens, eng, rec, _, bare_wall = serve(
+        torch, scfg, ops, 0, card, requests=SSM_REQUESTS,
+        max_seq=SSM_MAX_SEQ, flat=trained)[:5]
+    bare_tok = eng.stats()["tokens_out_total"]
+    eng.release()
+    del eng, trained
+    torch.cuda.empty_cache()
+    if rec.prefills != spsv["prefills"] or tokens != spsv["tokens"]:
+        raise AssertionError(f"ssm endpoint tokens differ from a bare "
+                             f"engine's on the PS params (prefill batches "
+                             f"{spsv['prefills']} vs {rec.prefills})")
+    print(f"[ssm-platform] {card}: the endpoint's tokens for its "
+          f"{len(tokens)} requests == a bare InferenceEngine's on the PS "
+          f"params with seed 0 (prefill batches {rec.prefills}; the bare "
+          f"engine {bare_tok} tokens in {bare_wall:.3f} s = "
+          f"{bare_tok / bare_wall:.1f} tokens/s)")
+
+    # 15. result
     def entry(mod, launches, head, shapes):
         return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                 "replaces": mod.REPLACES, "launches": launches,
@@ -2305,10 +2703,12 @@ def main() -> int:
     # launches: the sum over the main paths that run the kernel
     def by_path(name, paths):
         return {p: ls[name] for p, ls in paths.items()}
-    train_paths = {"train": train_launches,
+    dense_paths = {"train": train_launches,
                    "platform-train": ptrain["launches"],
                    "service": svc["launches"]}
-    k4_paths = by_path(kfa.NAME, {"serve": serve_launches, **train_paths,
+    ssm_paths = {"ssm-train": train["ssm-train"]["launches"],
+                 "ssm-platform-train": sptrain["launches"]}
+    k4_paths = by_path(kfa.NAME, {"serve": serve_launches, **dense_paths,
                                   "platform-serve": psv["launches"]})
     k4 = entry(kfa, sum(k4_paths.values()),
                max(main_path + train_fwd, key=lambda r: r["bound_ms"]),
@@ -2325,15 +2725,24 @@ def main() -> int:
                entry(kq.QUANTIZE, 0, k2, [k2]),
                entry(kq.DEQUANTIZE, 0, k3, [k3])]
     for e in kernels[1:]:
-        e["launches_by_path"] = by_path(e["name"], train_paths)
+        paths = dense_paths if e is k4b else {**dense_paths, **ssm_paths}
+        e["launches_by_path"] = by_path(e["name"], paths)
         e["launches"] = sum(e["launches_by_path"].values())
-    k5 = entry(kssd, ssm_launches[kssd.NAME], ssd_head,
+    k5_paths = by_path(kssd.NAME, {"serve-ssm": ssm_launches, **ssm_paths,
+                                   "ssm-platform-serve": spsv["launches"]})
+    k5 = entry(kssd, sum(k5_paths.values()), ssd_head,
                ssd_main + ssd_others)
-    k5["launches_by_path"] = {"serve-ssm": ssm_launches[kssd.NAME]}
+    k5["launches_by_path"] = k5_paths
     k5["share_of_bound"] = k5["bound_ms"] / k5["ms"]
     k5["sass_hgmma"] = {n: c for n, c in hgmma.items()
                         if n.split("<")[0] in SSD_TC_KERNELS}
-    kernels.append(k5)
+    k5b_paths = by_path(kssdb.NAME, ssm_paths)
+    k5b = entry(kssdb, sum(k5b_paths.values()), k5b_head,
+                k5b_main + k5b_others)
+    k5b["launches_by_path"] = k5b_paths
+    k5b["share_of_bound"] = k5b["bound_ms"] / k5b["ms"]
+    k5b["ptxas"] = k5b_ptxas
+    kernels += [k5, k5b]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,7 @@ no data, nothing on the card) under a ``TorchDispatchMode``
     its indices and twice its output (read the rows, write them), an
     indexed write its indices and twice its values, as the reference
     counts slices and gathers.
-  * The hand-written kernels (K1-K5, K4b) are one step each: their
+  * The hand-written kernels (K1-K5, K4b, K5b) are one step each: their
     wrappers in ``kernels/ops.py`` take a meta branch that adds
     ``kernel_cost`` of their shapes to the active count and returns
     empty outputs. Each reads its inputs once and writes its outputs
@@ -211,6 +211,29 @@ def _ssd_scan(B, S, H, P, G, N, chunk, dtype):
     return KernelCost(flops, nbytes, _dtype_name(dtype))
 
 
+def _ssd_scan_bwd(B, S, H, P, G, N, chunk, dtype, dstate=False):
+    """x, dt, a_log, b, c, dy (and the f32 dstate when given) read once;
+    dx, ddt, da_log, db, dc written once (the kernel's scratch, such as
+    its f32 chunk states, is its own traffic, not the function's). Per
+    (b, h, chunk of q positions):
+    2 P q(q+1)/2 each for G = dy.xdt^T and dxdt's masked term, 2 N
+    q(q+1)/2 each for dC's and dB's masked terms, and 2 q P N each for
+    the recomputed chunk state, the chunk's dy.C^T term and the state
+    terms of dxdt, dC and dB; per (b, g, chunk): 2 N q(q+1)/2 for
+    C.B^T."""
+    esize = _esize(dtype)
+    q = min(chunk, S)
+    nbytes = ((3 * B * S * H * P + 4 * B * S * G * N) * esize
+              + 8 * B * S * H + 8 * H)
+    if dstate:
+        nbytes += 4 * B * H * P * N
+    pairs = sum(n * (n + 1) // 2
+                for n in (min(q, S - s0) for s0 in range(0, S, q)))
+    flops = (B * H * (4 * P * pairs + 4 * N * pairs + 10 * S * P * N)
+             + B * G * 2 * N * pairs)
+    return KernelCost(flops, nbytes, _dtype_name(dtype))
+
+
 def _quantize_ef(F, x_dtype):
     """x and err read; q (int8), the new err and one f32 scale per
     256-block written."""
@@ -237,6 +260,7 @@ _KERNEL_COSTS: Dict[str, Callable[..., KernelCost]] = {
     "flash_attention": _flash_attention,
     "flash_attention_bwd": _flash_attention_bwd,
     "ssd_scan": _ssd_scan,
+    "ssd_scan_bwd": _ssd_scan_bwd,
     "quantize_ef": _quantize_ef,
     "dequantize": _dequantize,
     "ps_aggregate": _ps_aggregate,
@@ -248,6 +272,7 @@ def kernel_cost(name: str, **shape) -> KernelCost:
     ``flash_attention(B, Sq, Sk, H, KV, hd, dtype, causal, q_offset,
     lse)``, ``flash_attention_bwd(B, Sq, Sk, H, KV, hd, dtype, causal,
     q_offset)``, ``ssd_scan(B, S, H, P, G, N, chunk, dtype)``,
+    ``ssd_scan_bwd(B, S, H, P, G, N, chunk, dtype, dstate)``,
     ``quantize_ef(F, x_dtype)``, ``dequantize(F)``, ``ps_aggregate(NL, F,
     solver)``."""
     return _KERNEL_COSTS[name](**shape)

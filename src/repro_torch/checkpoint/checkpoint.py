@@ -37,9 +37,14 @@ from repro_torch.platform.journal import fsync_enabled
 
 
 def _host(leaf) -> np.ndarray:
-    """A host numpy copy of a numpy array or a tensor (any device)."""
+    """A host numpy copy of a numpy array or a tensor (any device). The
+    caller may overwrite a tensor once ``save`` returns (a learner's PS
+    pull buffer is reused in place), and ``.cpu()`` of a CPU tensor is
+    the tensor itself, so a CPU tensor is copied here."""
     if hasattr(leaf, "detach"):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach()
+        return t.numpy().copy() if t.device.type == "cpu" \
+            else t.cpu().numpy()
     return np.array(leaf)
 
 

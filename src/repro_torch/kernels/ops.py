@@ -25,9 +25,10 @@ from repro_torch.kernels import ps_aggregate as _agg
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import ssd_scan_bwd as _ssdb
 
 # every kernel: NAME, SOURCE, REPLACES, launches
-KERNELS = (_fa, _fab, _agg, _q.QUANTIZE, _q.DEQUANTIZE, _ssd)
+KERNELS = (_fa, _fab, _agg, _q.QUANTIZE, _q.DEQUANTIZE, _ssd, _ssdb)
 
 
 def _where(op: str, *ts) -> str:
@@ -114,6 +115,30 @@ def ssd_scan(x, dt, a_log, b, c, *, chunk: int):
         _ssd.check_shapes(x, dt, a_log, b, c, chunk)
         return ref.ssd_scan_ref(x, dt, a_log, b, c, chunk=chunk)
     return _ssd.ssd_scan_cuda(x, dt, a_log, b, c, chunk=chunk)
+
+
+def ssd_scan_bwd(x, dt, a_log, b, c, dy, dstate=None, *, chunk: int):
+    """Gradients (dx, ddt, da_log, db, dc) of ``ssd_scan`` from the
+    output gradient ``dy`` (x's shape and dtype) and ``dstate``, the
+    final state's (B, H, P, N) f32 (None: zeros). ddt is f32, every other
+    gradient in its input's dtype; db/dc summed over each group's
+    heads."""
+    ts = (x, dt, a_log, b, c, dy) + ((dstate,) if dstate is not None
+                                     else ())
+    where = _where("ssd_scan_bwd", *ts)
+    if where == "meta":
+        _ssdb.check_shapes(x, dt, a_log, b, c, dy, dstate, chunk)
+        B, S, H, P = x.shape
+        _count(_ssdb.NAME, B=B, S=S, H=H, P=P, G=b.shape[2], N=b.shape[3],
+               chunk=chunk, dtype=x.dtype, dstate=dstate is not None)
+        return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                     for t in (x, dt, a_log, b, c))
+    if where == "cpu":
+        _ssdb.check_shapes(x, dt, a_log, b, c, dy, dstate, chunk)
+        return ref.ssd_scan_bwd_ref(x, dt, a_log, b, c, dy, dstate,
+                                    chunk=chunk)
+    return _ssdb.ssd_scan_bwd_cuda(x, dt, a_log, b, c, dy, dstate,
+                                   chunk=chunk)
 
 
 def quantize_ef(x, err, *, out_err=None):

@@ -123,7 +123,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool,
 
 
 # ---------------------------------------------------------------------------
-# The Mamba-2 SSD chunked scan (K5)
+# The Mamba-2 SSD chunked scan (K5) and its backward (K5b)
 # ---------------------------------------------------------------------------
 
 
@@ -140,8 +140,12 @@ def ssd_scan_ref(x, dt, a_log, b, c, *, chunk: int):
     exp(cum_t - cum_s)`` for s <= t (exp of -inf above the diagonal),
     the incoming state decayed to each position, and the carry
     ``state * exp(cum_Q) + sum_s exp(cum_Q - cum_s) xdt_s B_s^T``. B/C
-    groups are repeated to heads here (the kernel indexes them)."""
+    groups are repeated to heads here (the kernel indexes them).
+
+    Float64 inputs are computed, and the state returned, in float64: the
+    exact value the kernels' f32 sums are held against on the card."""
     nb, seq, h, p = x.shape
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
     g, n = b.shape[2], b.shape[3]
     hg = h // g
     chunk = min(chunk, seq)
@@ -151,13 +155,13 @@ def ssd_scan_ref(x, dt, a_log, b, c, *, chunk: int):
         dt = F.pad(dt, (0, 0, 0, pad))
         b = F.pad(b, (0, 0, 0, 0, 0, pad))
         c = F.pad(c, (0, 0, 0, 0, 0, pad))
-    A = -torch.exp(a_log.float())                            # (H,)
-    dt = dt.float()
-    xdt = x.float() * dt[..., None]                          # (B,S',H,P)
-    bf, cf = b.float(), c.float()
+    A = -torch.exp(a_log.to(ct))                             # (H,)
+    dt = dt.to(ct)
+    xdt = x.to(ct) * dt[..., None]                           # (B,S',H,P)
+    bf, cf = b.to(ct), c.to(ct)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
-    state = torch.zeros((nb, h, p, n), dtype=torch.float32, device=x.device)
+    state = torch.zeros((nb, h, p, n), dtype=ct, device=x.device)
     ys = []
     for s0 in range(0, seq + pad, chunk):
         xq = xdt[:, s0:s0 + chunk]                           # (B,Q,H,P)
@@ -179,6 +183,23 @@ def ssd_scan_ref(x, dt, a_log, b, c, *, chunk: int):
         ys.append(y_intra + y_inter)
     y = torch.cat(ys, dim=1)[:, :seq]
     return y.to(x.dtype), state
+
+
+def ssd_scan_bwd_ref(x, dt, a_log, b, c, dy, dstate=None, *, chunk: int):
+    """Gradients (dx, ddt, da_log, db, dc) of ``ssd_scan_ref`` from the
+    output gradient ``dy`` (x's shape) and ``dstate``, the final state's
+    (B, H, P, N) f32, zeros when None: the function of
+    kernels/csrc/ssd_scan_bwd.cu, taken as JAX takes it, by autodiff of
+    the plain scan (``jax.vjp`` of ``repro.models.mamba.ssd_scan_ref``).
+    Each gradient comes back in its input's dtype; float64 inputs are
+    differentiated in float64."""
+    leaves = [t.detach().requires_grad_() for t in (x, dt, a_log, b, c)]
+    with torch.enable_grad():
+        y, state = ssd_scan_ref(*leaves, chunk=chunk)
+        if dstate is None:
+            dstate = torch.zeros_like(state)
+        return torch.autograd.grad((y, state), leaves,
+                                   (dy.to(y.dtype), dstate.to(state.dtype)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,16 @@
 """Mamba-2 block (SSD, arXiv:2405.21060), the counterpart of
 ``repro.models.mamba``: param defs, the depthwise causal conv, the
-prefill block and the one-token decode step.
+prefill / training block and the one-token decode step.
 
-The prefill's chunked scan is ``kernels.ops.ssd_scan``: the CUDA kernel
-(K5) on the card, the plain version on the CPU. JAX's block calls the
-jnp ``ssd_scan_ref`` (mamba.py:184); both keep xdt in f32 and return the
-final state. The conv and the decode recurrence are plain PyTorch, as in
-JAX (no Pallas kernel). The decode carries (ssm_state, conv_tail) per
-slot.
+The block's chunked scan is ``ssd_scan``: under ``no_grad`` (prefill)
+``kernels.ops.ssd_scan`` alone, the CUDA kernel (K5) on the card and the
+plain version on the CPU; when autograd needs a gradient (training)
+``SSDScan``, whose forward is the same op and whose backward is
+``kernels.ops.ssd_scan_bwd`` (K5b on the card). JAX's block calls the
+jnp ``ssd_scan_ref`` (mamba.py:184) and differentiates it by autodiff;
+both keep xdt in f32 and return the final state. The conv and the decode
+recurrence are plain PyTorch, as in JAX (no Pallas kernel). The decode
+carries (ssm_state, conv_tail) per slot.
 """
 from __future__ import annotations
 
@@ -84,6 +87,44 @@ def ssd_decode_step(state, x1, dt1, a_log, b1, c1):
     return y.to(x1.dtype), state
 
 
+class SSDScan(torch.autograd.Function):
+    """The SSD chunked scan with a kernel backward: the forward saves x,
+    dt, a_log, b and c (neither y nor an S x S matrix), the backward
+    recomputes the chunk states from them. The final state's gradient is
+    absent when the loss drops the state, as training does: the backward
+    then gets ``dstate = None``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, chunk: int):
+        ctx.set_materialize_grads(False)
+        y, state = ops.ssd_scan(x, dt, a_log, b, c, chunk=chunk)
+        ctx.save_for_backward(x, dt, a_log, b, c)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a_log, b, c = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ops.ssd_scan_bwd(
+            x, dt, a_log, b, c, dy.contiguous(),
+            None if dstate is None else dstate.contiguous(),
+            chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def ssd_scan(x, dt, a_log, b, c, *, chunk: int):
+    """x (B, S, H, P), dt (B, S, H) f32, a_log (H,), b/c (B, S, G, N) ->
+    (y, final state f32). Differentiable through ``SSDScan`` when
+    autograd needs a gradient; otherwise (prefill under ``no_grad``) the
+    forward kernel alone."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a_log, b, c)):
+        return SSDScan.apply(x, dt, a_log, b, c, chunk)
+    return ops.ssd_scan(x, dt, a_log, b, c, chunk=chunk)
+
+
 def _in_proj(x, p):
     return (x @ p["wz"], x @ p["wx"], x @ p["wB"], x @ p["wC"],
             x @ p["wdt"])
@@ -102,9 +143,9 @@ def _out(y, xh, z, p, cfg: ArchConfig):
 
 
 def mamba_block(x, p, cfg: ArchConfig):
-    """Prefill path. x (B, S, D) -> (out (B, S, D), final state (B, H,
-    P, N) f32, conv tail (B, K-1, d_in + 2 G N)); the tail is left-padded
-    with zeros when S < K-1."""
+    """Prefill and training path. x (B, S, D) -> (out (B, S, D), final
+    state (B, H, P, N) f32, conv tail (B, K-1, d_in + 2 G N)); the tail
+    is left-padded with zeros when S < K-1."""
     s = cfg.ssm
     d_in, nheads, gn, k = mamba_dims(cfg)
     nb, seq, _ = x.shape
@@ -114,7 +155,7 @@ def mamba_block(x, p, cfg: ArchConfig):
     bi = F.silu(causal_conv(bi, p["conv_B"]))
     ci = F.silu(causal_conv(ci, p["conv_C"]))
     xh = xi.reshape(nb, seq, nheads, s.head_dim)
-    y, state = ops.ssd_scan(
+    y, state = ssd_scan(
         xh, _dt(dt_raw, p), p["A_log"],
         bi.reshape(nb, seq, s.n_groups, s.d_state),
         ci.reshape(nb, seq, s.n_groups, s.d_state), chunk=s.chunk_size)

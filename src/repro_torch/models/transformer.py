@@ -21,10 +21,11 @@ Differences from the JAX module, by design:
   * caches are updated in place (JAX returns new, donated buffers), and
     prefill can write its K/V (ssm: its state and conv tail) straight
     into chosen slots of a batched cache;
-  * ssm prefill runs the SSD scan through ``kernels.ops.ssd_scan`` (the
-    CUDA kernel on the card) where JAX calls the jnp ``ssd_scan_ref``.
-The moe, hybrid and encdec families, vlm ``embeds`` inputs and the ssm
-training loss raise ``UserError``: they are not ported yet.
+  * the ssm family runs the SSD scan through ``models.mamba.ssd_scan``
+    (K5 on the card; under autograd ``SSDScan``, with the K5b backward)
+    where JAX calls the jnp ``ssd_scan_ref`` and differentiates it.
+The moe, hybrid and encdec families and vlm ``embeds`` inputs raise
+``UserError``: they are not ported yet.
 """
 from __future__ import annotations
 
@@ -310,26 +311,30 @@ def _positions(batch, B: int, S: int, cfg: ArchConfig, dev):
 
 
 def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512):
-    """Next-token CE loss (``transformer.py:319-332``, dense family).
-    batch: tokens (B, S), labels (B, S)[, positions]. Embed; per layer
-    norm -> attention (RoPE, flash kernels, GQA by index) -> wo ->
-    residual -> norm -> SwiGLU -> residual; final norm; chunked CE with
-    chunk ``min(xent_chunk, S)``. No remat of the layers (the learner's
-    ``remat: none``)."""
-    if cfg.family == "ssm":
-        raise UserError(f"{cfg.arch_id!r}: training the ssm family is not "
-                        "yet ported to repro_torch (it serves)")
+    """Next-token CE loss (``transformer.py:272-332``, dense and ssm
+    families). batch: tokens (B, S), labels (B, S)[, positions]. Embed;
+    per layer, dense: norm -> attention (RoPE, flash kernels, GQA by
+    index) -> wo -> residual -> norm -> SwiGLU -> residual; ssm: norm ->
+    ``mamba_block`` (the SSD scan through ``SSDScan``) -> residual; final
+    norm; chunked CE with chunk ``min(xent_chunk, S)``. No remat of the
+    layers (the learner's ``remat: none``)."""
     tokens = _tokens(batch)
     B, S = tokens.shape
     h = embed_tokens(tokens, params["embed"])
-    positions = _positions(batch, B, S, cfg, tokens.device)
     blocks = params["blocks"]
-    for l in range(cfg.n_layers):
-        bp = layer_params(blocks, l)
-        x = norm_apply(h, bp["ln1"], cfg)
-        h = h + attn_prefill(x, bp["attn"], cfg, positions)[0]
-        x = norm_apply(h, bp["ln2"], cfg)
-        h = h + ffn_apply(x, bp, cfg)
+    if cfg.family == "ssm":
+        for l in range(cfg.n_layers):
+            bp = layer_params(blocks, l)
+            x = norm_apply(h, bp["ln1"], cfg)
+            h = h + mam.mamba_block(x, bp["mamba"], cfg)[0]
+    else:
+        positions = _positions(batch, B, S, cfg, tokens.device)
+        for l in range(cfg.n_layers):
+            bp = layer_params(blocks, l)
+            x = norm_apply(h, bp["ln1"], cfg)
+            h = h + attn_prefill(x, bp["attn"], cfg, positions)[0]
+            x = norm_apply(h, bp["ln2"], cfg)
+            h = h + ffn_apply(x, bp, cfg)
     h = norm_apply(h, params["final_norm"], cfg)
     return chunked_xent(h, params["head"], batch["labels"],
                         chunk=min(xent_chunk, S))

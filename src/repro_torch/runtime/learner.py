@@ -46,6 +46,8 @@ from repro_torch.errors import UserError
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as _kfa
 from repro_torch.kernels import flash_attention_bwd as _kfab
+from repro_torch.kernels import ssd_scan as _kssd
+from repro_torch.kernels import ssd_scan_bwd as _kssdb
 from repro_torch.models import make_model
 from repro_torch.models.layers import init_leaf, iter_leaves
 from repro_torch.observability.trace import TRACE_STEP_SAMPLE, maybe_span
@@ -56,8 +58,15 @@ from repro_torch.weights import flat_layout, flat_size
 
 log = logging.getLogger("repro_torch.learner")
 
-# the kernel libraries an LM step launches on CUDA: K4 forward, K4b
-STEP_LIBRARIES = (_kfa.NAME, _kfab.NAME)
+# the kernel libraries an LM step launches on CUDA, by family: K4 and
+# K4b (dense and vlm), K5 and K5b (ssm)
+STEP_LIBRARIES = {"dense": (_kfa.NAME, _kfab.NAME),
+                  "ssm": (_kssd.NAME, _kssdb.NAME)}
+
+
+def step_libraries(cfg: ArchConfig):
+    """The kernel libraries ``cfg``'s learner step launches on CUDA."""
+    return STEP_LIBRARIES["ssm" if cfg.family == "ssm" else "dense"]
 
 # ---------------------------------------------------------------------------
 # Framework plugins
@@ -117,7 +126,7 @@ class LMPlugin:
         self._warming: Optional[threading.Event] = None
 
     def warm_async(self, batch_docs: int, data_cfg: Dict):
-        """Build the step's kernel libraries (``STEP_LIBRARIES``, the
+        """Build the step's kernel libraries (``step_libraries``, the
         first-use ``nvcc`` build of ``kernels/build.py``) on a background
         thread, so the build overlaps plan-time weight init and
         deployment instead of stalling the learner's first step, which
@@ -136,7 +145,7 @@ class LMPlugin:
 
         def run():
             try:
-                for name in STEP_LIBRARIES:
+                for name in step_libraries(self.cfg):
                     build.load(name)
             except Exception as e:          # advisory: log, never crash
                 log.warning("warm kernel build failed: %s: %s",

@@ -1,11 +1,11 @@
 """The port's execution backends against the JAX package's: the same
 registry names, the same plan layout, and one manifest planned and
 launched through each package's own backend, Lifecycle Manager and
-scheduler trains to the same losses (atol = rtol = 1e-4) and the same PS
-params (``PARAM_TOL``, as in tests/test_torch_learner.py) from one
-initial vector; then the lifecycle hooks, a user error that fails the
-job without a restart, a crash that restarts and resumes, and no CPU
-fallback.
+scheduler (dense and ssm LMs, the MLP) trains to the same losses (atol =
+rtol = 1e-4) and the same PS params (``PARAM_TOL``, as in
+tests/test_torch_learner.py) from one initial vector; then the lifecycle
+hooks, a user error that fails the job without a restart, a crash that
+restarts and resumes, and no CPU fallback.
 
 All on the CPU (``device="cpu"``) at the reference's smoke sizes. Torch
 cannot reproduce ``jax.random``, so the port's plan is given JAX's
@@ -62,6 +62,12 @@ def _no_jax_roofline(monkeypatch):
 def jax_lm():
     """One JAX LM plugin for the module (its jits compile once)."""
     return jax_learner.LMPlugin({"arch": "stablelm-1.6b"})
+
+
+@pytest.fixture(scope="module")
+def jax_ssm():
+    """The same for the ssm family (mamba2-1.3b's smoke reduction)."""
+    return jax_learner.LMPlugin({"arch": "mamba2-1.3b"})
 
 
 def _train(pkg, workdir, manifest, job="job-1"):
@@ -138,15 +144,22 @@ def test_plan_layout_matches_jax(tmp_path, monkeypatch, jax_lm, framework,
 # differs between any two runs, of one package too. One level moves a
 # param by lr x block scale / 2 learners: ~1e-4 at lr 2e-3 on this
 # model (block scales up to ~0.1), ~5e-5 at lr 1e-3, inside PARAM_TOL.
+# the ssm family (mamba2-1.3b) at 64 positions crosses its chunk of 32
+SSM_LM = {"name": "repro-lm", "arch": "mamba2-1.3b"}
+
+
 @pytest.mark.parametrize("manifest", [
     lm_manifest(optimizer="sgd", lr=2e-3),
     lm_manifest(optimizer="adam", lr=3e-4),
     lm_manifest(optimizer="sgd", lr=1e-3, compression="int8"),
+    lm_manifest(optimizer="adam", lr=3e-4, framework=SSM_LM,
+                data={"n_docs": 128, "seq_len": 64}),
     mlp_manifest(),
-], ids=["lm-sgd", "lm-adam", "lm-int8", "mlp-sgd"])
+], ids=["lm-sgd", "lm-adam", "lm-int8", "ssm-adam", "mlp-sgd"])
 def test_training_through_the_backend_matches_jax(tmp_path, monkeypatch,
-                                                  jax_lm, manifest):
-    flat = use_jax_vector(monkeypatch, manifest, jax_lm)
+                                                  jax_lm, jax_ssm, manifest):
+    ssm = manifest["framework"].get("arch") == SSM_LM["arch"]
+    flat = use_jax_vector(monkeypatch, manifest, jax_ssm if ssm else jax_lm)
     jstate, jlosses, want, _, _ = _train("repro", tmp_path / "jax",
                                           manifest)
     state, losses, got, handle, p = _train("repro_torch",

@@ -1,7 +1,9 @@
-"""Tests of the port that need the card: the CUDA flash-attention kernel
-against its plain PyTorch version, the wrapper's checks, the serving
-engine on CUDA against the same engine on the CPU, and the platform and
-the service (``DLaaSCore``) training and serving on CUDA.
+"""Tests of the port that need the card: the CUDA kernels (flash
+attention and its backward, the PS update and the int8 wire, the SSD
+scan and its backward) against their plain PyTorch versions, the
+wrappers' checks, the serving engines and the dense and ssm learner
+steps on CUDA against the same on the CPU, and the platform and the
+service (``DLaaSCore``) training and serving on CUDA.
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is false (the kernel has no CPU mode). This file imports no JAX, so it
@@ -10,8 +12,9 @@ runs on a machine that has only PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: 2e-5 in float32 and 2e-2 in bfloat16, those of
-tests/test_kernels.py:34. TF32 is switched off so that the plain
-version's float32 products are full float32.
+tests/test_kernels.py:34, for attention; each other kernel's beside its
+tests. TF32 is switched off so that the plain version's float32
+products are full float32.
 """
 import threading
 import time
@@ -608,6 +611,155 @@ def test_mamba2_engine_on_cuda_matches_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The ssm training slice: K5b (the SSD scan backward) and the ssm step
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ssd_scan_bwd as kssdb  # noqa: E402
+
+# K5b against the plain backward run in float64 on float64 copies of the
+# same inputs (the exact gradient of the values the kernel reads), every
+# gradient elementwise at atol = rtol. f32: SSD_TOL (1e-3; the kernel sums
+# in f32). bf16: 2e-2, compared in f32: the kernel computes in f32 from
+# the same values and rounds dx, db and dc to bf16 (2^-8 relative) at the
+# end.
+K5B_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+K5B_SHAPES = [
+    (2, 512, 64, 64, 1, 128, 256),    # the learner's 2 x 512, full width
+    (1, 2048, 64, 64, 1, 128, 256),   # its 1 x 2,048: eight chunks
+    (2, 64, 8, 16, 1, 16, 32),        # the smoke width
+    (1, 300, 4, 64, 1, 128, 256),     # ragged tail at chunk 256
+    (2, 7, 2, 16, 1, 16, 32),         # shorter than a chunk
+    (2, 256, 4, 32, 2, 16, 64),       # G = 2
+]
+
+
+def _ssd_bwd_inputs(B, S, H, P, G, N, dtype, seed, dstate):
+    args = _ssd_inputs(B, S, H, P, G, N, dtype, seed=seed, a_log=-0.5)
+    rng = np.random.RandomState(seed + 100)
+    dy = torch.from_numpy(rng.standard_normal((B, S, H, P)).astype(
+        np.float32)).to("cuda", dtype)
+    ds = torch.from_numpy(rng.standard_normal((B, H, P, N)).astype(
+        np.float32)).cuda() if dstate else None
+    return args, dy, ds
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", K5B_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dstate", [False, True],
+                         ids=["dstate-none", "dstate"])
+def test_ssd_scan_bwd_kernel_vs_plain(cuda, B, S, H, P, G, N, chunk, dtype,
+                                      dstate):
+    args, dy, ds = _ssd_bwd_inputs(B, S, H, P, G, N, dtype, 8, dstate)
+    before = kssdb.launches
+    got = ops.ssd_scan_bwd(*args, dy, ds, chunk=chunk)
+    again = ops.ssd_scan_bwd(*args, dy, ds, chunk=chunk)
+    torch.cuda.synchronize()
+    assert kssdb.launches == before + 2
+    want = ref.ssd_scan_bwd_ref(*(t.double() for t in args), dy.double(),
+                                None if ds is None else ds.double(),
+                                chunk=chunk)
+    tol = K5B_TOL[dtype]
+    for g, a, w, inp in zip(got, again, want, args):
+        assert g.dtype == inp.dtype and g.shape == inp.shape
+        assert torch.equal(g, a)                   # no atomics
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.double(), w, atol=tol, rtol=tol)
+
+
+def test_ssd_scan_bwd_kernel_reads_bf16_a_log(cuda):
+    """A bf16 a_log gives its gradient in bf16: the f32 one's, rounded."""
+    args, dy, _ = _ssd_bwd_inputs(1, 300, 4, 64, 1, 128, torch.bfloat16, 9,
+                                  False)
+    a16 = torch.linspace(-1.0, 0.5, 4, device="cuda").to(torch.bfloat16)
+    g16 = ops.ssd_scan_bwd(args[0], args[1], a16, *args[3:], dy, chunk=256)
+    g32 = ops.ssd_scan_bwd(args[0], args[1], a16.float(), *args[3:], dy,
+                           chunk=256)
+    torch.cuda.synchronize()
+    assert g16[2].dtype == torch.bfloat16
+    assert torch.equal(g16[2], g32[2].to(torch.bfloat16))
+    for a, b in zip(g16[:2] + g16[3:], g32[:2] + g32[3:]):
+        assert torch.equal(a, b)
+
+
+def test_ssd_scan_bwd_kernel_rejects_what_it_does_not_take(cuda):
+    args, dy, ds = _ssd_bwd_inputs(1, 64, 4, 16, 2, 16, torch.float32, 10,
+                                   True)
+    x, dt, a_log, b, c = args
+    before = kssdb.launches
+    with pytest.raises(TypeError):                # fp16
+        ops.ssd_scan_bwd(x.half(), dt, a_log, b.half(), c.half(),
+                         dy.half(), chunk=32)
+    with pytest.raises(TypeError):                # dy of another dtype
+        ops.ssd_scan_bwd(*args, dy.bfloat16(), chunk=32)
+    with pytest.raises(TypeError):                # dstate not f32
+        ops.ssd_scan_bwd(*args, dy, ds.bfloat16(), chunk=32)
+    with pytest.raises(ValueError):               # dy not contiguous
+        ops.ssd_scan_bwd(*args, dy.transpose(2, 3).contiguous()
+                         .transpose(2, 3), chunk=32)
+    with pytest.raises(ValueError):               # CPU and CUDA mixed
+        ops.ssd_scan_bwd(*args, dy.cpu(), chunk=32)
+    assert kssdb.launches == before
+
+
+def test_mamba_block_backward_launches_k5b_not_the_plain(cuda, monkeypatch):
+    """A backward through ``mamba_block`` on CUDA tensors runs K5 and K5b
+    once each and never the plain scan or its backward; its gradients
+    equal the CPU's (2e-3)."""
+    from repro_torch.models import mamba as tm
+    cfg = reduce_for_smoke(get_arch("mamba2-1.3b"))
+    model_params = LMPlugin({}, cfg=cfg, device="cpu").model.init(
+        torch.Generator().manual_seed(0))
+    from repro_torch.models.transformer import layer_params
+    p_cpu = {k: v.detach().clone().requires_grad_() for k, v in
+             layer_params(model_params["blocks"], 0)["mamba"].items()}
+    x = torch.from_numpy(np.random.RandomState(3).standard_normal(
+        (2, 50, cfg.d_model)).astype(np.float32))
+
+    def grads(p, x):
+        xg = x.clone().requires_grad_()
+        out = tm.mamba_block(xg, p, cfg)[0]
+        names = sorted(p)
+        return torch.autograd.grad(out.square().sum(),
+                                   [xg] + [p[k] for k in names])
+    want = grads(p_cpu, x)
+    p_gpu = {k: v.detach().cuda().requires_grad_() for k, v in p_cpu.items()}
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on the card's path")
+    monkeypatch.setattr(ref, "ssd_scan_ref", plain)
+    monkeypatch.setattr(ref, "ssd_scan_bwd_ref", plain)
+    ops.reset_launch_counts()
+    got = grads(p_gpu, x.cuda())
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts[kssd.NAME] == 1 and counts[kssdb.NAME] == 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("seq", [64, 50])
+def test_ssm_training_step_on_cuda_matches_cpu(cuda, seq):
+    """``LMPlugin.flat_loss_grad`` of the mamba2 smoke model on the card
+    (K5, K5b) against the CPU (plain versions), f32: loss 1e-4, flat
+    gradient 2e-3; two chunks of 32, and a ragged tail."""
+    cfg = reduce_for_smoke(get_arch("mamba2-1.3b"))
+    gpu = LMPlugin({}, cfg=cfg, device="cuda")
+    cpu = LMPlugin({}, cfg=cfg, device="cpu")
+    flat = cpu.flat_state(0)
+    toks = np.random.RandomState(9).randint(
+        0, cfg.vocab_size, size=(2, seq + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ops.reset_launch_counts()
+    lg, gg = gpu.flat_loss_grad(flat.cuda(), batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    lc, gc = cpu.flat_loss_grad(flat, batch)
+    assert counts[kssd.NAME] == counts[kssdb.NAME] == cfg.n_layers
+    assert abs(lg.item() - lc.item()) <= 1e-4
+    torch.testing.assert_close(gg.cpu(), gc, atol=2e-3, rtol=2e-3)
+
+
+# ---------------------------------------------------------------------------
 # The platform slice: the software-ps backend and a managed endpoint
 # ---------------------------------------------------------------------------
 
@@ -615,15 +767,19 @@ from repro_torch.kernels import build  # noqa: E402
 from util_platform import Platform  # noqa: E402
 
 
-def test_warm_async_builds_the_step_kernels(cuda):
+@pytest.mark.parametrize("arch,libs", [
+    ("stablelm-1.6b", ("flash_attention", "flash_attention_bwd")),
+    ("mamba2-1.3b", ("ssd_scan", "ssd_scan_bwd"))])
+def test_warm_async_builds_the_step_kernels(cuda, arch, libs):
     """``LMPlugin.warm_async`` on the card builds and loads the step's
-    kernel libraries (K4, K4b) in the background and then sets
-    ``_warming``."""
-    from repro_torch.runtime.learner import STEP_LIBRARIES
-    plugin = LMPlugin({}, device="cuda")
+    kernel libraries (K4 and K4b; K5 and K5b for the ssm family) in the
+    background and then sets ``_warming``."""
+    from repro_torch.runtime.learner import step_libraries
+    plugin = LMPlugin({"arch": arch}, device="cuda")
+    assert step_libraries(plugin.cfg) == libs
     plugin.warm_async(2, {})
     assert plugin._warming.wait(300)
-    assert all(name in build._libs for name in STEP_LIBRARIES)
+    assert all(name in build._libs for name in libs)
 
 
 def test_platform_trains_and_serves_on_cuda(cuda, tmp_path):
@@ -648,7 +804,7 @@ def test_platform_trains_and_serves_on_cuda(cuda, tmp_path):
         "flash_attention": cfg.n_layers * pushes,
         "flash_attention_bwd": cfg.n_layers * pushes,
         "ps_aggregate": 4 * 2, "quantize_ef": pushes,
-        "dequantize": pushes, "ssd_scan": 0}
+        "dequantize": pushes, "ssd_scan": 0, "ssd_scan_bwd": 0}
     ep = p.deploy("ep-1", source_training="job-1", capacity=2, max_new=4,
                   max_seq=32)
     p.drive_endpoint(ep, "READY", timeout=300)

@@ -2,11 +2,12 @@
 the JAX package's, through each package's own backend, Lifecycle Manager
 and scheduler: the lifecycle from a training (DEPLOYING → READY →
 DRAINING → STOPPED, the engine released, the metrics dropped), equal
-greedy tokens from one JAX-written ``trained_model.npy``, the checkpoint
-fallback (a JAX-written checkpoint included), the weights file carried
-across the package boundary both ways, deploy-from-arch, pause and
-resume at a batch-step boundary, the endpoint as a metered job, and
-``status()`` with the reference's keys (tests/test_serving.py:204-290).
+greedy tokens from one JAX-written ``trained_model.npy`` and from one
+port-trained ssm model's, the checkpoint fallback (a JAX-written
+checkpoint included), the weights file carried across the package
+boundary both ways, deploy-from-arch, pause and resume at a batch-step
+boundary, the endpoint as a metered job, and ``status()`` with the
+reference's keys (tests/test_serving.py:204-290).
 
 All on the CPU (``device="cpu"``) at the reference's smoke size (f32)."""
 import io
@@ -28,6 +29,7 @@ from util_platform import Platform
 from util_poll import assert_holds_for
 
 ARCH = "stablelm-1.6b"
+SSM_ARCH = "mamba2-1.3b"
 TRAIN_MANIFEST = {"name": "serve-src", "learners": 1, "steps": 3,
                   "batch_docs": 2, "checkpoint_every": 100, "lr": 2e-3,
                   "data": {"n_docs": 32, "seq_len": 16},
@@ -66,11 +68,11 @@ def stop(p, ep):
     return p.drive_endpoint(ep, "STOPPED")
 
 
-def bare_engine_tokens(flat, prompts, max_new=4):
+def bare_engine_tokens(flat, prompts, max_new=4, arch=ARCH):
     """The same prompts, one at a time, through an engine started on
     ``flat`` (None: fresh init from seed 0) outside the platform."""
     import threading
-    eng = InferenceEngine(reduce_for_smoke(get_arch(ARCH)), capacity=2,
+    eng = InferenceEngine(reduce_for_smoke(get_arch(arch)), capacity=2,
                           max_seq=32, device="cpu", endpoint_id="bare")
     eng.start(flat)
     t = threading.Thread(target=eng.run, daemon=True)
@@ -141,6 +143,36 @@ def test_tokens_equal_jax_from_one_jax_trained_model(tmp_path):
     assert sorted(status["port"]["stats"]) == sorted(status["jax"]["stats"])
     assert status["port"]["perf"] == status["jax"]["perf"] == {
         "state": "disabled", "unit": "decode_step"}
+    for k, ep in eps.items():
+        stop(plat[k], ep)
+        assert ep.engine._cache is None
+
+
+def test_ssm_trained_in_the_port_serves_the_jax_endpoints_tokens(tmp_path):
+    """mamba2-1.3b trained in the port (two chunks of 32 a step, the
+    ssm backward on the CPU), its trained_model.npy deployed by the
+    port's endpoint and by the JAX endpoint, each through its own
+    platform: the same greedy tokens, and those of a bare engine on the
+    PS params."""
+    pp = Platform("repro_torch", tmp_path, device="cpu")
+    m = dict(TRAIN_MANIFEST, data={"n_docs": 32, "seq_len": 64},
+             framework={"name": "repro-lm", "arch": SSM_ARCH})
+    handle = pp.launch("job-ssm", m)
+    assert pp.drive("job-ssm", timeout=240) == "COMPLETED"
+    trained = handle.plan.results["params"]
+    jp = Platform("repro", tmp_path)
+    eps = {"port": pp.deploy("ep-p", source_training="job-ssm",
+                             arch=SSM_ARCH, **SERVING),
+           "jax": jp.deploy("ep-j", source_training="job-ssm",
+                            arch=SSM_ARCH, **SERVING)}
+    plat = {"port": pp, "jax": jp}
+    tokens = {}
+    for k, ep in eps.items():
+        plat[k].drive_endpoint(ep, "READY", timeout=240)
+        tokens[k] = [predict(ep, pr) for pr in PROMPTS]
+    assert tokens["port"] == tokens["jax"]
+    assert tokens["port"] == bare_engine_tokens(trained, PROMPTS,
+                                                arch=SSM_ARCH)
     for k, ep in eps.items():
         stop(plat[k], ep)
         assert ep.engine._cache is None

@@ -179,6 +179,32 @@ def _log_lines(zk, job, member):
     return [zk.get(f"{base}/{c}")[0].decode() for c in zk.children(base)]
 
 
+def test_checkpoint_snapshots_a_cpu_tensor_before_save_returns(
+        tmp_path, monkeypatch):
+    """The learner checkpoints its PS pull buffer, which its next pull
+    overwrites in place: the checkpoint holds the values ``save`` saw,
+    however late the writer thread serializes them (it waits here until
+    the buffer has been overwritten)."""
+    import threading
+
+    import torch
+    gate = threading.Event()
+    write = CheckpointManager._write
+
+    def gated(self, *a):
+        assert gate.wait(30)
+        write(self, *a)
+    monkeypatch.setattr(CheckpointManager, "_write", gated)
+    buf = torch.arange(8, dtype=torch.float32)
+    ckpt = CheckpointManager(str(tmp_path))
+    ckpt.save(1, {"flat": buf})
+    buf.add_(100.0)                       # the next pull
+    gate.set()
+    ckpt.wait()
+    tree, _ = ckpt.restore(1, {"flat": np.zeros(8, np.float32)})
+    np.testing.assert_array_equal(tree["flat"], np.arange(8))
+
+
 def test_port_run_resumes_from_checkpoint(plugins, tmp_path):
     """A 4-step run checkpoints at steps 2 and 4; a second run over the
     same directory resumes at step 4, logs it, and ends where an

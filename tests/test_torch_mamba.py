@@ -1,13 +1,15 @@
 """The port's ssm family (Mamba-2) against the JAX package on the same
 inputs and weights: the SSD scan's plain version (K5's CPU path) against
 ``repro.models.mamba.ssd_scan_ref`` and the Pallas kernel, the block's
-layers, prefill / decode and the caches, the flat layout, and the
-serving engine's tokens.
+layers and their gradients, the training loss, prefill / decode and the
+caches, the flat layout, and the serving engine's tokens (the scan's
+backward alone: tests/test_torch_ssd_bwd.py).
 
 Tolerances: the scan as tests/test_kernels.py:56 (1e-3 in float32, 5e-2
 in bfloat16, for y and the final state); the layers and the model as
 tests/test_torch_model.py (``LAYER_TOL`` 1e-5, ``MODEL_TOL`` 1e-4, f32:
-the two frameworks sum in other orders)."""
+the two frameworks sum in other orders); a block's gradients 1e-4; the
+loss's gradients 2e-3, ``GRAD_TOL`` of tests/test_torch_training.py."""
 import threading
 
 import jax
@@ -26,10 +28,10 @@ from repro.runtime.learner import _flat_io
 from repro.serving.engine import InferenceEngine as JaxEngine
 from repro_torch.configs.base import reduce_for_smoke
 from repro_torch.configs.registry import get_arch
-from repro_torch.errors import UserError
 from repro_torch.kernels import ops
 from repro_torch.models import make_model
 from repro_torch.models import mamba as tm
+from repro_torch.models.layers import iter_leaves, map_leaves
 from repro_torch.models.transformer import layer_params
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.weights import flat_layout, params_from_flat
@@ -268,11 +270,54 @@ def test_flat_layout_matches_jax_flat_io():
     assert n == get_arch(ARCH).n_params() + 49 * 2048 == 1_446_505_472
 
 
-def test_loss_raises_user_error(setup):
-    _, _, model, params, cfg, _ = setup
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(UserError, match="not yet ported"):
-        model.loss(params, {"tokens": toks, "labels": toks})
+@pytest.mark.parametrize("S", [64, 40])     # two chunks; a ragged tail
+def test_loss_matches_jax_lm_loss(setup, S):
+    """The ssm training loss (per layer ln1 -> ``mamba_block`` ->
+    residual, final norm, chunked CE) against JAX's ``lm_loss``, and its
+    gradient by leaf against ``jax.grad`` (autograd through ``SSDScan``
+    and its plain backward here)."""
+    jmodel, jparams, model, params, cfg, _ = setup
+    rng = np.random.RandomState(11)
+    toks = rng.randint(0, cfg.vocab_size, size=(2, S + 1)).astype(np.int32)
+    jb = {"tokens": jnp.asarray(toks[:, :-1]),
+          "labels": jnp.asarray(toks[:, 1:])}
+    jl, jg = jax.value_and_grad(jmodel.loss)(jparams, jb)
+    leaves = {path: t.detach().clone().requires_grad_()
+              for path, t in iter_leaves(params)}
+    tree = map_leaves(lambda path, _: leaves[path], params)
+    tl = model.loss(tree, {k: torch.from_numpy(np.array(v)).long()
+                           for k, v in jb.items()})
+    np.testing.assert_allclose(tl.item(), float(jl), **MODEL_TOL)
+    grads = dict(zip(leaves, torch.autograd.grad(tl, list(leaves.values()))))
+    jflat = dict(iter_leaves(jg))
+    for path, g in grads.items():
+        np.testing.assert_allclose(_np(g), _np(jflat[path]), atol=2e-3,
+                                   rtol=2e-3, err_msg=path)
+
+
+@pytest.mark.parametrize("S", [40, 2])
+def test_mamba_block_gradients_match_jax(setup, S):
+    """Gradients of one block's output against ``jax.grad`` of JAX's
+    ``mamba_block``: the input and every weight of the layer, through
+    the conv, gating, norm and ``SSDScan`` (its plain backward here)."""
+    jp, tp, cfg = _layer(setup)
+    rng = np.random.RandomState(12)
+    x = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    w = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+
+    def jf(x_, p_):
+        return jnp.sum(jm.mamba_block(x_, p_, cfg, Dist())[0] * w)
+    jgx, jgp = jax.grad(jf, argnums=(0, 1))(jnp.asarray(x), jp)
+    tx = torch.from_numpy(x).requires_grad_()
+    tps = {k: v.detach().clone().requires_grad_() for k, v in tp.items()}
+    out = tm.mamba_block(tx, tps, cfg)[0]
+    names = sorted(tps)
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(),
+                              [tx] + [tps[k] for k in names])
+    np.testing.assert_allclose(_np(got[0]), _np(jgx), atol=1e-4, rtol=1e-4)
+    for k, g in zip(names, got[1:]):
+        np.testing.assert_allclose(_np(g), _np(jgp[k]), atol=1e-4,
+                                   rtol=1e-4, err_msg=k)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@ reference's (``repro.analysis.perf``), and its wiring.
 
 ``JobPerf.snapshot`` builds the reference's payload from one analysis;
 ``DLAAS_PERF=0`` disables both; a failed count is logged, never raised;
-a ``repro-lm`` training through the port's ``DLaaSCore`` reaches
-``perf.state == "ready"`` with the reference core's keys in
+a ``repro-lm`` training (dense and ssm) through the port's ``DLaaSCore``
+reaches ``perf.state == "ready"`` with the reference core's keys in
 ``status.perf``, ``GET /v1/trainings/<id>/perf`` and ``train perf``; an
 endpoint's ``status()["perf"]`` is the decode step's; and the health
 controller registers the throughput tracker on the live payload.
@@ -32,6 +32,10 @@ LM_MANIFEST = {
     "lr": 2e-3, "optimizer": "sgd", "seed": 3, "batch_docs": 2,
     "ps_shards": 2, "data": {"n_docs": 64, "seq_len": 32},
     "framework": {"name": "repro-lm", "arch": "stablelm-1.6b"}}
+# the ssm family: two chunks of 32 a step, K5 and K5b counted by formula
+SSM_MANIFEST = dict(LM_MANIFEST, name="perf-ssm",
+                    data={"n_docs": 64, "seq_len": 64},
+                    framework={"name": "repro-lm", "arch": "mamba2-1.3b"})
 # long enough to be PROCESSING while the health controller evaluates it
 MLP_FOREVER = {
     "name": "perf-mlp", "learners": 1, "steps": 100000,
@@ -150,19 +154,25 @@ def _req(url):
         return json.loads(resp.read())
 
 
+@pytest.mark.parametrize("manifest", [LM_MANIFEST, SSM_MANIFEST],
+                         ids=["dense", "ssm"])
 def test_training_perf_through_the_port_core_has_the_reference_keys(
-        tmp_path):
+        tmp_path, manifest):
     """status.perf, ``GET /v1/trainings/<id>/perf`` and ``dlaas train
-    perf`` of a ``repro-lm`` training: ready, with the reference core's
-    payload keys and a measured rate."""
+    perf`` of a ``repro-lm`` training (dense; ssm, whose step counts K5
+    and K5b): ready, with the reference core's payload keys, the learner
+    step's count on the meta device and a measured rate."""
+    from repro_torch.runtime.learner import LMPlugin
     jc = JaxCore(str(tmp_path / "jax"))
     try:
-        jtid = _train(jc, LM_MANIFEST)
+        jtid = _train(jc, manifest)
         want = jc.training_perf(jtid)
     finally:
         jc.close()
+    step = LMPlugin(manifest["framework"], device="cpu").program_cost(
+        manifest["batch_docs"], manifest["data"])
     with DLaaSServer(str(tmp_path / "port"), device="cpu") as srv:
-        tid = _train(srv.core, LM_MANIFEST)
+        tid = _train(srv.core, manifest)
         status = _req(f"{srv.url}/v1/trainings/{tid}")
         got = _req(f"{srv.url}/v1/trainings/{tid}/perf")
         buf = io.StringIO()
@@ -175,7 +185,8 @@ def test_training_perf_through_the_port_core_has_the_reference_keys(
     assert sorted(status["perf"]) == sorted(want["perf"])
     assert via_cli["perf"]["flops_per_step_per_device"] == \
         got["perf"]["flops_per_step_per_device"] == \
-        status["perf"]["flops_per_step_per_device"]
+        status["perf"]["flops_per_step_per_device"] == \
+        step["flops_per_device"]
     assert 0 < got["perf"]["pct_of_attainable"]
     assert got["perf"]["measured_steps_per_s"] > 0
 

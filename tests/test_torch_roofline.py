@@ -2,12 +2,13 @@
 reference's (``repro.analysis.roofline``).
 
 ``model_flops`` equals the reference's for every arch and shape; each of
-the six kernel ops on the meta device returns its kernel's outputs and
-records the hand formula's FLOPs and bytes; ``count_program`` of the
-learner step and of the decode step agrees with the reference's HLO
-count of the same program; views count no bytes; full-width StableLM
-counts on meta in seconds; ``chip_smoke.py``'s kernel bounds are
-``kernel_cost``'s and PERF.md's table of kernels.
+the seven kernel ops on the meta device returns its kernel's outputs and
+records the hand formula's FLOPs and bytes (K5b's also through
+``SSDScan``'s backward, and pinned at full width); ``count_program`` of
+the learner step (dense and ssm) and of the decode step agrees with the
+reference's HLO count of the same program; views count no bytes;
+full-width StableLM counts on meta in seconds; ``chip_smoke.py``'s
+kernel bounds are ``kernel_cost``'s and PERF.md's table of kernels.
 
 All on the CPU: the port's programs on the meta device, the reference's
 lowered by XLA for the CPU."""
@@ -150,6 +151,29 @@ def _ssd_case(dtype):
     return call, out, flops, nbytes
 
 
+def _ssd_bwd_case(dtype, dstate):
+    B, S, H, P, G, N, chunk = 2, 300, 8, 16, 2, 32, 128
+    es = torch.empty((), dtype=dtype).element_size()
+
+    def call():
+        return ops.ssd_scan_bwd(
+            _meta((B, S, H, P), dtype), _meta((B, S, H)), _meta((H,)),
+            _meta((B, S, G, N), dtype), _meta((B, S, G, N), dtype),
+            _meta((B, S, H, P), dtype),
+            _meta((B, H, P, N)) if dstate else None, chunk=chunk)
+    out = [((B, S, H, P), dtype), ((B, S, H), torch.float32),
+           ((H,), torch.float32), ((B, S, G, N), dtype),
+           ((B, S, G, N), dtype)]
+    pairs = 2 * (128 * 129 // 2) + 44 * 45 // 2
+    flops = (B * H * (4 * P * pairs + 4 * N * pairs + 10 * S * P * N)
+             + B * G * 2 * N * pairs)
+    # x, dy, dx; b, c, db, dc; dt, ddt; a_log, da_log; dstate read when
+    # given
+    nbytes = ((3 * B * S * H * P + 4 * B * S * G * N) * es + 8 * B * S * H
+              + 8 * H + (4 * B * H * P * N if dstate else 0))
+    return call, out, flops, nbytes
+
+
 def _quantize_case(dtype):
     F = 4 * 256
     es = torch.empty((), dtype=dtype).element_size()
@@ -191,6 +215,10 @@ KERNEL_CASES = {
                                 lambda: _flash_bwd_case(torch.float32)),
     "ssd_scan-bf16": ("ssd_scan", lambda: _ssd_case(torch.bfloat16)),
     "ssd_scan-f32": ("ssd_scan", lambda: _ssd_case(torch.float32)),
+    "ssd_scan_bwd-bf16": ("ssd_scan_bwd",
+                          lambda: _ssd_bwd_case(torch.bfloat16, False)),
+    "ssd_scan_bwd-f32-dstate": ("ssd_scan_bwd",
+                                lambda: _ssd_bwd_case(torch.float32, True)),
     "quantize_ef-f32": ("quantize_ef",
                         lambda: _quantize_case(torch.float32)),
     "quantize_ef-bf16": ("quantize_ef",
@@ -254,6 +282,47 @@ def test_flash_attention_differentiates_on_meta_through_k4b_cost():
     pairs = S * (S + 1) // 2
     assert counter.by_key["flash_attention_bwd"].flops == \
         10 * B * H * hd * pairs
+
+
+def test_ssd_scan_differentiates_on_meta_through_k5b_cost():
+    """``SSDScan``'s backward on meta records K5b's cost, without dstate
+    (a loss of y alone)."""
+    from repro_torch.models.mamba import ssd_scan
+    B, S, H, P, G, N, chunk = 1, 64, 2, 16, 1, 16, 32
+
+    def step(x, dt, a_log, b, c):
+        ts = [t.requires_grad_() for t in (x, dt, a_log, b, c)]
+        y, _ = ssd_scan(*ts, chunk=chunk)
+        return torch.autograd.grad(y.sum(), ts)
+    args = [_meta((B, S, H, P)), _meta((B, S, H)), _meta((H,)),
+            _meta((B, S, G, N)), _meta((B, S, G, N))]
+    counter = roofline.ProgramCounter()
+    with counter:
+        grads = step(*args)
+    assert [g.shape for g in grads] == [a.shape for a in args]
+    assert counter.by_key["ssd_scan"].calls == 1
+    cost = roofline.kernel_cost("ssd_scan_bwd", B=B, S=S, H=H, P=P, G=G,
+                                N=N, chunk=chunk, dtype=torch.float32)
+    tally = counter.by_key["ssd_scan_bwd"]
+    assert (tally.calls, tally.flops, tally.bytes) == (1, cost.flops,
+                                                       cost.bytes)
+
+
+def test_ssd_scan_bwd_cost_at_full_width():
+    """K5b at the learner's (1, 2048) mamba2-1.3b shape, bf16: the
+    formula's FLOPs and bytes (inputs and outputs once), bound by the
+    operations at the bf16 peak, 3.642 times K5's FLOPs at the same
+    shape."""
+    shape = dict(B=1, S=2048, H=64, P=64, G=1, N=128, chunk=256,
+                 dtype="bfloat16")
+    cost = roofline.kernel_cost("ssd_scan_bwd", **shape)
+    assert (cost.flops, cost.bytes) == (23_740_022_784, 53_477_888)
+    assert cost.bound_by == "operations"
+    assert 1e3 * cost.bound_s == pytest.approx(0.024004, rel=1e-4)
+    fwd = roofline.kernel_cost("ssd_scan", **shape)
+    assert cost.flops / fwd.flops == pytest.approx(3.6421, rel=1e-4)
+    with_state = roofline.kernel_cost("ssd_scan_bwd", dstate=True, **shape)
+    assert with_state.bytes - cost.bytes == 4 * 64 * 64 * 128
 
 
 # ------------------------------------------------------ bytes of aten ops
@@ -340,6 +409,31 @@ def test_lm_step_flops_match_the_reference_hlo(batch_docs):
     assert got["hbm_bytes_per_device"] > 0
 
 
+# the smoke ssm step against the reference's HLO count: at one chunk (S
+# 32) XLA drops the inter-chunk products whose results are dead (the
+# first chunk's zero incoming state, the dropped final state), which the
+# port's K5/K5b formulas count in every chunk; JAX's jnp scan computes
+# the full Q x Q square where the formulas count the s <= t triangle.
+# 1.0895 at S 32, 1.0558 at 64, 0.9942 at 128.
+SSM_STEP_RATIO = {32: 1.0895354645354645, 128: 0.9941886964448496}
+
+
+@pytest.mark.parametrize("seq_len", sorted(SSM_STEP_RATIO))
+def test_ssm_step_flops_match_the_reference_hlo(seq_len):
+    """The smoke ``mamba2-1.3b`` learner step (2 layers, d_model 64, 8
+    heads of P 16, N 16, chunk 32) at 2 documents: K5 and K5b counted by
+    their formulas against the reference's HLO count of the same step."""
+    data = {"seq_len": seq_len}
+    want = jax_roofline.analyze_hlo_text(
+        jax_learner.LMPlugin({"arch": "mamba2-1.3b"}).lowered_hlo(2, data),
+        jax_roofline.KERNEL_SCOPES)["flops_per_device"]
+    got = LMPlugin({"arch": "mamba2-1.3b"}, device="cpu").program_cost(
+        2, data)
+    assert got["flops_per_device"] / want == pytest.approx(
+        SSM_STEP_RATIO[seq_len], rel=1e-9)
+    assert got["hbm_bytes_per_device"] > 0
+
+
 def test_mlp_step_flops_match_the_reference_hlo():
     fw = {"d_in": 16, "n_classes": 4}
     want = jax_roofline.analyze_hlo_text(
@@ -410,6 +504,7 @@ def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_bounds", ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod       # dataclasses look their module up
     spec.loader.exec_module(mod)
     return mod
 
@@ -427,6 +522,9 @@ TABLE_BOUNDS = [
     ("flash_attention_bwd", dict(B=1, Sq=4096, Sk=4096, H=32, KV=32, hd=64,
                                  dtype="bfloat16", causal=True), 0.1738),
     ("ssd", (2, 2048, 64, 64, 1, 128, 256, "bfloat16"), 0.02222),
+    # K5b's row, from kernel_cost since its first run
+    ("ssd_scan_bwd", dict(B=1, S=2048, H=64, P=64, G=1, N=128, chunk=256,
+                          dtype="bfloat16"), 0.024004),
 ]
 
 

@@ -323,8 +323,15 @@ def test_finished_training_releases_its_parameter_server(tmp_path):
         plan = core.trainings[tid]["plan"]
         ps = plan.meta["ps"]
         assert _terminal(core, tid) == "COMPLETED"
-        # the tick loop releases it once the learner tasks returned
+        # the tick loop releases it once the learner tasks returned: it
+        # drops the PS from the plan, then calls release() outside the
+        # core's lock, which marks the PS released and frees its tensors
+        # under every shard lock; wait until that section has run
         assert wait_until(lambda: plan.meta["ps"] is None, timeout=10)
+        assert wait_until(lambda: ps.released, timeout=10)
+        for lock in ps._shard_locks:
+            with lock:
+                pass
         assert ps.released and ps._params is None and ps._recv is None
         assert ps._pull_bufs == {}
         st = core.training_status(tid)

@@ -3,7 +3,7 @@ the flash forward with its row LSE and the flash backward (plain
 versions, what the CPU runs and the card's K4/K4b are held against),
 ``FlashAttention`` through autograd, ``chunked_xent``, and the loss and
 flat gradient of ``LMPlugin.flat_loss_grad`` against JAX's
-``LMPlugin._flat_lg`` on JAX's own ``flat_state(0)``.
+``LMPlugin._flat_lg`` on JAX's own ``flat_state(0)`` (dense and ssm).
 
 Everything in float32 on the CPU, where the point is the algorithm.
 Tolerances: attention forward and LSE 2e-5 (tests/test_kernels.py:34);
@@ -176,10 +176,13 @@ def test_chunked_xent_matches_jax(S, chunk):
                      chunk=min(chunk, S - 2) if S > 2 else 1)
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen1.5-110b"])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen1.5-110b",
+                                  "mamba2-1.3b"])
 def test_flat_loss_grad_matches_jax(arch):
     """Loss and flat gradient of one step from JAX's own flat_state(0):
-    the port's flat order is ``_flat_io``'s, leaf for leaf."""
+    the port's flat order is ``_flat_io``'s, leaf for leaf. mamba2-1.3b
+    crosses its chunk of 32 (64 positions) and trains through
+    ``SSDScan``."""
     jp = JaxLMPlugin({"arch": arch})
     flat = jp.flat_state(0)
     tp = LMPlugin({"arch": arch}, device="cpu")
