@@ -10,9 +10,10 @@ first failing phase (no phase catches an exception):
   2. build   — every kernel of ``src/repro_torch/kernels/csrc`` built with
      nvcc into ``build/kernels/``; for each device kernel of K4, K4b,
      K5 and K5b its registers, shared memory and spills (the ptxas report
-     kept beside the library), and for K4, K4b and K5 its tensor-core
-     (HGMMA) instructions counted in the machine code (cuobjdump -sass):
-     every ``_tc`` kernel of the bf16 instances must hold some;
+     kept beside the library) and its tensor-core (HGMMA) instructions
+     counted in the machine code (cuobjdump -sass): every ``_tc`` kernel
+     of the bf16 instances (K5b's ``ssd_bwd_states_tc``,
+     ``ssd_bwd_dbx_tc`` and ``ssd_bwd_dc_tc`` included) must hold some;
   3. kernel  — the flash-attention kernel against its plain PyTorch
      version at three shapes (StableLM-1.6B prefill in bf16, GQA and
      ragged in f32), with times of kernel, plain version and
@@ -120,10 +121,15 @@ first failing phase (no phase catches an exception):
      version (autograd through the plain scan) at the full-width learner
      shapes (2, 512) and (1, 2048) in bf16, the f32 smoke width (64 and a
      ragged 50 positions), a ragged tail (300), a sequence shorter than
-     a chunk, G = 2 and a nonzero final-state gradient: every gradient
-     within K5B_TOL of the plain version run in float64, two calls give
-     equal bits; kernel, plain and bound ms, library null; its
-     device kernels' registers, shared memory and spills in phase 2;
+     a chunk, G = 2, N 64 at chunk 128 and a nonzero final-state
+     gradient: every gradient within K5B_TOL of the plain version run in
+     float64, two calls give equal bits; the instance that ran; kernel,
+     plain and bound ms, library null; at the two full-width shapes the
+     device time by kernel (``scripts/ssd_kernel_split.py --bwd`` in a
+     child process); its device kernels' registers,
+     shared memory, spills and HGMMA counts in phase 2. K5b at (1, 2048)
+     bf16 must take at most K5B_MAX_MS, and both full-width shapes run
+     the tensor-core instance;
  12. ssm-step — the ssm learner step on the card (K5, K5b) against the
      CPU: mamba2-1.3b's smoke reduction in f32, 2 layers, 64 and a
      ragged 50 positions (loss 1e-4, flat gradient 2e-3);
@@ -131,13 +137,14 @@ first failing phase (no phase catches an exception):
      random weights from a seed) through the learner body and the PS as
      phase 8 (2 learners, 4 shards, adam, int8, BSP, 6 rounds, a
      checkpoint every 3 steps) at 2 x 512 and at 1 x 2,048 tokens per
-     learner step: K5 (on the tensor cores) and K5b launched once per
-     layer per step, every loss finite, the loss of a batch the run
+     learner step: K5 and K5b launched once per layer per step, every
+     launch on the tensor-core instances, every loss finite, the loss of a batch the run
      trained on lower under the trained weights than under the initial
      ones (the update moves along its gradient; a held-out batch's two
      losses printed beside it), checkpoint = PS params =
      ``trained_model.npy`` bit for bit; round ms, tokens/s, peak memory
-     and a profiled round (busy share, K5 + K5b and K1-K3 shares);
+     and a profiled round (busy share, K5 + K5b and K1-K3 shares; every
+     K5 and K5b product kernel a ``_tc`` one);
  14. ssm-platform — the 2 x 512 traffic as a ``repro-lm`` manifest with
      ``arch: mamba2-1.3b`` and the 32-layer config through
      ``SoftwarePSBackend`` under the LCM and scheduler to COMPLETED (the
@@ -189,7 +196,16 @@ TC_KERNELS = ("flash_fwd_kernel_tc", "flash_bwd_dq_tc_kernel",
 # K5's bf16 instance (P 64, N 64 and 128): its product kernels
 SSD_TC_KERNELS = ("ssd_chunk_cb_tc", "ssd_chunk_state_tc",
                   "ssd_chunk_scan_tc")
-TC_LIBS = FLASH_LIBS + ("ssd_scan",)
+# K5b's bf16 instance (P 64, N 64 and 128): its product kernels
+SSD_BWD_TC_KERNELS = ("ssd_bwd_states_tc", "ssd_bwd_dbx_tc",
+                      "ssd_bwd_dc_tc")
+TC_LIBS = FLASH_LIBS + ("ssd_scan", "ssd_scan_bwd")
+# the product kernels of K5 and K5b, both instances (the carries, the
+# finalize and the sums have no products): in a bf16 run at P 64 / N 128
+# each one the profiler sees must be a ``_tc`` kernel
+SSD_PRODUCT_KERNELS = ("ssd_chunk", "ssd_bwd_chunk", "ssd_bwd_dxdt",
+                       "ssd_bwd_dcb", "ssd_bwd_states", "ssd_bwd_dbx",
+                       "ssd_bwd_dc")
 # K4 and K4b at the model's context (1 x 4,096, bf16 causal) take at most
 # this many times SDPA's forward / backward, timed in the same run
 TC_MAX_X_SDPA = 4.0
@@ -261,6 +277,10 @@ K5_MAX_MS = 0.6
 # kernel computes in f32 from the same values and rounds dx, db and dc to
 # bf16 (2^-8 relative) at the end
 K5B_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+# K5b at the learner's (1, 2048) bf16 takes at most twice the 0.5 ms its
+# tensor-core instance is held to (its CUDA-core kernels took 2.3051 ms
+# on an H100 80GB HBM3 at 700 W)
+K5B_MAX_MS = 1.0
 SSM_STEP_SEQS = (64, 50)   # the smoke step: two chunks of 32; ragged
 # mamba2-1.3b at full width cut to 32 of its 48 layers: F = 1,032,986,624,
 # within 0.6% of the dense train's F, which fits one card with its PS at
@@ -346,17 +366,19 @@ def demangle(names):
 
 
 def report_tc_build(build, built, card):
-    """For the libraries with tensor-core instances (K4, K4b, K5): each
-    device kernel's registers, shared memory and spills (nvcc's ptxas
-    report, kept beside the library) and its count of tensor-core
+    """For the libraries with tensor-core instances (K4, K4b, K5, K5b):
+    each device kernel's registers, shared memory and spills (nvcc's
+    ptxas report, kept beside the library) and its count of tensor-core
     instructions in the machine code (cuobjdump -sass). Raises if a
     ``_tc`` kernel holds no HGMMA at either of its two widths. Returns
-    the counts by readable kernel name."""
+    (the HGMMA counts by readable kernel name, {library: {readable kernel
+    name: its ptxas report}})."""
     import ctypes
     dyn = {}
     fwd = ctypes.CDLL(str(built["flash_attention"].library))
     bwd = ctypes.CDLL(str(built["flash_attention_bwd"].library))
     ssd = ctypes.CDLL(str(built["ssd_scan"].library))
+    ssdb = ctypes.CDLL(str(built["ssd_scan_bwd"].library))
     for hd in (64, 128):
         dyn[f"flash_fwd_kernel_tc<{hd}>"] = fwd.flash_attention_fwd_tc_smem(hd)
         dyn[f"flash_bwd_dq_tc_kernel<{hd}>"] = \
@@ -365,12 +387,15 @@ def report_tc_build(build, built, card):
             bwd.flash_attention_bwd_tc_smem(hd, 1)
         for i, name in enumerate(SSD_TC_KERNELS):
             dyn[f"{name}<{hd}>"] = ssd.ssd_scan_tc_smem(i, hd)
-    counts = {}
+        for i, name in enumerate(SSD_BWD_TC_KERNELS):
+            dyn[f"{name}<{hd}>"] = ssdb.ssd_scan_bwd_tc_smem(i, hd)
+    counts, reports = {}, {}
     for lib in TC_LIBS:
         res = built[lib]
         ptxas = build.ptxas_report(res.log)
         sass = build.sass_counts(res.library)
         names = demangle(set(ptxas) | set(sass))
+        reports[lib] = {names[fn]: rep for fn, rep in ptxas.items()}
         if not ptxas:
             print(f"[build] {card}: {lib}: no ptxas report kept beside "
                   f"{res.library.name}: registers not captured")
@@ -386,21 +411,24 @@ def report_tc_build(build, built, card):
                   f"{rep.get('spill_stores', 'n/a')}/"
                   f"{rep.get('spill_loads', 'n/a')} B; SASS HGMMA "
                   f"{ops.get('HGMMA', 0)}, HMMA {ops.get('HMMA', 0)}")
-    for base in TC_KERNELS + SSD_TC_KERNELS:
+    for base in TC_KERNELS + SSD_TC_KERNELS + SSD_BWD_TC_KERNELS:
         found = {n: c for n, c in counts.items()
                  if n.split("<")[0].endswith(base)}
         if len(found) != 2 or not all(found.values()):
             raise AssertionError(f"tensor-core kernel {base}: HGMMA "
                                  f"counts {found} (want > 0 at both "
                                  f"widths, 64 and 128)")
-    return counts
+    return counts, reports
 
 
 def check_tc_names(kernels, where, family="flash_"):
     """Every product kernel of a family (``flash_``; ``ssd_chunk`` for
-    K5, whose carry pass has no products) the profiler saw in a bf16 run
-    at tensor-core widths is a tensor-core instance."""
-    other = [n for n in kernels if family in n and "_tc" not in n]
+    K5, whose carry pass has no products; a tuple of names, e.g.
+    SSD_PRODUCT_KERNELS for K5 and K5b) the profiler saw in a bf16 run at
+    tensor-core widths is a tensor-core instance."""
+    families = (family,) if isinstance(family, str) else family
+    other = [n for n in kernels if any(f in n for f in families)
+             and "_tc" not in n]
     if other:
         raise AssertionError(f"{where}: {family} kernels off the tensor "
                              f"cores: {other}")
@@ -444,13 +472,13 @@ def step_launches(ops, cfg, pushes, rounds, shards, prefills=0):
 
 def tensor_core_launches(cfg):
     """{kernel: launches on its tensor-core instance} of the family's
-    kernels that have one: K4 and K4b (dense), K5 (ssm; K5b runs on the
-    CUDA cores)."""
+    kernels: K4 and K4b (dense), K5 and K5b (ssm)."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import flash_attention_bwd as kfab
     from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.kernels import ssd_scan_bwd as kssdb
     if cfg.family == "ssm":
-        return {kssd.NAME: kssd.launches_tc}
+        return {kssd.NAME: kssd.launches_tc, kssdb.NAME: kssdb.launches_tc}
     return {kfa.NAME: kfa.launches_tc, kfab.NAME: kfab.launches_tc}
 
 
@@ -1325,8 +1353,8 @@ def train_run(torch, ops, cfg, device, workdir, card, *, n_learners,
     tc = tensor_core_launches(cfg)
     if cfg.family == "ssm" and torch.device(device).type == "cuda" and \
             tc != {k: launches[k] for k in tc}:
-        raise AssertionError(f"K5 launches on the tensor cores {tc} of "
-                             f"{launches}")
+        raise AssertionError(f"K5/K5b launches on the tensor cores {tc} "
+                             f"of {launches}")
     # the loss over the rounds: each round's batches differ, so its mean
     # per round moves by their spread
     series = metrics.series(job, "loss")
@@ -1447,7 +1475,8 @@ def profiled_round(torch, ps, plugin, cursor, corpus, batch_docs, card,
     kernels = print_profile(prof, wall, card, top=10,
                             ours=(prefix,) + PS_KERNELS)
     check_tc_names(kernels, "profiled round",
-                   family="ssd_chunk" if cfg.family == "ssm" else "flash_")
+                   family=SSD_PRODUCT_KERNELS if cfg.family == "ssm"
+                   else "flash_")
 
     def device_ms(names):
         return sum(us for n, us in kernels.items()
@@ -1911,21 +1940,17 @@ def print_platform(tr, sv, hand, card, cfg, run):
 SSD_GRADS = ("dx", "ddt", "da_log", "db", "dc")
 
 
-def report_kernels(build, res, card):
-    """Each device kernel of one library: registers, static shared
-    memory and spills (nvcc's ptxas report kept beside the library).
-    Returns the report by readable kernel name."""
-    ptxas = build.ptxas_report(res.log)
-    if not ptxas:
-        print(f"[build] {card}: {res.name}: no ptxas report kept beside "
-              f"{res.library.name}: registers not captured")
-    names = demangle(set(ptxas))
-    for fn in sorted(names, key=names.get):
-        rep = ptxas[fn]
-        print(f"[build] {card}: {res.name}: {names[fn]}: registers "
-              f"{rep['registers']}, static smem {rep['smem']} B, spill "
-              f"stores/loads {rep['spill_stores']}/{rep['spill_loads']} B")
-    return {names[fn]: ptxas[fn] for fn in ptxas}
+def k5b_split(shape):
+    """K5b's device time by kernel at one bf16 shape (B, S, H, P, G, N,
+    chunk): ``scripts/ssd_kernel_split.py --bwd`` run as a child process
+    on the same card (a profiler session of its own, 50 calls). Returns
+    its JSON line."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "ssd_kernel_split.py"),
+         "--bwd", "--label", "chip_smoke", "--shape",
+         *(str(v) for v in shape)],
+        capture_output=True, text=True, check=True, timeout=600).stdout
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def check_ssd_bwd(torch, ops, ref, kssdb, shape, dstate=False, seed=0):
@@ -1933,9 +1958,9 @@ def check_ssd_bwd(torch, ops, ref, kssdb, shape, dstate=False, seed=0):
     ``dstate`` the final state's gradient) N(0, 1) from the seed: every
     gradient finite and within K5B_TOL (atol = rtol) of the plain version
     run in float64 on float64 copies of the same inputs, with its
-    relative L2; two calls give equal bits; then kernel, plain (f32, the
-    inputs as given) and bound ms. No single PyTorch call computes it
-    (library_ms null)."""
+    relative L2 and the instance that ran; two calls give equal bits;
+    then kernel, plain (f32, the inputs as given) and bound ms. No single
+    PyTorch call computes it (library_ms null)."""
     from repro_torch.analysis.roofline import kernel_cost
     B, S, H, P, G, N, chunk, dtype = shape
     args = ssd_inputs(torch, B, S, H, P, G, N, dtype, seed)
@@ -1944,10 +1969,11 @@ def check_ssd_bwd(torch, ops, ref, kssdb, shape, dstate=False, seed=0):
         args[0].dtype)
     ds = (torch.randn(B, H, P, N, generator=g, device="cuda") if dstate
           else None)
-    before = kssdb.launches
+    before, before_tc = kssdb.launches, kssdb.launches_tc
     got = ops.ssd_scan_bwd(*args, dy, ds, chunk=chunk)
     again = ops.ssd_scan_bwd(*args, dy, ds, chunk=chunk)
     torch.cuda.synchronize()
+    tensor_cores = kssdb.launches_tc == before_tc + 2
     if kssdb.launches != before + 2:
         raise AssertionError(f"K5b: {kssdb.launches - before} launches "
                              f"for 2 calls at {shape}")
@@ -1980,6 +2006,7 @@ def check_ssd_bwd(torch, ops, ref, kssdb, shape, dstate=False, seed=0):
     bound_ms, bound_by = bound("ssd_scan_bwd", dstate=dstate, **dims)
     cost = kernel_cost("ssd_scan_bwd", dstate=dstate, **dims)
     return {"shape": {**dims, "dstate": dstate},
+            "instance": "tensor cores" if tensor_cores else "CUDA cores",
             "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
             "rel_l2": rels, "tol": tol, "deterministic": True, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
@@ -2376,8 +2403,8 @@ def main() -> int:
         for line in r.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {r.name}: {line.strip()}")
-    hgmma = report_tc_build(build, built, card)
-    k5b_ptxas = report_kernels(build, built["ssd_scan_bwd"], card)
+    hgmma, ptxas_reports = report_tc_build(build, built, card)
+    k5b_ptxas = ptxas_reports["ssd_scan_bwd"]
 
     # 3. kernel against its plain version
     for shape in [(1, 512, 32, 32, 64, "bfloat16", True),
@@ -2620,17 +2647,37 @@ def main() -> int:
                       ((1, 300) + wide, True),
                       ((2, 7, 2, 16, 1, 16, 32, "float32"), False),
                       ((2, 256, 4, 32, 2, 16, 64, "float32"), True),
-                      ((2, 700, 8, 64, 2, 128, 256, "bfloat16"), True)])]
+                      ((2, 700, 8, 64, 2, 128, 256, "bfloat16"), True),
+                      ((2, 512, 4, 64, 1, 64, 128, "bfloat16"), True)])]
     for res in k5b_main:
         print(f"[kernel] {card}: K5b main path {json.dumps(res)}")
     for res in k5b_others:
         print(f"[kernel] {card}: K5b {json.dumps(res)}")
+    for res in k5b_main:
+        sh = res["shape"]
+        split = k5b_split([sh[k] for k in "B S H P G N chunk".split()])
+        res["split"] = split["split"]
+        for k in split["split"]:
+            print(f"[kernel] {card}: K5b split at ({sh['B']}, {sh['S']}) "
+                  f"({split['ms']:.4f} ms a call alone): "
+                  f"{1e3 * k['ms_per_call']:9.1f} us "
+                  f"{k['ms_per_call'] / split['profiled_ms']:6.3f} of it, "
+                  f"{k['launches_per_call']:.0f} launch(es), registers "
+                  f"{k.get('registers', 'n/a')}, spills "
+                  f"{k.get('spill_stores', 'n/a')} B  {k['kernel']}")
     k5b_head = max(k5b_main, key=lambda r: r["bound_ms"])
     print(f"[kernel] {card}: K5b at {k5b_head['shape']}: "
-          f"{k5b_head['ms']:.4f} ms, bound {k5b_head['bound_ms']:.5f} ms "
+          f"{k5b_head['ms']:.4f} ms (limit {K5B_MAX_MS}) on the "
+          f"{k5b_head['instance']}, bound {k5b_head['bound_ms']:.5f} ms "
           f"({k5b_head['bound_by']}), {k5b_head['share_of_bound']:.4f} of "
           f"it; plain {k5b_head['plain_ms']:.3f} ms; library null (no "
           f"single PyTorch call computes it)")
+    bad = [r for r in k5b_main if r["instance"] != "tensor cores"]
+    if k5b_head["ms"] > K5B_MAX_MS or bad:
+        raise AssertionError(f"K5b at {k5b_head['shape']} takes "
+                             f"{k5b_head['ms']:.4f} ms (limit {K5B_MAX_MS} "
+                             f"ms); off the tensor cores: "
+                             f"{[r['shape'] for r in bad]}")
     torch.cuda.empty_cache()
 
     # 12. the ssm learner step on the card against the CPU
@@ -2740,8 +2787,14 @@ def main() -> int:
     k5b = entry(kssdb, sum(k5b_paths.values()), k5b_head,
                 k5b_main + k5b_others)
     k5b["launches_by_path"] = k5b_paths
+    k5b["launches_tc"] = sum(by_path(kssdb.NAME, {
+        "ssm-train": train["ssm-train"]["launches_tc"],
+        "ssm-platform-train": sptrain["launches_tc"]}).values())
+    k5b["instance"] = k5b_head["instance"]
     k5b["share_of_bound"] = k5b["bound_ms"] / k5b["ms"]
     k5b["ptxas"] = k5b_ptxas
+    k5b["sass_hgmma"] = {n: c for n, c in hgmma.items()
+                         if n.split("<")[0] in SSD_BWD_TC_KERNELS}
     kernels += [k5, k5b]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,23 @@
 #!/usr/bin/env python3
-"""Time K5, the port's SSD chunked scan, on the card and split its time by
-device kernel.
+"""Time K5, the port's SSD chunked scan, or with ``--bwd`` K5b, its
+backward, on the card and split its time by device kernel.
 
     python3 scripts/ssd_kernel_split.py [--src DIR] [--label NAME]
-        [--shape B S H P G N CHUNK]
+        [--shape B S H P G N CHUNK] [--bwd]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's
 ``src``), so one command can time two trees on one card, e.g. a parent
 commit unpacked with ``git archive`` into a git-ignored directory beside
 the change. Prints the card's name and power limit, then one JSON line:
-the mean device time of one bf16 ``ops.ssd_scan`` call over 50
+the mean device time of one bf16 ``ops.ssd_scan`` (``ops.ssd_scan_bwd``
+with ``--bwd``, dy N(0, 1), no final-state gradient) call over 50
 back-to-back calls (CUDA events), and each device kernel's mean time and
 launches per call from ``torch.profiler`` over as many calls, with its
 registers, shared memory and spills from nvcc's ptxas report (kept beside
 the built library). The inputs follow tests/test_kernels.py:47-51, made
 on the card from seed 0. The default shape is the mamba2-1.3b serve's
-largest prefill (2, 2048). Needs a CUDA card and nvcc; exits 2 without a
-card.
+largest prefill (2, 2048); K5b's learner shapes are (2, 512) and (1,
+2048). Needs a CUDA card and nvcc; exits 2 without a card.
 """
 from __future__ import annotations
 
@@ -46,6 +47,8 @@ def main() -> int:
     ap.add_argument("--shape", type=int, nargs=7,
                     default=[2, 2048, 64, 64, 1, 128, 256],
                     metavar=("B", "S", "H", "P", "G", "N", "CHUNK"))
+    ap.add_argument("--bwd", action="store_true",
+                    help="time K5b, the backward, instead of K5")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -67,8 +70,12 @@ def main() -> int:
     a_log = torch.zeros(H, device="cuda")
     b = (0.3 * torch.randn(B, S, G, N, generator=g, device="cuda")).to(dt_)
     c = (0.3 * torch.randn(B, S, G, N, generator=g, device="cuda")).to(dt_)
+    dy = torch.randn(B, S, H, P, generator=g, device="cuda").to(dt_)
+    lib = "ssd_scan_bwd" if args.bwd else "ssd_scan"
 
     def call():
+        if args.bwd:
+            return ops.ssd_scan_bwd(x, dt, a_log, b, c, dy, chunk=chunk)
         return ops.ssd_scan(x, dt, a_log, b, c, chunk=chunk)
 
     for _ in range(5):
@@ -97,13 +104,13 @@ def main() -> int:
                 .split("(")[0].removeprefix("void ").strip()
             us, n = kernels.get(name, (0.0, 0))
             kernels[name] = (us + e.time_range.elapsed_us(), n + 1)
-    ptxas = build.ptxas_report(build.build_all(["ssd_scan"])["ssd_scan"].log)
+    ptxas = build.ptxas_report(build.build_all([lib])[lib].log)
     split = []
     for name, (us, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
         rep = next((r for k, r in ptxas.items() if mangled_as(k, name)), {})
         split.append({"kernel": name, "ms_per_call": us / 1e3 / iters,
                       "launches_per_call": n / iters, **rep})
-    print(json.dumps({"label": args.label, "card": card,
+    print(json.dumps({"label": args.label, "card": card, "kernel": lib,
                       "shape": dict(zip("B S H P G N chunk".split(),
                                         args.shape)),
                       "dtype": "bfloat16", "ms": ms,

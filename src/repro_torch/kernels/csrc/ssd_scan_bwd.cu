@@ -1,5 +1,5 @@
-// Backward of the Mamba-2 SSD chunked scan for Hopper (sm_90a),
-// hand-written CUDA C++ on the CUDA cores.
+// Backward of the Mamba-2 SSD chunked scan (K5b) for Hopper (sm_90a),
+// hand-written CUDA C++.
 //
 // JAX has no kernel here: it differentiates the jnp scan `_ssd_inner`
 // (src/repro/models/mamba.py:91) by autodiff. This is that gradient for
@@ -50,41 +50,137 @@
 // never read and get no gradient; `last` is the last valid position, which
 // equals the reference's dt = 0 padding (its padded steps are identities).
 //
-// Design, for a right kernel first (speed is later work):
-//   * Thirteen launches, each parallel over chunks (blocks run in no
-//     order on 132 SMs; the chunk carries are two short sequential
-//     passes over chunks, one thread per state element).
-//   * Every product is a 64 x 64 output tile per block of 256 threads,
-//     each thread 4 x 4 outputs, f32 FMAs from two shared-memory panels
-//     (K5's CUDA-core tiling). The masked weights are built on the fly:
-//     masked to s <= t *before* the exp, since above the diagonal
-//     cum_t - cum_s > 0 overflows.
-//   * dC and dB recompute their G tile (dy . xdt over P) per output tile
-//     in shared memory; no S x S matrix per head reaches device memory.
-//   * Cross-block sums are two passes, no atomics: db/dc are written per
-//     head in f32 and summed over each group's heads by a second kernel;
-//     da_log's terms are written per (position, head, tile) by the dxdt
-//     and dC kernels, summed per (b, h, chunk) by the finalize and over
-//     (b, chunk) in a fixed order by a last one. A call's gradient is the
-//     same bits from run to run.
-//   * Every sum is f32; dy and the inputs are read in their type.
+// Two instances, picked by the wrapper from dtype and widths and named by
+// `instance` (a choice of design, not a fallback):
 //
-// What bounds it on the H100. At the learner's (1, 2048, 64 heads, P 64,
-// N 128, chunk 256) bf16 the inputs and outputs are ~54 MB (~16 us at
-// 3.35 TB/s) and the products ~24 GFLOP, ~24 us on the bf16 tensor
-// cores: the function's bound. This kernel also writes and reads back
-// ~67 MB of f32 chunk states and ~100 MB of other f32 scratch, and its
-// f32 FMAs run on the CUDA cores, where the products alone take ~0.35 ms
-// at the f32 peak. Moving them onto `wgmma` is later work.
+// * bf16 at P 64 and N 64 or 128 (mamba2-1.3b, jamba): seven launches,
+//   every product on the tensor cores (`wgmma` m64n64k16 / m64n128k16
+//   from 128-byte-swizzled shared tiles, flash_tc.cuh), every sum in f32:
+//     1. ssd_bwd_states_tc   per (b, h, chunk), K5's ssd_chunk_state_tc
+//                            twice over (blockIdx.z): the chunk's own
+//                            state sum_s B_s (x_s dt_s e^{last - cum_s})
+//                            and dS_out's own term U = sum_t C_t (dy_t
+//                            e^{cum_t}), [p][n] f32, B^T / C^T read as the
+//                            transposed A operand; also cum_last.
+//     2. ssd_bwd_carry_tc    the forward and reverse carries in f32 on the
+//                            CUDA cores, four elements a thread: S_in and
+//                            dS_out of every chunk written as bf16 pairs
+//                            ([p][n], the K- and MN-major operand tile the
+//                            products read), and per block the partial
+//                            dots <dS_out, S_out> and <dS_out, S_in> from
+//                            the f32 states (dlast and the carry's term
+//                            of da_log).
+//     3. ssd_bwd_dbx_tc      the column kernel: one warpgroup per (b,
+//                            group, chunk, 64-row s tile, slice of kSlice
+//                            heads); per head, the state terms (B_s .
+//                            dS_out into dxdt, (x_s dt_s e^{last - cum_s})
+//                            . dS_out into dB), then for every t tile at
+//                            or after s's, G^T = x_s . dy_t^T over P and
+//                            CB^T = B_s . C_t^T over N (both exact bf16
+//                            operands, f32 accumulators), the masked decay
+//                            L, the column sums of E, and dxdt += (CB L)^T
+//                            dy_t, dB += W^T C_t with W = G dt_s L. dx =
+//                            dxdt dt and x . dxdt leave from registers;
+//                            dB sums over the slice's heads in registers
+//                            and is written once per slice (f32).
+//     4. ssd_bwd_dc_tc       the row kernel: one warpgroup per (b, group,
+//                            chunk, 64-row t tile, slice); per head, the
+//                            state terms (Y = C_t . S_in for C_t . dC_t,
+//                            (dy_t e^{cum_t}) . S_in into dC), then for
+//                            every s tile at or before t's, G = dy_t .
+//                            x_s^T and CB = C_t . B_s^T, the row sums and
+//                            the pair sum of E, and dC += W B_s.
+//     5. ssd_bwd_finalize_tc per (chunk, b, h): dcum, its reverse
+//                            cumulative sum dl, ddt, the chunk's da_log.
+//     6. ssd_bwd_group_sum   the slices' partial dB and dC, summed in
+//                            order into db, dc (bf16).
+//     7. ssd_bwd_dalog       da_log over (b, chunk) in order.
+//   dcum and da_log come from f32 tiles, never from the rounded products:
+//   with the f32 tile E_ts = CB_ts e^{cum_t - cum_s} G_ts dt_s (masked,
+//   s <= t), C_t . dC_t(intra) = sum_s E_ts (a row sum, dc kernel) and
+//   xdt_s . dxdt_s(intra) = sum_t E_ts (a column sum, dbx kernel, which
+//   leaves out dt_s: that sum is x_s . dxdt_s for ddt), and da_log's intra
+//   term is sum E_ts (cum_t - cum_s) (dc kernel); the state terms keep
+//   their term-by-term form above. Each row and column sum has one owning
+//   block; the finalize adds them. No atomics: two calls give equal bits.
+//   Operands: x, dy, B and C reach the tensor cores as they are. Every
+//   computed operand (W, CB L, the scaled x and dy, S_in, dS_out) enters
+//   its product as a bf16 pair hi + lo, hi = bf16(v), lo = bf16(v - hi),
+//   two products (three where both operands are pairs: lo . lo, below
+//   2^-16 of the term, is left out), so each carries ~16 bits of its f32
+//   value: rounded once to bf16, W and the states put db, dc and ddt at
+//   1.2-4.4x the card's elementwise limit (tests/test_torch_ssd_bwd_
+//   tiles.py); split, the largest error is the outputs' own bf16 rounding.
+//   Masking as the forward's: only the diagonal and ragged tiles test s
+//   <= t < valid, before the exp; tiles above the diagonal are skipped.
+//   G is built once per (t tile, s tile) and kernel: the column kernel
+//   computes G^T = x . dy^T so that its products' A operands stay in
+//   registers (K4b's split); each recomputes its CB tile (cheap at N 128).
+//   Scratch: the f32 own states and U (B, H, nc, P, N), their bf16 pairs,
+//   four f32 scalars per (b, position, head), and the slices' f32 dB and
+//   dC partials (B, S, G, H/G/kSlice, N): 1/kSlice of the per-head
+//   gradients the CUDA-core instance writes.
+//   Seven launches remain of thirteen, each for a reason: the carries
+//   walk the chunks in order (a pass after every chunk's state); every
+//   row sum and column sum has one owning block, so the row and column
+//   kernels are two; the finalize needs both; and the group and da_log
+//   sums add partials of many blocks in a fixed order after them.
+//   FLOPs executed at the learner's (1, 2048, 64 heads, P 64, N 128,
+//   chunk 256): ~73 GFLOP against the function's 23.7 (the hi + lo pairs
+//   double the weighted products, CB is recomputed per head and kernel,
+//   and the states are computed apart from the forward): ~74 us at the
+//   bf16 peak. ptxas at N 128 (sm_90a): ssd_bwd_dbx_tc 255 registers
+//   with 204 B of spills, ssd_bwd_dc_tc 255 with 44 B, ssd_bwd_states_tc
+//   91 with none; dbx and dc take 107,520 B of dynamic shared memory
+//   (two blocks an SM), states 66,560 B (chip_smoke.py's phase 2 prints
+//   them for both widths).
+//   What bounds it on the H100: its ~54 MB of inputs and outputs take
+//   ~16 us and the function's products ~24 us, so the function's bound
+//   is ~24 us; this design executes ~3x the products, moves ~0.2 GB of
+//   f32 and bf16 scratch, and its one warpgroup a block waits on each of
+//   its products and then on its exponentials: 0.33 ms at (1, 2048) on
+//   an H100 80GB HBM3 at 700 W, the column and row kernels 0.63 of it
+//   (PERF.md).
 //
-// Scratch lives in one workspace the caller allocates
-// (`ssd_scan_bwd_workspace_bytes`), carved here.
+// * float32 (any width) and bf16 at other widths (the smoke widths): the
+//   first version, on the CUDA cores, unchanged:
+//     * Thirteen launches, each parallel over chunks (blocks run in no
+//       order on 132 SMs; the chunk carries are two short sequential
+//       passes over chunks, one thread per state element).
+//     * Every product is a 64 x 64 output tile per block of 256 threads,
+//       each thread 4 x 4 outputs, f32 FMAs from two shared-memory panels
+//       (K5's CUDA-core tiling). The masked weights are built on the fly:
+//       masked to s <= t *before* the exp, since above the diagonal
+//       cum_t - cum_s > 0 overflows.
+//     * dC and dB recompute their G tile (dy . xdt over P) per output tile
+//       in shared memory; no S x S matrix per head reaches device memory.
+//     * Cross-block sums are two passes, no atomics: db/dc are written per
+//       head in f32 and summed over each group's heads by a second kernel;
+//       da_log's terms are written per (position, head, tile) by the dxdt
+//       and dC kernels, summed per (b, h, chunk) by the finalize and over
+//       (b, chunk) in a fixed order by a last one. A call's gradient is the
+//       same bits from run to run.
+//     * Every sum is f32; dy and the inputs are read in their type.
+//
+//   What bounds it on the H100. At the learner's (1, 2048, 64 heads, P 64,
+//   N 128, chunk 256) bf16 the inputs and outputs are ~54 MB (~16 us at
+//   3.35 TB/s) and the products ~24 GFLOP, ~24 us on the bf16 tensor
+//   cores: the function's bound. This kernel also writes and reads back
+//   ~67 MB of f32 chunk states and ~100 MB of other f32 scratch, and its
+//   f32 FMAs run on the CUDA cores, where the products alone take ~0.35 ms
+//   at the f32 peak. f32 stays off the tensor cores: TF32 would break its
+//   1e-3 tolerance.
+//
+// Both instances' scratch lives in one workspace the caller allocates
+// (`ssd_scan_bwd_workspace_bytes`, per instance), carved here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
+#include "ssd_tc.cuh"
 
 namespace {
 
@@ -758,21 +854,765 @@ ssd_bwd_dalog(const float* __restrict__ dapart, void* __restrict__ da_log,
 }
 
 // ---------------------------------------------------------------------------
+// The tensor-core instance (bf16, P 64, N 64 or 128)
+// ---------------------------------------------------------------------------
+
+constexpr int kWG = 128;                  // threads of one warpgroup
+constexpr int kTcP = 64;                  // head dim the instance takes
+constexpr int kSlice = 4;                 // heads a dbx / dc block walks
+constexpr int kTileX = kT * kTcP * 2;     // a 64 x 64 bf16 tile
+constexpr int kCarryElems = 4 * kThreads; // state elements of a carry block
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int N> struct TcSmem {
+  static constexpr int kTileN = kT * N * 2;   // a 64 x N bf16 tile
+  // two stages of (B or C tile, scaled x or dy as hi and lo tiles)
+  static constexpr int kState = 2 * (kTileN + 2 * kTileX) + 1024;
+  // dbx: B_s, x_s, dS_out hi and lo, two stages of (dy_t, C_t);
+  // dc: C_t, dy_t, S_in hi and lo, two stages of (x_s, B_s)
+  static constexpr int kPair = 3 * kTileN + kTileX + 2 * (kTileX + kTileN)
+                               + 1024;
+};
+
+// (a, b) as bf16 pairs hi = bf16(v), lo = bf16(v - hi), packed as a
+// register operand's two values: the two products carry ~16 bits of v
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// the values at row r, columns 8 j + 2 q4 and + 1 of a swizzled 64-row
+// tile of 64 bf16 columns: an accumulator fragment's positions
+__device__ __forceinline__ float2 tile_pair(const uint8_t* tile, int r,
+                                            int j, int q4) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+      tile + tc::chunk_offset<kT>(r, j) + 4 * q4));
+}
+
+// Rows [s0, s0 + 64) of one head's x (dy when `grad`), each scaled by
+// dt_s e^{last - cum_s} (e^{cum_s}), as bf16 pairs into the swizzled
+// 64 x 64 tiles hi and lo; rows at or past qv are zero.
+template <int NT>
+__device__ __forceinline__ void write_scaled_split(
+    uint8_t* hi, uint8_t* lo, const bf16* src, int64_t rs, int s0, int qv,
+    bool grad, float last, const float* cum_s, const float* dt_s) {
+  for (int i = threadIdx.x; i < kT * kTcP / 8; i += NT) {
+    const int r = i / (kTcP / 8), ch = i % (kTcP / 8), s = s0 + r;
+    uint32_t h[4] = {0u, 0u, 0u, 0u}, l[4] = {0u, 0u, 0u, 0u};
+    if (s < qv) {
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(src + s * rs + ch * 8);
+      const bf16* v = reinterpret_cast<const bf16*>(&raw);
+      const float f = grad ? expf(cum_s[s])
+                           : dt_s[s] * expf(last - cum_s[s]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split2(__bfloat162float(v[2 * e]) * f,
+               __bfloat162float(v[2 * e + 1]) * f, h[e], l[e]);
+    }
+    const uint32_t off = tc::chunk_offset<kT>(r, ch);
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// 1. Per (b, h, chunk), [p][n] f32: blockIdx.z 0, own[c] = sum_s B_s[n]
+// (x_s[p] dt_s e^{cum_last - cum_s}) and totals[c] = cum_last; 1, u[c] =
+// sum_t C_t[n] (dy_t[p] e^{cum_t}) (c >= 1). N/64 warpgroups of 64 state
+// rows, position tiles of 64 through two stages (ssd_scan.cu's
+// ssd_chunk_state_tc, the scaled operand as a bf16 pair).
+template <int N>
+__global__ void __launch_bounds__(2 * N)
+ssd_bwd_states_tc(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                  const float* __restrict__ dt, const bf16* __restrict__ bm,
+                  const bf16* __restrict__ cm, float* __restrict__ own,
+                  float* __restrict__ u, float* __restrict__ totals,
+                  Dims d) {
+  using M = TcSmem<N>;
+  constexpr int NT = 2 * N;
+  constexpr int kStage = M::kTileN + 2 * kTileX;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float cum_s[kMaxQ], dt_s[kMaxQ], wsum[NT / 32];
+  const bool grad = blockIdx.z == 1;
+  const int c = blockIdx.x, bh = blockIdx.y;
+  if (grad && c == 0) return;              // dS_out(-1): unused
+  uint8_t* base = align1024(smem_raw);
+  const uint32_t sbase = tc::smem_addr(base);
+  const int b = bh / d.H, h = bh % d.H, g = d.group(h);
+  const int tid = threadIdx.x, wg = tid / kWG;
+  const int warp = (tid % kWG) / 32, lane = tid % 32;
+  const int qv = d.valid(c), ns = (qv + kT - 1) / kT;
+  const int64_t brs = (int64_t)d.G * d.N, xrs = (int64_t)d.H * kTcP;
+  const bf16* lsrc = (grad ? cm : bm) + d.row(b, c * d.Q) * brs +
+                     (int64_t)g * d.N;
+  const bf16* rsrc = (grad ? dy : x) + d.row(b, c * d.Q) * xrs +
+                     (int64_t)h * kTcP;
+  tc::load_tile<kT, N, NT>(sbase, lsrc, brs, 0, qv, tid);
+  tc::cp_commit();
+  block_cumsum<NT>(cum_s, dt_s, wsum, dt, d, b, h, c, qv, d.A(h));
+  const float last = cum_s[qv - 1];
+  write_scaled_split<NT>(base + M::kTileN, base + M::kTileN + kTileX, rsrc,
+                         xrs, 0, qv, grad, last, cum_s, dt_s);
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int j = 0; j < ns; ++j) {
+    const uint32_t st = sbase + (j & 1) * kStage;
+    const int nxt = ((j + 1) & 1) * kStage;
+    tc::cp_wait<0>();
+    tc::fence_to_async();
+    __syncthreads();               // stage j landed; stage j - 1 consumed
+    if (j + 1 < ns) {
+      tc::load_tile<kT, N, NT>(sbase + nxt, lsrc, brs, (j + 1) * kT, qv,
+                               tid);
+      tc::cp_commit();
+    }
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kT / 16; ++kk)
+      tc::mma_ss_mn<64>(acc, tc::desc_mn<kT>(st + wg * kT * 128, kk),
+                        tc::desc_mn<kT>(st + M::kTileN, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kT / 16; ++kk)
+      tc::mma_ss_mn<64>(acc, tc::desc_mn<kT>(st + wg * kT * 128, kk),
+                        tc::desc_mn<kT>(st + M::kTileN + kTileX, kk), 1);
+    tc::wg_commit();
+    if (j + 1 < ns)                // next tile's operand while these run
+      write_scaled_split<NT>(base + nxt + M::kTileN,
+                             base + nxt + M::kTileN + kTileX, rsrc, xrs,
+                             (j + 1) * kT, qv, grad, last, cum_s, dt_s);
+    tc::wg_wait<0>();
+    tc::reg_fence(acc);
+  }
+  // rows n = 64 wg + 16 warp + lane / 4 (+ 8), columns p = 8 j + 2 (lane
+  // % 4) (+ 1); stored [p][n]
+  float* out = (grad ? u : own) + ((int64_t)bh * d.nc + c) * kTcP * N +
+               wg * kT + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      out[(int64_t)(8 * j + 2 * (lane % 4) + (e & 1)) * N + 8 * (e >> 1)] =
+          acc[4 * j + e];
+  if (!grad && tid == 0) totals[(int64_t)bh * d.nc + c] = last;
+}
+
+__device__ __forceinline__ void store_split4(bf16* hi, bf16* lo, float4 v) {
+  uint2 h, l;
+  split2(v.x, v.y, h.x, l.x);
+  split2(v.z, v.w, h.y, l.y);
+  *reinterpret_cast<uint2*>(hi) = h;
+  *reinterpret_cast<uint2*>(lo) = l;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// 2. The carries, four state elements a thread, kCarryElems a block,
+// P N / kCarryElems blocks per (b, h), in f32. Forward: own[c] becomes
+// S_out(c) = S_in(c + 1) (the last chunk's stays in registers), and S_in(c)
+// (c >= 1) is written as a bf16 pair.
+// Reverse: dS_out(last chunk) = dstate ((B, H, P, N) is [p][n]; zeros when
+// null), dS_out(c - 1) = e^{cum_last(c)} dS_out(c) + u[c], each written
+// as a bf16 pair. Per (b, h, chunk) and block, the partial dots lastp =
+// <dS_out(c), S_out(c)> and kp = <dS_out(c), S_in(c)> of the f32 states.
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_carry_tc(float* __restrict__ own, const float* __restrict__ u,
+                 const float* __restrict__ totals,
+                 const float* __restrict__ dstate, bf16* __restrict__ sin_hi,
+                 bf16* __restrict__ sin_lo, bf16* __restrict__ dso_hi,
+                 bf16* __restrict__ dso_lo, float* __restrict__ lastp,
+                 float* __restrict__ kp, Dims d) {
+  __shared__ float wsum[kWarps];
+  const int pn = kTcP * d.N, nblk = gridDim.x;
+  const int e = 4 * (blockIdx.x * kThreads + threadIdx.x);
+  const int64_t bh = blockIdx.y;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < d.nc; ++c) {
+    const int64_t at = (bh * d.nc + c) * pn + e;
+    if (c > 0) store_split4(sin_hi + at, sin_lo + at, s);
+    const float4 o = *reinterpret_cast<const float4*>(own + at);
+    const float decay = expf(totals[bh * d.nc + c]);
+    s = make_float4(s.x * decay + o.x, s.y * decay + o.y,
+                    s.z * decay + o.z, s.w * decay + o.w);
+    if (c + 1 < d.nc) *reinterpret_cast<float4*>(own + at) = s;
+  }
+  float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (dstate) {
+    const float* ds = dstate + bh * pn + e;
+    g = make_float4(ds[0], ds[1], ds[2], ds[3]);
+  }
+  float4 so = s;                           // S_out of the last chunk
+  for (int c = d.nc - 1; c >= 0; --c) {
+    const int64_t at = (bh * d.nc + c) * pn + e;
+    store_split4(dso_hi + at, dso_lo + at, g);
+    const float4 si = c > 0 ? *reinterpret_cast<const float4*>(own + at - pn)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float v = block_sum(dot4(g, so), wsum);
+    const float w = block_sum(dot4(g, si), wsum);
+    if (threadIdx.x == 0) {
+      lastp[(bh * d.nc + c) * nblk + blockIdx.x] = v;
+      kp[(bh * d.nc + c) * nblk + blockIdx.x] = w;
+    }
+    if (c > 0) {
+      const float decay = expf(totals[bh * d.nc + c]);
+      const float4 o = *reinterpret_cast<const float4*>(u + at);
+      g = make_float4(g.x * decay + o.x, g.y * decay + o.y,
+                      g.z * decay + o.z, g.w * decay + o.w);
+    }
+    so = si;                               // S_out(c - 1) = S_in(c)
+  }
+}
+
+// The block's (b, group, chunk, own tile, head slice) of the dbx and dc
+// kernels' grid: own tiles heaviest first (the dbx kernel's s tile 0
+// and the dc kernel's last t tile walk the most tile pairs).
+struct PairBlock {
+  int own, c, sl, b, g, h0, h1;
+  __device__ PairBlock(const Dims& d, int nsl, bool rows_last) {
+    const int nt = (d.Q + kT - 1) / kT, per = d.nc * nsl;
+    const int k = blockIdx.x / per;
+    own = rows_last ? nt - 1 - k : k;
+    c = blockIdx.x % per % d.nc;
+    sl = blockIdx.x % per / d.nc;
+    b = blockIdx.y / d.G;
+    g = blockIdx.y % d.G;
+    const int hg = d.H / d.G;
+    h0 = g * hg + sl * kSlice;
+    h1 = min(g * hg + hg, h0 + kSlice);
+  }
+};
+
+// 3. The column kernel, one warpgroup per (b, group, chunk, 64-row s tile,
+// slice of kSlice heads): per head, dxdt_s = e^{last - cum_s} B_s . dS_out
+// + sum_{t>=s} (CB L)^T_st dy_t and dB_s (summed over the slice's heads)
+// = (x_s dt_s e^{last - cum_s}) . dS_out^T + sum_{t>=s} W^T_st C_t, with
+// G^T = x_s . dy_t^T and CB^T = B_s . C_t^T of each t tile at or after
+// s's, L = e^{cum_t - cum_s}, W = G dt_s L. Writes dx = dxdt dt (bf16),
+// xdx_s = x_s . dxdt_s (the column sum of CB L G plus the state term's,
+// from f32 tiles), dac_s = (last - cum_s) dt_s x_s . dxdt_s(state) (da_log's
+// term through xdt), and the slice's f32 dB partial dbp (B, S, G, nsl, N).
+template <int N>
+__global__ void __launch_bounds__(kWG, 2)
+ssd_bwd_dbx_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
+               const bf16* __restrict__ bm, const bf16* __restrict__ cm,
+               const bf16* __restrict__ dy, const bf16* __restrict__ d_hi,
+               const bf16* __restrict__ d_lo, bf16* __restrict__ dx,
+               float* __restrict__ xdx, float* __restrict__ dac,
+               float* __restrict__ dbp, Dims d, int nsl) {
+  using M = TcSmem<N>;
+  constexpr int kStage = kTileX + M::kTileN;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float cum_s[kMaxQ], dt_s[kMaxQ], wsum[kWG / 32];
+  uint8_t* base = align1024(smem_raw);
+  const uint32_t sbs = tc::smem_addr(base);        // B_s
+  const uint32_t sx = sbs + M::kTileN;             // x_s
+  const uint32_t dhi = sx + kTileX, dlo = dhi + M::kTileN;  // dS_out
+  const uint32_t sst = dlo + M::kTileN;            // stage k: dy_t, C_t
+  const uint8_t* xp = base + M::kTileN;
+  const PairBlock pb(d, nsl, false);
+  const int c = pb.c, b = pb.b, g = pb.g;
+  const int qv = d.valid(c), s0 = pb.own * kT;
+  if (s0 >= qv) return;
+  const int steps = (qv + kT - 1) / kT - pb.own;   // t tiles at or after
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q4 = lane % 4;
+  const int r0 = s0 + warp * 16 + lane / 4;   // this thread's rows r0, +8
+  const int64_t crs = (int64_t)d.G * d.N, xrs = (int64_t)d.H * kTcP;
+  const int64_t crow = d.row(b, c * d.Q);
+  const bf16* bg = bm + crow * crs + (int64_t)g * d.N;
+  const bf16* cg = cm + crow * crs + (int64_t)g * d.N;
+  tc::load_tile<kT, N, kWG>(sbs, bg, crs, s0, qv, tid);
+  float acc[N / 2];                           // dB over the slice's heads
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  for (int h = pb.h0; h < pb.h1; ++h) {
+    const bf16* xh = x + crow * xrs + (int64_t)h * kTcP;
+    const bf16* dyh = dy + crow * xrs + (int64_t)h * kTcP;
+    const int64_t so = (((int64_t)b * d.H + h) * d.nc + c) * kTcP * N;
+    __syncthreads();                 // the previous head's tiles consumed
+    tc::load_tile<kT, kTcP, kWG>(sx, xh, xrs, s0, qv, tid);
+    tc::load_tile<kT, N, kWG>(dhi, d_hi + so, N, 0, kTcP, tid);
+    tc::load_tile<kT, N, kWG>(dlo, d_lo + so, N, 0, kTcP, tid);
+    tc::load_tile<kT, kTcP, kWG>(sst, dyh, xrs, s0, qv, tid);
+    tc::load_tile<kT, N, kWG>(sst + kTileX, cg, crs, s0, qv, tid);
+    tc::cp_commit();
+    block_cumsum<kWG>(cum_s, dt_s, wsum, dt, d, b, h, c, qv, d.A(h));
+    const float last = cum_s[qv - 1];
+    float cs[2], dts[2], ls[2], es[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s = r0 + 8 * r;
+      const bool ok = s < qv;
+      cs[r] = ok ? cum_s[s] : 0.f;
+      dts[r] = ok ? dt_s[s] : 0.f;
+      ls[r] = ok ? last - cs[r] : 0.f;
+      es[r] = ok ? expf(ls[r]) : 0.f;
+    }
+    tc::cp_wait<0>();
+    tc::fence_to_async();
+    __syncthreads();                 // the head's tiles and stage 0 landed
+
+    // the state's terms: dxdt = B_s . dS_out (rows scaled after), dB +=
+    // (x_s dt_s e^{last - cum_s}) . dS_out^T
+    uint32_t xa_h[16], xa_l[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i >> 1) & 1;
+      const float2 v = tile_pair(xp, r0 - s0 + 8 * r, i / 4, q4);
+      const float f = dts[r] * es[r];
+      split2(v.x * f, v.y * f, xa_h[i / 2], xa_l[i / 2]);
+    }
+    float dxa[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dxa[i] = 0.f;
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      tc::mma_ss<64>(dxa, tc::desc_k<kT>(sbs, kk), tc::desc_k<kT>(dhi, kk),
+                     1);
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      tc::mma_ss<64>(dxa, tc::desc_k<kT>(sbs, kk), tc::desc_k<kT>(dlo, kk),
+                     1);
+#pragma unroll
+    for (int kk = 0; kk < kT / 16; ++kk)
+      tc::mma_rs<N>(acc, &xa_h[4 * kk], tc::desc_mn<kT>(dhi, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kT / 16; ++kk)
+      tc::mma_rs<N>(acc, &xa_l[4 * kk], tc::desc_mn<kT>(dhi, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kT / 16; ++kk)
+      tc::mma_rs<N>(acc, &xa_h[4 * kk], tc::desc_mn<kT>(dlo, kk), 1);
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::reg_fence(dxa);
+    tc::reg_fence(acc);
+    tc::reg_fence(xa_h);
+    tc::reg_fence(xa_l);
+    float xst[2] = {0.f, 0.f}, col[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i >> 1) & 1;
+      const float2 v = tile_pair(xp, r0 - s0 + 8 * r, i / 4, q4);
+      dxa[i] *= es[r];
+      dxa[i + 1] *= es[r];
+      xst[r] += v.x * dxa[i] + v.y * dxa[i + 1];
+    }
+
+    // the masked form over the t tiles at or after s's
+    for (int st = 0; st < steps; ++st) {
+      const int t0 = s0 + st * kT;
+      const uint32_t stg = sst + (st & 1) * kStage;
+      if (st > 0) {
+        tc::cp_wait<0>();
+        tc::fence_to_async();
+        __syncthreads();             // stage st landed; st - 1 consumed
+      }
+      if (st + 1 < steps) {
+        const uint32_t nx = sst + ((st + 1) & 1) * kStage;
+        tc::load_tile<kT, kTcP, kWG>(nx, dyh, xrs, t0 + kT, qv, tid);
+        tc::load_tile<kT, N, kWG>(nx + kTileX, cg, crs, t0 + kT, qv, tid);
+        tc::cp_commit();
+      }
+      float gv[32], cbv[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) gv[i] = cbv[i] = 0.f;
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTcP / 16; ++kk)
+        tc::mma_ss<64>(gv, tc::desc_k<kT>(sx, kk), tc::desc_k<kT>(stg, kk),
+                       kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        tc::mma_ss<64>(cbv, tc::desc_k<kT>(sbs, kk),
+                       tc::desc_k<kT>(stg + kTileX, kk), kk > 0);
+      tc::wg_commit();
+      tc::wg_wait<0>();
+      tc::reg_fence(gv);
+      tc::reg_fence(cbv);
+      // rows s, columns t: the diagonal and ragged tiles test s <= t < qv
+      // before the exp
+      const bool masked = st == 0 || t0 + kT > qv || s0 + kT > qv;
+      uint32_t ch[16], cl[16], wh[16], wl[16];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = (i >> 1) & 1, s = r0 + 8 * r;
+        const int t = t0 + 8 * (i / 4) + 2 * q4;
+        float cbl[2], w[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          cbl[e] = w[e] = 0.f;
+          if (!masked || (s <= t + e && t + e < qv)) {
+            const float L = tc::ex2((cum_s[t + e] - cs[r]) * kLog2e);
+            cbl[e] = cbv[i + e] * L;
+            col[r] += cbl[e] * gv[i + e];
+            w[e] = gv[i + e] * dts[r] * L;
+          }
+        }
+        split2(cbl[0], cbl[1], ch[i / 2], cl[i / 2]);
+        split2(w[0], w[1], wh[i / 2], wl[i / 2]);
+      }
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kT / 16; ++kk)
+        tc::mma_rs<64>(dxa, &ch[4 * kk], tc::desc_mn<kT>(stg, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < kT / 16; ++kk)
+        tc::mma_rs<64>(dxa, &cl[4 * kk], tc::desc_mn<kT>(stg, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < kT / 16; ++kk)
+        tc::mma_rs<N>(acc, &wh[4 * kk], tc::desc_mn<kT>(stg + kTileX, kk),
+                      1);
+#pragma unroll
+      for (int kk = 0; kk < kT / 16; ++kk)
+        tc::mma_rs<N>(acc, &wl[4 * kk], tc::desc_mn<kT>(stg + kTileX, kk),
+                      1);
+      tc::wg_commit();
+      tc::wg_wait<0>();
+      tc::reg_fence(dxa);
+      tc::reg_fence(acc);
+      tc::reg_fence(ch);
+      tc::reg_fence(cl);
+      tc::reg_fence(wh);
+      tc::reg_fence(wl);
+    }
+
+    // the row's four lanes (q4) hold its columns
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        col[r] += __shfl_xor_sync(0xffffffffu, col[r], off);
+        xst[r] += __shfl_xor_sync(0xffffffffu, xst[r], off);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s = r0 + 8 * r;
+      if (s >= qv) continue;
+      if (q4 == 0) {
+        const int64_t at = (crow + s) * d.H + h;
+        xdx[at] = col[r] + xst[r];
+        dac[at] = ls[r] * dts[r] * xst[r];
+      }
+      bf16* out = dx + (crow + s) * xrs + (int64_t)h * kTcP + 2 * q4;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+            __floats2bfloat162_rn(dxa[4 * j + 2 * r] * dts[r],
+                                  dxa[4 * j + 2 * r + 1] * dts[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = r0 + 8 * r;
+    if (s >= qv) continue;
+    float* out = dbp + (((crow + s) * d.G + g) * nsl + pb.sl) * d.N + 2 * q4;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+// 4. The row kernel, one warpgroup per (b, group, chunk, 64-row t tile,
+// slice of kSlice heads): dC_t summed over the slice's heads =
+// (dy_t e^{cum_t}) . S_in + sum_{s<=t} W_ts B_s, with G = dy_t . x_s^T and
+// CB = C_t . B_s^T of each s tile at or before t's, W = G dt_s L. Per
+// head, from f32 tiles: cdc_t = C_t . dC_t = the row sum of E = CB W plus
+// Cstate_t = e^{cum_t} dy_t . (C_t . S_in) (Y on the tensor cores), and
+// dar_t = sum_s E_ts (cum_t - cum_s) + cum_t Cstate_t (da_log's terms
+// through the pairs and e^{cum_t}). Writes the slice's f32 dC partial dcp
+// (B, S, G, nsl, N).
+template <int N>
+__global__ void __launch_bounds__(kWG, 2)
+ssd_bwd_dc_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
+              const bf16* __restrict__ bm, const bf16* __restrict__ cm,
+              const bf16* __restrict__ dy, const bf16* __restrict__ s_hi,
+              const bf16* __restrict__ s_lo, float* __restrict__ cdc,
+              float* __restrict__ dar, float* __restrict__ dcp, Dims d,
+              int nsl) {
+  using M = TcSmem<N>;
+  constexpr int kStage = kTileX + M::kTileN;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float cum_s[kMaxQ], dt_s[kMaxQ], wsum[kWG / 32];
+  uint8_t* base = align1024(smem_raw);
+  const uint32_t sc = tc::smem_addr(base);         // C_t
+  const uint32_t sdy = sc + M::kTileN;             // dy_t
+  const uint32_t shi = sdy + kTileX, slo = shi + M::kTileN;  // S_in
+  const uint32_t sst = slo + M::kTileN;            // stage k: x_s, B_s
+  const uint8_t* dyp = base + M::kTileN;
+  const PairBlock pb(d, nsl, true);
+  const int c = pb.c, b = pb.b, g = pb.g, tt = pb.own;
+  const int qv = d.valid(c), t0 = tt * kT;
+  if (t0 >= qv) return;
+  const int s_end = min(t0 + kT, qv), ns = tt + 1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q4 = lane % 4;
+  const int r0 = t0 + warp * 16 + lane / 4;   // this thread's rows r0, +8
+  const int64_t crs = (int64_t)d.G * d.N, xrs = (int64_t)d.H * kTcP;
+  const int64_t crow = d.row(b, c * d.Q);
+  const bf16* bg = bm + crow * crs + (int64_t)g * d.N;
+  const bf16* cg = cm + crow * crs + (int64_t)g * d.N;
+  tc::load_tile<kT, N, kWG>(sc, cg, crs, t0, qv, tid);
+  float acc[N / 2];                           // dC over the slice's heads
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  for (int h = pb.h0; h < pb.h1; ++h) {
+    const bf16* xh = x + crow * xrs + (int64_t)h * kTcP;
+    const bf16* dyh = dy + crow * xrs + (int64_t)h * kTcP;
+    __syncthreads();                 // the previous head's tiles consumed
+    tc::load_tile<kT, kTcP, kWG>(sdy, dyh, xrs, t0, qv, tid);
+    if (c > 0) {
+      const int64_t so = (((int64_t)b * d.H + h) * d.nc + c) * kTcP * N;
+      tc::load_tile<kT, N, kWG>(shi, s_hi + so, N, 0, kTcP, tid);
+      tc::load_tile<kT, N, kWG>(slo, s_lo + so, N, 0, kTcP, tid);
+    }
+    tc::load_tile<kT, kTcP, kWG>(sst, xh, xrs, 0, qv, tid);
+    tc::load_tile<kT, N, kWG>(sst + kTileX, bg, crs, 0, qv, tid);
+    tc::cp_commit();
+    block_cumsum<kWG>(cum_s, dt_s, wsum, dt, d, b, h, c, s_end, d.A(h));
+    float ct[2], rs[2] = {0.f, 0.f}, pr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      ct[r] = r0 + 8 * r < s_end ? cum_s[r0 + 8 * r] : 0.f;
+    tc::cp_wait<0>();
+    tc::fence_to_async();
+    __syncthreads();                 // the head's tiles and stage 0 landed
+
+    if (c > 0) {                     // the incoming state's terms
+      float y[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) y[i] = 0.f;
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        tc::mma_ss<64>(y, tc::desc_k<kT>(sc, kk), tc::desc_k<kT>(shi, kk),
+                       1);
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        tc::mma_ss<64>(y, tc::desc_k<kT>(sc, kk), tc::desc_k<kT>(slo, kk),
+                       1);
+      tc::wg_commit();
+      // dy_t e^{cum_t} in the A fragment's layout, as a bf16 pair, while
+      // Y runs
+      float et[2], dyv[32];
+      uint32_t ah[16], al[16];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        et[r] = r0 + 8 * r < s_end ? expf(ct[r]) : 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = (i >> 1) & 1;
+        const float2 v = tile_pair(dyp, r0 - t0 + 8 * r, i / 4, q4);
+        dyv[i] = v.x;
+        dyv[i + 1] = v.y;
+        split2(v.x * et[r], v.y * et[r], ah[i / 2], al[i / 2]);
+      }
+      tc::wg_wait<0>();
+      tc::reg_fence(y);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) rs[(i >> 1) & 1] += dyv[i] * y[i];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] *= et[r];
+        pr[r] = ct[r] * rs[r];
+      }
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTcP / 16; ++kk)
+        tc::mma_rs<N>(acc, &ah[4 * kk], tc::desc_mn<kT>(shi, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < kTcP / 16; ++kk)
+        tc::mma_rs<N>(acc, &al[4 * kk], tc::desc_mn<kT>(shi, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < kTcP / 16; ++kk)
+        tc::mma_rs<N>(acc, &ah[4 * kk], tc::desc_mn<kT>(slo, kk), 1);
+      tc::wg_commit();
+      tc::wg_wait<0>();
+      tc::reg_fence(acc);
+      tc::reg_fence(ah);
+      tc::reg_fence(al);
+    }
+
+    // the masked form over the s tiles at or before t's
+    for (int j = 0; j < ns; ++j) {
+      const uint32_t stg = sst + (j & 1) * kStage;
+      if (j > 0) {
+        tc::cp_wait<0>();
+        tc::fence_to_async();
+        __syncthreads();             // stage j landed; j - 1 consumed
+      }
+      if (j + 1 < ns) {
+        const uint32_t nx = sst + ((j + 1) & 1) * kStage;
+        tc::load_tile<kT, kTcP, kWG>(nx, xh, xrs, (j + 1) * kT, qv, tid);
+        tc::load_tile<kT, N, kWG>(nx + kTileX, bg, crs, (j + 1) * kT, qv,
+                                  tid);
+        tc::cp_commit();
+      }
+      float gv[32], cbv[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) gv[i] = cbv[i] = 0.f;
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTcP / 16; ++kk)
+        tc::mma_ss<64>(gv, tc::desc_k<kT>(sdy, kk), tc::desc_k<kT>(stg, kk),
+                       kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        tc::mma_ss<64>(cbv, tc::desc_k<kT>(sc, kk),
+                       tc::desc_k<kT>(stg + kTileX, kk), kk > 0);
+      tc::wg_commit();
+      tc::wg_wait<0>();
+      tc::reg_fence(gv);
+      tc::reg_fence(cbv);
+      // rows t, columns s: the diagonal and ragged tiles test s <= t < qv
+      // before the exp
+      const bool masked = j == tt || t0 + kT > qv;
+      const int s0 = j * kT;
+      uint32_t wh[16], wl[16];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = (i >> 1) & 1, t = r0 + 8 * r;
+        const int s = s0 + 8 * (i / 4) + 2 * q4;
+        float w[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          w[e] = 0.f;
+          if (!masked || (s + e <= t && t < qv)) {
+            const float l = ct[r] - cum_s[s + e];
+            w[e] = gv[i + e] * dt_s[s + e] * tc::ex2(l * kLog2e);
+            const float ev = cbv[i + e] * w[e];
+            rs[r] += ev;
+            pr[r] += ev * l;
+          }
+        }
+        split2(w[0], w[1], wh[i / 2], wl[i / 2]);
+      }
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kT / 16; ++kk)
+        tc::mma_rs<N>(acc, &wh[4 * kk], tc::desc_mn<kT>(stg + kTileX, kk),
+                      1);
+#pragma unroll
+      for (int kk = 0; kk < kT / 16; ++kk)
+        tc::mma_rs<N>(acc, &wl[4 * kk], tc::desc_mn<kT>(stg + kTileX, kk),
+                      1);
+      tc::wg_commit();
+      tc::wg_wait<0>();
+      tc::reg_fence(acc);
+      tc::reg_fence(wh);
+      tc::reg_fence(wl);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], off);
+        pr[r] += __shfl_xor_sync(0xffffffffu, pr[r], off);
+      }
+    if (q4 == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int t = r0 + 8 * r;
+        if (t >= qv) continue;
+        const int64_t at = (crow + t) * d.H + h;
+        cdc[at] = rs[r];
+        dar[at] = pr[r];
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = r0 + 8 * r;
+    if (t >= qv) continue;
+    float* out = dcp + (((crow + t) * d.G + g) * nsl + pb.sl) * d.N + 2 * q4;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+// 5. Per (chunk, b * h): dcum_t = cdc_t - dt_t xdx_t (+ <dS_out, S_out>
+// at the last valid position); dl its reverse cumulative sum; ddt = xdx +
+// dl A; dapart = sum_t (dar + dac) + cum_last e^{cum_last} <dS_out, S_in>.
+// One thread per position.
+__global__ void __launch_bounds__(kMaxQ)
+ssd_bwd_finalize_tc(const float* __restrict__ dt,
+                    const float* __restrict__ cdc,
+                    const float* __restrict__ xdx,
+                    const float* __restrict__ dar,
+                    const float* __restrict__ dac,
+                    const float* __restrict__ lastp,
+                    const float* __restrict__ kp,
+                    const float* __restrict__ totals,
+                    float* __restrict__ ddt, float* __restrict__ dapart,
+                    Dims d, int nblk) {
+  __shared__ float wsum[kWarps];
+  const int c = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / d.H, h = bh % d.H;
+  const int qv = d.valid(c);
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int64_t bc = (int64_t)bh * d.nc + c;
+  float dl_last = 0.f, kt = 0.f;
+  for (int k = 0; k < nblk; ++k) {
+    dl_last += lastp[bc * nblk + k];
+    kt += kp[bc * nblk + k];
+  }
+  // reverse inclusive scan: thread i takes position qv - 1 - i
+  const bool ok = tid < qv;
+  const int t = qv - 1 - tid;
+  const int64_t at = ok ? d.row(b, c * d.Q + t) * d.H + h : 0;
+  float v = 0.f, xd = 0.f, part = 0.f;
+  if (ok) {
+    xd = xdx[at];
+    v = cdc[at] - dt[at] * xd + (tid == 0 ? dl_last : 0.f);
+    part = dar[at] + dac[at];
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += u;
+  }
+  if (lane == 31) wsum[w] = v;
+  __syncthreads();
+  for (int k = 0; k < w; ++k) v += wsum[k];
+  if (ok) ddt[at] = xd + v * d.A(h);      // v = dl_t
+  part = block_sum(part, wsum);
+  if (tid == 0) {
+    const float last = totals[bc];
+    dapart[bc] = part + last * expf(last) * kt;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Workspace and launches
 // ---------------------------------------------------------------------------
 
 constexpr int64_t kAlign = 256;
-constexpr int kParts = 12;
+constexpr int kParts = 16;
 
 int64_t aligned(int64_t bytes) {
   return (bytes + kAlign - 1) / kAlign * kAlign;
 }
 
-// Scratch of one call, all f32, carved from one workspace in this order:
-// cum (B, H, S), cb (B, G, nc, Q, Q), s_in (B, H, nc + 1, N, P), dsout
-// (B, H, nc, N, P), dxdt (B, S, H, P), dC and dB per head (B, S, H, N)
-// each, dlast and dapart (B, H, nc) each, da_log's terms pair (B, S, H,
-// p tiles), inter (B, S, H, n tiles) and kterm (B, H, nc).
+// Scratch of one call, carved from one workspace in this order.
+//   CUDA-core instance, all f32: cum (B, H, S), cb (B, G, nc, Q, Q), s_in
+//   (B, H, nc + 1, N, P), dsout (B, H, nc, N, P), dxdt (B, S, H, P), dC
+//   and dB per head (B, S, H, N) each, dlast and dapart (B, H, nc) each,
+//   da_log's terms pair (B, S, H, p tiles), inter (B, S, H, n tiles) and
+//   kterm (B, H, nc).
+//   Tensor-core instance: own and u (B, H, nc, P, N) f32, totals (B, H,
+//   nc) f32, the bf16 pairs of S_in and dS_out (B, H, nc, P, N) (hi, lo,
+//   hi, lo), lastp and kp (B, H, nc, P N / kCarryElems) f32, cdc, xdx, dar
+//   and dac (B, S, H) f32, the slices' dB and dC partials (B, S, G, nsl,
+//   N) f32, dapart (B, H, nc) f32.
 struct Ws {
   int64_t bytes[kParts];
   int64_t total() const {
@@ -787,15 +1627,26 @@ struct Ws {
   }
 };
 
-Ws workspace(int B, int S, int H, int P, int G, int N, int Q) {
+int slices(int H, int G) { return (H / G + kSlice - 1) / kSlice; }
+
+Ws workspace(int instance, int B, int S, int H, int P, int G, int N,
+             int Q) {
   const int64_t nc = (S + Q - 1) / Q, bh = (int64_t)B * H;
   const int64_t bs = (int64_t)B * S;
+  if (instance == 1) {
+    const int64_t st = bh * nc * P * N, nblk = (int64_t)P * N / kCarryElems;
+    const int64_t part = bs * G * slices(H, G) * N;
+    return Ws{{4 * st, 4 * st, 4 * bh * nc, 2 * st, 2 * st, 2 * st, 2 * st,
+               4 * bh * nc * nblk, 4 * bh * nc * nblk, 4 * bs * H,
+               4 * bs * H, 4 * bs * H, 4 * bs * H, 4 * part, 4 * part,
+               4 * bh * nc}};
+  }
   const int64_t ntp = (P + kT - 1) / kT, ntn = (N + kT - 1) / kT;
   return Ws{{4 * bh * S, 4LL * B * G * nc * Q * Q,
              4 * bh * (nc + 1) * N * P, 4 * bh * nc * N * P,
              4 * bs * H * P, 4 * bs * H * N, 4 * bs * H * N, 4 * bh * nc,
              4 * bh * nc, 4 * bs * H * ntp, 4 * bs * H * ntn,
-             4 * bh * nc}};
+             4 * bh * nc, 0, 0, 0, 0}};
 }
 
 template <typename T>
@@ -868,46 +1719,154 @@ cudaError_t launch(const void* x_, const float* dt, const void* b_,
   return cudaGetLastError();
 }
 
+
+template <int N>
+cudaError_t launch_tc(const bf16* x, const float* dt, const bf16* bm,
+                      const bf16* cm, const bf16* dy, const float* dstate,
+                      bf16* dx, float* ddt, void* da_log, bf16* db,
+                      bf16* dc, const Ws& w, void* ws, Dims d,
+                      cudaStream_t stream) {
+  using M = TcSmem<N>;
+  float* own = w.part(ws, 0);
+  float* u = w.part(ws, 1);
+  float* totals = w.part(ws, 2);
+  bf16* sin_hi = reinterpret_cast<bf16*>(w.part(ws, 3));
+  bf16* sin_lo = reinterpret_cast<bf16*>(w.part(ws, 4));
+  bf16* dso_hi = reinterpret_cast<bf16*>(w.part(ws, 5));
+  bf16* dso_lo = reinterpret_cast<bf16*>(w.part(ws, 6));
+  float* lastp = w.part(ws, 7);
+  float* kp = w.part(ws, 8);
+  float* cdc = w.part(ws, 9);
+  float* xdx = w.part(ws, 10);
+  float* dar = w.part(ws, 11);
+  float* dac = w.part(ws, 12);
+  float* dbp = w.part(ws, 13);
+  float* dcp = w.part(ws, 14);
+  float* dapart = w.part(ws, 15);
+  const int nt = (d.Q + kT - 1) / kT, nsl = slices(d.H, d.G);
+  const int nblk = kTcP * d.N / kCarryElems, bh = d.B * d.H;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(ssd_bwd_states_tc<N>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  M::kState)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(ssd_bwd_dbx_tc<N>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  M::kPair)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(ssd_bwd_dc_tc<N>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  M::kPair)) != cudaSuccess)
+    return err;
+#define SSD_BWD_CHECK() \
+  if ((err = cudaGetLastError()) != cudaSuccess) return err
+  ssd_bwd_states_tc<N><<<dim3(d.nc, bh, 2), 2 * N, M::kState, stream>>>(
+      x, dy, dt, bm, cm, own, u, totals, d);
+  SSD_BWD_CHECK();
+  ssd_bwd_carry_tc<<<dim3(nblk, bh), kThreads, 0, stream>>>(
+      own, u, totals, dstate, sin_hi, sin_lo, dso_hi, dso_lo, lastp, kp, d);
+  SSD_BWD_CHECK();
+  const dim3 pairs(nt * d.nc * nsl, d.B * d.G);
+  ssd_bwd_dbx_tc<N><<<pairs, kWG, M::kPair, stream>>>(
+      x, dt, bm, cm, dy, dso_hi, dso_lo, dx, xdx, dac, dbp, d, nsl);
+  SSD_BWD_CHECK();
+  ssd_bwd_dc_tc<N><<<pairs, kWG, M::kPair, stream>>>(
+      x, dt, bm, cm, dy, sin_hi, sin_lo, cdc, dar, dcp, d, nsl);
+  SSD_BWD_CHECK();
+  ssd_bwd_finalize_tc<<<dim3(d.nc, bh), kMaxQ, 0, stream>>>(
+      dt, cdc, xdx, dar, dac, lastp, kp, totals, ddt, dapart, d, nblk);
+  SSD_BWD_CHECK();
+  Dims ds = d;                      // the slices stand in for the heads
+  ds.H = d.G * nsl;
+  const int64_t groups = (int64_t)d.B * d.S * d.G * d.N;
+  ssd_bwd_group_sum<bf16><<<(unsigned)((groups + kThreads - 1) / kThreads),
+                            kThreads, 0, stream>>>(dbp, dcp, db, dc, ds);
+  SSD_BWD_CHECK();
+  ssd_bwd_dalog<<<(d.H + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      dapart, da_log, d);
+#undef SSD_BWD_CHECK
+  return cudaGetLastError();
+}
+
+bool takes(int instance, int dtype, int P, int N) {
+  if (instance == 0) return dtype == 0 || dtype == 1;
+  return instance == 1 && dtype == 1 && P == kTcP && (N == 64 || N == 128);
+}
+
 }  // namespace
 
-// Bytes of scratch one call needs (0 for an invalid shape), for the
-// caller's workspace.
-extern "C" int64_t ssd_scan_bwd_workspace_bytes(int B, int S, int H, int P,
-                                                int G, int N, int Q) {
-  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || G <= 0 || N <= 0 || Q <= 0)
+// Bytes of scratch one call needs (0 for shapes the instance does not
+// take), for the caller's workspace. instance: 0 = CUDA cores, 1 = tensor
+// cores.
+extern "C" int64_t ssd_scan_bwd_workspace_bytes(int instance, int B, int S,
+                                                int H, int P, int G, int N,
+                                                int Q) {
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || G <= 0 || N <= 0 || Q <= 0 ||
+      H % G != 0 || instance < 0 || instance > 1 ||
+      (instance == 1 && !takes(1, 1, P, N)))
     return 0;
-  return workspace(B, S, H, P, G, N, Q).total();
+  return workspace(instance, B, S, H, P, G, N, Q).total();
 }
 
 // Plain C entry point, loaded with ctypes. dtype: 0 = float32, 1 = bf16
 // (x, b, c, dy, dx, db, dc); a_dtype likewise for a_log and da_log; dt,
-// ddt and dstate are f32, dstate may be null (zeros). Every tensor
-// contiguous; Q = min(chunk, S) <= 256; H % G == 0; B * H <= 65535. `ws`
-// holds at least ssd_scan_bwd_workspace_bytes(...) bytes (ws_bytes says
+// ddt and dstate are f32, dstate may be null (zeros). instance 0 runs the
+// CUDA-core kernels (any width), 1 the tensor-core kernels (bf16, P 64,
+// N 64 or 128, 16-byte aligned x, b, c, dy, dx, db and dc); a shape the
+// named instance does not take returns cudaErrorInvalidValue, a
+// misaligned pointer cudaErrorMisalignedAddress. Every tensor contiguous;
+// Q = min(chunk, S) <= 256; H % G == 0; B * H <= 65535. `ws` holds at
+// least ssd_scan_bwd_workspace_bytes(instance, ...) bytes (ws_bytes says
 // how many), 256-byte aligned. Launches on `stream`, does not
 // synchronise, allocates nothing, and returns the first cudaError_t of
-// its launches (0 on success); an argument it does not take returns
-// cudaErrorInvalidValue.
+// its launches (0 on success).
 extern "C" int ssd_scan_bwd(const void* x, const float* dt,
                             const void* a_log, const void* b, const void* c,
                             const void* dy, const float* dstate, void* dx,
                             float* ddt, void* da_log, void* db, void* dc,
                             void* ws, int64_t ws_bytes, int dtype,
-                            int a_dtype, int B, int S, int H, int P, int G,
-                            int N, int Q, void* stream) {
+                            int a_dtype, int instance, int B, int S, int H,
+                            int P, int G, int N, int Q, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || G <= 0 || N <= 0 || Q <= 0 ||
-      Q > kMaxQ || Q > S || H % G != 0 || B * H > 65535 || dtype < 0 ||
-      dtype > 1 || a_dtype < 0 || a_dtype > 1)
+      Q > kMaxQ || Q > S || H % G != 0 || B * H > 65535 || a_dtype < 0 ||
+      a_dtype > 1 || !takes(instance, dtype, P, N))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Ws w = workspace(B, S, H, P, G, N, Q);
+  const Ws w = workspace(instance, B, S, H, P, G, N, Q);
   if (ws_bytes < w.total() || reinterpret_cast<uintptr_t>(ws) % kAlign != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{B, S, H, P, G, N, Q, (S + Q - 1) / Q, a_log, a_dtype};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == 0 ? launch<float>(x, dt, b, c, dy, dstate, dx, ddt, da_log,
-                                 db, dc, w, ws, d, s)
-                 : launch<bf16>(x, dt, b, c, dy, dstate, dx, ddt, da_log, db,
-                                dc, w, ws, d, s);
+  cudaError_t err;
+  if (instance == 1) {
+    const void* rows[7] = {x, b, c, dy, dx, db, dc};
+    for (int i = 0; i < 7; ++i)
+      if (reinterpret_cast<uintptr_t>(rows[i]) % 16 != 0)
+        return static_cast<int>(cudaErrorMisalignedAddress);
+    const bf16* xt = static_cast<const bf16*>(x);
+    const bf16* bt = static_cast<const bf16*>(b);
+    const bf16* ct = static_cast<const bf16*>(c);
+    const bf16* dyt = static_cast<const bf16*>(dy);
+    bf16* dxt = static_cast<bf16*>(dx);
+    bf16* dbt = static_cast<bf16*>(db);
+    bf16* dct = static_cast<bf16*>(dc);
+    err = N == 64 ? launch_tc<64>(xt, dt, bt, ct, dyt, dstate, dxt, ddt,
+                                  da_log, dbt, dct, w, ws, d, s)
+                  : launch_tc<128>(xt, dt, bt, ct, dyt, dstate, dxt, ddt,
+                                   da_log, dbt, dct, w, ws, d, s);
+  } else if (dtype == 0) {
+    err = launch<float>(x, dt, b, c, dy, dstate, dx, ddt, da_log, db, dc, w,
+                        ws, d, s);
+  } else {
+    err = launch<bf16>(x, dt, b, c, dy, dstate, dx, ddt, da_log, db, dc, w,
+                       ws, d, s);
+  }
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory (bytes) of a tensor-core kernel at state width N
+// (64 or 128; 0 otherwise), for reports. kernel: 0 = ssd_bwd_states_tc,
+// 1 = ssd_bwd_dbx_tc, 2 = ssd_bwd_dc_tc.
+extern "C" int ssd_scan_bwd_tc_smem(int kernel, int N) {
+  if (N != 64 && N != 128) return 0;
+  const int st = N == 64 ? TcSmem<64>::kState : TcSmem<128>::kState;
+  const int pr = N == 64 ? TcSmem<64>::kPair : TcSmem<128>::kPair;
+  return kernel == 0 ? st : kernel == 1 || kernel == 2 ? pr : 0;
 }

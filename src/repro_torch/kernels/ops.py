@@ -206,5 +206,5 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for m in KERNELS:
         m.launches = 0
-    for m in (_fa, _fab, _ssd):
+    for m in (_fa, _fab, _ssd, _ssdb):
         m.launches_tc = 0

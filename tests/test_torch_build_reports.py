@@ -1,6 +1,7 @@
 """The build reports ``chip_smoke.py`` prints for K4 and K4b, and the
 row-alignment rule of the bf16 tensor-core instances, checked on the CPU
 with recorded tool output (no nvcc, cuobjdump or card needed)."""
+import re
 import subprocess
 from pathlib import Path
 
@@ -142,3 +143,70 @@ def test_ssd_wrapper_picks_the_instance_by_dtype_and_width():
     for args in ((torch.float32, 64, 128), (torch.bfloat16, 32, 128),
                  (torch.bfloat16, 64, 32), (torch.bfloat16, 16, 16)):
         assert pick(*args) == kssd.CUDA_CORES, args
+
+
+def test_ssd_bwd_sources_hold_the_tensor_core_instance():
+    """K5b's bf16 instance: its product kernels exist as ``_tc`` kernels
+    (the names chip_smoke checks for HGMMA and in the profiled rounds),
+    each issuing the ``wgmma`` forms it is built from, at both state
+    widths, and nothing in the file sums with atomics."""
+    csrc = Path(build.CSRC)
+    src = (csrc / "ssd_scan_bwd.cu").read_text()
+    assert '#include "flash_tc.cuh"' in src
+    for name, mmas in (
+            ("ssd_bwd_states_tc", ("tc::mma_ss_mn<64>",)),
+            ("ssd_bwd_dbx_tc", ("tc::mma_ss<64>", "tc::mma_rs<64>",
+                                "tc::mma_rs<N>")),
+            ("ssd_bwd_dc_tc", ("tc::mma_ss<64>", "tc::mma_rs<N>"))):
+        body = src.split(f"\n{name}(", 1)[1].split("\n}\n", 1)[0]
+        for mma in mmas:
+            assert mma in body, (name, mma)
+    assert "launch_tc<64>" in src and "launch_tc<128>" in src
+    assert not re.search(r"\batomic[A-Z]\w*\(|\bred\.", src)
+
+
+def test_ssd_bwd_wrapper_takes_k5s_instance_rule():
+    """K5b picks its instance by K5's rule (dtype and widths only) and
+    counts the tensor-core launches beside all of them."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan_bwd as kssdb
+    src = Path(kssdb.__file__).read_text()
+    assert "_ssd.instance(x, b)" in src
+    assert "check_tensor_core_rows" in src
+    kssdb.launches_tc = 3
+    ops.reset_launch_counts()
+    assert kssdb.launches_tc == 0 and kssdb.launches == 0
+
+
+def test_chip_smoke_flags_ssd_product_kernels_off_the_tensor_cores():
+    """The names chip_smoke's profiled rounds check: any CUDA-core
+    product kernel of K5 or K5b fails, the ``_tc`` ones and the kernels
+    without products (carries, finalize, sums) pass."""
+    import importlib.util
+    import sys
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke_names",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = cs
+    try:
+        spec.loader.exec_module(cs)
+        ok = {f"void (anonymous namespace)::{n}<128>(...)": 1.0
+              for n in cs.SSD_TC_KERNELS + cs.SSD_BWD_TC_KERNELS}
+        ok.update({"(anonymous namespace)::ssd_bwd_carry_tc(...)": 1.0,
+                   "(anonymous namespace)::ssd_bwd_finalize_tc(...)": 1.0,
+                   "void (anonymous namespace)::ssd_bwd_group_sum<"
+                   "__nv_bfloat16>(...)": 1.0,
+                   "(anonymous namespace)::ssd_bwd_dalog(...)": 1.0,
+                   "(anonymous namespace)::ssd_state_carry(...)": 1.0})
+        cs.check_tc_names(ok, "test", family=cs.SSD_PRODUCT_KERNELS)
+        for bad in ("ssd_bwd_chunk_cb<__nv_bfloat16>",
+                    "ssd_bwd_chunk_state<__nv_bfloat16, true>",
+                    "ssd_bwd_dxdt<__nv_bfloat16>",
+                    "ssd_bwd_dcb<__nv_bfloat16, false>",
+                    "ssd_chunk_scan<__nv_bfloat16>"):
+            with pytest.raises(AssertionError, match="off the tensor"):
+                cs.check_tc_names({**ok, bad: 1.0}, "test",
+                                  family=cs.SSD_PRODUCT_KERNELS)
+    finally:
+        sys.modules.pop(spec.name, None)

@@ -621,7 +621,8 @@ from repro_torch.kernels import ssd_scan_bwd as kssdb  # noqa: E402
 # gradient elementwise at atol = rtol. f32: SSD_TOL (1e-3; the kernel sums
 # in f32). bf16: 2e-2, compared in f32: the kernel computes in f32 from
 # the same values and rounds dx, db and dc to bf16 (2^-8 relative) at the
-# end.
+# end. bf16 at P 64 with N 64 or 128 runs the tensor-core instance,
+# whose computed operands enter their products as bf16 pairs hi + lo.
 K5B_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 K5B_SHAPES = [
     (2, 512, 64, 64, 1, 128, 256),    # the learner's 2 x 512, full width
@@ -630,7 +631,14 @@ K5B_SHAPES = [
     (1, 300, 4, 64, 1, 128, 256),     # ragged tail at chunk 256
     (2, 7, 2, 16, 1, 16, 32),         # shorter than a chunk
     (2, 256, 4, 32, 2, 16, 64),       # G = 2
+    (2, 512, 4, 64, 1, 64, 128),      # N 64, four chunks of 128
+    (1, 700, 8, 64, 2, 128, 256),     # G = 2, three chunks, ragged
 ]
+
+
+def _k5b_on_tensor_cores(x, b):
+    return x.dtype == torch.bfloat16 and x.shape[3] == 64 and \
+        b.shape[3] in (64, 128)
 
 
 def _ssd_bwd_inputs(B, S, H, P, G, N, dtype, seed, dstate):
@@ -650,11 +658,13 @@ def _ssd_bwd_inputs(B, S, H, P, G, N, dtype, seed, dstate):
 def test_ssd_scan_bwd_kernel_vs_plain(cuda, B, S, H, P, G, N, chunk, dtype,
                                       dstate):
     args, dy, ds = _ssd_bwd_inputs(B, S, H, P, G, N, dtype, 8, dstate)
-    before = kssdb.launches
+    before, before_tc = kssdb.launches, kssdb.launches_tc
     got = ops.ssd_scan_bwd(*args, dy, ds, chunk=chunk)
     again = ops.ssd_scan_bwd(*args, dy, ds, chunk=chunk)
     torch.cuda.synchronize()
     assert kssdb.launches == before + 2
+    assert kssdb.launches_tc == before_tc + 2 * _k5b_on_tensor_cores(
+        args[0], args[3])
     want = ref.ssd_scan_bwd_ref(*(t.double() for t in args), dy.double(),
                                 None if ds is None else ds.double(),
                                 chunk=chunk)
@@ -664,6 +674,44 @@ def test_ssd_scan_bwd_kernel_vs_plain(cuda, B, S, H, P, G, N, chunk, dtype,
         assert torch.equal(g, a)                   # no atomics
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g.double(), w, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,P,N,tc", [
+    (torch.bfloat16, 64, 128, True), (torch.bfloat16, 64, 64, True),
+    (torch.float32, 64, 128, False), (torch.bfloat16, 16, 16, False),
+    (torch.bfloat16, 64, 32, False)])
+def test_ssd_scan_bwd_instance_by_dtype_and_width(cuda, dtype, P, N, tc):
+    """bf16 at P 64 / N 64|128 takes K5b's tensor-core instance; f32 and
+    other widths the CUDA-core one, shown by the per-instance count; each
+    within K5B_TOL of the float64 plain version."""
+    args, dy, ds = _ssd_bwd_inputs(1, 130, 2, P, 1, N, dtype, 12, True)
+    before, before_tc = kssdb.launches, kssdb.launches_tc
+    got = ops.ssd_scan_bwd(*args, dy, ds, chunk=64)
+    torch.cuda.synchronize()
+    assert kssdb.launches == before + 1
+    assert kssdb.launches_tc == before_tc + int(tc)
+    want = ref.ssd_scan_bwd_ref(*(t.double() for t in args), dy.double(),
+                                ds.double(), chunk=64)
+    tol = K5B_TOL[dtype]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.double(), w, atol=tol, rtol=tol)
+
+
+def test_ssd_scan_bwd_tensor_core_instance_rejects_unaligned_rows(cuda):
+    """K5b's tensor-core instance copies 16-byte chunks: a contiguous bf16
+    x that starts 8 bytes into its storage raises before any launch (no
+    silent copy, no other instance)."""
+    args, dy, _ = _ssd_bwd_inputs(1, 64, 2, 64, 1, 128, torch.bfloat16, 13,
+                                  False)
+    x = args[0]
+    store = torch.zeros(x.numel() + 4, dtype=torch.bfloat16, device="cuda")
+    xv = store[4:].view(x.shape)
+    xv.copy_(x)
+    assert xv.is_contiguous() and xv.data_ptr() % 16 == 8
+    before, before_tc = kssdb.launches, kssdb.launches_tc
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.ssd_scan_bwd(xv, *args[1:], dy, chunk=64)
+    assert (kssdb.launches, kssdb.launches_tc) == (before, before_tc)
 
 
 def test_ssd_scan_bwd_kernel_reads_bf16_a_log(cuda):
