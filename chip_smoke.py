@@ -154,15 +154,36 @@ first failing phase (no phase catches an exception):
      equal to a bare engine's on the same weights; the training's and the
      endpoint's ``status.perf`` (``0 < pct_of_attainable <= 100``);
      launch -> COMPLETED and deploy -> READY seconds;
- 15. result  — ``{"kernels": [...]}`` on the line before the last (each
+ 15. moe     — the moe family at grok-1's full width (d 6144, 48 heads of
+     hd 128, 8 KV heads, 8 experts top-2, d_ff_expert 32,768; bf16,
+     random weights from a seed): a. one layer's ``moe_block`` against
+     ``moe_ref`` (the plain per-expert loop) at T = 512, 1,024 and a
+     forced-drop 1,024 (every row one vector plus noise), relative L2
+     within MOE_REL_L2, the dropped pairs equal (the forced input must
+     drop), the block's ms beside its bound; b. grok-1 cut to 4 of 64
+     layers behind ``InferenceEngine`` (the 8 requests of phase 4, 4
+     slots): every request done, K4 launched 4 times per prefill batch,
+     every launch on its tensor-core instance (hd 128, GQA 6), three
+     engines (cold, warm, profiled) give the same tokens; prefill ms by
+     batch, decode ms per step beside the bound of reading every
+     expert's weights, tokens/s, peak memory, the profiled busy share
+     and top kernels, the engine's ``status.perf`` (``0 <
+     pct_of_attainable <= 100``); c. at 2 layers in f32, prefill of 40
+     tokens against 39 and one decode step, the 40th token keeping its
+     pairs in every layer and the two prefills dropping the same tokens
+     (decode never drops); d. K4 against its plain version at every prefill shape of
+     the serve; e. the grok-1 smoke-width f32 learner step on the card
+     (K4, K4b) against the CPU;
+ 16. result  — ``{"kernels": [...]}`` on the line before the last (each
      kernel's launches summed over the main paths, with
      ``launches_by_path``) and ``{"ok": true, "device": {...}}`` as the
      last line.
 
-About ten minutes on an H100, the kernel builds included.
+About eleven minutes on an H100, the kernel builds included.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import io
@@ -296,6 +317,35 @@ SSM_PLATFORM_MANIFEST = dict(PLATFORM_MANIFEST, name="chip-smoke-ssm",
                              framework={"name": "repro-lm",
                                         "arch": SSM_ARCH})
 SSM_ENDPOINT_SERVING = dict(ENDPOINT_SERVING, max_seq=SSM_MAX_SEQ)
+# phase 15: the moe family. grok-1 (configs/grok_1_314b.py,
+# hf:xai-org/grok-1) at full width: one layer holds 4,919,980,032
+# parameters (9.84 GB in bf16), embed + head 1,610,612,736; 4 of its 64
+# layers make 21.29 B parameters, 42.6 GB of bf16 weights (6 would take
+# 62.3 GB of the card's 80, with little left for the cache, prefill and
+# the profiler)
+MOE_ARCH = "grok-1-314b"
+MOE_SERVE_LAYERS = 4
+# moe_block against moe_ref, one full-width layer in bf16: T = 512 (the
+# serve's (4, 128) batch), 1,024 ((2, 512)), and 1,024 rows of one vector
+# plus 1e-3 noise, so every pair picks the same two experts (capacity
+# 320: most of each expert's 1,024 pairs dropped)
+MOE_BLOCK_CASES = [((4, 128), "random"), ((2, 512), "random"),
+                   ((2, 512), "drop")]
+# relative L2 of moe_block against moe_ref in bf16: the same products,
+# each rounded to bf16 (2^-8), with f32 sums in other orders and tilings
+MOE_REL_L2 = 1e-2
+# prefill (40 tokens) against prefill (39) + decode at full width, 2
+# layers in f32 (45.8 GB of weights). Both prefills have capacity 16 per
+# expert, and a pair's rank in its expert follows token order, so the
+# first 39 tokens (whose inputs to every layer are the same in both,
+# attention being causal) keep and drop the same pairs in both; decode
+# never drops. The comparison therefore holds where the 40th token kept
+# its pairs in every layer of prefill(40): asserted, with the two
+# prefills' dropped tokens equal layer by layer. (With random weights at
+# full width, layer 1's router overfilled an expert for each of 8
+# prompts tried on an H100, so no drop-free prompt is at hand.)
+MOE_CHECK_LAYERS = 2
+MOE_STEP_SEQS = (64,)      # the smoke step: 2 x 64 tokens, capacity 80
 
 
 @dataclasses.dataclass(frozen=True)
@@ -2014,21 +2064,23 @@ def check_ssd_bwd(torch, ops, ref, kssdb, shape, dstate=False, seed=0):
             "flops": cost.flops, "bytes": cost.bytes}
 
 
-def ssm_step_card_vs_cpu(torch, ops):
-    """``LMPlugin.flat_loss_grad`` of mamba2-1.3b's smoke reduction (f32,
-    2 layers, chunk 32) on the card (K5, K5b) against the CPU (plain
-    versions) at each of SSM_STEP_SEQS positions: loss and flat gradient
-    errors, K5 and K5b launched once per layer each."""
+def lm_step_card_vs_cpu(torch, ops, arch, seqs):
+    """``LMPlugin.flat_loss_grad`` of ``arch``'s smoke reduction (f32, 2
+    layers; ssm: chunk 32) on the card (ssm: K5, K5b; otherwise K4, K4b)
+    against the CPU (plain versions) at each of ``seqs`` positions: loss
+    and flat gradient errors, the family's forward and backward kernel
+    launched once per layer each."""
     import numpy as np
     from repro_torch.configs.base import reduce_for_smoke
     from repro_torch.configs.registry import get_arch
     from repro_torch.runtime.learner import LMPlugin
-    cfg = reduce_for_smoke(get_arch(SSM_ARCH))
+    cfg = reduce_for_smoke(get_arch(arch))
+    fwd, bwd, _ = family_kernels(cfg)
     gpu = LMPlugin({}, cfg=cfg, device="cuda")
     cpu = LMPlugin({}, cfg=cfg, device="cpu")
     flat = cpu.flat_state(0)
     out = {}
-    for seq in SSM_STEP_SEQS:
+    for seq in seqs:
         toks = np.random.RandomState(seq).randint(
             0, cfg.vocab_size, size=(2, seq + 1)).astype("int32")
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
@@ -2038,16 +2090,16 @@ def ssm_step_card_vs_cpu(torch, ops):
         launches = ops.launch_counts()
         lc, gc = cpu.flat_loss_grad(flat, batch)
         want = dict.fromkeys(launches, 0)
-        want.update(ssd_scan=cfg.n_layers, ssd_scan_bwd=cfg.n_layers)
+        want.update({fwd: cfg.n_layers, bwd: cfg.n_layers})
         if launches != want:
-            raise AssertionError(f"ssm step launches {launches}, want "
+            raise AssertionError(f"{arch} step launches {launches}, want "
                                  f"{want}")
         loss_err = abs(lg.item() - lc.item())
         diff = (gg.cpu() - gc).abs()
         if loss_err > STEP_LOSS_TOL or diff.gt(
                 STEP_GRAD_TOL + STEP_GRAD_TOL * gc.abs()).any():
-            raise AssertionError(f"ssm step at S={seq}, card vs CPU: loss "
-                                 f"err {loss_err}, grad err "
+            raise AssertionError(f"{arch} step at S={seq}, card vs CPU: "
+                                 f"loss err {loss_err}, grad err "
                                  f"{diff.max().item()}")
         out[seq] = (loss_err, diff.max().item())
     return cfg, out
@@ -2368,6 +2420,231 @@ def print_service(svc, ptrain, card, cfg):
           f"{sorted({a['name'] for a in svc['alerts']})}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the moe family, grok-1 at full width
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def counting_drops(moe):
+    """Inside the block every moe dispatch (``moe._fill_buffers``, looked
+    up by ``moe_block`` at each call) appends the tokens of its dropped
+    pairs (a device tensor, one entry per pair) to the list it yields."""
+    seen = []
+    fill = moe._fill_buffers
+
+    def counted(x2d, expert_v, gate, token, ev, cap):
+        out = fill(x2d, expert_v, gate, token, ev, cap)
+        seen.append(token[out[3] == ev * cap])
+        return out
+    moe._fill_buffers = counted
+    try:
+        yield seen
+    finally:
+        moe._fill_buffers = fill
+
+
+def moe_block_bound_ms(cfg, T, cap):
+    """Least time for one ``moe_block`` on an H100: every expert's bf16
+    weights read once, x read and the output written once; the three
+    expert products over ``cap`` rows per expert at the bf16 peak."""
+    from repro_torch.analysis.roofline import HBM_BW, peak_flops
+    m = cfg.moe
+    weights = 3 * m.n_experts * cfg.d_model * m.d_ff_expert
+    nbytes = 2 * (weights + cfg.d_model * m.n_experts + 2 * T * cfg.d_model)
+    flops = 2 * cap * weights
+    t_bytes, t_ops = nbytes / HBM_BW, flops / peak_flops("bfloat16")
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_moe_block(torch, cfg, params, shape, kind, seed):
+    """``moe_block`` against ``moe_ref`` on one full-width layer in bf16:
+    relative L2 (limit MOE_REL_L2), the dropped pairs counted by both
+    (equal; the forced-drop input must drop), the block's and the plain
+    loop's ms beside the block's bound."""
+    from repro_torch.models import moe
+    B, S = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, S, cfg.d_model, generator=g, device="cuda")
+    if kind == "drop":
+        x = x[:1, :1] + 1e-3 * x
+    x = x.to(torch.bfloat16)
+    m = cfg.moe
+    cap = moe._capacity(B * S, m.top_k, m.n_experts, m.capacity_factor)
+    with torch.no_grad():
+        with counting_drops(moe) as seen:
+            got = moe.moe_block(x, params, cfg)
+        torch.cuda.synchronize()
+        want, dropped = moe.moe_ref(x, params, cfg)
+        ms = time_ms(torch, lambda: moe.moe_block(x, params, cfg), iters=10)
+        plain_ms = time_ms(torch, lambda: moe.moe_ref(x, params, cfg),
+                           iters=3, warmup=1)
+    if not torch.isfinite(got).all().item() or got.shape != x.shape:
+        raise AssertionError(f"moe_block at {shape} {kind}: shape "
+                             f"{tuple(got.shape)} or non-finite values")
+    rel = ((got.float() - want.float()).norm()
+           / want.float().norm()).item()
+    block_dropped = seen[0].numel()
+    if rel > MOE_REL_L2 or block_dropped != dropped or (
+            kind == "drop" and not dropped):
+        raise AssertionError(f"moe_block at {shape} {kind}: relative L2 "
+                             f"{rel} (limit {MOE_REL_L2}), dropped pairs "
+                             f"{block_dropped} (moe_ref {dropped})")
+    bound_ms, bound_by = moe_block_bound_ms(cfg, B * S, cap)
+    return {"shape": {"B": B, "S": S, "D": cfg.d_model,
+                      "E": m.n_experts, "k": m.top_k,
+                      "Fe": m.d_ff_expert, "dtype": "bfloat16"},
+            "input": kind, "capacity": cap, "pairs": B * S * m.top_k,
+            "dropped": dropped, "rel_l2": rel, "limit": MOE_REL_L2,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share_of_bound": bound_ms / ms}
+
+
+def wait_perf(eng, timeout=300):
+    """The engine's ``status.perf`` payload (what an endpoint's
+    ``status()["perf"]`` carries) once its count on the meta device is
+    ready."""
+    t_end = time.time() + timeout
+    while eng.perf.state not in ("ready", "error"):
+        if time.time() > t_end:
+            raise AssertionError(f"status.perf still {eng.perf.state}")
+        time.sleep(0.2)
+    return eng.perf.snapshot(eng.decode_rate())
+
+
+def serve_moe(torch, ops, ref, kfa, card):
+    """Phase 15: the moe family on the card. a. ``moe_block`` against
+    ``moe_ref`` on one grok-1 layer at full width; b. grok-1 at full width
+    cut to MOE_SERVE_LAYERS layers behind ``InferenceEngine`` (cold, warm,
+    profiled); c. prefill against decode at MOE_CHECK_LAYERS layers in
+    f32 with no pair dropped; d. K4 at every prefill shape of the serve;
+    e. the smoke-width learner step on the card against the CPU. Returns
+    (K4 results at the serve's prefill shapes, the cold serve's
+    launches)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_params
+    full = get_arch(MOE_ARCH)
+    m = full.moe
+    print(f"[moe] {card}: {memory_line(torch, 'before phase 15:')}")
+
+    # a. one layer at full width
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    layer = init_params(moe.moe_param_defs(full), gen, torch.bfloat16)
+    for i, (shape, kind) in enumerate(MOE_BLOCK_CASES):
+        res = check_moe_block(torch, full, layer, shape, kind, seed=i)
+        print(f"[moe] {card}: moe_block vs moe_ref {json.dumps(res)}")
+    del layer
+    torch.cuda.empty_cache()
+
+    # b. the serve: 4 of 64 layers at full width, bf16, random weights
+    cfg = dataclasses.replace(full, n_layers=MOE_SERVE_LAYERS)
+    expert_bytes = cfg.n_layers * 3 * m.n_experts * cfg.d_model \
+        * m.d_ff_expert * 2
+    from repro_torch.analysis.roofline import HBM_BW
+    runs = []
+    for label in ("cold", "warm", "profiled"):
+        tokens, eng, rec, launches, wall, prof = serve(
+            torch, cfg, ops, 0, card, profile=label == "profiled")
+        st = eng.stats()
+        n_batches = eng.prefill_batches
+        if launches[kfa.NAME] != cfg.n_layers * n_batches or \
+                kfa.launches_tc != launches[kfa.NAME]:
+            raise AssertionError(f"K4 launches {launches} ({kfa.launches_tc}"
+                                 f" on the tensor cores), want "
+                                 f"{cfg.n_layers} x {n_batches} prefill "
+                                 f"batches, all on the tensor cores")
+        if len(rec.prefills) != n_batches or n_batches < 2:
+            raise AssertionError(f"prefill batches {rec.prefills}: no "
+                                 f"mid-flight join")
+        if runs and tokens != runs[0]:
+            raise AssertionError("same seed, same requests, different "
+                                 "tokens")
+        n_tok = st["tokens_out_total"]
+        decode_ms = 1e3 * eng.decode_seconds / st["decode_steps"]
+        by_batch = ", ".join(f"{nb}x{pl} {1e3 * t:.2f}" for (nb, pl), t in
+                             zip(rec.prefills, rec.prefill_s))
+        print(f"[serve-moe] {card}: {label}: {MOE_ARCH} L={cfg.n_layers} "
+              f"of {full.n_layers}, d={cfg.d_model}, {m.n_experts} experts "
+              f"top-{m.top_k}, bf16, capacity 4, max_seq 1024: "
+              f"{st['completed_total']} requests, {n_tok} tokens in "
+              f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s; prefill ms by "
+              f"batch (n x plen): {by_batch}; mean "
+              f"{1e3 * eng.prefill_seconds / n_batches:.2f} ms per batch; "
+              f"decode {st['decode_steps']} steps: {decode_ms:.2f} ms per "
+              f"step (bound of the experts' weights alone "
+              f"{1e3 * expert_bytes / HBM_BW:.2f} ms: "
+              f"{expert_bytes / 1e9:.2f} GB at {HBM_BW / 1e12} TB/s); mean "
+              f"occupancy {st['mean_batch_occupancy']}; request latency p50 "
+              f"{st['p50_latency_s']} s, p99 {st['p99_latency_s']} s; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB; kernel launches {launches} ({kfa.launches_tc} K4 on "
+              f"the tensor cores)")
+        if label == "warm":
+            snap = wait_perf(eng)
+            check_perf(snap, "serve-moe")
+            print(f"[serve-moe] {card}: status.perf of the engine (one "
+                  f"decode step of 4 slots over max_seq 1024; bound "
+                  f"{1e3 * max(snap['memory_s'], snap['compute_s']):.2f} "
+                  f"ms):")
+            print(json.dumps(snap))
+        if prof is not None:
+            check_tc_names(print_profile(prof, wall, card), "serve-moe")
+        eng.release()
+        runs.append(tokens)
+        if label == "cold":
+            cold_launches, cold_prefills = launches, rec.prefills
+        del eng, prof
+        torch.cuda.empty_cache()
+    print(f"[serve-moe] {card}: {len(runs)} engines, same seed: identical "
+          f"tokens")
+
+    # c. prefill (kernel attention, capacity over the prompt) against
+    # prefill + decode (plain decode attention, one slot per expert)
+    cut = dataclasses.replace(full, n_layers=MOE_CHECK_LAYERS,
+                              dtype="float32")
+    L = cut.n_layers
+    with counting_drops(moe) as seen:
+        rel = prefill_vs_decode(torch, cut, list(range(1000, 1040)))
+    dropped = [sorted(t.tolist()) for t in seen]
+    print(f"[serve-moe] {card}: {MOE_ARCH} d={cut.d_model} L={L} float32: "
+          f"prefill(40) vs prefill(39) + decode logits, relative L2 "
+          f"{rel:.3e} (limit {PREFILL_DECODE_RTOL}); dropped pairs' tokens "
+          f"by layer: prefill(40) {dropped[:L]}, prefill(39) "
+          f"{dropped[L:2 * L]} (capacity 16), decode {dropped[2 * L:]} "
+          f"(capacity {moe.decode_capacity(1)})")
+    if len(dropped) != 3 * L or dropped[:L] != dropped[L:2 * L] or \
+            any(dropped[2 * L:]):
+        raise AssertionError(f"moe prefill vs decode: the last token lost "
+                             f"a pair, or the prefills' drops differ: "
+                             f"{dropped}")
+    if rel > PREFILL_DECODE_RTOL:
+        raise AssertionError(f"moe prefill vs decode logits differ by {rel}"
+                             f" > {PREFILL_DECODE_RTOL}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d. K4 at every prefill shape of the serve: hd 128, 48 heads, GQA 6
+    main_path = [check_attention(torch, ops, ref,
+                                 (n, plen, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.hd, "bfloat16", True), seed=i)
+                 for i, (n, plen) in enumerate(sorted(set(cold_prefills)))]
+    for res in main_path:
+        print(f"[kernel] {card}: K4 serve-moe path {json.dumps(res)}")
+
+    # e. the smoke-width learner step on the card against the CPU
+    mcfg_smoke, steps = lm_step_card_vs_cpu(torch, ops, MOE_ARCH,
+                                            MOE_STEP_SEQS)
+    for seq, (loss_err, grad_err) in steps.items():
+        print(f"[moe-step] {card}: {mcfg_smoke.arch_id} f32 L="
+              f"{mcfg_smoke.n_layers}, 2 x {seq} tokens, card (K4, K4b) vs "
+              f"CPU: loss err {loss_err:.3e} (limit {STEP_LOSS_TOL}), flat "
+              f"gradient max abs err {grad_err:.3e} (atol=rtol "
+              f"{STEP_GRAD_TOL})")
+    return main_path, cold_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2681,7 +2958,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 12. the ssm learner step on the card against the CPU
-    scfg_smoke, ssm_step = ssm_step_card_vs_cpu(torch, ops)
+    scfg_smoke, ssm_step = lm_step_card_vs_cpu(torch, ops, SSM_ARCH,
+                                               SSM_STEP_SEQS)
     for seq, (loss_err, grad_err) in ssm_step.items():
         print(f"[ssm-step] {card}: {scfg_smoke.arch_id} f32 L="
               f"{scfg_smoke.n_layers}, 2 x {seq} tokens, card (K5, K5b) vs "
@@ -2735,7 +3013,13 @@ def main() -> int:
           f"engine {bare_tok} tokens in {bare_wall:.3f} s = "
           f"{bare_tok / bare_wall:.1f} tokens/s)")
 
-    # 15. result
+    # 15. moe: grok-1 at full width, one layer against the plain loop,
+    # 4 of 64 layers served, prefill against decode, K4 at the serve's
+    # shapes and the smoke-width step
+    moe_main, moe_launches = serve_moe(torch, ops, ref, kfa, card)
+    torch.cuda.empty_cache()
+
+    # 16. result
     def entry(mod, launches, head, shapes):
         return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                 "replaces": mod.REPLACES, "launches": launches,
@@ -2756,10 +3040,11 @@ def main() -> int:
     ssm_paths = {"ssm-train": train["ssm-train"]["launches"],
                  "ssm-platform-train": sptrain["launches"]}
     k4_paths = by_path(kfa.NAME, {"serve": serve_launches, **dense_paths,
-                                  "platform-serve": psv["launches"]})
+                                  "platform-serve": psv["launches"],
+                                  "serve-moe": moe_launches})
+    k4_shapes = main_path + train_fwd + moe_main
     k4 = entry(kfa, sum(k4_paths.values()),
-               max(main_path + train_fwd, key=lambda r: r["bound_ms"]),
-               main_path + train_fwd)
+               max(k4_shapes, key=lambda r: r["bound_ms"]), k4_shapes)
     k4["launches_by_path"] = k4_paths
     k4b = entry(kfab, 0, bwd[-1], bwd)
     for e, names in ((k4, TC_KERNELS[:1]), (k4b, TC_KERNELS[1:])):

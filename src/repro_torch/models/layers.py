@@ -65,9 +65,21 @@ def init_params(defs, generator: torch.Generator,
                       defs)            # draws in flatten order
 
 
+# f32 elements drawn at a time by ``init_leaf``: 256 MiB, or one matrix
+# of the leaf's last two dims where that is larger
+INIT_DRAW_ELEMS = 1 << 26
+
+
 def init_leaf(d: ParamDef, generator: torch.Generator,
               dtype: torch.dtype):
-    """One leaf of ``init_params``, drawn from ``generator``."""
+    """One leaf of ``init_params``, drawn from ``generator``.
+
+    A normal leaf is drawn into a tensor of ``dtype`` a group of its
+    trailing matrices (``shape[-2:]``) at a time, each group in f32
+    scaled in place, so its transients stay at ``INIT_DRAW_ELEMS`` f32
+    values or one matrix (a grok-1 expert's (6144, 32768): 0.8 GB),
+    whatever the leaf's size. A leaf of at most that many values is one
+    draw, as ``randn(shape)``."""
     device = generator.device
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
@@ -78,9 +90,16 @@ def init_leaf(d: ParamDef, generator: torch.Generator,
                           device=device)
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
     std = d.scale / math.sqrt(max(1, fan_in))
-    a = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (a * std).to(dtype)
+    inner = d.shape[-2:]
+    out = torch.empty(d.shape, dtype=dtype, device=device)
+    rows = out.view(-1, *inner)
+    step = max(1, INIT_DRAW_ELEMS // max(1, math.prod(inner)))
+    for i in range(0, rows.shape[0], step):
+        n = min(step, rows.shape[0] - i)
+        a = torch.randn((n, *inner), generator=generator,
+                        dtype=torch.float32, device=device)
+        rows[i:i + n].copy_(a.mul_(std))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""Decoder-only LM, dense family (and the vlm family fed with tokens),
-and the attention-free ssm family (Mamba-2): param defs, the training
-loss (dense), prefill and decode. The counterpart of the dense and ssm
-paths of ``repro.models.transformer``.
+"""Decoder-only LM, dense and moe families (and the vlm family fed with
+tokens), and the attention-free ssm family (Mamba-2): param defs, the
+training loss, prefill and decode. The counterpart of the dense, moe and
+ssm paths of ``repro.models.transformer``.
 
 Differences from the JAX module, by design:
   * layers run in a Python loop over the stacked ``(L, ...)`` weights
@@ -23,8 +23,14 @@ Differences from the JAX module, by design:
     into chosen slots of a batched cache;
   * the ssm family runs the SSD scan through ``models.mamba.ssd_scan``
     (K5 on the card; under autograd ``SSDScan``, with the K5b backward)
-    where JAX calls the jnp ``ssd_scan_ref`` and differentiates it.
-The moe, hybrid and encdec families and vlm ``embeds`` inputs raise
+    where JAX calls the jnp ``ssd_scan_ref`` and differentiates it;
+  * the moe family's FFN is ``models.moe.moe_block`` on one card (the
+    reference's ``_moe_single``); a batched decode step gives each expert
+    ``moe.decode_capacity(B)`` slots, at least one per slot, so no slot's
+    token is dropped, as in the serving engine's per-slot
+    ``vmap(decode_one)``. The reference's batched ``lm_decode`` uses
+    ``_capacity(B, ...)`` and agrees whenever that drops nothing.
+The hybrid and encdec families and vlm ``embeds`` inputs raise
 ``UserError``: they are not ported yet.
 """
 from __future__ import annotations
@@ -36,17 +42,18 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.errors import UserError
 from repro_torch.models import mamba as mam
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.layers import (ParamDef, apply_rope, chunked_xent,
                                        embed_tokens, gated_mlp,
                                        last_token_logits, rms_norm)
 
-PORTED_FAMILIES = ("dense", "vlm", "ssm")
+PORTED_FAMILIES = ("dense", "vlm", "ssm", "moe")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES or cfg.is_moe:
+    if cfg.family not in PORTED_FAMILIES:
         raise UserError(
             f"{cfg.arch_id!r}: the {cfg.family} family is not yet ported "
             f"to repro_torch (ported: {', '.join(PORTED_FAMILIES)})")
@@ -111,8 +118,11 @@ def decoder_param_defs(cfg: ArchConfig) -> dict:
     else:
         blocks = {"ln1": norm_param_defs(cfg, (L,)),
                   "ln2": norm_param_defs(cfg, (L,)),
-                  "attn": attn_param_defs(cfg, (L,)),
-                  "mlp": mlp_param_defs(cfg, (L,))}
+                  "attn": attn_param_defs(cfg, (L,))}
+        if cfg.is_moe and cfg.moe.layout == "all":
+            blocks["moe"] = moe_mod.moe_param_defs(cfg, (L,))
+        else:
+            blocks["mlp"] = mlp_param_defs(cfg, (L,))
     return {
         "blocks": blocks,
         "final_norm": norm_param_defs(cfg),
@@ -193,7 +203,12 @@ def attn_decode(h, p, cfg: ArchConfig, pos, kc, vc):
     return _out_proj(out, p, cfg), kc, vc
 
 
-def ffn_apply(h, bp, cfg: ArchConfig):
+def ffn_apply(h, bp, cfg: ArchConfig, capacity: Optional[int] = None):
+    """The block's FFN: the moe block where the layer has one
+    (``capacity`` slots per expert, by default ``moe._capacity`` of the
+    tokens), else the SwiGLU MLP."""
+    if "moe" in bp:
+        return moe_mod.moe_block(h, bp["moe"], cfg, capacity)
     return gated_mlp(h, bp["mlp"]["wg"], bp["mlp"]["wu"], bp["mlp"]["wd"])
 
 
@@ -281,6 +296,7 @@ def lm_decode(params, cache, batch, cfg: ArchConfig):
     h = embed_tokens(_tokens(batch), params["embed"])
     pos = cache["pos"]
     blocks = params["blocks"]
+    capacity = moe_mod.decode_capacity(h.shape[0]) if cfg.is_moe else None
     for l in range(cfg.n_layers):
         bp = layer_params(blocks, l)
         x = norm_apply(h, bp["ln1"], cfg)
@@ -295,7 +311,7 @@ def lm_decode(params, cache, batch, cfg: ArchConfig):
                               cache["v"][l])
         h = h + a
         x = norm_apply(h, bp["ln2"], cfg)
-        h = h + ffn_apply(x, bp, cfg)
+        h = h + ffn_apply(x, bp, cfg, capacity)
     cache["pos"] = pos + 1
     h = norm_apply(h, params["final_norm"], cfg)
     return last_token_logits(h, params["head"]), cache
@@ -311,10 +327,11 @@ def _positions(batch, B: int, S: int, cfg: ArchConfig, dev):
 
 
 def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512):
-    """Next-token CE loss (``transformer.py:272-332``, dense and ssm
+    """Next-token CE loss (``transformer.py:272-332``, dense, moe and ssm
     families). batch: tokens (B, S), labels (B, S)[, positions]. Embed;
-    per layer, dense: norm -> attention (RoPE, flash kernels, GQA by
-    index) -> wo -> residual -> norm -> SwiGLU -> residual; ssm: norm ->
+    per layer, dense and moe: norm -> attention (RoPE, flash kernels, GQA
+    by index) -> wo -> residual -> norm -> SwiGLU (moe: ``moe_block``) ->
+    residual; ssm: norm ->
     ``mamba_block`` (the SSD scan through ``SSDScan``) -> residual; final
     norm; chunked CE with chunk ``min(xent_chunk, S)``. No remat of the
     layers (the learner's ``remat: none``)."""

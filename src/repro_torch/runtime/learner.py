@@ -59,7 +59,7 @@ from repro_torch.weights import flat_layout, flat_size
 log = logging.getLogger("repro_torch.learner")
 
 # the kernel libraries an LM step launches on CUDA, by family: K4 and
-# K4b (dense and vlm), K5 and K5b (ssm)
+# K4b (dense, moe and vlm), K5 and K5b (ssm)
 STEP_LIBRARIES = {"dense": (_kfa.NAME, _kfab.NAME),
                   "ssm": (_kssd.NAME, _kssdb.NAME)}
 
@@ -105,7 +105,7 @@ def _set_path(tree: Dict, path: str, value) -> None:
 class LMPlugin:
     """Decoder LM from the model zoo. With no ``cfg`` it trains
     ``reduce_for_smoke(get_arch(arch))``, as the reference does, so a
-    manifest means the same in both packages; ``cfg=`` runs any dense
+    manifest means the same in both packages; ``cfg=`` runs any ported
     config (the card trains full width this way). Opts as the
     reference's plugin: ``xent_chunk`` 64, no remat."""
 

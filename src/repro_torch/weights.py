@@ -9,6 +9,9 @@ depth first, each layer's weights stacked on a leading ``L`` dimension:
     blocks/attn/{bk,bq,bv,wk,wo,wq,wv}, blocks/ln1/w, blocks/ln2/w,
     blocks/mlp/{wd,wg,wu}, embed, final_norm/w, head
 
+for the moe family ``blocks/moe/{router,wd,wg,wu}`` in place of
+``blocks/mlp`` (router (L, D, E), wg/wu (L, E, D, Fe), wd (L, E, Fe, D)),
+
 and for the ssm family (upper case sorts first, as in JAX):
 
     blocks/ln1/w, blocks/mamba/{A_log, D_skip, conv_B, conv_C, conv_x,

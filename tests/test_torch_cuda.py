@@ -2,8 +2,9 @@
 attention and its backward, the PS update and the int8 wire, the SSD
 scan and its backward) against their plain PyTorch versions, the
 wrappers' checks, the serving engines and the dense and ssm learner
-steps on CUDA against the same on the CPU, and the platform and the
-service (``DLaaSCore``) training and serving on CUDA.
+steps on CUDA against the same on the CPU, the platform and the
+service (``DLaaSCore``) training and serving on CUDA, and the moe
+block and a moe engine on CUDA.
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is false (the kernel has no CPU mode). This file imports no JAX, so it
@@ -16,6 +17,7 @@ tests/test_kernels.py:34, for attention; each other kernel's beside its
 tests. TF32 is switched off so that the plain version's float32
 products are full float32.
 """
+import dataclasses
 import threading
 import time
 
@@ -979,3 +981,82 @@ def test_estimates_touch_no_device_memory(cuda):
     assert train == LMPlugin({}, device="cpu").program_cost(2, {})
     assert decode["flops_per_device"] > 0
     eng.release()
+
+
+# ---------------------------------------------------------------------------
+# The moe family: the block and the engine on the card
+# ---------------------------------------------------------------------------
+
+from repro_torch.configs.base import MoEConfig  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models.layers import init_params  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("top_k,kind", [(2, "random"), (2, "drop"),
+                                        (8, "random"), (8, "drop")])
+def test_moe_block_on_cuda_matches_ref_and_cpu(cuda, dtype, top_k, kind):
+    """``moe_block`` on the card (sort, scatter into the sentinel row,
+    gather combine; no host sync) against ``moe_ref`` on the card and
+    the block on the CPU: the same dropped pairs, 1e-5 in f32 and a
+    relative L2 of 2e-2 in bf16; two calls on the card equal bit for
+    bit (the combine sums each token's k contributions in order)."""
+    cfg = dataclasses.replace(
+        reduce_for_smoke(get_arch("kimi-k2-1t-a32b")), d_model=256,
+        moe=MoEConfig(n_experts=16, top_k=top_k, d_ff_expert=512))
+    gen = torch.Generator().manual_seed(top_k)
+    params = init_params(tmoe.moe_param_defs(cfg), gen, dtype)
+    x = torch.randn(2, 96, cfg.d_model, generator=gen)
+    if kind == "drop":
+        x = x[:1, :1] + 1e-3 * x
+    x = x.to(dtype)
+    gp = {k: v.cuda() for k, v in params.items()}
+    with torch.no_grad():
+        got = tmoe.moe_block(x.cuda(), gp, cfg)
+        again = tmoe.moe_block(x.cuda(), gp, cfg)
+        want, dropped = tmoe.moe_ref(x.cuda(), gp, cfg)
+        cpu = tmoe.moe_block(x, params, cfg)
+        _, cpu_dropped = tmoe.moe_ref(x, params, cfg)
+    assert torch.equal(got, again)
+    assert dropped == cpu_dropped and (dropped > 0 or kind == "random")
+    for other in (want.cpu(), cpu):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got.cpu(), other, atol=1e-5,
+                                       rtol=1e-5)
+        else:
+            g, o = got.cpu().float(), other.float()
+            assert ((g - o).norm() / o.norm()).item() < 2e-2
+
+
+def test_grok_engine_on_cuda_matches_cpu(cuda):
+    """One flat vector served by the grok-1 smoke model (moe family, f32)
+    on the card and on the CPU: the same greedy tokens, K4 launched once
+    per layer per prefill batch."""
+    cfg = reduce_for_smoke(get_arch("grok-1-314b"))
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (40, 40, 2, 33, 7)]
+    max_news = [3, 6, 4, 5, 7]
+    flat = rng.standard_normal(
+        InferenceEngine(cfg, device="cpu").flat_size).astype(np.float32)
+    flat *= 0.1
+
+    def serve(device):
+        eng = InferenceEngine(cfg, capacity=2, max_seq=64, device=device)
+        eng.start(flat)
+        reqs = [eng.submit(p, max_new=m) for p, m in zip(prompts, max_news)]
+        ops.reset_launch_counts()
+        t = threading.Thread(target=eng.run, daemon=True)
+        t.start()
+        for r in reqs:
+            assert r.wait(120) and r.status == "DONE"
+        launches = ops.launch_counts()[kfa.NAME]
+        eng.drain()
+        t.join(20)
+        assert not t.is_alive()
+        return [r.tokens for r in reqs], launches, eng.prefill_batches
+
+    gpu_tokens, launches, batches = serve("cuda")
+    cpu_tokens, cpu_launches, _ = serve("cpu")
+    assert gpu_tokens == cpu_tokens
+    assert launches == cfg.n_layers * batches and cpu_launches == 0

@@ -546,3 +546,16 @@ def test_chip_smoke_bounds_are_kernel_costs(name, shape, want):
     assert got == pytest.approx(want, rel=5e-4)
     assert by in ("bytes", "operations")
     sys.modules.pop("chip_smoke_bounds", None)
+
+
+@pytest.mark.parametrize("T,cap,want,by", [
+    (512, 160, 2.8884649647761194, "bytes"),
+    (1024, 320, 3.12677093338726, "operations")])
+def test_chip_smoke_moe_block_bound(T, cap, want, by):
+    """The bound ``chip_smoke.py`` prints beside one grok-1 layer's
+    ``moe_block`` (PERF.md): every expert's bf16 weights read once, or
+    the three expert products at the capacity at the bf16 peak."""
+    cs = _chip_smoke()
+    got, got_by = cs.moe_block_bound_ms(get_arch("grok-1-314b"), T, cap)
+    assert got == pytest.approx(want, rel=1e-9) and got_by == by
+    sys.modules.pop("chip_smoke_bounds", None)

@@ -97,9 +97,13 @@ def test_midflight_join_token_identical(cfg, engine):
                                                  engine.params, p, m)
 
 
-def test_midflight_join_matches_jax_engine(cfg):
+@pytest.mark.parametrize("arch", [ARCH, "grok-1-314b"])
+def test_midflight_join_matches_jax_engine(arch):
     """The port's engine and the JAX engine, started from the same flat
-    vector, give the same greedy tokens for the mid-flight-join case."""
+    vector, give the same greedy tokens for the mid-flight-join case
+    (grok-1: the moe family, prefill capacity over each batch, per-slot
+    decode capacity)."""
+    cfg = reduce_for_smoke(get_arch(arch))
     ref = _engine(cfg, capacity=2, endpoint_id="ep-flat")
     ref.start(None)
     flat = flat_from_params(ref.params)
@@ -112,7 +116,7 @@ def test_midflight_join_matches_jax_engine(cfg):
                 for p, m in zip(prompts, MIDFLIGHT_MAX_NEW)]
         return [r.tokens for r in _serve(eng, reqs)]
 
-    jax_eng = JaxEngine(jax_reduce(jax_get_arch(ARCH)), capacity=2,
+    jax_eng = JaxEngine(jax_reduce(jax_get_arch(arch)), capacity=2,
                         max_seq=MAX_SEQ, endpoint_id="ep-jax")
     port = serve(_engine(cfg, capacity=2, endpoint_id="ep-port"))
     assert port == serve(jax_eng)
