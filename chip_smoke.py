@@ -16,7 +16,8 @@ first failing phase (no phase catches an exception):
      ``ssd_bwd_dbx_tc`` and ``ssd_bwd_dc_tc`` included) must hold some;
   3. kernel  — the flash-attention kernel against its plain PyTorch
      version at three shapes (StableLM-1.6B prefill in bf16, GQA and
-     ragged in f32), with times of kernel, plain version and
+     ragged in f32; here and at every later K4 shape two calls give
+     equal bits), with times of kernel, plain version and
      ``scaled_dot_product_attention`` (a yardstick the port never calls)
      beside the least time the card could take;
   4. serve   — full-width StableLM-1.6B (bf16, random weights from a seed)
@@ -174,12 +175,34 @@ first failing phase (no phase catches an exception):
      (decode never drops); d. K4 against its plain version at every prefill shape of
      the serve; e. the grok-1 smoke-width f32 learner step on the card
      (K4, K4b) against the CPU;
- 16. result  — ``{"kernels": [...]}`` on the line before the last (each
+ 16. hybrid  — the hybrid family at Jamba-1.5-Large's full width (d 8192,
+     64 heads of hd 128, 8 KV heads, 16 experts top-2, d_ff and
+     d_ff_expert 24,576, mamba d_inner 16,384 in 256 heads of P 64, N
+     128, chunk 256; bf16, random weights from a seed), cut to one period
+     of 4 layers (attention + MLP, mamba + MoE, mamba + MLP, mamba + MoE):
+     a. behind ``InferenceEngine`` (8 requests of 2,048 to 7 tokens, 4
+     slots, max_seq 2080): every request done, per prefill batch K4 once
+     and K5 three times, every launch on its tensor-core instance, three
+     engines (cold, warm, profiled) give the same tokens; prefill ms by
+     batch, decode ms per step beside the bound of reading every weight a
+     step reads (all 16 experts' included), tokens/s, peak memory, the
+     profiled busy share and top kernels, the engine's ``status.perf``
+     (``0 < pct_of_attainable <= 100``); b. at 2 layers (attention + MLP,
+     mamba + MoE) in f32, prefill of 301 tokens against 300 and one
+     decode step, on the first of HYBRID_CHECK_PROMPTS prompts whose
+     301st token keeps its pairs in the MoE layer, the two prefills
+     dropping the same tokens (decode never drops); c. K4 and K5 against
+     their plain versions at every prefill shape of the serve (two calls
+     give equal bits), with kernel, plain, bound and (K4) SDPA ms; d. the
+     jamba smoke-width f32 learner step (8 layers) on the card (K4, K4b,
+     K5, K5b) against the CPU;
+ 17. result  — ``{"kernels": [...]}`` on the line before the last (each
      kernel's launches summed over the main paths, with
      ``launches_by_path``) and ``{"ok": true, "device": {...}}`` as the
      last line.
 
-About eleven minutes on an H100, the kernel builds included.
+Ten to twelve minutes on an H100 80GB HBM3 at 700 W, the kernel builds
+included (``PERF.md`` gives the measured runs).
 """
 from __future__ import annotations
 
@@ -346,6 +369,33 @@ MOE_REL_L2 = 1e-2
 # prompts tried on an H100, so no drop-free prompt is at hand.)
 MOE_CHECK_LAYERS = 2
 MOE_STEP_SEQS = (64,)      # the smoke step: 2 x 64 tokens, capacity 80
+# phase 16: the hybrid family. Jamba-1.5-Large
+# (configs/jamba_1_5_large_398b.py, arXiv:2403.19887;
+# hf:ai21labs/AI21-Jamba-1.5-Large) at full width: one 8-layer period
+# holds 45.14 B parameters (90.3 GB in bf16), more than the card's 80 GB,
+# so the serve runs one period of 4 layers (attn_period 8 -> 4, n_layers
+# 72 -> 4), the first four layers of every Jamba period: 22.98 B
+# parameters, 45.96 GB of bf16 weights (attention : mamba 1:3, not 1:7)
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_CUT = dict(attn_period=4, n_layers=4)
+# prompts of 2,048 (K5 over eight chunks, K4 at its largest causal
+# shape), 512, 300 (a ragged chunk tail), 128, 33 and 7 tokens
+HYBRID_REQUESTS = [(2048, 16), (2048, 32), (512, 24), (512, 16),
+                   (300, 32), (128, 20), (33, 24), (7, 32)]
+HYBRID_MAX_SEQ = 2080
+# prefill (301 tokens) against prefill (300) + decode at 2 layers in f32
+# (attention + MLP, mamba + MoE: 11.9 B parameters, 47.6 GB). Both
+# prefills have capacity 48 per expert and a pair's rank in its expert
+# follows token order, so the first 300 tokens (whose inputs to the MoE
+# layer are the same in both: attention and the scan are causal) keep
+# and drop the same pairs in both; decode never drops. The comparison
+# holds where the 301st token kept its pairs: the first of up to
+# HYBRID_CHECK_PROMPTS prompts (drawn from seeds 0, 1, ...) that keeps
+# them is compared, and the drops of every prompt tried are printed
+HYBRID_CHECK_CUT = dict(attn_period=2, n_layers=2)
+HYBRID_CHECK_N = 300
+HYBRID_CHECK_PROMPTS = 8
+HYBRID_STEP_SEQS = (64, 50)  # the smoke step: two chunks of 32; ragged
 
 
 @dataclasses.dataclass(frozen=True)
@@ -377,6 +427,23 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def phase_setup(script: str):
+    """The start of a script that runs phases of this file alone: exit
+    2 without a card; else TF32 off, the card's name and power limit
+    printed, every kernel built. Returns (torch, the card's line)."""
+    import torch
+    if not torch.cuda.is_available():
+        print(f"{script}: needs a CUDA card", file=sys.stderr)
+        raise SystemExit(2)
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card)
+    build.build_all()
+    return torch, card
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -498,7 +565,7 @@ def bound(name, **shape):
 
 def family_kernels(cfg):
     """(forward, backward) kernel of ``cfg``'s learner step, and the
-    prefix of their device kernels' names."""
+    prefix of their device kernels' names (dense and ssm families)."""
     if cfg.family == "ssm":
         return "ssd_scan", "ssd_scan_bwd", "ssd_"
     return "flash_attention", "flash_attention_bwd", "flash_"
@@ -540,7 +607,8 @@ def attention_bound_ms(B, Sq, Sk, H, KV, hd, dtype, causal, q_offset=0):
 
 
 def check_attention(torch, ops, ref, shape, seed=0):
-    """Kernel vs plain version (and SDPA as yardstick) at one shape."""
+    """Kernel vs plain version (and SDPA as yardstick) at one shape; two
+    calls on one input give equal bits."""
     import torch.nn.functional as F
     B, S, H, KV, hd, dtype, causal = shape
     dt = getattr(torch, dtype)
@@ -549,7 +617,11 @@ def check_attention(torch, ops, ref, shape, seed=0):
     k = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(dt)
     v = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(dt)
     got = ops.flash_attention(q, k, v, causal=causal)
+    again = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"flash kernel: two calls on one input differ "
+                             f"in their bits at {shape}")
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     err = (got.float() - want.float()).abs()
     max_err = err.max().item()
@@ -577,7 +649,7 @@ def check_attention(torch, ops, ref, shape, seed=0):
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "share_of_bound": bound_ms / kernel_ms,
-            "x_library": kernel_ms / library_ms}
+            "x_library": kernel_ms / library_ms, "deterministic": True}
 
 
 class SpanRecorder:
@@ -2064,18 +2136,30 @@ def check_ssd_bwd(torch, ops, ref, kssdb, shape, dstate=False, seed=0):
             "flops": cost.flops, "bytes": cost.bytes}
 
 
+def layer_launches(cfg):
+    """{kernel: launches} of one learner step of ``cfg``: K4 and K4b
+    once per attention layer, K5 and K5b once per mamba layer."""
+    if cfg.family == "hybrid":
+        n_attn = cfg.n_layers // cfg.attn_period
+        return {"flash_attention": n_attn, "flash_attention_bwd": n_attn,
+                "ssd_scan": cfg.n_layers - n_attn,
+                "ssd_scan_bwd": cfg.n_layers - n_attn}
+    fwd, bwd, _ = family_kernels(cfg)
+    return {fwd: cfg.n_layers, bwd: cfg.n_layers}
+
+
 def lm_step_card_vs_cpu(torch, ops, arch, seqs):
     """``LMPlugin.flat_loss_grad`` of ``arch``'s smoke reduction (f32, 2
-    layers; ssm: chunk 32) on the card (ssm: K5, K5b; otherwise K4, K4b)
-    against the CPU (plain versions) at each of ``seqs`` positions: loss
-    and flat gradient errors, the family's forward and backward kernel
-    launched once per layer each."""
+    layers, the hybrid's one period of 8; ssm and hybrid: chunk 32) on
+    the card (ssm: K5, K5b; hybrid: all four; otherwise K4, K4b) against
+    the CPU (plain versions) at each of ``seqs`` positions: loss and
+    flat gradient errors, each kernel launched once per layer it
+    serves."""
     import numpy as np
     from repro_torch.configs.base import reduce_for_smoke
     from repro_torch.configs.registry import get_arch
     from repro_torch.runtime.learner import LMPlugin
     cfg = reduce_for_smoke(get_arch(arch))
-    fwd, bwd, _ = family_kernels(cfg)
     gpu = LMPlugin({}, cfg=cfg, device="cuda")
     cpu = LMPlugin({}, cfg=cfg, device="cpu")
     flat = cpu.flat_state(0)
@@ -2090,7 +2174,7 @@ def lm_step_card_vs_cpu(torch, ops, arch, seqs):
         launches = ops.launch_counts()
         lc, gc = cpu.flat_loss_grad(flat, batch)
         want = dict.fromkeys(launches, 0)
-        want.update({fwd: cfg.n_layers, bwd: cfg.n_layers})
+        want.update(layer_launches(cfg))
         if launches != want:
             raise AssertionError(f"{arch} step launches {launches}, want "
                                  f"{want}")
@@ -2645,6 +2729,222 @@ def serve_moe(torch, ops, ref, kfa, card):
     return main_path, cold_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the hybrid family, Jamba-1.5-Large at full width
+# ---------------------------------------------------------------------------
+
+
+def hybrid_prefill_vs_decode(torch, cfg, n, prompts, seed=0):
+    """The hybrid at ``cfg`` (random weights from ``seed``): for each of
+    ``prompts`` (n + 1 tokens) in turn, the MoE drops of prefill(n + 1),
+    prefill(n) and one decode step, until the (n + 1)-th token keeps its
+    pairs in every MoE layer of prefill(n + 1); for that prompt, the
+    relative L2 of the last-position logits of prefill(n + 1) (K4 and K5)
+    against prefill(n) + decode (plain decode attention and recurrence).
+    Returns (index of the prompt compared or None, its relative L2 or
+    None, [per prompt tried: drops by call, each a sorted token list per
+    MoE layer])."""
+    from repro_torch.models import make_model
+    from repro_torch.models import moe
+    model = make_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    n_moe = cfg.n_layers // 2
+    tried = []
+    for i, prompt in enumerate(prompts):
+        toks = torch.tensor(prompt, device="cuda", dtype=torch.int64)[None]
+        with torch.no_grad(), counting_drops(moe) as seen:
+            full, _ = model.prefill(params, {"tokens": toks})
+            cache = model.empty_cache(1, n + 1, "cuda")
+            model.prefill(params, {"tokens": toks[:, :-1]}, cache=cache,
+                          slots=torch.tensor([0], device="cuda"))
+            step, _ = model.decode(params, cache, {"tokens": toks[:, -1:]})
+        drops = [sorted(t.tolist()) for t in seen]
+        if len(drops) != 3 * n_moe:
+            raise AssertionError(f"{len(drops)} moe dispatches, want "
+                                 f"{3 * n_moe}")
+        by_call = [drops[j * n_moe:(j + 1) * n_moe] for j in range(3)]
+        tried.append(by_call)
+        if any(n in layer for layer in by_call[0]):
+            continue                      # the last token lost a pair
+        if by_call[0] != by_call[1] or any(by_call[2]):
+            raise AssertionError(f"hybrid prefill vs decode: the prefills' "
+                                 f"drops differ, or decode dropped: "
+                                 f"{by_call}")
+        a, b = full[0, -1].float(), step[0, -1].float()
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError("non-finite logits")
+        if a.shape != (cfg.vocab_size,):
+            raise AssertionError(f"logits shape {tuple(a.shape)}")
+        return i, ((a - b).norm() / b.norm()).item(), tried
+    return None, None, tried
+
+
+def serve_hybrid(torch, ops, ref, kfa, kssd, card):
+    """Phase 16: the hybrid family on the card. a. Jamba-1.5-Large at full
+    width cut to HYBRID_CUT behind ``InferenceEngine`` (cold, warm,
+    profiled); b. prefill against decode at HYBRID_CHECK_CUT in f32; c.
+    K4 and K5 at every prefill shape of the serve; d. the smoke-width
+    learner step on the card against the CPU. Returns (K4 results at the
+    serve's prefill shapes, K5 results at them, the cold serve's
+    launches)."""
+    import numpy as np
+    from repro_torch.analysis.roofline import HBM_BW
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import moe
+    from repro_torch.weights import flat_size
+    full = get_arch(HYBRID_ARCH)
+    m, s = full.moe, full.ssm
+    print(f"[hybrid] {card}: {memory_line(torch, 'before phase 16:')}")
+
+    # a. the serve: one period of 4 layers at full width, bf16
+    cfg = dataclasses.replace(full, **HYBRID_CUT)
+    n_attn = cfg.n_layers // cfg.attn_period
+    n_mamba = cfg.n_layers - n_attn
+    params = flat_size(cfg)
+    # a decode step reads every weight but the embedding's (one row per
+    # slot): the reference's capacity buffers run all 16 experts
+    step_bytes = 2 * (params - cfg.vocab_size * cfg.d_model)
+    step_bound_ms = 1e3 * step_bytes / HBM_BW
+    runs = []
+    for label in ("cold", "warm", "profiled"):
+        tokens, eng, rec, launches, wall, prof = serve(
+            torch, cfg, ops, 0, card, profile=label == "profiled",
+            requests=HYBRID_REQUESTS, max_seq=HYBRID_MAX_SEQ)
+        st = eng.stats()
+        n_batches = eng.prefill_batches
+        want = {kfa.NAME: n_attn * n_batches, kssd.NAME: n_mamba * n_batches}
+        got = {k: launches[k] for k in want}
+        tc = {kfa.NAME: kfa.launches_tc, kssd.NAME: kssd.launches_tc}
+        if got != want or tc != want:
+            raise AssertionError(f"hybrid serve launches {launches}, on the "
+                                 f"tensor cores {tc}; want {want} "
+                                 f"({n_batches} prefill batches), all on "
+                                 f"the tensor cores")
+        if len(rec.prefills) != n_batches or n_batches < 2:
+            raise AssertionError(f"prefill batches {rec.prefills}: no "
+                                 f"mid-flight join")
+        if runs and tokens != runs[0]:
+            raise AssertionError("same seed, same requests, different "
+                                 "tokens")
+        n_tok = st["tokens_out_total"]
+        decode_ms = 1e3 * eng.decode_seconds / st["decode_steps"]
+        by_batch = ", ".join(f"{nb}x{pl} {1e3 * t:.2f}" for (nb, pl), t in
+                             zip(rec.prefills, rec.prefill_s))
+        print(f"[serve-hybrid] {card}: {label}: {HYBRID_ARCH} "
+              f"attn_period {cfg.attn_period} L={cfg.n_layers} of "
+              f"{full.n_layers} ({n_attn} attention, {n_mamba} mamba), "
+              f"d={cfg.d_model}, {m.n_experts} experts top-{m.top_k}, "
+              f"{params} parameters, bf16, capacity 4, max_seq "
+              f"{HYBRID_MAX_SEQ}: {st['completed_total']} requests, {n_tok} "
+              f"tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; "
+              f"prefill ms by batch (n x plen): {by_batch}; mean "
+              f"{1e3 * eng.prefill_seconds / n_batches:.2f} ms per batch; "
+              f"decode {st['decode_steps']} steps: {decode_ms:.2f} ms per "
+              f"step (bound of the weights a step reads "
+              f"{step_bound_ms:.2f} ms: {step_bytes / 1e9:.2f} GB at "
+              f"{HBM_BW / 1e12} TB/s; {step_bound_ms / decode_ms:.3f} of "
+              f"it); mean occupancy {st['mean_batch_occupancy']}; request "
+              f"latency p50 {st['p50_latency_s']} s, p99 "
+              f"{st['p99_latency_s']} s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel "
+              f"launches {launches} (on the tensor cores {tc})")
+        if label == "warm":
+            snap = wait_perf(eng)
+            check_perf(snap, "serve-hybrid")
+            print(f"[serve-hybrid] {card}: status.perf of the engine (one "
+                  f"decode step of 4 slots over max_seq {HYBRID_MAX_SEQ}; "
+                  f"bound "
+                  f"{1e3 * max(snap['memory_s'], snap['compute_s']):.2f} "
+                  f"ms):")
+            print(json.dumps(snap))
+        if prof is not None:
+            kernels = print_profile(prof, wall, card,
+                                    ours=("flash_fwd", "ssd_"))
+            check_tc_names(kernels, "serve-hybrid")
+            check_tc_names(kernels, "serve-hybrid", family="ssd_chunk")
+            if kernels:
+                busy = sum(kernels.values())
+                k4 = sum(us for n, us in kernels.items() if "flash_" in n)
+                k5 = sum(us for n, us in kernels.items() if "ssd_" in n)
+                print(f"[serve-hybrid] {card}: profiled: device busy "
+                      f"{busy / 1e6 / wall:.3f} of the wall; K4 "
+                      f"{k4 / 1e3:.3f} ms = {k4 / busy:.3f} of busy; K5 "
+                      f"{k5 / 1e3:.3f} ms = {k5 / busy:.3f} of busy")
+        eng.release()
+        runs.append(tokens)
+        if label == "cold":
+            cold_launches, cold_prefills = launches, rec.prefills
+        del eng, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[serve-hybrid] {card}: {len(runs)} engines, same seed: "
+          f"identical tokens; {memory_line(torch, 'after the serve:')}")
+
+    # b. prefill (K4, K5; capacity over the prompt) against prefill +
+    # decode (plain decode attention and recurrence, one slot per expert)
+    cut = dataclasses.replace(full, dtype="float32", **HYBRID_CHECK_CUT)
+    n = HYBRID_CHECK_N
+    prompts = [np.random.RandomState(i).randint(
+        0, cut.vocab_size, size=n + 1).tolist()
+        for i in range(HYBRID_CHECK_PROMPTS)]
+    cap = [moe._capacity(t, m.top_k, m.n_experts, m.capacity_factor)
+           for t in (n + 1, n)]
+    i, rel, tried = hybrid_prefill_vs_decode(torch, cut, n, prompts)
+    for j, by_call in enumerate(tried):
+        print(f"[serve-hybrid] {card}: prefill vs decode, prompt {j} "
+              f"(seed {j}): dropped pairs' tokens by MoE layer: "
+              f"prefill({n + 1}) {by_call[0]} (capacity {cap[0]}), "
+              f"prefill({n}) {by_call[1]} (capacity {cap[1]}), decode "
+              f"{by_call[2]} (capacity {moe.decode_capacity(1)}); token "
+              f"{n} keeps its pairs: "
+              f"{not any(n in layer for layer in by_call[0])}")
+    if i is None:
+        raise AssertionError(f"hybrid prefill vs decode: in each of "
+                             f"{len(prompts)} prompts the last token lost a "
+                             f"pair")
+    print(f"[serve-hybrid] {card}: {HYBRID_ARCH} d={cut.d_model} "
+          f"attn_period {cut.attn_period} L={cut.n_layers} float32: "
+          f"prefill({n + 1}) vs prefill({n}) + decode logits on prompt {i}, "
+          f"relative L2 {rel:.3e} (limit {PREFILL_DECODE_RTOL})")
+    if rel > PREFILL_DECODE_RTOL:
+        raise AssertionError(f"hybrid prefill vs decode logits differ by "
+                             f"{rel} > {PREFILL_DECODE_RTOL}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. K4 (hd 128, 64 heads, GQA 8) and K5 (256 heads) at every prefill
+    # shape of the serve
+    shapes = sorted(set(cold_prefills))
+    k4_main = [check_attention(torch, ops, ref,
+                               (nb, plen, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.hd, "bfloat16", True), seed=j)
+               for j, (nb, plen) in enumerate(shapes)]
+    for res in k4_main:
+        print(f"[kernel] {card}: K4 serve-hybrid path {json.dumps(res)}")
+    heads = s.expand * cfg.d_model // s.head_dim
+    k5_main = [check_ssd(torch, ops, ref, kssd,
+                         (nb, plen, heads, s.head_dim, s.n_groups,
+                          s.d_state, s.chunk_size, "bfloat16"), seed=j)
+               for j, (nb, plen) in enumerate(shapes)]
+    for res in k5_main:
+        print(f"[kernel] {card}: K5 serve-hybrid path {json.dumps(res)}")
+    off = [r["shape"] for r in k5_main if r["instance"] != "tensor cores"]
+    if off:
+        raise AssertionError(f"K5 off the tensor cores at {off}")
+    torch.cuda.empty_cache()
+
+    # d. the smoke-width learner step on the card against the CPU
+    hcfg_smoke, steps = lm_step_card_vs_cpu(torch, ops, HYBRID_ARCH,
+                                            HYBRID_STEP_SEQS)
+    for seq, (loss_err, grad_err) in steps.items():
+        print(f"[hybrid-step] {card}: {hcfg_smoke.arch_id} f32 L="
+              f"{hcfg_smoke.n_layers}, 2 x {seq} tokens, card (K4, K4b, "
+              f"K5, K5b) vs CPU: loss err {loss_err:.3e} (limit "
+              f"{STEP_LOSS_TOL}), flat gradient max abs err "
+              f"{grad_err:.3e} (atol=rtol {STEP_GRAD_TOL})")
+    return k4_main, k5_main, cold_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2759,7 +3059,6 @@ def main() -> int:
     # width and depth through the engine, prefill against decode
     ssd_main, ssd_others, ssm_launches = serve_ssm(torch, ops, ref, kssd,
                                                    card)
-    ssd_head = max(ssd_main, key=lambda r: r["bound_ms"])
     torch.cuda.empty_cache()
 
     # 6. the training slice's kernels against their plain versions
@@ -3019,7 +3318,14 @@ def main() -> int:
     moe_main, moe_launches = serve_moe(torch, ops, ref, kfa, card)
     torch.cuda.empty_cache()
 
-    # 16. result
+    # 16. hybrid: Jamba-1.5-Large at full width, one period of 4 layers
+    # served, prefill against decode, K4 and K5 at the serve's shapes and
+    # the smoke-width step
+    hy_k4, hy_k5, hybrid_launches = serve_hybrid(torch, ops, ref, kfa,
+                                                 kssd, card)
+    torch.cuda.empty_cache()
+
+    # 17. result
     def entry(mod, launches, head, shapes):
         return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                 "replaces": mod.REPLACES, "launches": launches,
@@ -3041,8 +3347,9 @@ def main() -> int:
                  "ssm-platform-train": sptrain["launches"]}
     k4_paths = by_path(kfa.NAME, {"serve": serve_launches, **dense_paths,
                                   "platform-serve": psv["launches"],
-                                  "serve-moe": moe_launches})
-    k4_shapes = main_path + train_fwd + moe_main
+                                  "serve-moe": moe_launches,
+                                  "serve-hybrid": hybrid_launches})
+    k4_shapes = main_path + train_fwd + moe_main + hy_k4
     k4 = entry(kfa, sum(k4_paths.values()),
                max(k4_shapes, key=lambda r: r["bound_ms"]), k4_shapes)
     k4["launches_by_path"] = k4_paths
@@ -3061,9 +3368,11 @@ def main() -> int:
         e["launches_by_path"] = by_path(e["name"], paths)
         e["launches"] = sum(e["launches_by_path"].values())
     k5_paths = by_path(kssd.NAME, {"serve-ssm": ssm_launches, **ssm_paths,
-                                   "ssm-platform-serve": spsv["launches"]})
+                                   "ssm-platform-serve": spsv["launches"],
+                                   "serve-hybrid": hybrid_launches})
+    ssd_head = max(ssd_main + hy_k5, key=lambda r: r["bound_ms"])
     k5 = entry(kssd, sum(k5_paths.values()), ssd_head,
-               ssd_main + ssd_others)
+               ssd_main + hy_k5 + ssd_others)
     k5["launches_by_path"] = k5_paths
     k5["share_of_bound"] = k5["bound_ms"] / k5["ms"]
     k5["sass_hgmma"] = {n: c for n, c in hgmma.items()

@@ -29,7 +29,8 @@ import json
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as smoke  # noqa: E402
 
 
 def main() -> int:
@@ -38,21 +39,11 @@ def main() -> int:
     ap.add_argument("--skip-phase", action="store_true")
     ap.add_argument("--plain-attention", action="store_true")
     args = ap.parse_args()
-    import torch
-    if not torch.cuda.is_available():
-        print("moe_phase: needs a CUDA card", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as smoke
+    torch, card = smoke.phase_setup("moe_phase")
     from repro_torch.configs.registry import get_arch
-    from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
     from repro_torch.models import moe
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = smoke.card_line()
-    print(card)
-    build.build_all()
     if not args.skip_phase:
         smoke.serve_moe(torch, ops, ref, kfa, card)
         torch.cuda.empty_cache()

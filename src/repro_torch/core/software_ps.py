@@ -34,6 +34,12 @@ buffer that its push writes outside any lock. What differs, by design:
     is shorter than the padded layout, staging) buffers on the device
     and quantizes through K2; on a timeout it puts the signal back with
     K3 and an add.
+  * ``start()`` is a start barrier the reference lacks: the learner
+    body calls it before its first pull, so under the ``bsp`` trigger
+    round 0 counts every learner of the job and not only those that
+    have joined so far. A slot that never starts (a group placed with
+    fewer learners than slots) holds the others back by at most
+    ``BSP_TIMEOUT_S``, the wait a BSP push gives a straggler.
   * ``release()`` frees all of that device state once a job has ended:
     the job's plan, learner body and scheduler apps keep referencing the
     server and its clients, and at full width it holds tens of GiB.
@@ -63,6 +69,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 
 log = logging.getLogger("repro_torch.ps")
+
+# seconds a BSP push waits for the round's other learners before it
+# withdraws its contribution, and the start barrier for the job's other
+# learners before the first pull goes on without them
+BSP_TIMEOUT_S = 30.0
 
 # PS-side solver name -> fused-kernel solver name (kernels/ref.py /
 # kernels/ps_aggregate.py). 'easgd' pushes carry beta * (x_i - center)
@@ -152,6 +163,8 @@ class SoftwareParameterServer:
         self._recv = torch.zeros((n_learners, lay.padded), **f32)
 
         self._members: set = set()
+        # slots that have passed the start barrier (``start``) once
+        self._started: set = set()
         self._lock = threading.Lock()
         self._bsp_cond = threading.Condition()
         self._bsp_round = 0
@@ -236,6 +249,27 @@ class SoftwareParameterServer:
         with self._bsp_cond:
             self._bsp_cond.notify_all()
 
+    def start(self, learner_id: int) -> bool:
+        """Start barrier of the ``bsp`` trigger: mark this learner's slot
+        started and wait until every slot of the server has started
+        once. A learner calls it after joining (and learner 0 after
+        republishing a checkpoint) and before its first pull. Without it
+        the BSP barrier counts only the members that have joined so far:
+        a learner that starts late lets the first pusher finish round 0
+        alone, then pulls those weights for its own step 0. Once every
+        slot has started, a restarted learner passes at once; so does
+        every learner under ``on_arrival``, which has no rounds. Returns
+        False if the other slots did not start within ``BSP_TIMEOUT_S``;
+        the caller then goes on with those that did."""
+        with self._bsp_cond:
+            self._started.add(learner_id % self.n_learners)
+            self._bsp_cond.notify_all()
+            if self.trigger != "bsp":
+                return True
+            return self._bsp_cond.wait_for(
+                lambda: len(self._started) >= self.n_learners,
+                timeout=BSP_TIMEOUT_S)
+
     @property
     def active(self) -> int:
         with self._lock:
@@ -274,7 +308,7 @@ class SoftwareParameterServer:
 
     # ---- push / pull ------------------------------------------------------
     def push(self, learner_id: int, payload,
-             timeout: float = 30.0) -> bool:
+             timeout: float = BSP_TIMEOUT_S) -> bool:
         """Send locally accumulated gradients (or weights, per solver) —
         a dense f32 vector or a ``CompressedPush`` (int8 + scales).
         Returns False iff a BSP push timed out and its contribution was
@@ -500,7 +534,7 @@ class PSClient:
         ``release`` calls this for each of its clients)."""
         self._err = self._stage = None
 
-    def push(self, flat, timeout: float = 30.0) -> bool:
+    def push(self, flat, timeout: float = BSP_TIMEOUT_S) -> bool:
         self.ps._live()
         if self.compression == "none":
             return self.ps.push(self.learner_id, flat, timeout=timeout)

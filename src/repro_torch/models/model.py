@@ -54,7 +54,9 @@ class Model:
     def cache_specs(self, B: int, S: int) -> Dict[str, CacheSpec]:
         """Dense: k/v (L, B, S, KV, hd) in the cache dtype. ssm: ssm
         (L, B, H, P, N) f32, conv (L, B, K-1, d_in + 2 G N) in the model
-        dtype. Both: pos (B,) int64, one write position per slot."""
+        dtype. Hybrid: k/v per period (np, ...), ssm and conv per mamba
+        layer (np, per - 1, ...). All: pos (B,) int64, one write position
+        per slot."""
         return {k: CacheSpec(*v)
                 for k, v in tf.cache_shapes(self.cfg, B, S).items()}
 

@@ -1,11 +1,14 @@
 """Decoder-only LM, dense and moe families (and the vlm family fed with
-tokens), and the attention-free ssm family (Mamba-2): param defs, the
-training loss, prefill and decode. The counterpart of the dense, moe and
-ssm paths of ``repro.models.transformer``.
+tokens), the attention-free ssm family (Mamba-2) and the Jamba-style
+hybrid: param defs, the training loss, prefill and decode. The
+counterpart of the dense, moe, ssm and hybrid paths of
+``repro.models.transformer``.
 
 Differences from the JAX module, by design:
   * layers run in a Python loop over the stacked ``(L, ...)`` weights
-    (JAX scans them);
+    (JAX scans them); the hybrid's periods and their layers likewise,
+    indexing its two-level ``(periods, n, ...)`` stacks with
+    ``layer_params`` (no weight is copied);
   * prefill attention calls ``kernels.ops.flash_attention`` (the CUDA
     kernel on the card, GQA by index) where JAX calls the jnp
     ``flash_attention_ref`` on repeated heads (transformer.py:218);
@@ -29,9 +32,10 @@ Differences from the JAX module, by design:
     ``moe.decode_capacity(B)`` slots, at least one per slot, so no slot's
     token is dropped, as in the serving engine's per-slot
     ``vmap(decode_one)``. The reference's batched ``lm_decode`` uses
-    ``_capacity(B, ...)`` and agrees whenever that drops nothing.
-The hybrid and encdec families and vlm ``embeds`` inputs raise
-``UserError``: they are not ported yet.
+    ``_capacity(B, ...)`` and agrees whenever that drops nothing. The
+    hybrid's MoE layers decode the same way.
+The encdec family and vlm ``embeds`` inputs raise ``UserError``: they
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -48,7 +52,7 @@ from repro_torch.models.layers import (ParamDef, apply_rope, chunked_xent,
                                        embed_tokens, gated_mlp,
                                        last_token_logits, rms_norm)
 
-PORTED_FAMILIES = ("dense", "vlm", "ssm", "moe")
+PORTED_FAMILIES = ("dense", "vlm", "ssm", "moe", "hybrid")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -109,12 +113,36 @@ def mlp_param_defs(cfg: ArchConfig, scan_dims=()) -> dict:
     }
 
 
+def n_periods(cfg: ArchConfig) -> int:
+    """The hybrid's periods of ``attn_period`` layers."""
+    return cfg.n_layers // cfg.attn_period
+
+
+def _hybrid_param_defs(cfg: ArchConfig) -> dict:
+    """The reference's ``_hybrid_param_defs``: per period, one attention
+    layer and ``per - 1`` mamba layers, each followed by an FFN, MoE at
+    odd local index j and SwiGLU at even j."""
+    per, np_ = cfg.attn_period, n_periods(cfg)
+    n_moe = per // 2
+    return {
+        "attn": attn_param_defs(cfg, (np_,)),
+        "attn_ln": norm_param_defs(cfg, (np_,)),
+        "mamba": mam.mamba_param_defs(cfg, (np_, per - 1)),
+        "mamba_ln": norm_param_defs(cfg, (np_, per - 1)),
+        "ffn_ln": norm_param_defs(cfg, (np_, per)),
+        "moe": moe_mod.moe_param_defs(cfg, (np_, n_moe)),
+        "mlp": mlp_param_defs(cfg, (np_, per - n_moe)),
+    }
+
+
 def decoder_param_defs(cfg: ArchConfig) -> dict:
     check_ported(cfg)
     L = cfg.n_layers
     if cfg.family == "ssm":
         blocks = {"ln1": norm_param_defs(cfg, (L,)),
                   "mamba": mam.mamba_param_defs(cfg, (L,))}
+    elif cfg.family == "hybrid":
+        blocks = _hybrid_param_defs(cfg)
     else:
         blocks = {"ln1": norm_param_defs(cfg, (L,)),
                   "ln2": norm_param_defs(cfg, (L,)),
@@ -133,7 +161,8 @@ def decoder_param_defs(cfg: ArchConfig) -> dict:
 
 def layer_params(blocks: Dict, l: int) -> Dict:
     """Layer ``l``'s weights: views of the layer-stacked ``(L, ...)``
-    block weights, or entry ``l`` of per-layer lists."""
+    block weights, or entry ``l`` of per-layer lists. On the hybrid's
+    blocks it gives period ``l``, whose stacks it indexes again."""
     return {k: (layer_params(v, l) if isinstance(v, dict) else v[l])
             for k, v in blocks.items()}
 
@@ -212,6 +241,34 @@ def ffn_apply(h, bp, cfg: ArchConfig, capacity: Optional[int] = None):
     return gated_mlp(h, bp["mlp"]["wg"], bp["mlp"]["wu"], bp["mlp"]["wd"])
 
 
+def hybrid_stack(h, blocks, cfg: ArchConfig, attn, mamba,
+                 capacity: Optional[int] = None):
+    """The hybrid's layers in order (the reference's ``_hybrid_period``,
+    period after period): in period p, layer j = 0 mixes with
+    ``attn(p, x, weights)`` and layer j >= 1 with ``mamba(p, j - 1, x,
+    weights)``, x the normed residual; each mixer's output is added to
+    the residual, then the layer's FFN (``moe_block`` with ``capacity``
+    at odd j, sub-index (j - 1) // 2; SwiGLU at even j, sub-index
+    j // 2). The callbacks write the caches of prefill and decode."""
+    for p in range(n_periods(cfg)):
+        bp = layer_params(blocks, p)
+        for j in range(cfg.attn_period):
+            if j == 0:
+                x = norm_apply(h, bp["attn_ln"], cfg)
+                h = h + attn(p, x, bp["attn"])
+            else:
+                x = norm_apply(h, layer_params(bp["mamba_ln"], j - 1), cfg)
+                h = h + mamba(p, j - 1, x, layer_params(bp["mamba"], j - 1))
+            x = norm_apply(h, layer_params(bp["ffn_ln"], j), cfg)
+            if j % 2:
+                h = h + moe_mod.moe_block(
+                    x, layer_params(bp["moe"], (j - 1) // 2), cfg, capacity)
+            else:
+                mp = layer_params(bp["mlp"], j // 2)
+                h = h + gated_mlp(x, mp["wg"], mp["wu"], mp["wd"])
+    return h
+
+
 # ---------------------------------------------------------------------------
 # Prefill / decode
 # ---------------------------------------------------------------------------
@@ -228,17 +285,25 @@ def cache_shapes(cfg: ArchConfig, B: int, S: int) -> Dict[str, Tuple]:
     """(shape, dtype) of each cache leaf, as ``repro.models.model``'s
     ``cache_specs``: dense k/v (L, B, S, KV, hd) in the cache dtype; ssm
     state (L, B, H, P, N) f32 and conv tail (L, B, K-1, d_in + 2 G N) in
-    the model dtype; pos (B,) int64, one position per slot."""
-    pos = ((B,), torch.int64)
-    if cfg.family == "ssm":
+    the model dtype; the hybrid's k/v per period (np, B, S, KV, hd) and
+    its state and tail per mamba layer (np, per - 1, B, ...); pos (B,)
+    int64, one position per slot."""
+    hybrid = cfg.family == "hybrid"
+    out = {}
+    if cfg.family != "ssm":
+        n_attn = n_periods(cfg) if hybrid else cfg.n_layers
+        out["k"] = out["v"] = ((n_attn, B, S, cfg.n_kv_heads, cfg.hd),
+                               cache_dtype(cfg))
+    if cfg.family in ("ssm", "hybrid"):
         d_in, nheads, gn, k = mam.mamba_dims(cfg)
-        L, s = cfg.n_layers, cfg.ssm
-        return {"ssm": ((L, B, nheads, s.head_dim, s.d_state),
-                        torch.float32),
-                "conv": ((L, B, k - 1, d_in + 2 * gn), model_dtype(cfg)),
-                "pos": pos}
-    kv = ((cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd), cache_dtype(cfg))
-    return {"k": kv, "v": kv, "pos": pos}
+        s = cfg.ssm
+        lead = ((n_periods(cfg), cfg.attn_period - 1) if hybrid
+                else (cfg.n_layers,))
+        out["ssm"] = (lead + (B, nheads, s.head_dim, s.d_state),
+                      torch.float32)
+        out["conv"] = (lead + (B, k - 1, d_in + 2 * gn), model_dtype(cfg))
+    out["pos"] = ((B,), torch.int64)
+    return out
 
 
 def lm_prefill(params, batch, cfg: ArchConfig, *,
@@ -250,8 +315,8 @@ def lm_prefill(params, batch, cfg: ArchConfig, *,
     built, as JAX's ``lm_prefill`` returns. With a batched cache and
     ``slots`` (B,) row b goes straight into slot ``slots[b]``: its K/V
     at positions 0..S-1 (positions past S keep what they held, which
-    decode masks), or its ssm state and conv tail; its ``pos`` becomes
-    S."""
+    decode masks), its ssm state and conv tail, or the hybrid's both;
+    its ``pos`` becomes S."""
     tokens = _tokens(batch)
     B, S = tokens.shape
     dev = tokens.device
@@ -272,6 +337,21 @@ def lm_prefill(params, batch, cfg: ArchConfig, *,
             h = h + out
             cache["ssm"][l, slots] = state
             cache["conv"][l, slots] = tail
+    elif cfg.family == "hybrid":
+        positions = _positions(batch, B, S, cfg, dev)
+
+        def attn(p, x, w):
+            a, (k, v) = attn_prefill(x, w, cfg, positions)
+            cache["k"][p, slots, :S] = k
+            cache["v"][p, slots, :S] = v
+            return a
+
+        def mamba(p, i, x, w):
+            out, state, tail = mam.mamba_block(x, w, cfg)
+            cache["ssm"][p, i, slots] = state
+            cache["conv"][p, i, slots] = tail
+            return out
+        h = hybrid_stack(h, blocks, cfg, attn, mamba)
     else:
         positions = _positions(batch, B, S, cfg, dev)
         for l in range(cfg.n_layers):
@@ -297,21 +377,34 @@ def lm_decode(params, cache, batch, cfg: ArchConfig):
     pos = cache["pos"]
     blocks = params["blocks"]
     capacity = moe_mod.decode_capacity(h.shape[0]) if cfg.is_moe else None
-    for l in range(cfg.n_layers):
-        bp = layer_params(blocks, l)
-        x = norm_apply(h, bp["ln1"], cfg)
-        if cfg.family == "ssm":
+    if cfg.family == "hybrid":
+        def attn(p, x, w):
+            return attn_decode(x, w, cfg, pos, cache["k"][p],
+                               cache["v"][p])[0]
+
+        def mamba(p, i, x, w):
             out, state, tail = mam.mamba_decode(
-                x, bp["mamba"], cfg, cache["ssm"][l], cache["conv"][l])
-            h = h + out
-            cache["ssm"][l] = state
-            cache["conv"][l] = tail
-            continue
-        a, _, _ = attn_decode(x, bp["attn"], cfg, pos, cache["k"][l],
-                              cache["v"][l])
-        h = h + a
-        x = norm_apply(h, bp["ln2"], cfg)
-        h = h + ffn_apply(x, bp, cfg, capacity)
+                x, w, cfg, cache["ssm"][p, i], cache["conv"][p, i])
+            cache["ssm"][p, i] = state
+            cache["conv"][p, i] = tail
+            return out
+        h = hybrid_stack(h, blocks, cfg, attn, mamba, capacity)
+    else:
+        for l in range(cfg.n_layers):
+            bp = layer_params(blocks, l)
+            x = norm_apply(h, bp["ln1"], cfg)
+            if cfg.family == "ssm":
+                out, state, tail = mam.mamba_decode(
+                    x, bp["mamba"], cfg, cache["ssm"][l], cache["conv"][l])
+                h = h + out
+                cache["ssm"][l] = state
+                cache["conv"][l] = tail
+                continue
+            a, _, _ = attn_decode(x, bp["attn"], cfg, pos, cache["k"][l],
+                                  cache["v"][l])
+            h = h + a
+            x = norm_apply(h, bp["ln2"], cfg)
+            h = h + ffn_apply(x, bp, cfg, capacity)
     cache["pos"] = pos + 1
     h = norm_apply(h, params["final_norm"], cfg)
     return last_token_logits(h, params["head"]), cache
@@ -327,14 +420,15 @@ def _positions(batch, B: int, S: int, cfg: ArchConfig, dev):
 
 
 def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512):
-    """Next-token CE loss (``transformer.py:272-332``, dense, moe and ssm
-    families). batch: tokens (B, S), labels (B, S)[, positions]. Embed;
-    per layer, dense and moe: norm -> attention (RoPE, flash kernels, GQA
-    by index) -> wo -> residual -> norm -> SwiGLU (moe: ``moe_block``) ->
-    residual; ssm: norm ->
-    ``mamba_block`` (the SSD scan through ``SSDScan``) -> residual; final
-    norm; chunked CE with chunk ``min(xent_chunk, S)``. No remat of the
-    layers (the learner's ``remat: none``)."""
+    """Next-token CE loss (``transformer.py:272-332`` and
+    ``_hybrid_loss``). batch: tokens (B, S), labels (B, S)[, positions].
+    Embed; per layer, dense and moe: norm -> attention (RoPE, flash
+    kernels, GQA by index) -> wo -> residual -> norm -> SwiGLU (moe:
+    ``moe_block``) -> residual; ssm: norm -> ``mamba_block`` (the SSD
+    scan through ``SSDScan``) -> residual; hybrid: ``hybrid_stack`` of
+    the two mixers; final norm; chunked CE with chunk
+    ``min(xent_chunk, S)``. No remat of the layers (the learner's
+    ``remat: none``)."""
     tokens = _tokens(batch)
     B, S = tokens.shape
     h = embed_tokens(tokens, params["embed"])
@@ -344,6 +438,12 @@ def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512):
             bp = layer_params(blocks, l)
             x = norm_apply(h, bp["ln1"], cfg)
             h = h + mam.mamba_block(x, bp["mamba"], cfg)[0]
+    elif cfg.family == "hybrid":
+        positions = _positions(batch, B, S, cfg, tokens.device)
+        h = hybrid_stack(
+            h, blocks, cfg,
+            lambda p, x, w: attn_prefill(x, w, cfg, positions)[0],
+            lambda p, i, x, w: mam.mamba_block(x, w, cfg)[0])
     else:
         positions = _positions(batch, B, S, cfg, tokens.device)
         for l in range(cfg.n_layers):

@@ -9,7 +9,15 @@ resume from the newest valid checkpoint (learner 0 republishes through
 ``ps.load_flat`` and restores the cursor), pull, the psgd and modelavg
 branches, the ``fail_at_step`` / ``user_error_at`` hooks, a checkpoint
 every ``checkpoint_every`` steps, ``trained_model.npy`` uploaded by
-learner 0, and ``results``.
+learner 0, and ``results``. Two differences: before its first pull each
+learner waits at the PS's start barrier (``SoftwareParameterServer.start``)
+until every learner of the job has started, for at most the PS's
+``BSP_TIMEOUT_S`` and only under the ``bsp`` trigger, where the
+reference's learner pulls at once and a late starter can take its step 0
+on weights that a round finished without it; and a learner that raises
+waits for its outstanding checkpoint write before its task fails, where
+the reference's restart can probe before that write has landed and
+start from an older checkpoint.
 
 The learner's state is the flat f32 weight vector, as in the reference,
 but it lives on the device: the PS pull buffer, the gradient, the push
@@ -59,14 +67,16 @@ from repro_torch.weights import flat_layout, flat_size
 log = logging.getLogger("repro_torch.learner")
 
 # the kernel libraries an LM step launches on CUDA, by family: K4 and
-# K4b (dense, moe and vlm), K5 and K5b (ssm)
-STEP_LIBRARIES = {"dense": (_kfa.NAME, _kfab.NAME),
-                  "ssm": (_kssd.NAME, _kssdb.NAME)}
+# K4b (dense, moe and vlm), K5 and K5b (ssm), all four (hybrid)
+_ATTN_LIBS = (_kfa.NAME, _kfab.NAME)
+_SSD_LIBS = (_kssd.NAME, _kssdb.NAME)
+STEP_LIBRARIES = {"dense": _ATTN_LIBS, "ssm": _SSD_LIBS,
+                  "hybrid": _ATTN_LIBS + _SSD_LIBS}
 
 
 def step_libraries(cfg: ArchConfig):
     """The kernel libraries ``cfg``'s learner step launches on CUDA."""
-    return STEP_LIBRARIES["ssm" if cfg.family == "ssm" else "dense"]
+    return STEP_LIBRARIES.get(cfg.family, _ATTN_LIBS)
 
 # ---------------------------------------------------------------------------
 # Framework plugins
@@ -378,17 +388,22 @@ def make_learner_body(cfg: LearnerJobConfig, ps: SoftwareParameterServer,
 
     def body(wd: Watchdog, idx: int):
         ps.join(idx)
+        ckpt = None
         try:
-            _train(wd, idx)
+            if cfg.checkpoint_dir and idx == 0:
+                ckpt = CheckpointManager(cfg.checkpoint_dir, keep=3,
+                                         mirror=cfg.ckpt_mirror)
+            _train(wd, idx, ckpt)
         finally:
+            # a learner that crashes lets its outstanding checkpoint
+            # write finish before its task fails: the restart resumes
+            # from it
+            if ckpt is not None:
+                ckpt.wait()
             ps.leave(idx)
 
-    def _train(wd: Watchdog, idx: int):
-        ckpt = None
+    def _train(wd: Watchdog, idx: int, ckpt):
         start_step = 0
-        if cfg.checkpoint_dir and idx == 0:
-            ckpt = CheckpointManager(cfg.checkpoint_dir, keep=3,
-                                     mirror=cfg.ckpt_mirror)
         # resume from checkpoint if one exists (any learner may restore
         # the global params by pulling after learner-0 pushed them)
         if cfg.checkpoint_dir:
@@ -409,6 +424,12 @@ def make_learner_body(cfg: LearnerJobConfig, ps: SoftwareParameterServer,
                 del tree
                 wd.log(f"resumed from checkpoint step={start_step}")
 
+        # on the PS's first start, no learner pulls before every learner
+        # of the job has started (and learner 0 has republished a
+        # checkpoint); after a restart the barrier is already open
+        if not ps.start(idx):
+            wd.log("start barrier timed out: training with the learners "
+                   "that joined")
         # the learner's state is the flat f32 vector in its device pull
         # buffer, reused by every pull
         client = ps.make_client(idx)
@@ -496,7 +517,5 @@ def make_learner_body(cfg: LearnerJobConfig, ps: SoftwareParameterServer,
                 results["final_loss"] = (float(loss) if loss is not None
                                          else None)
                 results["params"] = host
-        if ckpt is not None:
-            ckpt.wait()
 
     return body

@@ -3,7 +3,8 @@ port, mirroring ``repro.serving.engine``'s public behaviour:
 
   * **slot-based cache** — one batched cache of ``capacity`` slots (K/V
     for the dense family, the SSD state and conv tail for the ssm
-    family), each slot with its own write position (``pos`` is a
+    family, both for the hybrid), each slot with its own write position
+    (``pos`` is a
     (capacity,) vector), so slots at different depths decode in one
     call;
   * **continuous batching** — finished sequences retire at once and

@@ -17,6 +17,15 @@ and for the ssm family (upper case sorts first, as in JAX):
     blocks/ln1/w, blocks/mamba/{A_log, D_skip, conv_B, conv_C, conv_x,
     dt_bias, norm, out_proj, wB, wC, wdt, wx, wz}, embed, final_norm/w,
     head
+
+and for the hybrid family, stacked per period (np = n_layers //
+attn_period, per = attn_period):
+
+    blocks/attn/{wk,wo,wq,wv} (np, ...), blocks/attn_ln/w (np, D),
+    blocks/ffn_ln/w (np, per, D), blocks/mamba/{...} (np, per - 1, ...),
+    blocks/mamba_ln/w (np, per - 1, D), blocks/mlp/{wd,wg,wu}
+    (np, per - per // 2, ...), blocks/moe/{router,wd,wg,wu}
+    (np, per // 2, ...), embed, final_norm/w, head
 """
 from __future__ import annotations
 

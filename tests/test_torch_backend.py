@@ -246,6 +246,28 @@ def test_crash_restarts_and_resumes_from_the_checkpoint(tmp_path):
     assert h.plan.meta["ps"].stats()["agg_rounds"] == 7
 
 
+def test_crash_waits_for_its_checkpoint_still_being_written(tmp_path,
+                                                           monkeypatch):
+    """The step-2 checkpoint is still being written (a slow disk: 0.5 s)
+    when the learner crashes at step 3: the crashing learner lets the
+    write finish before its task fails, so the restart resumes from
+    step 2 and not from scratch."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    write = CheckpointManager._write
+
+    def slow(self, *a):
+        time.sleep(0.5)
+        write(self, *a)
+    monkeypatch.setattr(CheckpointManager, "_write", slow)
+    p = Platform("repro_torch", tmp_path, device="cpu")
+    p.launch("job-1", mlp_manifest(learners=1, steps=6, checkpoint_every=2,
+                                   fail_at_step={0: 3}))
+    assert p.drive("job-1") == "COMPLETED"
+    assert p.learner_task("job-1").restarts == 1
+    assert "resumed from checkpoint step=2" in p.log_lines("job-1")
+    assert p.metrics.series("job-1", "loss").steps == [0, 1, 2, 2, 3, 4, 5]
+
+
 def test_context_without_a_device_wants_cuda(tmp_path):
     """``BackendContext`` with no ``device`` resolves to CUDA: without a
     card it raises instead of running on the CPU."""

@@ -3,8 +3,9 @@ attention and its backward, the PS update and the int8 wire, the SSD
 scan and its backward) against their plain PyTorch versions, the
 wrappers' checks, the serving engines and the dense and ssm learner
 steps on CUDA against the same on the CPU, the platform and the
-service (``DLaaSCore``) training and serving on CUDA, and the moe
-block and a moe engine on CUDA.
+service (``DLaaSCore``) training and serving on CUDA, the moe
+block and a moe engine on CUDA, and the hybrid (jamba) family's kernel
+shapes, engine and learner step on CUDA.
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is false (the kernel has no CPU mode). This file imports no JAX, so it
@@ -819,11 +820,13 @@ from util_platform import Platform  # noqa: E402
 
 @pytest.mark.parametrize("arch,libs", [
     ("stablelm-1.6b", ("flash_attention", "flash_attention_bwd")),
-    ("mamba2-1.3b", ("ssd_scan", "ssd_scan_bwd"))])
+    ("mamba2-1.3b", ("ssd_scan", "ssd_scan_bwd")),
+    ("jamba-1.5-large-398b", ("flash_attention", "flash_attention_bwd",
+                              "ssd_scan", "ssd_scan_bwd"))])
 def test_warm_async_builds_the_step_kernels(cuda, arch, libs):
     """``LMPlugin.warm_async`` on the card builds and loads the step's
-    kernel libraries (K4 and K4b; K5 and K5b for the ssm family) in the
-    background and then sets ``_warming``."""
+    kernel libraries (K4 and K4b; K5 and K5b for the ssm family; all
+    four for the hybrid) in the background and then sets ``_warming``."""
     from repro_torch.runtime.learner import step_libraries
     plugin = LMPlugin({"arch": arch}, device="cuda")
     assert step_libraries(plugin.cfg) == libs
@@ -1060,3 +1063,92 @@ def test_grok_engine_on_cuda_matches_cpu(cuda):
     cpu_tokens, cpu_launches, _ = serve("cpu")
     assert gpu_tokens == cpu_tokens
     assert launches == cfg.n_layers * batches and cpu_launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The hybrid slice: jamba's kernel shapes, engine and learner step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,S", [(1, 300), (2, 33)])
+def test_hybrid_flash_kernel_at_jamba_width(cuda, B, S):
+    """K4's bf16 hd-128 tensor-core instance at jamba's 64 heads over 8
+    KV heads (GQA 8), causal, ragged."""
+    _check(*_qkv(B, S, S, 64, 8, 128, torch.bfloat16, seed=7), True)
+
+
+@pytest.mark.parametrize("B,S", [(1, 300), (2, 512)])
+def test_hybrid_ssd_scan_at_jamba_width(cuda, B, S):
+    """K5's bf16 tensor-core instance at jamba's 256 heads (P 64, N 128,
+    G 1, chunk 256) against the plain scan, ragged and whole chunks."""
+    args = _ssd_inputs(B, S, 256, 64, 1, 128, torch.bfloat16, seed=8,
+                       a_log=-0.5)
+    before_tc = kssd.launches_tc
+    y, state = ops.ssd_scan(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert kssd.launches_tc == before_tc + 1
+    y_ref, state_ref = ref.ssd_scan_ref(*args, chunk=256)
+    assert _rel_l2(y, y_ref) < 1e-2 and _rel_l2(state, state_ref) < 1e-2
+
+
+def test_jamba_engine_on_cuda_matches_cpu(cuda):
+    """One flat vector served by the jamba smoke model (hybrid, f32) on
+    the card and on the CPU: the same greedy tokens; per prefill batch K4
+    launched once per period and K5 once per mamba layer."""
+    cfg = reduce_for_smoke(get_arch("jamba-1.5-large-398b"))
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (40, 40, 2, 33, 7)]
+    max_news = [3, 6, 4, 5, 7]
+    flat = rng.standard_normal(
+        InferenceEngine(cfg, device="cpu").flat_size).astype(np.float32)
+    flat *= 0.1
+
+    def serve(device):
+        eng = InferenceEngine(cfg, capacity=2, max_seq=64, device=device)
+        eng.start(flat)
+        reqs = [eng.submit(p, max_new=m) for p, m in zip(prompts, max_news)]
+        ops.reset_launch_counts()
+        t = threading.Thread(target=eng.run, daemon=True)
+        t.start()
+        for r in reqs:
+            assert r.wait(120) and r.status == "DONE"
+        counts = ops.launch_counts()
+        eng.drain()
+        t.join(20)
+        assert not t.is_alive()
+        return ([r.tokens for r in reqs], counts[kfa.NAME],
+                counts[kssd.NAME], eng.prefill_batches)
+
+    gpu_tokens, k4, k5, batches = serve("cuda")
+    cpu_tokens, cpu_k4, cpu_k5, _ = serve("cpu")
+    assert gpu_tokens == cpu_tokens
+    periods = cfg.n_layers // cfg.attn_period
+    assert k4 == periods * batches
+    assert k5 == periods * (cfg.attn_period - 1) * batches
+    assert cpu_k4 == cpu_k5 == 0
+
+
+@pytest.mark.parametrize("seq", [64, 50])
+def test_hybrid_training_step_on_cuda_matches_cpu(cuda, seq):
+    """``LMPlugin.flat_loss_grad`` of the jamba smoke model on the card
+    (K4, K4b, K5, K5b) against the CPU (plain versions), f32: loss 1e-4,
+    flat gradient 2e-3; two chunks of 32, and a ragged tail."""
+    cfg = reduce_for_smoke(get_arch("jamba-1.5-large-398b"))
+    gpu = LMPlugin({}, cfg=cfg, device="cuda")
+    cpu = LMPlugin({}, cfg=cfg, device="cpu")
+    flat = cpu.flat_state(0)
+    toks = np.random.RandomState(9).randint(
+        0, cfg.vocab_size, size=(2, seq + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ops.reset_launch_counts()
+    lg, gg = gpu.flat_loss_grad(flat.cuda(), batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    lc, gc = cpu.flat_loss_grad(flat, batch)
+    periods = cfg.n_layers // cfg.attn_period
+    assert counts[kfa.NAME] == counts[kfab.NAME] == periods
+    assert counts[kssd.NAME] == counts[kssdb.NAME] == \
+        periods * (cfg.attn_period - 1)
+    assert abs(lg.item() - lc.item()) <= 1e-4
+    torch.testing.assert_close(gg.cpu(), gc, atol=2e-3, rtol=2e-3)

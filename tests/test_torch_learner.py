@@ -11,6 +11,7 @@ All on the CPU (``device="cpu"``), at the reference plugin's smoke size
 import ast
 import re
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -27,8 +28,10 @@ from repro.platform.watchdog import Watchdog as JaxWatchdog
 from repro.platform.zookeeper import ZooKeeper as JaxZK
 from repro.runtime import learner as jax_learner
 from repro_torch.checkpoint.checkpoint import CheckpointManager
-from repro_torch.core.cursor import GlobalCursor
+from repro_torch.core.cursor import Chunk, GlobalCursor
+from repro_torch.core import software_ps
 from repro_torch.core.software_ps import SoftwareParameterServer
+from repro_torch.data.pipeline import SyntheticCorpus
 from repro_torch.errors import UserError
 from repro_torch.platform.metrics import MetricsService
 from repro_torch.platform.storage import LocalFSStore, StorageManager
@@ -43,9 +46,15 @@ PORT = dict(zk=ZooKeeper, storage=StorageManager, fs=LocalFSStore,
             metrics=MetricsService, ps=SoftwareParameterServer,
             cursor=GlobalCursor, watchdog=Watchdog, learner=port_learner,
             ps_kw={"device": "cpu"})
+# The reference's learner pulls as soon as it has joined its PS, and its
+# BSP barrier counts only the members joined so far: a learner thread
+# that starts late lets the other finish round 0 alone and takes its own
+# step 0 on those weights. ``prejoin`` joins every slot before the
+# threads start (the PS's own ``join``), so the reference cannot race;
+# the port's learner waits at its PS's start barrier instead.
 JAX = dict(zk=JaxZK, storage=JaxStorage, fs=JaxFS, metrics=JaxMetrics,
            ps=JaxPS, cursor=JaxCursor, watchdog=JaxWatchdog,
-           learner=jax_learner, ps_kw={})
+           learner=jax_learner, ps_kw={}, prejoin=True)
 
 
 @pytest.fixture(scope="module")
@@ -59,10 +68,10 @@ def plugins():
 
 def _train(pkg, plugin, flat, workdir, *, job="j", n_learners=2, steps=6,
            optimizer="sgd", lr=0.1, compression="none", ckpt_every=None,
-           user_error_at=None, zk=None):
-    """Run the package's learner body on ``n_learners`` threads under its
-    watchdog; returns (final PS params, {step: sorted losses}, zk,
-    failures, results)."""
+           user_error_at=None, zk=None, slots=None):
+    """Run the package's learner body on ``n_learners`` threads (or only
+    on ``slots``) under its watchdog; returns (final PS params, {step:
+    sorted losses}, zk, failures, results)."""
     zk = zk or pkg["zk"]()
     storage = pkg["storage"]()
     storage.register("results", pkg["fs"](str(workdir / "results")))
@@ -76,6 +85,9 @@ def _train(pkg, plugin, flat, workdir, *, job="j", n_learners=2, steps=6,
         lr=lr, optimizer=optimizer, compression=compression,
         checkpoint_dir=(str(workdir / "ckpt") if ckpt_every else None),
         checkpoint_every=ckpt_every or 20, user_error_at=user_error_at)
+    if pkg.get("prejoin"):
+        for i in range(n_learners):
+            ps.join(i)
     results = {}
     body = pkg["learner"].make_learner_body(cfg, ps, cursor, storage,
                                             metrics, results, plugin=plugin)
@@ -88,7 +100,8 @@ def _train(pkg, plugin, flat, workdir, *, job="j", n_learners=2, steps=6,
         except Exception as e:          # reported to the test below
             failures.append(e)
 
-    ts = [threading.Thread(target=run, args=(i,)) for i in range(n_learners)]
+    ts = [threading.Thread(target=run, args=(i,))
+          for i in (range(n_learners) if slots is None else slots)]
     [t.start() for t in ts]
     [t.join(300) for t in ts]
     assert not any(t.is_alive() for t in ts)
@@ -128,6 +141,103 @@ def test_learner_body_matches_jax(plugins, tmp_path, n_learners, optimizer,
     assert np.abs(got - flat).max() > 10 * PARAM_TOL["atol"]   # it moved
     np.testing.assert_allclose(got, want, **PARAM_TOL)
     np.testing.assert_array_equal(results["params"], got)
+
+
+class _Learner0Blocked(SoftwareParameterServer):
+    """The port's PS, with an event set once learner 0 can go no further
+    alone: it waits at the start barrier, or its first push returned."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.blocked = threading.Event()
+
+    def start(self, learner_id):
+        if learner_id == 0:
+            self.blocked.set()
+        return super().start(learner_id)
+
+    def push(self, learner_id, payload, timeout=30.0):
+        ok = super().push(learner_id, payload, timeout=timeout)
+        if learner_id == 0:
+            self.blocked.set()
+        return ok
+
+
+def test_late_learner_takes_step_0_on_the_initial_weights(plugins,
+                                                          tmp_path):
+    """Learner 1's thread reaches its PS only once learner 0 can go no
+    further alone: learner 0 must wait for it at the start barrier, not
+    finish round 0 by itself, so both step-0 losses are those of the
+    initial weights on the first two chunks and the run ends where the
+    JAX package's ends."""
+    made = []
+
+    def ps(*a, **kw):
+        made.append(_Learner0Blocked(*a, **kw))
+        return made[-1]
+
+    def watchdog(zk, job, member):
+        if member == "learner-1":
+            assert made[0].blocked.wait(60)
+        return Watchdog(zk, job, member)
+    flat, port = plugins["flat"], plugins["port"]
+    kw = dict(optimizer="adam", lr=3e-4)
+    got, losses, _, fail, _ = _train(dict(PORT, ps=ps, watchdog=watchdog),
+                                     port, flat, tmp_path / "port", **kw)
+    assert fail == []
+    corpus = SyntheticCorpus(port.dataset_spec({}))
+    want0 = sorted(float(port.flat_loss_grad(
+        flat, corpus.batch_for([Chunk(0, 2 * i, 2 * i + 2)]))[0])
+        for i in range(2))
+    np.testing.assert_allclose(losses[0], want0, atol=1e-6, rtol=1e-6)
+    want, *_ = _train(JAX, plugins["jax"], flat, tmp_path / "jax", **kw)
+    np.testing.assert_allclose(got, want, **PARAM_TOL)
+
+
+def test_start_barrier_times_out_and_trains_with_the_learners_that_started(
+        plugins, tmp_path, monkeypatch):
+    """A job of two slots of which only learner 0 ever starts: learner 0
+    waits ``BSP_TIMEOUT_S`` at the start barrier, logs it, then trains
+    alone, and ends where the JAX package's learner 0 ends alone (its
+    BSP rounds count the one member)."""
+    monkeypatch.setattr(software_ps, "BSP_TIMEOUT_S", 0.5)
+    flat = plugins["flat"]
+    kw = dict(optimizer="sgd", lr=2e-3, slots=(0,))
+    got, losses, zk, fail, _ = _train(PORT, plugins["port"], flat,
+                                      tmp_path / "port", **kw)
+    assert fail == []
+    assert "start barrier timed out: training with the learners that " \
+        "joined" in _log_lines(zk, "j", "learner-0")
+    want, jlosses, _, jfail, _ = _train(dict(JAX, prejoin=False),
+                                        plugins["jax"], flat,
+                                        tmp_path / "jax", **kw)
+    assert jfail == [] and sorted(losses) == sorted(jlosses) == \
+        list(range(6))
+    for s in range(6):
+        np.testing.assert_allclose(losses[s], jlosses[s], atol=1e-4,
+                                   rtol=1e-4)
+    assert np.abs(got - flat).max() > 10 * PARAM_TOL["atol"]   # it moved
+    np.testing.assert_allclose(got, want, **PARAM_TOL)
+
+
+@pytest.mark.parametrize("trigger", ["bsp", "on_arrival"])
+def test_start_barrier_opens_once_every_slot_has_started(trigger,
+                                                         monkeypatch):
+    """Under ``bsp`` a first start waits for the other slots (False once
+    ``BSP_TIMEOUT_S`` has passed), the last slot to start opens the
+    barrier, and a restarted learner then passes at once; under
+    ``on_arrival``, which has no rounds, nobody waits."""
+    monkeypatch.setattr(software_ps, "BSP_TIMEOUT_S", 0.2)
+    ps = SoftwareParameterServer(np.zeros(64, np.float32), n_shards=2,
+                                 n_learners=2, trigger=trigger,
+                                 device="cpu")
+    t0 = time.perf_counter()
+    assert ps.start(0) is (trigger != "bsp")
+    assert (time.perf_counter() - t0 >= 0.2) is (trigger == "bsp")
+    monkeypatch.setattr(software_ps, "BSP_TIMEOUT_S", 60.0)
+    t0 = time.perf_counter()
+    assert ps.start(1) and ps.start(0)
+    assert time.perf_counter() - t0 < 5
 
 
 def test_checkpoint_written_by_port_restores_in_jax(tmp_path):

@@ -164,8 +164,7 @@ def test_decode_per_slot_positions_match_jax(arch):
                                    **MODEL_TOL)
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["whisper-large-v3"])
 def test_unported_families_raise_user_error(arch):
     with pytest.raises(UserError, match="not yet ported"):
         make_model(reduce_for_smoke(get_arch(arch)))

@@ -231,6 +231,3 @@ def test_unported_family_raises_user_error():
     with pytest.raises(UserError, match="encoder-decoder"):
         InferenceEngine(reduce_for_smoke(get_arch("whisper-large-v3")),
                         device="cpu")
-    with pytest.raises(UserError, match="not yet ported"):
-        InferenceEngine(reduce_for_smoke(get_arch("jamba-1.5-large-398b")),
-                        device="cpu")
