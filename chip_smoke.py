@@ -196,13 +196,44 @@ first failing phase (no phase catches an exception):
      give equal bits), with kernel, plain, bound and (K4) SDPA ms; d. the
      jamba smoke-width f32 learner step (8 layers) on the card (K4, K4b,
      K5, K5b) against the CPU;
- 17. result  — ``{"kernels": [...]}`` on the line before the last (each
+ 17. encdec  — whisper-large-v3 at full width and depth (32 + 32 layers,
+     d 1280, 20 heads of hd 64, d_ff 5120, LayerNorm, SwiGLU as the
+     reference; bf16, random weights from a seed) through the
+     model-level steps of ``distributed/steps.py``: a. ENCDEC_STEPS AdamW
+     (lr 1e-3) steps on one batch of 4 x (1,500 frames + 448 tokens), the
+     frames from a seed with numpy; the loss finite and falling; step
+     ms, tokens/s, peak memory and the share of attainable against the
+     larger of the step's FLOPs (counted on the meta device) at peak and
+     its least bytes (``least_step_bytes``), beside the share of its own
+     counted traffic; b. prefill of the frames and a 4-token prompt into
+     a cache whose self K/V hold 448 positions, greedy decode to 64
+     tokens, decode ms a step beside the bound of the bytes a step reads;
+     K4 launched 3 x 32 times per forward and K4b 3 x 32 per step, all
+     on the tensor cores; c. at 2 layers in f32, prefill of 33 tokens
+     against 32 and one decode step (relative L2); d. K4 with its LSE
+     and K4b against their plain versions at the encoder's (4, 1500)
+     non-causal, the decoder's (4, 448) causal and the cross (448 against
+     1,500) shapes, with SDPA's forward and backward as yardsticks, and
+     K4 alone at the prefill's shapes: the encoder's, the prompt's (4, 4)
+     causal and its cross (4 against 1,500); e. the smoke-width f32 step
+     on the card against the CPU at a limit scaled by each gradient
+     leaf's magnitude, and its controls: the step with a fault planted
+     in K4b's output (``K4B_FAULTS``) must each fail that limit;
+ 18. vlm     — qwen2-vl-2b at full width and depth (28 layers, d 1536, 12
+     heads over 2 KV heads of hd 128, M-RoPE (16, 24, 24), qkv bias;
+     bf16) fed with ``embeds``: one 448 x 448 image per sequence (a 16 x
+     16 grid of merged patches with (t, h, w) positions, the text after
+     it), S 2,048, B 2: the steps, checks and numbers of phase 17 (the
+     decode from a cache with room for 64 tokens; prefill of 289 embeds
+     against 288 and one decode step of an embedding), K4 and K4b at (2,
+     2048, GQA 6, hd 128) causal, and K4 alone at that prefill shape;
+ 19. result  — ``{"kernels": [...]}`` on the line before the last (each
      kernel's launches summed over the main paths, with
      ``launches_by_path``) and ``{"ok": true, "device": {...}}`` as the
      last line.
 
-Ten to twelve minutes on an H100 80GB HBM3 at 700 W, the kernel builds
-included (``PERF.md`` gives the measured runs).
+``PERF.md`` gives the measured run times on an H100 80GB HBM3 at 700 W,
+the kernel builds included.
 """
 from __future__ import annotations
 
@@ -211,6 +242,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -396,6 +428,33 @@ HYBRID_CHECK_CUT = dict(attn_period=2, n_layers=2)
 HYBRID_CHECK_N = 300
 HYBRID_CHECK_PROMPTS = 8
 HYBRID_STEP_SEQS = (64, 50)  # the smoke step: two chunks of 32; ragged
+# phases 17 and 18: the stub-frontend families, nothing cut, through the
+# model-level steps (distributed/steps.py with optim/optimizers.py), the
+# reference's only way to train and run them. Phase 17: whisper-large-v3
+# (arXiv:2212.04356) at the published lengths of
+# hf:openai/whisper-large-v3 (n_audio_ctx 1,500 frames: 30 s of audio
+# after the stubbed conv frontend; n_text_ctx 448 tokens); the prompt is
+# a 4-token start-of-transcript prefix (start, language, task,
+# no-timestamps ids of Whisper's multilingual vocabulary)
+ENCDEC_ARCH = "whisper-large-v3"
+ENCDEC_BATCH = 4
+ENCDEC_FRAMES = 1500
+ENCDEC_TOKENS = 448
+ENCDEC_STEPS = 4
+ENCDEC_PROMPT_IDS = (50258, 50259, 50360, 50364)
+ENCDEC_NEW = 64
+# phase 18: qwen2-vl-2b (arXiv:2409.12191) fed with embeds: one 448 x 448
+# image per sequence, patches of 14 merged 2 x 2: 256 vision tokens on a
+# 16 x 16 grid, (t, h, w) M-RoPE positions, the text after them
+VLM_ARCH = "qwen2-vl-2b"
+VLM_BATCH = 2
+VLM_SEQ = 2048
+VLM_GRID = 16
+VLM_STEPS = 4
+VLM_NEW = 64
+# both: prefill against decode at full width cut to 2 layers in f32
+FAMILY_CHECK_LAYERS = 2
+FAMILY_CHECK_N = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -606,22 +665,32 @@ def attention_bound_ms(B, Sq, Sk, H, KV, hd, dtype, causal, q_offset=0):
                  dtype=dtype, causal=causal, q_offset=q_offset)
 
 
-def check_attention(torch, ops, ref, shape, seed=0):
-    """Kernel vs plain version (and SDPA as yardstick) at one shape; two
-    calls on one input give equal bits."""
+def check_attention(torch, ops, ref, shape, seed=0, sk=None):
+    """Kernel vs plain version (and SDPA as yardstick) at one shape, keys
+    ``sk`` long (default S, the queries'); two calls on one input give
+    equal bits, and bf16 at hd 64/128 launches on the tensor-core
+    instance."""
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
     B, S, H, KV, hd, dtype, causal = shape
+    Sk = sk or S
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt)
-    k = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(dt)
-    v = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(dt)
+    k = torch.randn(B, Sk, KV, hd, generator=g, device="cuda").to(dt)
+    v = torch.randn(B, Sk, KV, hd, generator=g, device="cuda").to(dt)
+    tc = kfa.launches_tc
     got = ops.flash_attention(q, k, v, causal=causal)
     again = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError(f"flash kernel: two calls on one input differ "
-                             f"in their bits at {shape}")
+                             f"in their bits at {shape}, Sk {Sk}")
+    on_tc = kfa.uses_tensor_cores(q)
+    if kfa.launches_tc - tc != (2 if on_tc else 0):
+        raise AssertionError(f"K4 instance at {shape}, Sk {Sk}: "
+                             f"{kfa.launches_tc - tc} tensor-core launches "
+                             f"of 2 calls")
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     err = (got.float() - want.float()).abs()
     max_err = err.max().item()
@@ -641,15 +710,18 @@ def check_attention(torch, ops, ref, shape, seed=0):
         q, k, v, causal=causal), iters=10)
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal), iters=50)
-    bound_ms, bound_by = attention_bound_ms(B, S, S, H, KV, hd, dtype,
+    bound_ms, bound_by = attention_bound_ms(B, S, Sk, H, KV, hd, dtype,
                                             causal)
-    return {"shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
-                      "dtype": dtype, "causal": causal},
-            "max_abs_err": max_err, "tol": tol, "ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+    sh = {"B": B, "S": S, "H": H, "KV": KV, "hd": hd, "dtype": dtype,
+          "causal": causal}
+    if Sk != S:
+        sh["Sk"] = Sk
+    return {"shape": sh, "max_abs_err": max_err, "tol": tol,
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "share_of_bound": bound_ms / kernel_ms,
-            "x_library": kernel_ms / library_ms, "deterministic": True}
+            "x_library": kernel_ms / library_ms, "deterministic": True,
+            "instance": "tensor cores" if on_tc else "CUDA cores"}
 
 
 class SpanRecorder:
@@ -1026,18 +1098,26 @@ def serve_ssm(torch, ops, ref, kssd, card):
 # ---------------------------------------------------------------------------
 
 
-def check_attention_bwd(torch, ops, ref, shape, seed=0):
-    """K4 with LSE and K4b against their plain versions at one shape;
-    SDPA forward + backward through autograd as the yardstick."""
+def check_attention_bwd(torch, ops, ref, shape, seed=0, sk=None):
+    """K4 with LSE and K4b against their plain versions at one shape, keys
+    ``sk`` long (default S, the queries'); two calls give equal bits, and
+    bf16 at hd 64/128 launches both on their tensor-core instances. SDPA
+    forward and backward through autograd are the yardsticks. Returns
+    the K4b result; its ``fwd`` is the K4-with-LSE result in the same
+    keys."""
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_attention_bwd as kfab
     B, S, H, KV, hd, dtype, causal, q_offset = shape
+    Sk = sk or S
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt)
-    k = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(dt)
-    v = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(dt)
+    k = torch.randn(B, Sk, KV, hd, generator=g, device="cuda").to(dt)
+    v = torch.randn(B, Sk, KV, hd, generator=g, device="cuda").to(dt)
     do = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt)
     kw = dict(causal=causal, q_offset=q_offset)
+    tc = (kfa.launches_tc, kfab.launches_tc)
     o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
     o_ref, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     tol = TOL[dtype]
@@ -1057,6 +1137,12 @@ def check_attention_bwd(torch, ops, ref, shape, seed=0):
     if not deterministic:
         raise AssertionError(f"K4/K4b: two calls on one input differ in "
                              f"their bits at {shape}")
+    on_tc = kfa.uses_tensor_cores(q)
+    if (kfa.launches_tc - tc[0], kfab.launches_tc - tc[1]) != \
+            ((2, 2) if on_tc else (0, 0)):
+        raise AssertionError(f"K4/K4b instance at {shape}: tensor-core "
+                             f"launches {kfa.launches_tc - tc[0]}, "
+                             f"{kfab.launches_tc - tc[1]}")
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     errs, rels = [], []
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -1076,6 +1162,8 @@ def check_attention_bwd(torch, ops, ref, shape, seed=0):
         q, k, v, return_lse=True, **kw), iters=20)
     bwd_ms = time_ms(torch, lambda: ops.flash_attention_bwd(
         q, k, v, o, lse, do, **kw), iters=20)
+    plain_fwd_ms = time_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, return_lse=True, **kw), iters=3, warmup=1)
     plain_ms = time_ms(torch, lambda: ref.flash_attention_bwd_ref(
         q, k, v, o, lse, do, **kw), iters=5)
     # SDPA wants (B, H, S, hd), equal head counts, and a top-left causal
@@ -1088,27 +1176,40 @@ def check_attention_bwd(torch, ops, ref, shape, seed=0):
     mask = None
     if causal and q_offset:
         pos = torch.arange(S, device="cuda")
-        mask = pos[None, :] <= pos[:, None] + q_offset
-    out = F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=causal and not q_offset)
+        mask = torch.arange(Sk, device="cuda")[None, :] <= \
+            pos[:, None] + q_offset
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and not q_offset)
+    library_fwd_ms = time_ms(torch, sdpa, iters=20)
+    out = sdpa()
     dot = do.transpose(1, 2)
     library_ms = time_ms(torch, lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), iters=20)
+    sh = {"B": B, "S": S, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
+          "dtype": dtype, "causal": causal, "q_offset": q_offset}
+    dims = dict(B=B, Sq=S, Sk=Sk, H=H, KV=KV, hd=hd, dtype=dtype,
+                causal=causal, q_offset=q_offset)
+    instance = "tensor cores" if on_tc else "CUDA cores"
+    # read q, k, v, write o and the LSE; QK^T and PV
+    fwd_bound, fwd_by = bound("flash_attention", lse=True, **dims)
     # read q, k, v, o, dO and lse, write dq, dk, dv; five products
-    bound_ms, bound_by = bound("flash_attention_bwd", B=B, Sq=S, Sk=S, H=H,
-                               KV=KV, hd=hd, dtype=dtype, causal=causal,
-                               q_offset=q_offset)
-    return {"shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
-                      "dtype": dtype, "causal": causal,
-                      "q_offset": q_offset},
-            "fwd_lse_ms": fwd_ms, "fwd_max_abs_err": fwd_err,
+    bound_ms, bound_by = bound("flash_attention_bwd", **dims)
+    fwd = {"shape": sh, "max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
+           "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+           "library_ms": library_fwd_ms, "bound_ms": fwd_bound,
+           "bound_by": fwd_by, "share_of_bound": fwd_bound / fwd_ms,
+           "x_library": fwd_ms / library_fwd_ms, "instance": instance,
+           "deterministic": deterministic}
+    return {"shape": sh, "fwd_lse_ms": fwd_ms, "fwd_max_abs_err": fwd_err,
             "lse_max_abs_err": lse_err,
             "max_abs_err": max(errs), "rel_l2": rels, "ms": bwd_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "share_of_bound": bound_ms / bwd_ms,
-            "x_library": bwd_ms / library_ms,
-            "deterministic": deterministic}
+            "x_library": bwd_ms / library_ms, "instance": instance,
+            "deterministic": deterministic, "fwd": fwd}
 
 
 def check_ps_aggregate(torch, ops, ref, nl, f, solver, seed=0, steps=3,
@@ -2945,6 +3046,567 @@ def serve_hybrid(torch, ops, ref, kfa, kssd, card):
     return k4_main, k5_main, cold_launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 17-18: the stub-frontend families through the model-level steps
+# ---------------------------------------------------------------------------
+
+
+def meta_like(torch, tree):
+    """``tree`` (nested dicts of tensors) as empty meta tensors."""
+    from repro_torch.models.layers import map_leaves
+    return map_leaves(lambda _p, t: torch.empty(t.shape, dtype=t.dtype,
+                                                device="meta"), tree)
+
+
+def family_train(torch, model, params, batch, n_steps, tokens, card, label):
+    """``n_steps`` of ``steps.build_train_step(model,
+    default_optimizer(cfg))`` on the one ``batch`` (the main path: the
+    launch counts are not reset here). Each step is timed between
+    synchronisations; the step's roofline is counted on the meta device
+    (``count_program``) for its FLOPs and its own traffic; the share of
+    attainable is against the larger of those FLOPs at peak and
+    ``least_step_bytes`` at the HBM rate. Prints a line per
+    step and the summary; returns the params. The optimizer state is
+    freed before it returns."""
+    from repro_torch.analysis.roofline import HBM_BW, count_program
+    from repro_torch.distributed import steps
+    from repro_torch.optim.optimizers import init_opt_state
+    cfg = model.cfg
+    opt = steps.default_optimizer(cfg)
+    step = steps.build_train_step(model, opt)
+    state = init_opt_state(opt, params)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss.item())
+        print(f"[{label}] {card}: step {i}: loss {losses[-1]:.6f}, "
+              f"{ms[-1]:.2f} ms")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    aps = model.abstract_params()
+    astate = init_opt_state(opt, aps)
+    count = count_program(step, aps, astate, meta_like(torch, batch))
+    least = least_step_bytes(cfg, aps, astate, batch)
+    bound_s = max(count["compute_s"], least / HBM_BW)
+    by = "operations" if count["compute_s"] >= least / HBM_BW else "bytes"
+    own_s = max(count["compute_s"], count["memory_s"])
+    warm = sorted(ms[1:])[len(ms[1:]) // 2]
+    pct = 100 * bound_s / (warm / 1e3)
+    own_pct = 100 * own_s / (warm / 1e3)
+    if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"{label}: losses {losses} do not fall on "
+                             f"the batch they train on")
+    print(f"[{label}] {card}: {cfg.arch_id} L={cfg.n_layers} "
+          f"d={cfg.d_model} bf16, {opt.name} lr {opt.lr}, {n_steps} steps on "
+          f"one batch of {tokens} tokens: losses {losses}; step ms "
+          f"{[round(t, 2) for t in ms]} (warm median {warm:.2f} ms = "
+          f"{tokens / (warm / 1e3):.1f} tokens/s); peak device memory "
+          f"{peak:.2f} GiB; bound of the step's least work "
+          f"{1e3 * bound_s:.2f} ms ({by}: {count['flops_per_device']:.4e} "
+          f"FLOPs at peak, {least / 1e9:.2f} GB of weights, gradients, "
+          f"optimizer state, inputs and layer inputs at {HBM_BW / 1e12} "
+          f"TB/s): {pct:.2f}% of attainable; the eager step's own traffic "
+          f"(meta count, {count['hbm_bytes_per_device'] / 1e9:.2f} GB) "
+          f"bounds it at {1e3 * own_s:.2f} ms: {own_pct:.2f}% of that "
+          f"(share of own traffic)")
+    return params
+
+
+def least_step_bytes(cfg, params, state, batch):
+    """Bytes a train step must move at the least: every weight read and
+    written once by the update, its gradient written once and read once,
+    the optimizer state read and written once, the batch read once, and
+    each layer's input (B x S x d_model in the model dtype, both stacks
+    of an encdec) written once in the forward and read once in the
+    backward, as a step that recomputes within the layer would. The
+    eager step's own traffic (transients, casts, saved activations) is
+    not counted."""
+    from repro_torch.models.layers import iter_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size()
+                   for _, t in iter_leaves(tree))
+    esize = next(iter_leaves(params))[1].element_size()
+    x = batch.get("enc_embeds", batch.get("embeds"))
+    rows = x.shape[0] * x.shape[1] + (batch["tokens"].numel()
+                                      if "enc_embeds" in batch else 0)
+    layer_in = 2 * cfg.n_layers * rows * cfg.d_model * esize
+    return 4 * nbytes(params) + 2 * nbytes(state) + nbytes(batch) + layer_in
+
+
+def whisper_prompt_batch(torch, cfg, B, n_frames, n_tokens, seed):
+    """Frame embeddings (B, n_frames, D) from ``seed`` with numpy (the
+    stubbed conv frontend's output) and random tokens (B, n_tokens + 1)
+    on the card."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, n_frames, cfg.d_model)).astype(np.float32)).to("cuda")
+    toks = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, size=(B, n_tokens + 1))).to("cuda")
+    return frames, toks
+
+
+def decode_bytes(params, cache, keys, B, cfg):
+    """Bytes a decode step must read: every leaf of ``params`` under
+    ``keys`` and the whole cache (each slot attends over it), plus one
+    embedding row per slot."""
+    from repro_torch.models.layers import iter_leaves
+    n = sum(t.numel() * t.element_size() for key in keys
+            for _, t in iter_leaves({key: params[key]}))
+    n += sum(t.numel() * t.element_size() for k, t in cache.items()
+             if k != "pos")
+    return n + B * cfg.d_model * params["embed"].element_size()
+
+
+def greedy_decode(torch, decode, params, cache, first_logits, n_new):
+    """``n_new`` tokens, greedy, from ``first_logits``: ``n_new - 1``
+    decode steps. Returns (the new tokens (B, n_new) on the host, the ms
+    a step of all but the first step (timed between two
+    synchronisations: the first use of each product's shape is not
+    counted), the last logits)."""
+    tok = first_logits.argmax(-1)
+    out = [tok]
+    for i in range(n_new - 1):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        logits, cache = decode(params, cache, {"tokens": tok})
+        tok = logits.argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (n_new - 2)
+    return torch.cat(out, 1).cpu(), ms, logits
+
+
+def grad_excess(got, want, scaled):
+    """Over every leaf pair of two gradient trees: (elements out of the
+    step limit, the largest |got - want| / (atol + STEP_GRAD_TOL |want|),
+    the max abs err, the leaf of that largest ratio). atol is
+    STEP_GRAD_TOL, or with ``scaled`` STEP_GRAD_TOL of the leaf's largest
+    magnitude (at least 1)."""
+    from repro_torch.models.layers import iter_leaves
+    n_out, worst, err, where = 0, 0.0, 0.0, None
+    for (path, a), (_, b) in zip(iter_leaves(got), iter_leaves(want)):
+        a, b = a.cpu(), b.cpu()
+        d = (a - b).abs()
+        atol = STEP_GRAD_TOL * (max(1.0, b.abs().max().item()) if scaled
+                                else 1.0)
+        ratio = d / (atol + STEP_GRAD_TOL * b.abs())
+        n_out += int(ratio.gt(1).sum().item())
+        err = max(err, d.max().item())
+        if ratio.max().item() > worst:
+            worst, where = ratio.max().item(), path
+    return n_out, worst, err, where
+
+
+# faults planted in K4b's output (dq, dk, dv) for the controls of a
+# scaled limit (as tests/test_torch_encdec.py's): a masking bug that
+# drops the last key position's dk and dv, dv 1% small, dq 1% small
+K4B_FAULTS = {
+    "last-key-dropped": lambda dq, dk, dv: (
+        dq, zero_last_position(dk), zero_last_position(dv)),
+    "dv-1pct": lambda dq, dk, dv: (dq, dk, dv * 0.99),
+    "dq-1pct": lambda dq, dk, dv: (dq * 0.99, dk, dv),
+}
+
+
+def zero_last_position(t):
+    """``t`` (B, S, ...) with its last position zeroed, out of place."""
+    t = t.clone()
+    t[:, -1] = 0
+    return t
+
+
+def family_step_card_vs_cpu(torch, ops, arch, batch_fn, scaled=False):
+    """``steps.value_and_grad`` of ``arch``'s smoke reduction (f32, hd 16:
+    K4 and K4b on the CUDA cores) on the card against the CPU on one
+    batch ``batch_fn(cfg, device)``. Each leaf is held at STEP_GRAD_TOL
+    (``grad_excess``; with ``scaled``, atol of the leaf's largest
+    magnitude). With ``scaled`` the limit's controls run too: the card
+    step again with each of ``K4B_FAULTS`` planted in K4b's output, each
+    of which must fail the limit. Returns (cfg, loss err, max gradient
+    err over every leaf, its largest ratio to the limit, the launches on
+    the card, {fault: (elements out, largest ratio)})."""
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed import steps
+    from repro_torch.models import make_model
+    from repro_torch.models.layers import map_leaves
+    cfg = reduce_for_smoke(get_arch(arch))
+    model = make_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    gparams = map_leaves(lambda _p, t: t.cuda(), params)
+    ops.reset_launch_counts()
+    lg, gg = steps.value_and_grad(model, gparams, batch_fn(cfg, "cuda"))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    lc, gc_ = steps.value_and_grad(model, params, batch_fn(cfg, "cpu"))
+    loss_err = abs(lg.item() - lc.item())
+    n_out, worst, grad_err, where = grad_excess(gg, gc_, scaled)
+    if n_out:
+        raise AssertionError(f"{arch} smoke step, card vs CPU: {n_out} "
+                             f"gradient elements out of the limit, worst "
+                             f"{where} at {worst:.3f}x it")
+    if loss_err > STEP_LOSS_TOL:
+        raise AssertionError(f"{arch} smoke step, card vs CPU: loss err "
+                             f"{loss_err}")
+    controls = {}
+    bwd = ops.flash_attention_bwd
+    for name, fault in (K4B_FAULTS.items() if scaled else ()):
+        ops.flash_attention_bwd = lambda *a, f=fault, **k: f(*bwd(*a, **k))
+        try:
+            _, gf = steps.value_and_grad(model, gparams,
+                                         batch_fn(cfg, "cuda"))
+        finally:
+            ops.flash_attention_bwd = bwd
+        controls[name] = grad_excess(gf, gc_, scaled)[:2]
+        if not controls[name][0]:
+            raise AssertionError(f"{arch} smoke step: the control with "
+                                 f"K4b's {name} passes the limit")
+    return cfg, loss_err, grad_err, worst, launches, controls
+
+
+def rel_l2(torch, a, b):
+    a, b = a.float(), b.float()
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError("non-finite logits")
+    return ((a - b).norm() / b.norm()).item()
+
+
+def train_encdec(torch, ops, ref, kfa, kfab, card):
+    """Phase 17: whisper-large-v3 at full width and depth on the card
+    through ``distributed/steps.py``. a. ENCDEC_STEPS AdamW steps on one
+    batch of ENCDEC_BATCH x (ENCDEC_FRAMES frames + ENCDEC_TOKENS
+    tokens); b. prefill of the frames and an ENCDEC_PROMPT-token prompt
+    into caches padded to ENCDEC_TOKENS, then greedy decode to
+    ENCDEC_NEW tokens; c. prefill against decode at
+    FAMILY_CHECK_LAYERS layers in f32; d. K4 and K4b at the three
+    attention shapes, and K4 at the prefill's three; e. the smoke-width
+    step on the card against the CPU, with its controls. Returns (K4
+    results, K4b results, the main path's launches)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed import steps
+    from repro_torch.models import make_model
+    from repro_torch.weights import flat_size
+    cfg = get_arch(ENCDEC_ARCH)
+    L, B = cfg.n_layers, ENCDEC_BATCH
+    print(f"[encdec] {card}: {memory_line(torch, 'before phase 17:')}")
+    model = make_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    frames, toks = whisper_prompt_batch(torch, cfg, B, ENCDEC_FRAMES,
+                                        ENCDEC_TOKENS, 0)
+    batch = {"enc_embeds": frames, "tokens": toks[:, :-1],
+             "labels": toks[:, 1:]}
+
+    # a. training (the main path starts here)
+    ops.reset_launch_counts()
+    tc0 = (kfa.launches_tc, kfab.launches_tc)
+    params = family_train(torch, model, params, batch, ENCDEC_STEPS,
+                          B * (ENCDEC_FRAMES + ENCDEC_TOKENS), card,
+                          "train-whisper")
+
+    # b. serving: prefill into a cache whose self K/V hold the decoder's
+    # context, then greedy decode
+    prompt = torch.tensor([ENCDEC_PROMPT_IDS] * B, device="cuda")
+    prefill = steps.build_prefill_step(model)
+    decode = steps.build_decode_step(model)
+    cache = model.empty_cache(B, ENCDEC_TOKENS, "cuda", S_enc=ENCDEC_FRAMES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"enc_embeds": frames, "tokens": prompt},
+                            cache=cache, slots=torch.arange(B, device="cuda"))
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    first = logits
+    new, decode_ms, last = greedy_decode(torch, decode, params, cache,
+                                         first, ENCDEC_NEW)
+    launches = ops.launch_counts()
+    tc = (kfa.launches_tc - tc0[0], kfab.launches_tc - tc0[1])
+    want = {kfa.NAME: 3 * L * (ENCDEC_STEPS + 1),
+            kfab.NAME: 3 * L * ENCDEC_STEPS}
+    got = {k: launches[k] for k in want}
+    if got != want or tc != tuple(want.values()):
+        raise AssertionError(f"whisper launches {launches}, on the tensor "
+                             f"cores {tc}; want {want}, all on them")
+    if not torch.isfinite(last).all() or last.shape != (B, 1,
+                                                         cfg.vocab_size):
+        raise AssertionError(f"decode logits {tuple(last.shape)}, finite "
+                             f"{torch.isfinite(last).all().item()}")
+    if cache["pos"].tolist() != [len(ENCDEC_PROMPT_IDS) + ENCDEC_NEW - 1] * B:
+        raise AssertionError(f"decode positions {cache['pos'].tolist()}")
+    nbytes = decode_bytes(params, cache, ("dec_blocks", "final_norm",
+                                          "head"), B, cfg)
+    from repro_torch.analysis.roofline import HBM_BW
+    bound_ms = 1e3 * nbytes / HBM_BW
+    print(f"[serve-whisper] {card}: {ENCDEC_ARCH} L={L}+{L} d={cfg.d_model} "
+          f"{flat_size(cfg)} parameters, bf16, B={B}: prefill of "
+          f"{ENCDEC_FRAMES} frames + {len(ENCDEC_PROMPT_IDS)} tokens "
+          f"{prefill_ms:.2f} ms; greedy decode to {ENCDEC_NEW} tokens on "
+          f"caches padded to {ENCDEC_TOKENS}: {decode_ms:.3f} ms a warm step "
+          f"(bound of the bytes a step reads {bound_ms:.3f} ms: "
+          f"{nbytes / 1e9:.3f} GB at {HBM_BW / 1e12} TB/s; "
+          f"{bound_ms / decode_ms:.3f} of it); first tokens "
+          f"{new[:, :8].tolist()}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; main-path "
+          f"launches {got} (on the tensor cores {tc})")
+    del params, cache, batch, frames, logits, first, last
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. prefill (K4 on the prompt) against prefill + decode (plain
+    # decode attention), full width, 2 layers, f32
+    cut = dataclasses.replace(cfg, n_layers=FAMILY_CHECK_LAYERS,
+                              dtype="float32")
+    cm = make_model(cut)
+    cp = cm.init(torch.Generator(device="cuda").manual_seed(1))
+    frames, toks = whisper_prompt_batch(torch, cut, 1, ENCDEC_FRAMES,
+                                        FAMILY_CHECK_N, 1)
+    with torch.no_grad():
+        full, _ = cm.prefill(cp, {"enc_embeds": frames, "tokens": toks})
+        c = cm.empty_cache(1, FAMILY_CHECK_N + 1, "cuda",
+                           S_enc=ENCDEC_FRAMES)
+        cm.prefill(cp, {"enc_embeds": frames, "tokens": toks[:, :-1]},
+                   cache=c, slots=torch.tensor([0], device="cuda"))
+        stepped, _ = cm.decode(cp, c, {"tokens": toks[:, -1:]})
+    rel = rel_l2(torch, stepped, full)
+    print(f"[serve-whisper] {card}: {ENCDEC_ARCH} d={cut.d_model} "
+          f"L={cut.n_layers}+{cut.n_layers} float32: prefill("
+          f"{FAMILY_CHECK_N + 1}) vs prefill({FAMILY_CHECK_N}) + decode "
+          f"logits, relative L2 {rel:.3e} (limit {PREFILL_DECODE_RTOL})")
+    if rel > PREFILL_DECODE_RTOL:
+        raise AssertionError(f"whisper prefill vs decode logits differ by "
+                             f"{rel} > {PREFILL_DECODE_RTOL}")
+    del cp, c, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d. K4 and K4b at the three attention shapes of the train step
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    k4, k4b = [], []
+    for j, (sq, sk, causal) in enumerate([
+            (ENCDEC_FRAMES, ENCDEC_FRAMES, False),
+            (ENCDEC_TOKENS, ENCDEC_TOKENS, True),
+            (ENCDEC_TOKENS, ENCDEC_FRAMES, False)]):
+        r = check_attention_bwd(torch, ops, ref, (B, sq, H, KV, hd,
+                                                  "bfloat16", causal, 0),
+                                seed=j, sk=sk)
+        k4.append(r["fwd"])
+        k4b.append(r)
+        print(f"[kernel] {card}: K4 with LSE and K4b train-whisper path "
+              f"{json.dumps(r)}")
+        torch.cuda.empty_cache()
+    # K4 without its LSE at the prefill's shapes: the encoder over the
+    # frames, and the prompt's decoder self (causal) and cross attention
+    P = len(ENCDEC_PROMPT_IDS)
+    for j, (sq, sk, causal) in enumerate([
+            (ENCDEC_FRAMES, ENCDEC_FRAMES, False), (P, P, True),
+            (P, ENCDEC_FRAMES, False)]):
+        r = check_attention(torch, ops, ref, (B, sq, H, KV, hd, "bfloat16",
+                                              causal), seed=3 + j, sk=sk)
+        k4.append(r)
+        print(f"[kernel] {card}: K4 serve-whisper prefill path "
+              f"{json.dumps(r)}")
+
+    # e. the smoke-width step on the card against the CPU. The whisper
+    # smoke model's f32 gradients are ill-conditioned: its encoder logits
+    # have std ~20 (the reference's fan-in rule draws wq/wk at std
+    # 1/sqrt(heads)), and on the CPU alone they lie up to 1.1e-2 x (1 +
+    # |g|) from a float64 run of the same step (encoder ln1 bias), where
+    # stablelm's lie 2.1e-4 (tests/test_torch_encdec.py). So each leaf's
+    # atol is STEP_GRAD_TOL of its largest magnitude, and the planted
+    # faults of K4B_FAULTS must each fail that limit
+    scfg, loss_err, grad_err, worst, sl, controls = family_step_card_vs_cpu(
+        torch, ops, ENCDEC_ARCH, lambda c, d: encdec_smoke_batch(torch, c, d),
+        scaled=True)
+    if (sl[kfa.NAME], sl[kfab.NAME]) != (3 * scfg.n_layers,) * 2:
+        raise AssertionError(f"whisper smoke step launches {sl}")
+    print(f"[encdec-step] {card}: {scfg.arch_id} f32 L={scfg.n_layers}+"
+          f"{scfg.n_layers}, card (K4, K4b) vs CPU: loss err {loss_err:.3e} "
+          f"(limit {STEP_LOSS_TOL}), gradient max abs err {grad_err:.3e} "
+          f"(rtol {STEP_GRAD_TOL}, atol {STEP_GRAD_TOL} of each leaf's "
+          f"largest magnitude) over every leaf, at most {worst:.3f} of the "
+          f"limit; controls, K4b with a planted fault against the same "
+          f"limit (elements out, largest ratio): {json.dumps(controls)}")
+    return k4, k4b, launches
+
+
+def encdec_smoke_batch(torch, cfg, device):
+    import numpy as np
+    rng = np.random.RandomState(7)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(2, 41)))
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, 60, cfg.d_model)).astype(np.float32))
+    return {"enc_embeds": frames.to(device), "tokens": toks[:, :-1].to(device),
+            "labels": toks[:, 1:].to(device)}
+
+
+def vision_positions(torch, B, S, grid, text_at_index=False):
+    """M-RoPE positions (3, B, S) of one image of ``grid`` x ``grid``
+    merged patches at the start of each sequence: (0, row, column); the
+    text after it from max + 1 in all three sections (Qwen2-VL's rule,
+    arXiv:2409.12191 §2.1), or, with ``text_at_index``, at its own index
+    (where the reference's decode puts the next token: the cache
+    position in all three sections)."""
+    n = grid * grid
+    img = torch.stack([torch.zeros(n), torch.arange(n) // grid,
+                       torch.arange(n) % grid]).long()
+    text = torch.arange(n, S) if text_at_index else \
+        torch.arange(S - n) + grid
+    pos = torch.cat([img, text.expand(3, -1)], 1)
+    return pos[:, None].expand(3, B, S).contiguous().to("cuda")
+
+
+def vlm_batch(torch, cfg, B, S, seed, grid=None, text_at_index=False):
+    """Embeddings (B, S, D) and labels from ``seed`` with numpy, and the
+    positions of one image of ``grid`` (default VLM_GRID) squared merged
+    patches per sequence, on the card."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    emb = torch.from_numpy(rng.standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)).to("cuda")
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          size=(B, S))).to("cuda")
+    return {"embeds": emb,
+            "positions": vision_positions(torch, B, S, grid or VLM_GRID,
+                                          text_at_index),
+            "labels": labels}
+
+
+def train_vlm(torch, ops, ref, kfa, kfab, card):
+    """Phase 18: qwen2-vl-2b fed with ``embeds`` at full width and depth
+    through ``distributed/steps.py``. a. VLM_STEPS AdamW steps on one
+    batch of VLM_BATCH x VLM_SEQ positions (one image of VLM_GRID^2
+    merged patches per sequence, M-RoPE positions); b. prefill of that
+    batch into a cache with room for VLM_NEW more, then greedy decode
+    of tokens; c. prefill against decode (embeds) at
+    FAMILY_CHECK_LAYERS layers in f32; d. K4 and K4b at the model's
+    shape, and K4 at the prefill's; e. the smoke-width step on the card
+    against the CPU. Returns
+    (K4 results, K4b results, the main path's launches)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed import steps
+    from repro_torch.models import make_model
+    from repro_torch.weights import flat_size
+    cfg = get_arch(VLM_ARCH)
+    L, B, S = cfg.n_layers, VLM_BATCH, VLM_SEQ
+    print(f"[vlm] {card}: {memory_line(torch, 'before phase 18:')}")
+    model = make_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = vlm_batch(torch, cfg, B, S, 0)
+
+    # a. training (the main path starts here)
+    ops.reset_launch_counts()
+    tc0 = (kfa.launches_tc, kfab.launches_tc)
+    params = family_train(torch, model, params, batch, VLM_STEPS, B * S,
+                          card, "train-qwen2-vl")
+
+    # b. serving: prefill with embeds and positions, then greedy decode
+    decode = steps.build_decode_step(model)
+    cache = model.empty_cache(B, S + VLM_NEW, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = model.prefill(
+            params, {"embeds": batch["embeds"],
+                     "positions": batch["positions"]},
+            cache=cache, slots=torch.arange(B, device="cuda"))
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    new, decode_ms, last = greedy_decode(torch, decode, params, cache,
+                                         logits, VLM_NEW)
+    launches = ops.launch_counts()
+    tc = (kfa.launches_tc - tc0[0], kfab.launches_tc - tc0[1])
+    want = {kfa.NAME: L * (VLM_STEPS + 1), kfab.NAME: L * VLM_STEPS}
+    got = {k: launches[k] for k in want}
+    if got != want or tc != tuple(want.values()):
+        raise AssertionError(f"qwen2-vl launches {launches}, on the tensor "
+                             f"cores {tc}; want {want}, all on them")
+    if not torch.isfinite(last).all() or cache["pos"].tolist() != \
+            [S + VLM_NEW - 1] * B:
+        raise AssertionError(f"decode: finite {torch.isfinite(last).all()},"
+                             f" positions {cache['pos'].tolist()}")
+    from repro_torch.analysis.roofline import HBM_BW
+    nbytes = decode_bytes(params, cache, ("blocks", "final_norm", "head"),
+                          B, cfg)
+    bound_ms = 1e3 * nbytes / HBM_BW
+    print(f"[serve-qwen2-vl] {card}: {VLM_ARCH} L={L} d={cfg.d_model} "
+          f"{flat_size(cfg)} parameters, bf16, B={B}: prefill of {S} "
+          f"positions (embeds, M-RoPE) {prefill_ms:.2f} ms; greedy decode "
+          f"to {VLM_NEW} tokens: {decode_ms:.3f} ms a warm step (bound of the "
+          f"bytes a step reads {bound_ms:.3f} ms: {nbytes / 1e9:.3f} GB; "
+          f"{bound_ms / decode_ms:.3f} of it); first tokens "
+          f"{new[:, :8].tolist()}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; main-path "
+          f"launches {got} (on the tensor cores {tc})")
+    del params, cache, batch, logits, last
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. prefill of n + 1 embeds (K4) against n and one decode step of
+    # the last embedding (plain decode attention), 2 layers, f32; text
+    # positions at their index, where decode puts them
+    cut = dataclasses.replace(cfg, n_layers=FAMILY_CHECK_LAYERS,
+                              dtype="float32")
+    cm = make_model(cut)
+    cp = cm.init(torch.Generator(device="cuda").manual_seed(1))
+    n = FAMILY_CHECK_N + VLM_GRID * VLM_GRID
+    b = vlm_batch(torch, cut, 1, n + 1, 1, text_at_index=True)
+    with torch.no_grad():
+        full, _ = cm.prefill(cp, {"embeds": b["embeds"],
+                                  "positions": b["positions"]})
+        c = cm.empty_cache(1, n + 1, "cuda")
+        cm.prefill(cp, {"embeds": b["embeds"][:, :-1],
+                        "positions": b["positions"][:, :, :-1]},
+                   cache=c, slots=torch.tensor([0], device="cuda"))
+        stepped, _ = cm.decode(cp, c, {"embeds": b["embeds"][:, -1:]})
+    rel = rel_l2(torch, stepped, full)
+    print(f"[serve-qwen2-vl] {card}: {VLM_ARCH} d={cut.d_model} "
+          f"L={cut.n_layers} float32: prefill({n + 1} embeds, an image of "
+          f"{VLM_GRID}x{VLM_GRID}) vs prefill({n}) + decode logits, "
+          f"relative L2 {rel:.3e} (limit {PREFILL_DECODE_RTOL})")
+    if rel > PREFILL_DECODE_RTOL:
+        raise AssertionError(f"qwen2-vl prefill vs decode logits differ "
+                             f"by {rel} > {PREFILL_DECODE_RTOL}")
+    del cp, c, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d. K4 and K4b at the model's shape (hd 128, GQA 6, causal)
+    bw = check_attention_bwd(torch, ops, ref, (B, S, cfg.n_heads,
+                                               cfg.n_kv_heads, cfg.hd,
+                                               "bfloat16", True, 0))
+    print(f"[kernel] {card}: K4 with LSE and K4b train-qwen2-vl path "
+          f"{json.dumps(bw)}")
+    # K4 without its LSE at the prefill's shape
+    fw = check_attention(torch, ops, ref, (B, S, cfg.n_heads, cfg.n_kv_heads,
+                                           cfg.hd, "bfloat16", True), seed=1)
+    print(f"[kernel] {card}: K4 serve-qwen2-vl prefill path "
+          f"{json.dumps(fw)}")
+    torch.cuda.empty_cache()
+
+    # e. the smoke-width step on the card against the CPU
+    def smoke_batch(c, device):
+        return {k: v.to(device)
+                for k, v in vlm_batch(torch, c, 2, 40, 7, grid=4).items()}
+    scfg, loss_err, grad_err, _, sl, _ = family_step_card_vs_cpu(
+        torch, ops, VLM_ARCH, smoke_batch)
+    if (sl[kfa.NAME], sl[kfab.NAME]) != (scfg.n_layers,) * 2:
+        raise AssertionError(f"qwen2-vl smoke step launches {sl}")
+    print(f"[vlm-step] {card}: {scfg.arch_id} f32 L={scfg.n_layers}, "
+          f"embeds and M-RoPE positions, card (K4, K4b) vs CPU: loss err "
+          f"{loss_err:.3e} (limit {STEP_LOSS_TOL}), gradient max abs err "
+          f"{grad_err:.3e} (atol=rtol {STEP_GRAD_TOL}) over every leaf")
+    return [bw["fwd"], fw], [bw], launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3325,7 +3987,19 @@ def main() -> int:
                                                  kssd, card)
     torch.cuda.empty_cache()
 
-    # 17. result
+    # 17. encdec: whisper-large-v3 at full width and depth trained through
+    # the model-level step, prefill and greedy decode, prefill against
+    # decode, K4/K4b at its three attention shapes, the smoke-width step
+    wh_k4, wh_k4b, whisper_launches = train_encdec(torch, ops, ref, kfa,
+                                                   kfab, card)
+    torch.cuda.empty_cache()
+
+    # 18. vlm: qwen2-vl-2b fed with embeds and M-RoPE positions, the same
+    vl_k4, vl_k4b, vlm_launches = train_vlm(torch, ops, ref, kfa, kfab,
+                                            card)
+    torch.cuda.empty_cache()
+
+    # 19. result
     def entry(mod, launches, head, shapes):
         return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                 "replaces": mod.REPLACES, "launches": launches,
@@ -3342,18 +4016,22 @@ def main() -> int:
         return {p: ls[name] for p, ls in paths.items()}
     dense_paths = {"train": train_launches,
                    "platform-train": ptrain["launches"],
-                   "service": svc["launches"]}
+                   "service": svc["launches"],
+                   "train-whisper": whisper_launches,
+                   "train-qwen2-vl": vlm_launches}
     ssm_paths = {"ssm-train": train["ssm-train"]["launches"],
                  "ssm-platform-train": sptrain["launches"]}
     k4_paths = by_path(kfa.NAME, {"serve": serve_launches, **dense_paths,
                                   "platform-serve": psv["launches"],
                                   "serve-moe": moe_launches,
                                   "serve-hybrid": hybrid_launches})
-    k4_shapes = main_path + train_fwd + moe_main + hy_k4
+    k4_shapes = main_path + train_fwd + moe_main + hy_k4 + wh_k4 + vl_k4
     k4 = entry(kfa, sum(k4_paths.values()),
                max(k4_shapes, key=lambda r: r["bound_ms"]), k4_shapes)
     k4["launches_by_path"] = k4_paths
-    k4b = entry(kfab, 0, bwd[-1], bwd)
+    k4b_main = [bwd[-1]] + wh_k4b + vl_k4b
+    k4b = entry(kfab, 0, max(k4b_main, key=lambda r: r["bound_ms"]),
+                bwd + wh_k4b + vl_k4b)
     for e, names in ((k4, TC_KERNELS[:1]), (k4b, TC_KERNELS[1:])):
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
         e["x_library"] = e["ms"] / e["library_ms"]

@@ -168,6 +168,19 @@ def apply_rope(x, positions, theta: float,
                      -1).to(dt)
 
 
+def sinusoid_positions(seq: int, d_model: int, dtype=torch.float32,
+                       device=None):
+    """Whisper-style sinusoidal embeddings (seq, d_model): ``[sin, cos]``
+    of ``pos * exp(-ln(10000) k / max(1, half - 1))``, k < half, in f32,
+    then cast (``repro/models/layers.py:135-141``)."""
+    half = d_model // 2
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    k = torch.arange(half, dtype=torch.float32, device=device)
+    freq = torch.exp(-math.log(10000.0) * k / max(1, half - 1))
+    ang = pos * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP, embedding, logits
 # ---------------------------------------------------------------------------

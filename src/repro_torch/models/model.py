@@ -1,23 +1,29 @@
 """Model facade: one entry point per architecture, the counterpart of
 ``repro.models.model`` for the families the port runs.
 
-``Model`` owns the param-def tree, ``init`` from a ``torch.Generator``,
-the training ``loss``, ``prefill`` / ``decode`` and ``cache_specs``.
-There is no mesh: the port runs one card per model.
+``Model`` owns the param-def tree, ``init`` from a ``torch.Generator``
+(or ``abstract_params`` on the meta device), the training ``loss``,
+``prefill`` / ``decode``, and the ``input_specs`` / ``cache_specs`` of a
+step. It dispatches the encdec family to ``models.encdec`` and every
+other family to ``models.transformer``. There is no mesh: the port runs
+one card per model.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import init_params
+from repro_torch.models.layers import init_params, map_leaves
 
 
 class CacheSpec(NamedTuple):
+    """Shape and dtype of one input or cache leaf (the reference's
+    ``jax.ShapeDtypeStruct``)."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
 
@@ -33,36 +39,93 @@ class Model:
     def dtype(self) -> torch.dtype:
         return tf.model_dtype(self.cfg)
 
+    @property
+    def encdec(self) -> bool:
+        return self.cfg.family == "encdec"
+
     def param_defs(self):
+        if self.encdec:
+            return ed.encdec_param_defs(self.cfg)
         return tf.decoder_param_defs(self.cfg)
 
     def init(self, generator: torch.Generator):
         """Fresh weights on ``generator.device``, drawn from it."""
         return init_params(self.param_defs(), generator, self.dtype)
 
+    def abstract_params(self):
+        """The param tree as empty tensors on the meta device (the
+        reference's ``abstract_params``): shapes and dtypes, no data."""
+        return map_leaves(
+            lambda _p, d: torch.empty(d.shape, dtype=self.dtype,
+                                      device="meta"), self.param_defs())
+
     def loss(self, params, batch, xent_chunk: int = 512):
-        """Mean next-token CE of ``batch`` (tokens, labels)."""
+        """Mean next-token CE of ``batch`` (tokens or embeds, labels;
+        encdec: enc_embeds, tokens, labels)."""
+        if self.encdec:
+            return ed.encdec_loss(params, batch, self.cfg,
+                                  xent_chunk=xent_chunk)
         return tf.lm_loss(params, batch, self.cfg, xent_chunk=xent_chunk)
 
     def prefill(self, params, batch, *, cache=None, slots=None):
-        return tf.lm_prefill(params, batch, self.cfg, cache=cache,
-                             slots=slots)
+        """Into a new cache as long as the prompt, or into ``slots`` of a
+        batched ``cache`` (``empty_cache``)."""
+        fn = ed.encdec_prefill if self.encdec else tf.lm_prefill
+        return fn(params, batch, self.cfg, cache=cache, slots=slots)
 
     def decode(self, params, cache, batch):
+        if self.encdec:
+            return ed.encdec_decode(params, cache, batch, self.cfg)
         return tf.lm_decode(params, cache, batch, self.cfg)
 
-    def cache_specs(self, B: int, S: int) -> Dict[str, CacheSpec]:
+    def input_specs(self, shape: ShapeSpec) -> Dict[str, CacheSpec]:
+        """Shapes and dtypes of one step's batch (``model.py:73-112``).
+        train/prefill: encdec enc_embeds (B, S/2, D) and tokens (B, S/2);
+        stub frontends (vlm) embeds (B, S, D), others tokens (B, S);
+        M-RoPE positions (3, B, S); train adds labels. decode: tokens
+        (B, 1). Token ids are int64 (torch's index type; int32 in JAX)."""
+        c = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i64, act = torch.int64, self.dtype
+        if shape.kind == "decode":
+            return {"tokens": CacheSpec((B, 1), i64)}
+        if c.family == "encdec":
+            out = {"enc_embeds": CacheSpec((B, S // 2, c.d_model), act),
+                   "tokens": CacheSpec((B, S // 2), i64)}
+            if shape.kind == "train":
+                out["labels"] = CacheSpec((B, S // 2), i64)
+            return out
+        out = {}
+        if shape.kind == "train":
+            out["labels"] = CacheSpec((B, S), i64)
+        if c.frontend != "none":
+            out["embeds"] = CacheSpec((B, S, c.d_model), act)
+        else:
+            out["tokens"] = CacheSpec((B, S), i64)
+        if c.mrope:
+            out["positions"] = CacheSpec((3, B, S), i64)
+        return out
+
+    def cache_specs(self, B: int, S: int,
+                    S_enc: Optional[int] = None) -> Dict[str, CacheSpec]:
         """Dense: k/v (L, B, S, KV, hd) in the cache dtype. ssm: ssm
         (L, B, H, P, N) f32, conv (L, B, K-1, d_in + 2 G N) in the model
         dtype. Hybrid: k/v per period (np, ...), ssm and conv per mamba
-        layer (np, per - 1, ...). All: pos (B,) int64, one write position
-        per slot."""
-        return {k: CacheSpec(*v)
-                for k, v in tf.cache_shapes(self.cfg, B, S).items()}
+        layer (np, per - 1, ...). encdec: k/v (L, B, S, KV, hd) and
+        cross_k/cross_v (L, B, S_enc, KV, hd), S_enc defaulting to S as
+        in the reference's specs. All: pos (B,) int64, one write
+        position per slot."""
+        if self.encdec:
+            shapes = ed.cache_shapes(self.cfg, B, S,
+                                     S if S_enc is None else S_enc)
+        else:
+            shapes = tf.cache_shapes(self.cfg, B, S)
+        return {k: CacheSpec(*v) for k, v in shapes.items()}
 
-    def empty_cache(self, B: int, S: int, device) -> Dict[str, torch.Tensor]:
+    def empty_cache(self, B: int, S: int, device,
+                    S_enc: Optional[int] = None) -> Dict[str, torch.Tensor]:
         return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
-                for k, s in self.cache_specs(B, S).items()}
+                for k, s in self.cache_specs(B, S, S_enc).items()}
 
 
 def make_model(cfg: ArchConfig) -> Model:

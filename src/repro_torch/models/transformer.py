@@ -1,8 +1,9 @@
-"""Decoder-only LM, dense and moe families (and the vlm family fed with
-tokens), the attention-free ssm family (Mamba-2) and the Jamba-style
-hybrid: param defs, the training loss, prefill and decode. The
-counterpart of the dense, moe, ssm and hybrid paths of
-``repro.models.transformer``.
+"""Decoder-only LM, dense and moe families, the vlm family (fed with
+tokens or with frontend ``embeds`` and their M-RoPE positions), the
+attention-free ssm family (Mamba-2) and the Jamba-style hybrid: param
+defs, the training loss, prefill and decode. The counterpart of
+``repro.models.transformer``; the encdec family's stacks are
+``models.encdec``, which uses the norms and attention sub-blocks here.
 
 Differences from the JAX module, by design:
   * layers run in a Python loop over the stacked ``(L, ...)`` weights
@@ -34,12 +35,10 @@ Differences from the JAX module, by design:
     ``vmap(decode_one)``. The reference's batched ``lm_decode`` uses
     ``_capacity(B, ...)`` and agrees whenever that drops nothing. The
     hybrid's MoE layers decode the same way.
-The encdec family and vlm ``embeds`` inputs raise ``UserError``: they
-are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -50,9 +49,10 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.layers import (ParamDef, apply_rope, chunked_xent,
                                        embed_tokens, gated_mlp,
-                                       last_token_logits, rms_norm)
+                                       last_token_logits, layer_norm,
+                                       rms_norm)
 
-PORTED_FAMILIES = ("dense", "vlm", "ssm", "moe", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "ssm", "moe", "hybrid", "encdec")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -80,8 +80,12 @@ def cache_dtype(cfg: ArchConfig) -> torch.dtype:
 
 def norm_param_defs(cfg: ArchConfig, scan_dims=()) -> dict:
     ld = tuple("layers" for _ in scan_dims)
-    return {"w": ParamDef(scan_dims + (cfg.d_model,), ld + ("norm",),
+    defs = {"w": ParamDef(scan_dims + (cfg.d_model,), ld + ("norm",),
                           init="ones")}
+    if cfg.family == "encdec":   # whisper uses LayerNorm
+        defs["b"] = ParamDef(scan_dims + (cfg.d_model,), ld + ("norm",),
+                             init="zeros")
+    return defs
 
 
 def attn_param_defs(cfg: ArchConfig, scan_dims=()) -> dict:
@@ -173,8 +177,10 @@ def layer_params(blocks: Dict, l: int) -> Dict:
 
 
 def norm_apply(x, p, cfg: ArchConfig):
-    """RMSNorm: the ported families carry no norm bias (LayerNorm is
-    whisper's, not ported yet)."""
+    """LayerNorm where the leaf has a bias (the encdec family's), else
+    RMSNorm."""
+    if "b" in p:
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     return rms_norm(x, p["w"], cfg.norm_eps)
 
 
@@ -274,11 +280,18 @@ def hybrid_stack(h, blocks, cfg: ArchConfig, attn, mamba,
 # ---------------------------------------------------------------------------
 
 
-def _tokens(batch: Dict[str, Any]):
+def _inputs_to_h(params, batch, cfg: ArchConfig):
+    """Hidden states (B, S, D) and RoPE positions of ``batch``: its
+    ``embeds`` (a stub frontend's, cast to the model dtype) or its
+    embedded ``tokens``; its ``positions`` ((B, S), or (3, B, S) for
+    M-RoPE), else 0..S-1 (broadcast to (3, B, S) for M-RoPE)
+    (``transformer.py:300-316``)."""
     if "embeds" in batch:
-        raise UserError("embeds inputs (vlm frontends) are not yet ported "
-                        "to repro_torch; pass tokens")
-    return batch["tokens"]
+        h = batch["embeds"].to(model_dtype(cfg))
+    else:
+        h = embed_tokens(batch["tokens"], params["embed"])
+    B, S = h.shape[:2]
+    return h, _positions(batch, B, S, cfg, h.device)
 
 
 def cache_shapes(cfg: ArchConfig, B: int, S: int) -> Dict[str, Tuple]:
@@ -308,8 +321,8 @@ def cache_shapes(cfg: ArchConfig, B: int, S: int) -> Dict[str, Tuple]:
 
 def lm_prefill(params, batch, cfg: ArchConfig, *,
                cache: Optional[Dict] = None, slots=None):
-    """Prefill ``batch["tokens"]`` (B, S). Returns (logits (B,1,V) f32,
-    cache).
+    """Prefill ``batch["tokens"]`` (B, S), or ``batch["embeds"]`` (B, S,
+    D) with optional ``positions``. Returns (logits (B,1,V) f32, cache).
 
     With ``cache=None`` a new cache (``cache_shapes(cfg, B, S)``) is
     built, as JAX's ``lm_prefill`` returns. With a batched cache and
@@ -317,10 +330,9 @@ def lm_prefill(params, batch, cfg: ArchConfig, *,
     at positions 0..S-1 (positions past S keep what they held, which
     decode masks), its ssm state and conv tail, or the hybrid's both;
     its ``pos`` becomes S."""
-    tokens = _tokens(batch)
-    B, S = tokens.shape
-    dev = tokens.device
-    h = embed_tokens(tokens, params["embed"])
+    h, positions = _inputs_to_h(params, batch, cfg)
+    B, S = h.shape[:2]
+    dev = h.device
     blocks = params["blocks"]
     if cache is None:
         cache = {k: (torch.zeros if k == "pos" else torch.empty)(
@@ -338,8 +350,6 @@ def lm_prefill(params, batch, cfg: ArchConfig, *,
             cache["ssm"][l, slots] = state
             cache["conv"][l, slots] = tail
     elif cfg.family == "hybrid":
-        positions = _positions(batch, B, S, cfg, dev)
-
         def attn(p, x, w):
             a, (k, v) = attn_prefill(x, w, cfg, positions)
             cache["k"][p, slots, :S] = k
@@ -353,7 +363,6 @@ def lm_prefill(params, batch, cfg: ArchConfig, *,
             return out
         h = hybrid_stack(h, blocks, cfg, attn, mamba)
     else:
-        positions = _positions(batch, B, S, cfg, dev)
         for l in range(cfg.n_layers):
             bp = layer_params(blocks, l)
             x = norm_apply(h, bp["ln1"], cfg)
@@ -370,10 +379,15 @@ def lm_prefill(params, batch, cfg: ArchConfig, *,
 
 
 def lm_decode(params, cache, batch, cfg: ArchConfig):
-    """One decode step for every slot. batch: tokens (B,1). cache: as
+    """One decode step for every slot. batch: tokens (B,1), or (not the
+    hybrid, as in the reference) embeds (B,1,D). cache: as
     ``cache_shapes``, updated in place (pos advances by one). Returns
-    (logits (B,1,V) f32, cache)."""
-    h = embed_tokens(_tokens(batch), params["embed"])
+    (logits (B,1,V) f32, cache). RoPE's position is each slot's cache
+    position, in all three M-RoPE sections (``attn_decode``)."""
+    if "embeds" in batch and cfg.family != "hybrid":
+        h = batch["embeds"].to(model_dtype(cfg))
+    else:
+        h = embed_tokens(batch["tokens"], params["embed"])
     pos = cache["pos"]
     blocks = params["blocks"]
     capacity = moe_mod.decode_capacity(h.shape[0]) if cfg.is_moe else None
@@ -428,10 +442,10 @@ def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512):
     scan through ``SSDScan``) -> residual; hybrid: ``hybrid_stack`` of
     the two mixers; final norm; chunked CE with chunk
     ``min(xent_chunk, S)``. No remat of the layers (the learner's
-    ``remat: none``)."""
-    tokens = _tokens(batch)
-    B, S = tokens.shape
-    h = embed_tokens(tokens, params["embed"])
+    ``remat: none``). ``embeds`` (B, S, D) may stand in for tokens, as
+    in ``lm_prefill``."""
+    h, positions = _inputs_to_h(params, batch, cfg)
+    S = h.shape[1]
     blocks = params["blocks"]
     if cfg.family == "ssm":
         for l in range(cfg.n_layers):
@@ -439,13 +453,11 @@ def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512):
             x = norm_apply(h, bp["ln1"], cfg)
             h = h + mam.mamba_block(x, bp["mamba"], cfg)[0]
     elif cfg.family == "hybrid":
-        positions = _positions(batch, B, S, cfg, tokens.device)
         h = hybrid_stack(
             h, blocks, cfg,
             lambda p, x, w: attn_prefill(x, w, cfg, positions)[0],
             lambda p, i, x, w: mam.mamba_block(x, w, cfg)[0])
     else:
-        positions = _positions(batch, B, S, cfg, tokens.device)
         for l in range(cfg.n_layers):
             bp = layer_params(blocks, l)
             x = norm_apply(h, bp["ln1"], cfg)

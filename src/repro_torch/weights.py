@@ -26,6 +26,13 @@ attn_period, per = attn_period):
     blocks/mamba_ln/w (np, per - 1, D), blocks/mlp/{wd,wg,wu}
     (np, per - per // 2, ...), blocks/moe/{router,wd,wg,wu}
     (np, per // 2, ...), embed, final_norm/w, head
+
+and for the encdec family (LayerNorm: bias ``b`` before weight ``w``):
+
+    dec_blocks/{cross_attn/{wk,wo,wq,wv}, ln1/{b,w}, ln2/{b,w},
+    ln3/{b,w}, mlp/{wd,wg,wu}, self_attn/{wk,wo,wq,wv}}, embed,
+    enc_blocks/{attn/{wk,wo,wq,wv}, ln1/{b,w}, ln2/{b,w},
+    mlp/{wd,wg,wu}}, enc_norm/{b,w}, final_norm/{b,w}, head
 """
 from __future__ import annotations
 

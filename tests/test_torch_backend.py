@@ -71,9 +71,21 @@ def jax_ssm():
 
 
 def _train(pkg, workdir, manifest, job="job-1"):
+    """Launch ``manifest`` through ``pkg``'s platform and tick it to a
+    terminal state. The reference's learner pulls as soon as it has
+    joined its PS, and its BSP barrier counts only the members joined so
+    far, so a learner thread that starts late would take its step 0 on
+    weights a round finished without it. The reference's PS therefore
+    has every slot joined (its own ``join``) before the ticks start the
+    learners, as ``tests/test_torch_learner.py::_train`` does; the
+    port's learners wait at their PS's start barrier instead."""
     p = Platform(pkg, workdir, **({"device": "cpu"}
                                   if pkg == "repro_torch" else {}))
     handle = p.launch(job, manifest)
+    if pkg == "repro":
+        ps = handle.plan.meta["ps"]
+        for i in range(ps.n_learners):
+            ps.join(i)
     state = p.drive(job, timeout=240)
     series = p.metrics.series(job, "loss")
     losses = {}
@@ -182,6 +194,44 @@ def test_training_through_the_backend_matches_jax(tmp_path, monkeypatch,
         assert len(acc) == manifest["learners"] * steps
     # the PS app went first, then the learners
     assert list(p.scheduler.apps) == ["job-1-ps", "job-1-learners"]
+
+
+def _hold_back_learner_1(monkeypatch, learner_mod, wait_s=3.0):
+    """Start learner 1 of ``learner_mod``'s bodies only once its PS has
+    taken a push (learner 0's step 0), or after ``wait_s``."""
+    make = learner_mod.make_learner_body
+
+    def held(cfg, ps, *args, **kw):
+        body = make(cfg, ps, *args, **kw)
+
+        def run(wd, idx):
+            if idx == 1:
+                _wait(lambda: ps.stats()["push_count"] >= 1, wait_s)
+            return body(wd, idx)
+        return run
+    monkeypatch.setattr(learner_mod, "make_learner_body", held)
+
+
+@pytest.mark.parametrize("manifest", [
+    lm_manifest(optimizer="adam", lr=3e-4, steps=2),
+    mlp_manifest(steps=2),
+], ids=["lm-adam", "mlp-sgd"])
+def test_late_learner_takes_step_0_on_the_initial_weights(
+        tmp_path, monkeypatch, jax_lm, manifest):
+    """Learner 1 starts only once learner 0 has pushed step 0, in both
+    packages. Its step-0 loss is still that of the initial weights: the
+    reference's round 0 cannot finish without it because ``_train``
+    joins every slot of its PS first, and the port's learner 0 waits at
+    its PS's start barrier (so learner 1 starts after ``wait_s``)."""
+    use_jax_vector(monkeypatch, manifest, jax_lm)
+    _hold_back_learner_1(monkeypatch, jax_learner)
+    _hold_back_learner_1(monkeypatch, port_learner)
+    _, jlosses, want, _, _ = _train("repro", tmp_path / "jax", manifest)
+    _, losses, got, _, _ = _train("repro_torch", tmp_path / "port",
+                                  manifest)
+    for s in range(manifest["steps"]):
+        np.testing.assert_allclose(losses[s], jlosses[s], **LOSS_TOL)
+    np.testing.assert_allclose(got, want, **PARAM_TOL)
 
 
 def test_lifecycle_hooks(tmp_path):

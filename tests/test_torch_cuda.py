@@ -4,8 +4,10 @@ scan and its backward) against their plain PyTorch versions, the
 wrappers' checks, the serving engines and the dense and ssm learner
 steps on CUDA against the same on the CPU, the platform and the
 service (``DLaaSCore``) training and serving on CUDA, the moe
-block and a moe engine on CUDA, and the hybrid (jamba) family's kernel
-shapes, engine and learner step on CUDA.
+block and a moe engine on CUDA, the hybrid (jamba) family's kernel
+shapes, engine and learner step on CUDA, and K4/K4b at whisper-large-v3's
+and qwen2-vl-2b's attention shapes with the two families' model-level
+steps on CUDA.
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is false (the kernel has no CPU mode). This file imports no JAX, so it
@@ -19,6 +21,7 @@ tests. TF32 is switched off so that the plain version's float32
 products are full float32.
 """
 import dataclasses
+import gc
 import threading
 import time
 
@@ -919,6 +922,10 @@ def test_service_trains_releases_and_serves_on_cuda(cuda, tmp_path):
         "node-0", Resources(cpus=16.0, gpus=4, memory_mb=65536))]))
     try:
         assert core.device.type == "cuda"
+        # device tensors that earlier tests left in reference cycles
+        # would otherwise be freed by a collection during the training
+        # and read as memory this test released
+        gc.collect()
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         mid = core.deploy_model(
@@ -1152,3 +1159,134 @@ def test_hybrid_training_step_on_cuda_matches_cpu(cuda, seq):
         periods * (cfg.attn_period - 1)
     assert abs(lg.item() - lc.item()) <= 1e-4
     torch.testing.assert_close(gg.cpu(), gc, atol=2e-3, rtol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# The stub-frontend families: whisper-large-v3 (encdec) and qwen2-vl-2b
+# (vlm embeds) through the model-level steps
+# ---------------------------------------------------------------------------
+
+from repro_torch.distributed import steps  # noqa: E402
+from repro_torch.models import make_model  # noqa: E402
+from repro_torch.models.layers import iter_leaves, map_leaves  # noqa: E402
+
+
+# K4 and K4b on the tensor cores at the full-width attention shapes of
+# whisper-large-v3 (hd 64, MHA: encoder self over 1,500 frames, decoder
+# self over 448 tokens, cross 448 against 1,500; the serve's prefill of a
+# 4-token prompt: decoder self 4 causal, cross 4 against 1,500) and
+# qwen2-vl-2b (hd 128, GQA 6, S 2,048)
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal", [
+    (4, 1500, 1500, 20, 20, 64, False),
+    (4, 448, 448, 20, 20, 64, True),
+    (4, 448, 1500, 20, 20, 64, False),
+    (4, 4, 4, 20, 20, 64, True),
+    (4, 4, 1500, 20, 20, 64, False),
+    (2, 2048, 2048, 12, 2, 128, True),
+], ids=["whisper-enc", "whisper-dec", "whisper-cross", "whisper-dec-prompt",
+        "whisper-cross-prompt", "qwen2-vl"])
+def test_flash_kernels_at_whisper_and_qwen2_vl_shapes(cuda, B, Sq, Sk, H,
+                                                      KV, hd, causal):
+    q, k, v = _qkv(B, Sq, Sk, H, KV, hd, torch.bfloat16, seed=20)
+    do = _qkv(B, Sq, Sq, H, H, hd, torch.bfloat16, seed=21)[0]
+    tc, tcb = kfa.launches_tc, kfab.launches_tc
+    o, lse = ops.flash_attention(q, k, v, causal=causal, return_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (kfa.launches_tc - tc, kfab.launches_tc - tcb) == (1, 1)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal=causal,
+                                             return_lse=True)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
+        assert rel <= BWD_BF16_REL_L2, rel
+
+
+def _family_batch(cfg, device, seed, B=2, S=40):
+    """A training batch of ``cfg``'s smoke model: encdec frames (B, 48,
+    D) and tokens; vlm embeds with image-then-text M-RoPE positions."""
+    rng = np.random.RandomState(seed)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                        size=(B, S + 1))).to(device)
+    b = {"labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        b["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, 48, cfg.d_model)).astype(np.float32)).to(device)
+        b["tokens"] = toks[:, :-1]
+    else:
+        b["embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32)).to(device)
+        n = 16
+        img = torch.stack([torch.zeros(n), torch.arange(n) // 4,
+                           torch.arange(n) % 4])
+        text = (torch.arange(S - n) + 4).expand(3, -1)
+        b["positions"] = torch.cat([img, text], 1).long()[:, None].expand(
+            3, B, S).to(device)
+    return b
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "qwen2-vl-2b"])
+def test_family_training_step_on_cuda_matches_cpu(cuda, arch):
+    """``steps.value_and_grad`` of the smoke model (f32, hd 16: K4 and
+    K4b on the CUDA cores) on the card against the CPU: loss 1e-4,
+    every gradient leaf 2e-3 (whisper: atol scaled, below); whisper
+    launches K4 and K4b three times a layer (encoder self, decoder
+    self, cross), qwen2-vl once."""
+    cfg = reduce_for_smoke(get_arch(arch))
+    model = make_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    gparams = map_leaves(lambda _p, t: t.cuda(), params)
+    ops.reset_launch_counts()
+    lg, gg = steps.value_and_grad(model, gparams,
+                                  _family_batch(cfg, "cuda", 1))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    lc, gc = steps.value_and_grad(model, params, _family_batch(cfg, "cpu", 1))
+    encdec = cfg.family == "encdec"
+    assert counts[kfa.NAME] == counts[kfab.NAME] == \
+        (3 if encdec else 1) * cfg.n_layers
+    assert abs(lg.item() - lc.item()) <= 1e-4
+    for (path, a), (_, b) in zip(iter_leaves(gg), iter_leaves(gc)):
+        # whisper's smoke gradients are ill-conditioned in f32 (on the
+        # CPU alone up to 1.1e-2 x (1 + |g|) from float64; stablelm's
+        # 2.1e-4): atol 2e-3 of the leaf's largest magnitude there
+        scale = max(1.0, b.abs().max().item()) if encdec else 1.0
+        torch.testing.assert_close(a.cpu(), b, atol=2e-3 * scale,
+                                   rtol=2e-3, msg=path)
+
+
+def test_encdec_prefill_and_decode_on_cuda_match_cpu(cuda):
+    """Whisper's smoke model: prefill (K4 three times a layer) into a
+    padded cache and three greedy decode steps (plain attention) on the
+    card against the CPU, f32: logits 1e-4 of their largest magnitude,
+    equal tokens."""
+    cfg = reduce_for_smoke(get_arch("whisper-large-v3"))
+    model = make_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = map_leaves(lambda _p, t: t.to(dev), params)
+        b = _family_batch(cfg, dev, 2, S=12)
+        b.pop("labels")
+        ops.reset_launch_counts()
+        logits, cache = steps.build_prefill_step(model)(
+            p, b, cache=model.empty_cache(2, 16, dev, S_enc=48),
+            slots=torch.arange(2, device=dev))
+        seq = [logits]
+        for _ in range(3):
+            tok = seq[-1].argmax(-1)
+            logits, cache = steps.build_decode_step(model)(
+                p, cache, {"tokens": tok})
+            seq.append(logits)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts()[kfa.NAME] == 3 * cfg.n_layers
+        out[dev] = [s.cpu() for s in seq]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=1e-4)
+        assert torch.equal(a.argmax(-1), b.argmax(-1))

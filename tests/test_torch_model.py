@@ -17,7 +17,6 @@ from repro.models import make_model as jax_make_model
 from repro.runtime.learner import _flat_io
 from repro_torch.configs.base import reduce_for_smoke
 from repro_torch.configs.registry import get_arch
-from repro_torch.errors import UserError
 from repro_torch.models import layers as tl
 from repro_torch.models import make_model
 from repro_torch.weights import flat_layout, params_from_flat
@@ -162,21 +161,6 @@ def test_decode_per_slot_positions_match_jax(arch):
     for key in ("k", "v"):
         np.testing.assert_allclose(_np(cache[key]), _np(jcache[key]),
                                    **MODEL_TOL)
-
-
-@pytest.mark.parametrize("arch", ["whisper-large-v3"])
-def test_unported_families_raise_user_error(arch):
-    with pytest.raises(UserError, match="not yet ported"):
-        make_model(reduce_for_smoke(get_arch(arch)))
-
-
-def test_vlm_embeds_input_raises_user_error():
-    cfg = reduce_for_smoke(get_arch("qwen2-vl-2b"))
-    model = make_model(cfg)
-    gen = torch.Generator().manual_seed(0)
-    params = model.init(gen)
-    with pytest.raises(UserError, match="not yet ported"):
-        model.prefill(params, {"embeds": torch.zeros(1, 3, cfg.d_model)})
 
 
 def test_init_follows_jax_fan_in_rule():

@@ -1,10 +1,12 @@
-"""One initial weights vector for both packages' plans in parity tests.
+"""One initial weights vector for both packages' plans in parity tests,
+and the M-RoPE positions of the vlm parity tests.
 
 Torch cannot reproduce ``jax.random``, so a parity run hands the JAX
 plugin's initial vector to the port: ``use_jax_vector`` patches both
 packages' ``PLUGINS`` so that the JAX plans reuse one LM plugin (its
 jits compile once) and the port's plugins return that vector from
 ``flat_state``."""
+import numpy as np
 import torch
 
 from repro.runtime import learner as jax_learner
@@ -33,3 +35,14 @@ def from_jax(cls, flat):
         def flat_state(self, seed):
             return torch.from_numpy(flat.copy()).to(self.device)
     return FromJax
+
+
+def vision_positions(B, S, grid):
+    """M-RoPE (t, h, w) positions of a ``grid`` x ``grid`` patch image at
+    the start of each sequence, text after it from max + 1 (Qwen2-VL's
+    scheme), slot b shifted by b: (3, B, S) int32."""
+    n = grid * grid
+    img = np.stack([np.zeros(n), np.arange(n) // grid, np.arange(n) % grid])
+    text = np.arange(S - n) + grid
+    pos = np.concatenate([img, np.stack([text] * 3)], axis=1)
+    return (pos[:, None, :] + np.arange(B)[None, :, None]).astype(np.int32)
