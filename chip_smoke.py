@@ -227,7 +227,24 @@ first failing phase (no phase catches an exception):
      decode from a cache with room for 64 tokens; prefill of 289 embeds
      against 288 and one decode step of an embedding), K4 and K4b at (2,
      2048, GQA 6, hd 128) causal, and K4 alone at that prefill shape;
- 19. result  — ``{"kernels": [...]}`` on the line before the last (each
+ 19. pjit    — stablelm-1.6b at full width and depth (24 layers, bf16)
+     as a ``distribution: pjit`` manifest through ``PjitBackend``, the
+     LCM and the scheduler: 12 Adafactor steps of 8 x 512 tokens over
+     32 documents, a checkpoint every 4 (Adafactor and an object store in
+     host memory keep the run's disk writes small: see
+     ``PJIT_MANIFEST``); paused once 6 steps are done,
+     preempted, re-placed, restored from its step-4 checkpoint, resumed
+     and COMPLETED; the last pass's mean loss below the first's, K4 and
+     K4b launched 24 times per step taken, the newest checkpoint restored
+     by a fresh ``Trainer`` equal to ``trained_model.npy``, the job's
+     ``status.perf`` (collective term 0: no mesh), two warm steps under
+     the profiler; b. a 1-rank NCCL mesh: the ``fsdp_tp`` AdamW step
+     against the mesh-less step (loss and every leaf within
+     ``MODEL_TOL``), and a mesh-less Adafactor trainer resumed onto the
+     mesh at step 4 against an uninterrupted run; K4 and K4b at the
+     step's shape (8, 512, 32 heads,
+     hd 64) against their plain versions;
+ 20. result  — ``{"kernels": [...]}`` on the line before the last (each
      kernel's launches summed over the main paths, with
      ``launches_by_path``) and ``{"ok": true, "device": {...}}`` as the
      last line.
@@ -455,6 +472,31 @@ VLM_NEW = 64
 # both: prefill against decode at full width cut to 2 layers in f32
 FAMILY_CHECK_LAYERS = 2
 FAMILY_CHECK_N = 32
+# phase 19: the pjit distribution. stablelm-1.6b at full width and depth
+# (24 layers) as a manifest through PjitBackend: 12 Adafactor steps of 8
+# x 512 tokens over 32 documents (each seen three times, one pass every
+# 4 steps), a checkpoint every 4 steps; paused once 6 steps are done,
+# preempted, resumed from its checkpoint. Adafactor, not AdamW: the
+# card's machine may write 45 GiB to its disk in a whole run, and an
+# AdamW checkpoint of this model is 16.4 GB (its f32 moments), three of
+# them 49 GB, where an Adafactor one is 3.3 GB (bf16 params, factored
+# moments). The platform's object store (the checkpoint mirror) and
+# results store are in host memory for the same reason. Then the sharded
+# step on a 1-rank NCCL mesh against the mesh-less step (AdamW, no
+# checkpoint), and a resume onto that mesh (Adafactor)
+PJIT_ARCH = "stablelm-1.6b"
+PJIT_JOB = "chip-smoke-pjit"
+PJIT_MANIFEST = {
+    "name": "chip-smoke-pjit", "learners": 1, "steps": 12,
+    "checkpoint_every": 4, "lr": 1e-3, "optimizer": "adafactor",
+    "seed": 0, "batch_docs": 8, "data": {"n_docs": 32, "seq_len": 512},
+    "distribution": "pjit",
+    "framework": {"name": "repro-lm", "arch": PJIT_ARCH}}
+PJIT_EPOCH = 4             # steps per pass over the documents
+PJIT_PAUSE_AFTER = 6       # steps done when the job is paused and preempted
+PJIT_MESH_STEPS = 8        # 19 b: mesh-less run; resumed onto the mesh at 4
+PJIT_MESH_LR = 3e-4        # 19 b's AdamW step
+MODEL_TOL = 1e-4           # atol = rtol, params (tests/test_torch_steps.py)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -3607,6 +3649,307 @@ def train_vlm(torch, ops, ref, kfa, kfab, card):
     return [bw["fwd"], fw], [bw], launches
 
 
+class MemoryStore:
+    """A ``platform.storage`` store held in host memory (phase 19's
+    object store and results store: see ``PJIT_MANIFEST``)."""
+
+    def __init__(self):
+        self.blobs = {}
+
+    def put(self, container, name, data):
+        self.blobs[(container, name)] = bytes(data)
+
+    def get(self, container, name):
+        from repro_torch.platform.storage import StorageError
+        if (container, name) not in self.blobs:
+            raise StorageError(f"{container}/{name} not found")
+        return self.blobs[(container, name)]
+
+    def list(self, container):
+        return sorted(n for c, n in self.blobs if c == container)
+
+    def delete(self, container, name):
+        self.blobs.pop((container, name), None)
+
+    def exists(self, container, name):
+        return (container, name) in self.blobs
+
+
+def tick_until(plat, job, cond, what, timeout=600.0):
+    """Tick ``plat`` (scheduler, then ``lcm.monitor``) until ``cond()``."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        plat.scheduler.tick()
+        plat.lcm.monitor(job)
+        if cond():
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"{job}: {what} not reached in {timeout} s: "
+                         f"{plat.lcm.member_statuses(job)}")
+
+
+def member_log(plat, job, member="worker-0"):
+    base = f"/dlaas/jobs/{job}/members/{member}/log"
+    return [plat.zk.get(f"{base}/{c}")[0].decode()
+            for c in plat.zk.children(base)]
+
+
+def pjit_platform(torch, ops, kfa, kfab, cfg, workdir, card):
+    """19 a: ``PJIT_MANIFEST`` planned by ``PjitBackend`` at ``cfg`` on the
+    card, launched under the LCM and scheduler; paused at a step boundary
+    once ``PJIT_PAUSE_AFTER`` steps are done and the step-4 checkpoint is
+    published, preempted, re-placed (its leader logs the restore), resumed
+    and ticked to COMPLETED. Checks: every step done, the last pass's mean
+    loss below the first's, K4 and K4b launched ``n_layers`` times per
+    step taken (the steps redone after the resume included), the
+    newest checkpoint restored by a fresh mesh-less ``Trainer`` at its
+    step with params equal to ``trained_model.npy``, and ``status.perf``
+    ready with its collective term 0. Then two warm steps of that trainer
+    under the profiler. Returns what it measured."""
+    import numpy as np
+    from repro_torch.analysis.perf import measured_rate_from_metrics
+    from repro_torch.distributed.sharding import Dist
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.weights import flat_from_params
+    m, job = PJIT_MANIFEST, PJIT_JOB
+    B, S = m["batch_docs"], m["data"]["seq_len"]
+    ckdir = Path(workdir) / "ckpt" / job
+    plat = ChipPlatform(workdir, cfg, SpanRecorder())
+    for store in ("objectstore", "results"):
+        plat.storage.register(store, MemoryStore())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    be, plan = plat.plan(job, m, "pjit")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    handle = be.launch(plan, plat.lcm)
+
+    def done():
+        return len(plat.metrics.series(job, "loss").values)
+    ck4 = ckdir / f"step_{m['checkpoint_every']:010d}" / "manifest.json"
+    tick_until(plat, job, lambda: done() >= PJIT_PAUSE_AFTER and
+               ck4.exists(), "the pause point")
+    be.pause(handle)
+    paused_at = done()
+    for app_id in plat.lcm._app_ids(job):
+        plat.scheduler.preempt_app(app_id)
+    tick_until(plat, job, lambda: any("resumed from checkpoint" in line
+                                      for line in member_log(plat, job)),
+               "the restore of the re-placed gang")
+    be.resume(handle)
+    state = plat.drive(job)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    logs = member_log(plat, job)
+    series = plat.metrics.series(job, "loss")
+    by_step = dict(zip(series.steps, series.values))   # the last of each
+    n_calls = len(series.values)
+    if state != "COMPLETED" or sorted(by_step) != list(range(m["steps"])):
+        raise AssertionError(f"{job}: {state}, steps {series.steps}")
+    resumed = [line for line in logs if "resumed from checkpoint" in line]
+    if resumed != [f"resumed from checkpoint step={m['checkpoint_every']}"]:
+        raise AssertionError(f"{job}: restores {resumed}")
+    want = {kfa.NAME: cfg.n_layers * n_calls,
+            kfab.NAME: cfg.n_layers * n_calls}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"{job}: launches {launches}, want {want} "
+                             f"({n_calls} steps taken)")
+    first = [by_step[s] for s in range(PJIT_EPOCH)]
+    last = [by_step[s] for s in range(m["steps"] - PJIT_EPOCH, m["steps"])]
+    if not all(map(math.isfinite, by_step.values())) or \
+            sum(last) >= sum(first):
+        raise AssertionError(f"{job}: the last pass's mean loss "
+                             f"{sum(last) / len(last)} is not below the "
+                             f"first's {sum(first) / len(first)}")
+    perf = plan.meta["perf"].snapshot(measured_rate_from_metrics(
+        plat.metrics, job))
+    ratio = check_perf(perf, job, cfg, m)
+    if perf.get("collective_s") != 0.0:
+        raise AssertionError(f"{job}: a mesh-less step with a collective "
+                             f"term: {perf}")
+    uploaded = np.load(io.BytesIO(plat.storage.download(
+        "results", job, "trained_model.npy")))
+    rounds = list(plat.metrics.series(job, "round_time_s").values)
+    del handle, plan, be, plat
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = OptConfig(name=m["optimizer"], lr=m["lr"])
+    tr = Trainer(cfg, Dist(), opt, TrainerConfig(
+        batch=B, seq=S, ckpt_dir=str(ckdir), job_id="restore"))
+    t1 = time.perf_counter()
+    tr._restore_latest()
+    restore_s = time.perf_counter() - t1
+    if tr.step != m["steps"]:
+        raise AssertionError(f"restored step {tr.step} != {m['steps']}")
+    if flat_from_params(tr.params).tobytes() != uploaded.tobytes():
+        raise AssertionError("the restored checkpoint's params differ from "
+                             "trained_model.npy")
+    del uploaded
+    from torch.profiler import ProfilerActivity, profile
+    batch = tr._batch(0)
+    tr.step_once(batch)                                  # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(2):
+            tr.step_once(batch)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    warm = sorted(rounds[1:])[len(rounds[1:]) // 2]
+    print(f"[pjit] {card}: {cfg.arch_id} L={cfg.n_layers} d={cfg.d_model} "
+          f"{cfg.dtype} through PjitBackend, {m['optimizer']} lr {m['lr']}, "
+          f"{m['steps']} steps of {B} x {S} tokens over "
+          f"{m['data']['n_docs']} documents, a checkpoint every "
+          f"{m['checkpoint_every']}: {state} in {wall:.2f} s; paused after "
+          f"{paused_at} steps, preempted, {resumed[0]}, {n_calls} steps "
+          f"taken; loss by step {[round(by_step[s], 4) for s in by_step]}; "
+          f"first pass mean {sum(first) / len(first):.4f}, last pass mean "
+          f"{sum(last) / len(last):.4f}; step wall (round_time_s) median "
+          f"{1e3 * warm:.1f} ms = {B * S / warm:.1f} tokens/s (rounds "
+          f"{[round(1e3 * r, 1) for r in rounds]} ms, the saves' host "
+          f"snapshots and the pause inside theirs); peak device memory "
+          f"{peak / 2**30:.2f} GiB; K4 {launches[kfa.NAME]} and K4b "
+          f"{launches[kfab.NAME]} launches = {cfg.n_layers} x {n_calls}; "
+          f"checkpoint {m['steps']} restored by a fresh Trainer in "
+          f"{restore_s:.2f} s, its params == trained_model.npy")
+    print(f"[pjit] {card}: status.perf {json.dumps(perf)} "
+          f"({ratio:.4f} of model_flops; collective term 0: no mesh)")
+    print(f"[pjit] {card}: two warm steps profiled: {prof_wall:.3f} s "
+          f"wall = {1e3 * prof_wall / 2:.1f} ms a step")
+    print_profile(prof, prof_wall, card,
+                  ours=("flash_fwd_kernel", "flash_bwd"))
+    return {"launches": launches, "wall_s": wall, "warm_ms": 1e3 * warm,
+            "peak_bytes": peak, "losses": by_step}
+
+
+def pjit_mesh(torch, cfg, workdir, card):
+    """19 b: a 1-rank NCCL process group and ``make_mesh(data=1,
+    model=1)`` on the card. The ``fsdp_tp`` AdamW step of a trainer on
+    the mesh against a mesh-less trainer's, from the same seed and batch:
+    the loss and every updated leaf within ``MODEL_TOL``. Then a
+    mesh-less Adafactor trainer resumed onto the mesh after 4 steps (its
+    checkpoint 3.3 GB, where AdamW's would be 16.4): its next 4 losses
+    against those of an uninterrupted mesh-less run. One rank's collectives are copies:
+    this shows the DTensor and NCCL path runs the port's kernels, not its
+    speed across cards."""
+    import torch.distributed as tdist
+    from repro_torch.distributed.sharding import Dist, gather
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import iter_leaves
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    m = PJIT_MANIFEST
+
+    def trainer(dist, name, opt):
+        return Trainer(cfg, dist, opt, TrainerConfig(
+            batch=m["batch_docs"], seq=m["data"]["seq_len"],
+            ckpt_dir=str(Path(workdir) / name), job_id=name)).init(0)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+    adamw = OptConfig(name="adamw", lr=PJIT_MESH_LR)
+    adafactor = OptConfig(name=m["optimizer"], lr=m["lr"])
+    tdist.init_process_group(
+        "nccl", store=tdist.FileStore(str(Path(workdir) / "pg-store"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        a = trainer(Dist(), "flat", adamw)
+        b = trainer(Dist(mesh=mesh), "mesh", adamw)
+        batch = a._batch(0)
+        k4 = ops.launch_counts()[kfa.NAME]
+        la, lb = a.step_once(batch), b.step_once(batch)
+        k4 = ops.launch_counts()[kfa.NAME] - k4
+        diff = 0.0
+        for (k, x), (_, y) in zip(iter_leaves(a.params),
+                                  iter_leaves(b.params)):
+            y = gather(y)
+            d = (x.float() - y.float()).abs()
+            diff = max(diff, d.max().item())
+            if (d > MODEL_TOL + MODEL_TOL * x.float().abs()).any().item():
+                raise AssertionError(f"the mesh step's {k} differs from "
+                                     f"the mesh-less step's by {diff}")
+        if abs(la - lb) > MODEL_TOL + MODEL_TOL * abs(la):
+            raise AssertionError(f"mesh loss {lb} vs mesh-less {la}")
+        del a, b
+        free()
+        flat = trainer(Dist(), "uninterrupted", adafactor)
+        want = [flat.step_once(flat._batch(s))
+                for s in range(PJIT_MESH_STEPS)]
+        del flat
+        free()
+        c = trainer(Dist(), "resumed", adafactor)
+        half = PJIT_MESH_STEPS // 2
+        got = [c.step_once(c._batch(s)) for s in range(half)]
+        c.resume(Dist(mesh=mesh))
+        got += [c.step_once(c._batch(s))
+                for s in range(half, PJIT_MESH_STEPS)]
+        resumed_on = type(next(v for _, v in iter_leaves(c.params))).__name__
+        del c
+        free()
+    finally:
+        tdist.destroy_process_group()
+    worst = max(abs(x - y) for x, y in zip(got[half:], want[half:]))
+    if any(abs(x - y) > MODEL_TOL + MODEL_TOL * abs(y)
+           for x, y in zip(got[half:], want[half:])):
+        raise AssertionError(f"losses after the resume onto the mesh "
+                             f"{got[half:]} vs uninterrupted {want[half:]}")
+    print(f"[pjit-mesh] {card}: 1-rank NCCL mesh (data 1, model 1), "
+          f"fsdp_tp, AdamW lr {PJIT_MESH_LR}: step loss {lb:.6f} vs "
+          f"mesh-less {la:.6f}; every updated leaf within atol=rtol "
+          f"{MODEL_TOL}, largest difference {diff:.3e}; {k4} K4 launches "
+          f"for the two steps. Adafactor lr {m['lr']}: a mesh-less trainer "
+          f"resumed onto the mesh at step {half} ({resumed_on} params): "
+          f"losses {[round(x, 6) for x in got[half:]]} vs uninterrupted "
+          f"{[round(x, 6) for x in want[half:]]}, largest difference "
+          f"{worst:.3e}. One rank's collectives are copies: no claim on "
+          f"speed across cards")
+    return {"step_diff": diff, "loss_diff": abs(la - lb),
+            "resume_diff": worst}
+
+
+def train_pjit(torch, ops, ref, kfa, kfab, card):
+    """Phase 19: ``pjit_platform`` (19 a) and ``pjit_mesh`` (19 b) at
+    stablelm-1.6b's full width and depth, then K4 and K4b at the step's
+    attention shape against their plain versions. Returns (K4 results,
+    K4b results, 19 a's launch counts: the main path)."""
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch(PJIT_ARCH)
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-pjit-",
+                                    dir=build_dir))
+    try:
+        res = pjit_platform(torch, ops, kfa, kfab, cfg, workdir, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        pjit_mesh(torch, cfg, workdir, card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    m = PJIT_MANIFEST
+    shape = (m["batch_docs"], m["data"]["seq_len"], cfg.n_heads,
+             cfg.n_kv_heads, cfg.hd, "bfloat16", True)
+    fwd = check_attention(torch, ops, ref, shape, seed=19)
+    bwd = check_attention_bwd(torch, ops, ref, shape + (0,), seed=19)
+    for label, r in (("K4", fwd), ("K4b", bwd)):
+        print(f"[kernel] {card}: {label} at the pjit step's shape "
+              f"{json.dumps(r)}")
+    torch.cuda.empty_cache()
+    return [fwd], [bwd], res["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3999,7 +4342,14 @@ def main() -> int:
                                             card)
     torch.cuda.empty_cache()
 
-    # 19. result
+    # 19. pjit: stablelm-1.6b at full width and depth through PjitBackend
+    # (preempted and resumed from its checkpoint), the sharded step on a
+    # 1-rank NCCL mesh, K4/K4b at the step's shape
+    pj_k4, pj_k4b, pjit_launches = train_pjit(torch, ops, ref, kfa, kfab,
+                                              card)
+    torch.cuda.empty_cache()
+
+    # 20. result
     def entry(mod, launches, head, shapes):
         return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                 "replaces": mod.REPLACES, "launches": launches,
@@ -4018,20 +4368,22 @@ def main() -> int:
                    "platform-train": ptrain["launches"],
                    "service": svc["launches"],
                    "train-whisper": whisper_launches,
-                   "train-qwen2-vl": vlm_launches}
+                   "train-qwen2-vl": vlm_launches,
+                   "train-pjit": pjit_launches}
     ssm_paths = {"ssm-train": train["ssm-train"]["launches"],
                  "ssm-platform-train": sptrain["launches"]}
     k4_paths = by_path(kfa.NAME, {"serve": serve_launches, **dense_paths,
                                   "platform-serve": psv["launches"],
                                   "serve-moe": moe_launches,
                                   "serve-hybrid": hybrid_launches})
-    k4_shapes = main_path + train_fwd + moe_main + hy_k4 + wh_k4 + vl_k4
+    k4_shapes = (main_path + train_fwd + moe_main + hy_k4 + wh_k4 + vl_k4
+                 + pj_k4)
     k4 = entry(kfa, sum(k4_paths.values()),
                max(k4_shapes, key=lambda r: r["bound_ms"]), k4_shapes)
     k4["launches_by_path"] = k4_paths
-    k4b_main = [bwd[-1]] + wh_k4b + vl_k4b
+    k4b_main = [bwd[-1]] + wh_k4b + vl_k4b + pj_k4b
     k4b = entry(kfab, 0, max(k4b_main, key=lambda r: r["bound_ms"]),
-                bwd + wh_k4b + vl_k4b)
+                bwd + wh_k4b + vl_k4b + pj_k4b)
     for e, names in ((k4, TC_KERNELS[:1]), (k4b, TC_KERNELS[1:])):
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
         e["x_library"] = e["ms"] / e["library_ms"]

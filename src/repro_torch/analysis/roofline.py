@@ -22,9 +22,18 @@ no data, nothing on the card) under a ``TorchDispatchMode``
     ``kernel_cost`` of their shapes to the active count and returns
     empty outputs. Each reads its inputs once and writes its outputs
     once: the reference's "fused: interior bytes don't count".
-  * Collectives: none yet (a step of the port is one card), so
-    ``ici_bytes_per_device``, ``dcn_bytes_per_device`` and
-    ``collective_s`` are 0 and ``collective_bytes_by_kind`` is empty.
+  * Collectives: each functional collective (``_c10d_functional``
+    ``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``,
+    ``all_to_all_single``: the ops DTensor and the sharded steps issue)
+    dispatched while a counter is active adds its wire bytes per device
+    by the reference's formula (``wire_bytes``) to
+    ``collective_bytes_by_kind`` and ``ici_bytes_per_device``, and
+    ``collective_s`` is their time at ``NVLINK_BW``. On meta tensors a
+    functional collective moves no data, so the sharded step counted on
+    the meta device (``distributed.steps.local_train_step``) counts the
+    collectives it would issue. A one-card step has none: 0 and {}. Ops
+    on tensor subclasses (DTensor) are not counted: the local ops they
+    run are.
 
 Compute time takes each operation's peak for its own dtype (bf16 on the
 tensor cores, f32 outside them: the port leaves TF32 off), memory time
@@ -59,6 +68,7 @@ _NO_TRAFFIC = {
     "squeeze", "_reshape_alias", "split", "unbind", "split_with_sizes",
     "narrow", "diagonal", "lift_fresh", "empty", "empty_like",
     "empty_strided", "new_empty", "new_empty_strided", "resize_", "set_",
+    "wait_tensor",
 }
 # gathers: read the indexed rows (output-sized), write the output
 _GATHERS = {"embedding", "index", "index_select", "gather"}
@@ -66,6 +76,41 @@ _GATHERS = {"embedding", "index", "index_select", "gather"}
 _INDEXED_WRITES = {"index_put_", "index_copy_"}
 # ops that write their first argument without reading it
 _WRITE_ONLY_SELF = {"copy_", "fill_", "zero_"}
+# functional collectives, by the reference's HLO kind
+_COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_reduce": "all-reduce",
+                "all_to_all_single": "all-to-all"}
+
+
+def wire_bytes(kind: str, payload: float, n: int) -> float:
+    """Bytes one device sends for a collective of ``kind`` over ``n``
+    ranks whose operand is ``payload`` bytes (``roofline.py:363-380`` of
+    the reference): all-gather (n-1)·payload; reduce-scatter and
+    all-to-all payload·(n-1)/n; all-reduce 2·payload·(n-1)/n."""
+    if kind == "all-gather":
+        return (n - 1) * payload
+    if kind in ("reduce-scatter", "all-to-all"):
+        return payload * (n - 1) / n
+    if kind == "all-reduce":
+        return 2.0 * payload * (n - 1) / n
+    return payload
+
+
+def collective_totals(colls) -> Dict:
+    """The collective keys of ``ProgramCounter.totals`` from a list of
+    (kind, payload bytes, ranks): ``collective_bytes_by_kind`` (wire
+    bytes, kinds with none left out), ``ici_bytes_per_device`` and
+    ``collective_s`` at ``NVLINK_BW``."""
+    by_kind: Dict[str, float] = {}
+    for kind, payload, n in colls:
+        w = wire_bytes(kind, payload, n)
+        if w:
+            by_kind[kind] = by_kind.get(kind, 0.0) + w
+    ici = sum(by_kind.values())
+    return {"ici_bytes_per_device": ici,
+            "collective_bytes_by_kind": by_kind,
+            "collective_s": ici / NVLINK_BW}
 
 
 def peak_flops(dtype) -> float:
@@ -302,6 +347,7 @@ class ProgramCounter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.by_key: Dict[str, _Tally] = {}
+        self.colls: List = []        # (kind, payload bytes, ranks)
 
     def add(self, key: str, flops: float, nbytes: float,
             compute_s: float) -> None:
@@ -325,6 +371,14 @@ class ProgramCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if any(t is not torch.Tensor and issubclass(t, torch.Tensor)
+               for t in types):
+            return out      # a tensor subclass: its local ops are counted
+        name = func.overloadpacket.__name__
+        if func.namespace == "_c10d_functional" \
+                and name.rstrip("_") in _COLLECTIVES:
+            self.colls.append(_collective(name.rstrip("_"), args))
+            return out
         flops = op_flops(func, args, kwargs, out)
         nbytes = op_bytes(func, args, kwargs, out)
         if flops or nbytes:
@@ -335,21 +389,31 @@ class ProgramCounter(TorchDispatchMode):
         return out
 
     def totals(self) -> Dict:
-        """The reference's ``analyze_hlo_text`` keys. No collective is
-        counted yet: a step of the port runs on one card."""
+        """The reference's ``analyze_hlo_text`` keys. Every collective
+        counts at NVLink (one host); ``dcn_bytes_per_device`` is 0."""
         flops = sum(t.flops for t in self.by_key.values())
         nbytes = sum(t.bytes for t in self.by_key.values())
-        ici = dcn = 0.0
         return {
             "flops_per_device": flops,
             "hbm_bytes_per_device": nbytes,
-            "ici_bytes_per_device": ici,
-            "dcn_bytes_per_device": dcn,
-            "collective_bytes_by_kind": {},
+            "dcn_bytes_per_device": 0.0,
             "compute_s": sum(t.compute_s for t in self.by_key.values()),
             "memory_s": nbytes / HBM_BW,
-            "collective_s": ici / NVLINK_BW + dcn / NET_BW,
+            **collective_totals(self.colls),
         }
+
+
+def _collective(name: str, args):
+    """(kind, payload bytes, ranks) of a functional collective's call."""
+    t = args[0]
+    payload = t.numel() * t.element_size()
+    if name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
+        n = int(args[-2])
+    else:
+        from torch.distributed.distributed_c10d import \
+            _resolve_process_group
+        n = _resolve_process_group(args[-1]).size()
+    return (_COLLECTIVES[name], payload, n)
 
 
 def record_kernel(name: str, cost: KernelCost) -> None:
@@ -378,9 +442,10 @@ def _count(fn: Callable, args, kw) -> ProgramCounter:
 def count_program(fn: Callable, *args, **kw) -> Dict:
     """Run ``fn(*args, **kw)`` once on the meta device and return its
     roofline terms under the reference's keys: ``flops_per_device``,
-    ``hbm_bytes_per_device``, ``ici_bytes_per_device`` and
-    ``dcn_bytes_per_device`` (0), ``collective_bytes_by_kind`` ({}),
-    ``compute_s``, ``memory_s``, ``collective_s``. Tensor arguments not
+    ``hbm_bytes_per_device``, ``ici_bytes_per_device``,
+    ``dcn_bytes_per_device`` (0), ``collective_bytes_by_kind``,
+    ``compute_s``, ``memory_s``, ``collective_s`` (a one-card program
+    issues no collective: 0 and {}). Tensor arguments not
     on meta are replaced by empty meta tensors of their shape, dtype and
     strides; tensors ``fn`` makes must be made on its arguments' device.
     Nothing runs on the card and no device memory is allocated."""

@@ -1,6 +1,7 @@
 """Fault-tolerant checkpointing in the on-disk layout of
-``repro/checkpoint/checkpoint.py``, in numpy only, so a checkpoint
-written by one package restores in the other:
+``repro/checkpoint/checkpoint.py``, in numpy only, so a checkpoint of
+numpy-typed leaves (float32, int) written by one package restores in
+the other:
 
   * ``<dir>/step_%010d/`` published atomically (write ``.tmp``, rename);
     ``DLAAS_FSYNC=1`` also fsyncs every leaf and the directory entry;
@@ -14,9 +15,22 @@ written by one package restores in the other:
   * an optional object-store mirror ``(StorageManager, store, prefix)``.
 
 Leaves may be numpy arrays or tensors on any device; ``save`` snapshots
-them to host memory on the caller's thread. ``restore`` returns numpy
-arrays in the template's nesting (the JAX package re-lays them out on a
-mesh; the port has no mesh).
+them to host memory on the caller's thread. A bfloat16 tensor, which
+numpy cannot hold, is written as its bit pattern in a structured array
+of one uint16 field named ``bfloat16`` (``dtype`` ``"bfloat16"`` in the
+manifest) and read back widened to float32 (exactly). The JAX package
+cannot read such a leaf: its restore raises ``TypeError`` (JAX takes no
+structured array) rather than load the bits as integers. ``restore``
+returns numpy arrays in the template's nesting.
+
+Sharded trees (the pjit trainer on a ``torch.distributed`` mesh): ``save``
+of a tree with DTensor leaves gathers every leaf whole on every rank (a
+collective: every rank of the mesh calls it) and rank 0 writes it, so
+the files are those of an unsharded tree. ``restore(step, template,
+shardings)`` gives each leaf with a ``Sharding`` as a DTensor holding
+this rank's slice, in the template leaf's dtype on the mesh's device:
+the reference's re-layout through ``device_put`` (elastic restore onto
+another mesh).
 """
 from __future__ import annotations
 
@@ -31,21 +45,47 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.models.layers import iter_leaves, map_leaves
 from repro_torch.platform.journal import fsync_enabled
 
+# a bfloat16 leaf on disk: its bits, in a dtype that JAX refuses
+BF16_BITS = np.dtype([("bfloat16", "<u2")])
 
-def _host(leaf) -> np.ndarray:
-    """A host numpy copy of a numpy array or a tensor (any device). The
-    caller may overwrite a tensor once ``save`` returns (a learner's PS
-    pull buffer is reused in place), and ``.cpu()`` of a CPU tensor is
-    the tensor itself, so a CPU tensor is copied here."""
+
+def _host(leaf) -> Tuple[np.ndarray, str]:
+    """(a host numpy copy, its dtype name) of a numpy array or a tensor
+    (any device; a DTensor is gathered whole first). The caller may
+    overwrite a tensor once ``save`` returns (a learner's PS pull buffer
+    is reused in place), and ``.cpu()`` of a CPU tensor is the tensor
+    itself, so a CPU tensor is copied here. bfloat16 goes as its bits
+    (``BF16_BITS``)."""
     if hasattr(leaf, "detach"):
         t = leaf.detach()
-        return t.numpy().copy() if t.device.type == "cpu" \
+        if hasattr(t, "full_tensor"):
+            t = t.full_tensor()
+        name = str(t.dtype).removeprefix("torch.")
+        bf16 = t.dtype == torch.bfloat16
+        if bf16:
+            t = t.view(torch.uint16)
+        host = t.numpy().copy() if t.device.type == "cpu" \
             else t.cpu().numpy()
-    return np.array(leaf)
+        return (host.view(BF16_BITS) if bf16 else host), name
+    arr = np.array(leaf)
+    return arr, str(arr.dtype)
+
+
+def _sharded(tree) -> bool:
+    return any(hasattr(v, "full_tensor") for _, v in iter_leaves(tree))
+
+
+def _load(data: bytes) -> np.ndarray:
+    arr = np.load(io.BytesIO(data), allow_pickle=False)
+    if arr.dtype == BF16_BITS:
+        arr = (arr.view(np.uint16).astype(np.uint32) << 16).view(
+            np.float32)
+    return arr
 
 
 def _file(key: str) -> str:
@@ -68,15 +108,22 @@ class CheckpointManager:
     # ---- save -----------------------------------------------------------
     def save(self, step: int, tree, extra: Optional[Dict] = None,
              block: bool = False):
-        """Snapshot on the caller thread, serialize on a worker thread."""
+        """Snapshot on the caller thread, serialize on a worker thread.
+        A tree with DTensor leaves is gathered on every rank and written
+        by rank 0 only."""
         self.wait()
         # snapshot to host memory now (values may be mutated later)
-        host = {k: _host(v) for k, v in iter_leaves(tree)}
+        snap = {k: _host(v) for k, v in iter_leaves(tree)}
+        if _sharded(tree):
+            import torch.distributed as tdist
+            if tdist.get_rank() != 0:
+                return
+        host = {k: v for k, (v, _) in snap.items()}
         meta = {"step": int(step), "ts": time.time(),
                 "extra": extra or {},
-                "leaves": {k: {"shape": list(v.shape),
-                               "dtype": str(v.dtype)}
-                           for k, v in host.items()}}
+                "leaves": {k: {"shape": list(v.shape), "dtype": name}
+                           for k, (v, name) in snap.items()}}
+        del snap
         if self.async_save and not block:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host, meta), daemon=True)
@@ -178,16 +225,27 @@ class CheckpointManager:
         return None
 
     # ---- restore ------------------------------------------------------------
-    def restore(self, step: int, template):
-        """(tree, extra): the leaves of checkpoint ``step`` as numpy
-        arrays, nested as ``template`` (whose leaf values are ignored)."""
+    def restore(self, step: int, template, shardings=None):
+        """(tree, extra): the leaves of checkpoint ``step``, nested as
+        ``template`` (whose leaf values are ignored but for their dtype
+        under a sharding): numpy arrays, or, for each leaf whose entry in
+        ``shardings`` (same nesting, ``distributed.sharding.Sharding``
+        leaves) is set, a DTensor of this rank's slice on the mesh."""
         path = self.dir / f"step_{step:010d}"
         meta = json.loads((path / "manifest.json").read_text())
+        flat_s = dict(iter_leaves(shardings)) if shardings is not None \
+            else {}
 
-        def load(key, _leaf):
+        def load(key, leaf):
             fp = path / _file(key)
             if not fp.exists():
                 raise FileNotFoundError(f"checkpoint missing leaf {key}")
-            return np.load(io.BytesIO(fp.read_bytes()), allow_pickle=False)
+            arr = _load(fp.read_bytes())
+            sh = flat_s.get(key)
+            if sh is None:
+                return arr
+            from repro_torch.distributed.sharding import distribute
+            dev = torch.device(sh.mesh.device_type)
+            return distribute(torch.from_numpy(arr).to(dev, leaf.dtype), sh)
 
         return map_leaves(load, template), meta.get("extra", {})

@@ -1,2 +1,3 @@
-"""Step builders of the model-level path (``steps``): train, prefill and
-decode on one card. The mesh and its shardings are not ported yet."""
+"""Distribution: the sharding policy and specs (``sharding``) and the
+step builders (``steps``): train, prefill and decode on one card or
+sharded over a ``torch.distributed`` mesh."""

@@ -1,26 +1,60 @@
-"""Step builders: train / prefill / decode of a ``Model``, the single-card
-part of ``repro.distributed.steps``.
+"""Step builders: train / prefill / decode of a ``Model``: the
+counterpart of ``repro.distributed.steps``.
 
-These are the model-level entry points: the only way the reference
+``build_*_step`` are the one-card steps: the only way the reference
 trains and runs its stub-frontend families (whisper's encoder-decoder,
 the vlm family's ``embeds``), which its learner, trainer and serving
 engine refuse. The train step takes the model's loss and its gradient
 (autograd through the port's kernels: K4 and K4b for attention) and one
-``optim.optimizers.apply_updates`` in place. There is no mesh: the
-gradient pinning ``_constrain_grads``, ``_ns`` and the ``jit_*_step``
-wrappers with their shardings wait for the port's distributed trainer.
+``optim.optimizers.apply_updates`` in place.
+
+``jit_*_step`` are the steps built for the model's ``Dist`` (the name is
+the reference's; nothing is compiled). Without a mesh they are the
+``build_*_step`` above. On a ``torch.distributed`` mesh the reference
+lets GSPMD place everything; the port does it by hand, in one form whose
+numbers equal the one-card step's:
+
+  * state: params and optimizer state are DTensors with the placements
+    of ``param_specs`` / ``opt_state_specs``;
+  * batch: each rank takes its rows of the global batch over
+    ``dist.batch_axes`` (every rank the whole batch when none divides);
+  * forward and backward: the whole tree of weights is all-gathered at
+    the start of the step, and the one-card ``value_and_grad`` runs on
+    the rank's rows with the port's kernels (K4, K4b on CUDA);
+  * gradients (``_constrain_grads``): each is divided by the number of
+    batch shards and reduce-scattered onto its leaf's shards over the
+    batch axes, so it is the mean over ranks that hold different rows;
+    ranks that differ only in an axis that does not shard the batch
+    ("model") computed the same gradient and take their slice of it.
+    The loss is the all-reduced mean of the ranks' losses;
+  * update: ``apply_updates`` on the local shards; Adafactor's means
+    all-reduce over the mesh dims that shard the dims they reduce
+    (``MeshLeaf``).
+
+The "model" axis thus saves memory, not time: no matmul is split over
+it. A ``Dist`` the port cannot run raises ``UserError``: the
+``zero3_sp`` policy (its sequence-parallel attention is not ported) and
+a moe arch whose expert axis is larger than 1 (the sharded dispatch is
+not ported). Every group a step uses is a mesh dim's.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
-from repro_torch.models.layers import iter_leaves, map_leaves
-from repro_torch.models.model import Model
-from repro_torch.optim.optimizers import (OptConfig, apply_updates,
-                                          init_opt_state)
+from repro_torch.distributed.sharding import (Dist, P, Sharding, axes_of,
+                                              contiguous_stride, mesh_axes,
+                                              placements, shard_slices)
+from repro_torch.errors import UserError
+from repro_torch.models.layers import iter_leaves, leaf_at, map_leaves
+from repro_torch.models.model import Model, make_model
+from repro_torch.optim.optimizers import (LeafShards, OptConfig,
+                                          apply_updates, init_opt_state,
+                                          opt_state_specs)
 
 
 def default_optimizer(cfg: ArchConfig) -> OptConfig:
@@ -91,31 +125,37 @@ def split_batch(batch: Dict[str, torch.Tensor], n: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def loss_and_grads(model: Model, params, batch, grad_accum: int = 1):
+    """(loss, grads) of ``model.loss``; with ``grad_accum`` > 1 over that
+    many micro-batches, their losses and f32 gradients summed and divided
+    by ``grad_accum``, as the reference's scan does."""
+    if grad_accum == 1:
+        return value_and_grad(model, params, batch)
+    loss = None
+    grads = map_leaves(lambda _p, t: torch.zeros(
+        t.shape, dtype=torch.float32, device=t.device), params)
+    for mb in split_batch(batch, grad_accum):
+        l, g = value_and_grad(model, params, mb)
+        loss = l if loss is None else loss + l
+        for acc, gi in zip([t for _, t in iter_leaves(grads)],
+                           [t for _, t in iter_leaves(g)]):
+            acc.add_(gi)
+        del g
+    loss = loss / grad_accum
+    for _, acc in iter_leaves(grads):
+        acc.div_(grad_accum)
+    return loss, grads
+
+
 def build_train_step(model: Model, opt_cfg: OptConfig, grad_accum: int = 1):
     """Returns train_step(params, opt_state, batch) -> (params, state,
     loss). With ``grad_accum`` > 1 the batch is cut into that many
-    micro-batches; their losses and f32 gradients are summed and divided
-    by ``grad_accum``, as the reference's scan does. Params and state are
-    updated in place (and returned)."""
+    micro-batches (``loss_and_grads``). Params and state are updated in
+    place (and returned)."""
     tie = expert_grad_tie(model.cfg, model)
 
     def train_step(params, opt_state, batch):
-        if grad_accum == 1:
-            loss, grads = value_and_grad(model, params, batch)
-        else:
-            loss = None
-            grads = map_leaves(lambda _p, t: torch.zeros(
-                t.shape, dtype=torch.float32, device=t.device), params)
-            for mb in split_batch(batch, grad_accum):
-                l, g = value_and_grad(model, params, mb)
-                loss = l if loss is None else loss + l
-                for acc, gi in zip([t for _, t in iter_leaves(grads)],
-                                   [t for _, t in iter_leaves(g)]):
-                    acc.add_(gi)
-                del g
-            loss = loss / grad_accum
-            for _, acc in iter_leaves(grads):
-                acc.div_(grad_accum)
+        loss, grads = loss_and_grads(model, params, batch, grad_accum)
         grads = tie(grads)
         params, state = apply_updates(opt_cfg, params, grads, opt_state)
         return params, state, loss
@@ -139,6 +179,417 @@ def build_decode_step(model: Model):
     @torch.no_grad()
     def decode_step(params, cache, batch):
         return model.decode(params, cache, batch)
+    return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Steps built for a Dist (sharded on a mesh)
+# ---------------------------------------------------------------------------
+
+
+def check_dist(model: Model) -> None:
+    """Raise ``UserError`` for a ``Dist`` whose sharded step the port
+    cannot run (see the module docstring)."""
+    d = model.dist
+    if not d.has_mesh:
+        return
+    if d.policy == "zero3_sp":
+        raise UserError("the zero3_sp policy (sequence-parallel attention "
+                        "over 'model') is not yet ported to repro_torch; "
+                        "use fsdp_tp, tp_dp or dp_only")
+    if model.cfg.moe is not None and d.expert_axis is not None \
+            and d.model_size > 1:
+        raise UserError(f"{model.cfg.arch_id!r}: moe's sharded dispatch "
+                        f"over an expert axis of {d.model_size} is not yet "
+                        f"ported to repro_torch; use a mesh with model=1 "
+                        f"or the dp_only policy")
+
+
+def _ns(dist: Dist, spec_tree):
+    """A tree of specs as ``Sharding``s on the mesh (None without one)."""
+    if not dist.has_mesh:
+        return None
+    return map_leaves(lambda _p, s: Sharding(dist.mesh, s), spec_tree)
+
+
+def _batch_group(dist: Dist):
+    """(mesh dims that shard the batch, their number of shards)."""
+    names = list(mesh_axes(dist.mesh))
+    bt = dist.batch_axes or ()
+    dims = [names.index(a) for a in bt]
+    return dims, math.prod(dist.axis_size(a) for a in bt)
+
+
+def _coord(dist: Dist) -> Dict[str, int]:
+    return dict(zip(mesh_axes(dist.mesh), dist.mesh.get_coordinate()))
+
+
+def local_batch(model: Model, shape: ShapeSpec,
+                batch: Dict[str, torch.Tensor]):
+    """This rank's rows of the global ``batch`` of ``shape`` (every rank
+    holds it alike), cut per ``model.input_sharding_specs``: a view of
+    each leaf."""
+    d = model.dist
+    specs = model.input_sharding_specs(shape)
+    axes, coord = mesh_axes(d.mesh), _coord(d)
+    return {k: x[shard_slices(specs[k], x.shape, axes, coord)]
+            for k, x in batch.items()}
+
+
+def _done(t):
+    """A functional collective's result once it has arrived (an
+    ``AsyncCollectiveTensor``, or a plain tensor under a dispatch mode)."""
+    import torch.distributed._functional_collectives as funcol
+    return t.wait() if hasattr(t, "wait") else funcol.wait_tensor(t)
+
+
+def _all_reduce(t, mesh, dims):
+    """``t`` summed over the ranks of each mesh dim in ``dims`` in turn
+    (functional collectives, which ``analysis.roofline`` counts)."""
+    import torch.distributed._functional_collectives as funcol
+    for j in dims:
+        if mesh.size(j) > 1:
+            t = _done(funcol.all_reduce(t, "sum", (mesh, j)))
+    return t
+
+
+def _relayout(x, mesh, src: P, dst: P, shape):
+    """The local part of a tensor of ``shape`` laid out as ``dst``, from
+    its local part laid out as ``src`` (a slice where ``dst`` shards more;
+    an all-gather where it shards less)."""
+    if tuple(src) == tuple(dst):
+        return x
+    from torch.distributed.tensor import DTensor
+    names = tuple(mesh_axes(mesh))
+    dt = DTensor.from_local(x, mesh, placements(src, names),
+                            run_check=False, shape=torch.Size(shape),
+                            stride=contiguous_stride(shape))
+    return dt.redistribute(mesh, placements(dst, names)).to_local()
+
+
+class MeshLeaf(LeafShards):
+    """A leaf's local shard on a mesh, for Adafactor's reductions: the
+    mesh dims that shard each param dim, and the layouts of the column
+    stats at the shard's columns (the param's spec without dim -2) and of
+    the ``vc`` state (its own spec, which may shard its last dim over
+    more axes: an axis freed by the dropped dim)."""
+
+    def __init__(self, shape, mesh, spec: P, vc_spec: P):
+        self.shape = tuple(shape)
+        self.mesh = mesh
+        names = list(mesh_axes(mesh))
+        spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+        self.by_dim = [[names.index(a) for a in axes_of(ax)]
+                       for ax in spec]
+        self.cols = P(*spec[:-2], spec[-1]) if len(shape) >= 2 else None
+        self.vc_spec = vc_spec
+        self.vc_shape = tuple(shape[:-2]) + tuple(shape[-1:])
+
+    def _sum(self, t, pdims):
+        """``t``, a partial sum over the local part of param dims
+        ``pdims``, summed over the ranks that hold their other parts."""
+        mdims = sorted({j for i in pdims for j in self.by_dim[i]})
+        return _all_reduce(t, self.mesh, mdims)
+
+    def mean(self, t, dim, pdim):
+        return self._sum(torch.sum(t, dim=dim), (pdim,)) / self.shape[pdim]
+
+    def mean_all(self, t):
+        return self._sum(torch.sum(t), range(len(self.shape))) \
+            / math.prod(self.shape)
+
+    def vc_in(self, vc):
+        return _relayout(vc, self.mesh, self.vc_spec, self.cols,
+                         self.vc_shape)
+
+    def vc_out(self, vc):
+        return _relayout(vc, self.mesh, self.cols, self.vc_spec,
+                         self.vc_shape)
+
+
+def _local(tree):
+    """The local tensors of a tree of DTensors (views: writing them
+    writes the DTensors)."""
+    from torch.distributed.tensor import DTensor
+    return map_leaves(lambda _p, x: x.to_local()
+                      if isinstance(x, DTensor) else x, tree)
+
+
+def _axes_of(spec, i) -> tuple:
+    """The axis names of tensor dim ``i`` of ``spec``."""
+    return axes_of(tuple(spec)[i] if i < len(spec) else None)
+
+
+def _grad_plan(spec, ndim: int, names, batch):
+    """The order in which a whole-leaf gradient becomes its shard: per
+    tensor dim, the axes before its first batch axis are sliced first
+    (no collective: ranks that differ only there hold the same rows),
+    then each batch axis in mesh order reduce-scatters (the leaf is
+    sharded over it) or all-reduces (it is whole along it), then the
+    remaining axes are sliced. Each step is (op, tensor dim or None,
+    mesh dim), op one of "slice", "rs", "ar"; a dim sharded over several
+    axes is cut major axis first, so the blocks are JAX's."""
+    head, tail, where = [], [], {}
+    for i in range(ndim):
+        axes = _axes_of(spec, i)
+        seen_batch = False
+        for a in axes:
+            where[a] = i
+            if a in batch:
+                seen_batch = True
+            elif seen_batch:
+                tail.append(("slice", i, names.index(a)))
+            else:
+                head.append(("slice", i, names.index(a)))
+    mid = [("rs" if a in where else "ar", where.get(a), names.index(a))
+           for a in names if a in batch]
+    return head + mid + tail
+
+
+def _constrain_grads(model: Model, grads):
+    """Each whole-leaf gradient of this rank's rows -> the local shard of
+    the mean gradient over the batch shards, on its leaf's spec: divided
+    by the number of batch shards, sliced along the axes that do not
+    shard the batch, reduce-scattered (or all-reduced, where the leaf is
+    whole along it) over those that do (``_grad_plan``)."""
+    import torch.distributed._functional_collectives as funcol
+    d = model.dist
+    mesh = d.mesh
+    names = list(mesh_axes(mesh))
+    batch = set(d.batch_axes or ())
+    _, n_b = _batch_group(d)
+    coord = mesh.get_coordinate()
+    specs = model.param_specs()
+
+    def one(path, g):
+        if n_b > 1:
+            g = g / n_b
+        for op, i, j in _grad_plan(leaf_at(specs, path), g.dim(), names,
+                                   batch):
+            n = mesh.size(j)
+            if op == "slice":
+                g = g.chunk(n, dim=i)[coord[j]]
+            elif n == 1:
+                continue
+            elif op == "rs":
+                rs = getattr(funcol, "reduce_scatter_single",
+                             funcol.reduce_scatter_tensor)
+                g = _done(rs(g.contiguous(), "sum", i, (mesh, j)))
+            else:
+                g = _done(funcol.all_reduce(g, "sum", (mesh, j)))
+        return g.contiguous()
+    return map_leaves(one, grads)
+
+
+def _gatherleaf_at(x, spec, mesh):
+    """The whole leaf from this rank's shard ``x`` laid out as ``spec``:
+    per tensor dim, an all-gather over each of its axes, minor first."""
+    import torch.distributed._functional_collectives as funcol
+    names = list(mesh_axes(mesh))
+    for i in range(x.dim()):
+        for a in reversed(_axes_of(spec, i)):
+            j = names.index(a)
+            if mesh.size(j) > 1:
+                ag = getattr(funcol, "all_gather_single",
+                             funcol.all_gather_tensor)
+                x = _done(ag(x.contiguous(), i, (mesh, j)))
+    return x
+
+
+def _gather_tree(params, pspecs, mesh):
+    """The whole weights from this rank's shards (plain tensors laid out
+    per ``pspecs``): ``_gatherleaf_at`` of every leaf."""
+    return map_leaves(lambda path, x: _gatherleaf_at(
+        x, leaf_at(pspecs, path), mesh), params)
+
+
+def local_train_step(model: Model, opt_cfg: OptConfig, shape: ShapeSpec,
+                     grad_accum: int = 1):
+    """The sharded train step on this rank's local shards:
+    step(params, state, batch) -> (new step counter, global mean loss),
+    params and state (plain tensors laid out per ``param_specs`` /
+    ``opt_state_specs``) updated in place, ``batch`` the global batch of
+    ``shape``. On meta tensors it moves no data, its collectives
+    included, so ``analysis.roofline.count_program`` of it on
+    ``abstract_local_inputs`` is one step's cost on this rank, the
+    collective term counted from the very calls the step issues."""
+    d = model.dist
+    mesh = d.mesh
+    local_model = make_model(model.cfg, d.local(), model.opts)
+    defs = model.param_defs()
+    pspecs = model.param_specs()
+    vc_specs = (opt_state_specs(opt_cfg, defs, d)["vc"]
+                if opt_cfg.name == "adafactor" else pspecs)
+    shards = map_leaves(
+        lambda path, dd: MeshLeaf(dd.shape, mesh, leaf_at(pspecs, path),
+                                  leaf_at(vc_specs, path)), defs)
+    dims, n_b = _batch_group(d)
+
+    def step(params, state, batch):
+        full = _gather_tree(params, pspecs, mesh)
+        loss, grads = loss_and_grads(local_model, full,
+                                     local_batch(model, shape, batch),
+                                     grad_accum)
+        del full
+        grads = _constrain_grads(model, grads)
+        if n_b > 1:
+            loss = _all_reduce(loss, mesh, dims) / n_b
+        _, new = apply_updates(opt_cfg, params, grads, state, shards=shards)
+        return new["step"], loss
+
+    return step
+
+
+def abstract_local_inputs(model: Model, shape: ShapeSpec,
+                          opt_cfg: OptConfig):
+    """The arguments of ``local_train_step`` as empty meta tensors: each
+    param and state leaf this rank's shard of it, the batch global."""
+    d = model.dist
+    axes, coord = mesh_axes(d.mesh), _coord(d)
+    aps, state, batch = abstract_inputs(model, shape, opt_cfg)
+    ospecs = opt_state_specs(opt_cfg, model.param_defs(), d)
+
+    def cut(specs):
+        def one(path, t):
+            sl = shard_slices(leaf_at(specs, path), t.shape, axes, coord)
+            return torch.empty([s.stop - s.start for s in sl],
+                               dtype=t.dtype, device="meta")
+        return one
+    state = {k: v if k == "step" else map_leaves(cut(ospecs[k]), v)
+             for k, v in state.items()}
+    return map_leaves(cut(model.param_specs()), aps), state, batch
+
+
+def _sharded_train_step(model: Model, opt_cfg: OptConfig,
+                        shape: ShapeSpec, grad_accum: int = 1):
+    """``local_train_step`` on DTensor params and state."""
+    mesh = model.dist.mesh
+    local = local_train_step(model, opt_cfg, shape, grad_accum)
+
+    def train_step(params, opt_state, batch):
+        from torch.distributed.tensor import DTensor, Replicate
+        step, loss = local(_local(params), _local(opt_state), batch)
+        if isinstance(opt_state["step"], DTensor):
+            step = DTensor.from_local(step, mesh,
+                                      (Replicate(),) * mesh.ndim,
+                                      run_check=False)
+        return params, {**opt_state, "step": step}, loss
+
+    return train_step
+
+
+def jit_train_step(model: Model, opt_cfg: OptConfig, shape: ShapeSpec,
+                   grad_accum: int = 1):
+    """The train step for ``model.dist``: ``build_train_step`` without a
+    mesh; on one, the sharded step of the module docstring, which takes
+    params and state as DTensors (``param_shardings``,
+    ``opt_state_specs``) and the global batch of ``shape``, updates them
+    in place and returns (params, state, the global mean loss)."""
+    if not model.dist.has_mesh:
+        return build_train_step(model, opt_cfg, grad_accum)
+    check_dist(model)
+    return _sharded_train_step(model, opt_cfg, shape, grad_accum)
+
+
+def _wrap(x, mesh, spec: P):
+    """A DTensor from this rank's local part laid out as ``spec``."""
+    from torch.distributed.tensor import DTensor
+    names = tuple(mesh_axes(mesh))
+    shape = list(x.shape)
+    for i, ax in enumerate(tuple(spec)):
+        for a in ((ax,) if isinstance(ax, str) else (ax or ())):
+            shape[i] *= mesh.size(names.index(a))
+    return DTensor.from_local(x, mesh, placements(spec, names),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def _batch_only(spec: P, bt) -> P:
+    """A cache spec with only its batch entry kept."""
+    bt = P(bt)[0]
+    return P(*[ax if ax == bt else None for ax in tuple(spec)])
+
+
+def _check_cache_batch(model: Model):
+    if not model.dist.batch_axes:
+        raise UserError("a cache whose batch the data axes do not divide "
+                        "takes its sequence dim over every axis in the "
+                        "reference; that layout is not yet ported to "
+                        "repro_torch")
+
+
+def jit_prefill_step(model: Model, shape: ShapeSpec):
+    """The prefill step for ``model.dist``: ``build_prefill_step``
+    without a mesh. On one: the weights gathered, each rank's rows of the
+    batch prefilled, the logits returned over the batch axes and the
+    cache laid out per ``cache_sharding_specs(B)``: a new cache as long
+    as the prompt, or ``cache`` (DTensors in that layout, e.g. a longer
+    one for decoding) written for every row. A batch the data axes do
+    not divide raises ``UserError``."""
+    if not model.dist.has_mesh:
+        return build_prefill_step(model)
+    check_dist(model)
+    _check_cache_batch(model)
+    d = model.dist
+    local = build_prefill_step(make_model(model.cfg, d.local(), model.opts))
+    cspecs = model.cache_sharding_specs(shape.global_batch)
+    pspecs = model.param_specs()
+
+    def prefill_step(params, batch, *, cache=None):
+        full = _gather_tree(_local(params), pspecs, d.mesh)
+        rows = local_batch(model, shape, batch)
+        if cache is None:
+            logits, mine = local(full, rows)
+        else:
+            mine = _cache_rows(model, cache, cspecs)
+            n = next(iter(rows.values())).shape[0]
+            slots = torch.arange(n, device=next(iter(mine.values())).device)
+            logits, mine = local(full, rows, cache=mine, slots=slots)
+        return _relay(model, logits, mine, cspecs)
+    return prefill_step
+
+
+def _cache_rows(model: Model, cache, cspecs):
+    """This rank's slots of a cache laid out per ``cspecs``, whole along
+    every other dim."""
+    d = model.dist
+    bt = d.batch_axes
+    return {k: v.redistribute(d.mesh, Sharding(
+        d.mesh, _batch_only(cspecs[k], bt)).placements).to_local()
+        for k, v in cache.items()}
+
+
+def _relay(model: Model, logits, cache, cspecs):
+    """(logits, cache) of this rank's slots as DTensors: the logits over
+    the batch axes, the cache per ``cspecs``."""
+    d = model.dist
+    bt = d.batch_axes
+    out = {k: _wrap(v, d.mesh, _batch_only(cspecs[k], bt))
+           .redistribute(d.mesh, Sharding(d.mesh, cspecs[k]).placements)
+           for k, v in cache.items()}
+    return _wrap(logits, d.mesh, P(bt, None, None)), out
+
+
+def jit_decode_step(model: Model, shape: ShapeSpec):
+    """The decode step for ``model.dist``: ``build_decode_step`` without
+    a mesh. On one: the weights gathered, the cache (DTensors per
+    ``cache_sharding_specs(B)``) gathered to its batch shards, each
+    rank's slots decoded, and the cache laid out again."""
+    if not model.dist.has_mesh:
+        return build_decode_step(model)
+    check_dist(model)
+    _check_cache_batch(model)
+    d = model.dist
+    local = build_decode_step(make_model(model.cfg, d.local(), model.opts))
+    cspecs = model.cache_sharding_specs(shape.global_batch)
+    pspecs = model.param_specs()
+    one = dataclasses.replace(shape, kind="decode")
+
+    def decode_step(params, cache, batch):
+        full = _gather_tree(_local(params), pspecs, d.mesh)
+        logits, mine = local(full, _cache_rows(model, cache, cspecs),
+                             local_batch(model, one, batch))
+        return _relay(model, logits, mine, cspecs)
     return decode_step
 
 

@@ -42,6 +42,13 @@ def iter_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
             yield path, val
 
 
+def leaf_at(tree, path: str):
+    """The leaf of ``tree`` at an ``iter_leaves`` path."""
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
 def map_leaves(fn, tree):
     """Same nesting as ``tree``, each leaf replaced by ``fn(path, leaf)``,
     called in ``iter_leaves`` order."""

@@ -5,17 +5,27 @@
 (or ``abstract_params`` on the meta device), the training ``loss``,
 ``prefill`` / ``decode``, and the ``input_specs`` / ``cache_specs`` of a
 step. It dispatches the encdec family to ``models.encdec`` and every
-other family to ``models.transformer``. There is no mesh: the port runs
-one card per model.
+other family to ``models.transformer``.
+
+Its ``dist`` (``distributed.sharding.Dist``, no mesh by default) gives the
+layout of the params, the batch and the caches on a mesh:
+``param_specs`` / ``param_shardings``, ``input_sharding_specs`` and
+``cache_sharding_specs``, the reference's (``model.py:28-50, 115-200``).
+The compute itself is the one-card code: the sharded steps of
+``distributed/steps.py`` gather the weights and run it on each rank's
+batch shard. ``opts`` holds the reference's model options the port reads:
+``xent_chunk`` (default 512).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.distributed.sharding import (Dist, P, Sharding, tree_shardings,
+                                              tree_specs)
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import init_params, map_leaves
@@ -31,6 +41,8 @@ class CacheSpec(NamedTuple):
 @dataclass
 class Model:
     cfg: ArchConfig
+    dist: Dist = field(default_factory=Dist)
+    opts: Optional[Dict[str, Any]] = None
 
     def __post_init__(self):
         tf.check_ported(self.cfg)
@@ -46,7 +58,7 @@ class Model:
     def param_defs(self):
         if self.encdec:
             return ed.encdec_param_defs(self.cfg)
-        return tf.decoder_param_defs(self.cfg)
+        return tf.decoder_param_defs(self.cfg, self.dist)
 
     def init(self, generator: torch.Generator):
         """Fresh weights on ``generator.device``, drawn from it."""
@@ -59,9 +71,18 @@ class Model:
             lambda _p, d: torch.empty(d.shape, dtype=self.dtype,
                                       device="meta"), self.param_defs())
 
-    def loss(self, params, batch, xent_chunk: int = 512):
+    def param_specs(self):
+        return tree_specs(self.dist, self.param_defs())
+
+    def param_shardings(self):
+        return tree_shardings(self.dist, self.param_defs())
+
+    def loss(self, params, batch, xent_chunk: Optional[int] = None):
         """Mean next-token CE of ``batch`` (tokens or embeds, labels;
-        encdec: enc_embeds, tokens, labels)."""
+        encdec: enc_embeds, tokens, labels); ``xent_chunk`` defaults to
+        ``opts["xent_chunk"]``, else 512."""
+        if xent_chunk is None:
+            xent_chunk = (self.opts or {}).get("xent_chunk", 512)
         if self.encdec:
             return ed.encdec_loss(params, batch, self.cfg,
                                   xent_chunk=xent_chunk)
@@ -122,11 +143,71 @@ class Model:
             shapes = tf.cache_shapes(self.cfg, B, S)
         return {k: CacheSpec(*v) for k, v in shapes.items()}
 
+    def input_sharding_specs(self, shape: ShapeSpec) -> Dict[str, P]:
+        """The batch's specs: its batch dim over ``dist.batch_axes``
+        (positions (3, B, S) on dim 1); ``P()`` each without a mesh."""
+        d = self.dist
+        specs = self.input_specs(shape)
+        if not d.has_mesh:
+            return {k: P() for k in specs}
+        bt = d.batch_axes
+        out = {}
+        for k, v in specs.items():
+            if k == "positions":
+                out[k] = P(None, bt, None)
+            elif len(v.shape) == 3:
+                out[k] = P(bt, None, None)
+            else:
+                out[k] = P(bt, None)
+        return out
+
+    def cache_sharding_specs(self, B: int) -> Dict[str, P]:
+        """Cache specs (``model.py:175-200``): the batch dim over the
+        batch axes, a k/v cache's sequence dim over "model", an ssm
+        state's heads over "model" where they divide; with no batch axes
+        (B not divisible) the sequence dim takes every axis. The port's
+        ``pos`` is one position per slot (B,), so it takes the batch axes
+        (the reference's is one scalar, ``P()``)."""
+        c = self.cfg
+        d = self.dist
+        if not d.has_mesh:
+            return {k: P() for k in self.cache_specs(B, 8)}
+        bt = d.batch_axes
+        seq_ax = "model" if bt else tuple(d.axis_names)
+        heads_ax = None
+        if c.ssm is not None:
+            from repro_torch.models.mamba import mamba_dims
+            nheads = mamba_dims(c)[1]
+            if nheads % d.model_size == 0 and d.tp_axis:
+                heads_ax = "model"
+        out = {}
+        for key, spec in self.cache_specs(B, 8).items():
+            nd = len(spec.shape)
+            if key == "pos":
+                out[key] = P(bt)
+            elif key in ("k", "v", "cross_k", "cross_v"):
+                lead = (None,) * (nd - 4)
+                out[key] = P(*lead, bt, seq_ax, None, None)
+            elif key == "ssm":
+                lead = (None,) * (nd - 4)
+                out[key] = P(*lead, bt, heads_ax, None, None)
+            elif key == "conv":
+                lead = (None,) * (nd - 3)
+                out[key] = P(*lead, bt, None, None)
+        return out
+
+    def cache_shardings(self, B: int):
+        if not self.dist.has_mesh:
+            return None
+        return {k: Sharding(self.dist.mesh, s)
+                for k, s in self.cache_sharding_specs(B).items()}
+
     def empty_cache(self, B: int, S: int, device,
                     S_enc: Optional[int] = None) -> Dict[str, torch.Tensor]:
         return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
                 for k, s in self.cache_specs(B, S, S_enc).items()}
 
 
-def make_model(cfg: ArchConfig) -> Model:
-    return Model(cfg)
+def make_model(cfg: ArchConfig, dist: Optional[Dist] = None,
+               opts: Optional[Dict[str, Any]] = None) -> Model:
+    return Model(cfg, dist or Dist(), opts)

@@ -42,18 +42,24 @@ from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.models.layers import ParamDef
 
 
-def replication_factor(moe: MoEConfig) -> int:
-    """Copies of each expert: always 1, since the port has no mesh to
-    spread experts over (the reference replicates when the model axis
-    outnumbers the experts)."""
-    return 1
+def replication_factor(moe: MoEConfig, dist=None) -> int:
+    """Copies of each expert (``moe.py:32-40``): with a ``Dist`` whose
+    "model" axis outnumbers the experts, that axis over the expert count,
+    else 1. The port's dispatch (``moe_block``) runs one card, so it runs
+    with 1; a larger factor only shapes the param defs whose specs
+    ``distributed/sharding.py`` computes."""
+    ms = dist.model_size if dist is not None else 1
+    if ms <= 1 or dist.expert_axis is None or moe.n_experts >= ms:
+        return 1
+    return ms // moe.n_experts
 
 
-def moe_param_defs(cfg: ArchConfig, scan_dims=()) -> dict:
+def moe_param_defs(cfg: ArchConfig, scan_dims=(), dist=None) -> dict:
     """router (D, E), wg/wu (E, D, Fe), wd (E, Fe, D) on the leading
-    ``scan_dims``. In flat order: router, wd, wg, wu."""
+    ``scan_dims``, E times ``replication_factor(moe, dist)`` for the
+    experts. In flat order: router, wd, wg, wu."""
     moe = cfg.moe
-    ev = moe.n_experts * replication_factor(moe)
+    ev = moe.n_experts * replication_factor(moe, dist)
     lead = tuple(scan_dims)
     ldim = tuple("layers" for _ in lead)
     d, fe = cfg.d_model, moe.d_ff_expert

@@ -122,7 +122,7 @@ def n_periods(cfg: ArchConfig) -> int:
     return cfg.n_layers // cfg.attn_period
 
 
-def _hybrid_param_defs(cfg: ArchConfig) -> dict:
+def _hybrid_param_defs(cfg: ArchConfig, dist=None) -> dict:
     """The reference's ``_hybrid_param_defs``: per period, one attention
     layer and ``per - 1`` mamba layers, each followed by an FFN, MoE at
     odd local index j and SwiGLU at even j."""
@@ -134,25 +134,27 @@ def _hybrid_param_defs(cfg: ArchConfig) -> dict:
         "mamba": mam.mamba_param_defs(cfg, (np_, per - 1)),
         "mamba_ln": norm_param_defs(cfg, (np_, per - 1)),
         "ffn_ln": norm_param_defs(cfg, (np_, per)),
-        "moe": moe_mod.moe_param_defs(cfg, (np_, n_moe)),
+        "moe": moe_mod.moe_param_defs(cfg, (np_, n_moe), dist),
         "mlp": mlp_param_defs(cfg, (np_, per - n_moe)),
     }
 
 
-def decoder_param_defs(cfg: ArchConfig) -> dict:
+def decoder_param_defs(cfg: ArchConfig, dist=None) -> dict:
+    """The param-def tree of a decoder. A ``Dist`` changes it only
+    through moe expert replication (``moe.replication_factor``)."""
     check_ported(cfg)
     L = cfg.n_layers
     if cfg.family == "ssm":
         blocks = {"ln1": norm_param_defs(cfg, (L,)),
                   "mamba": mam.mamba_param_defs(cfg, (L,))}
     elif cfg.family == "hybrid":
-        blocks = _hybrid_param_defs(cfg)
+        blocks = _hybrid_param_defs(cfg, dist)
     else:
         blocks = {"ln1": norm_param_defs(cfg, (L,)),
                   "ln2": norm_param_defs(cfg, (L,)),
                   "attn": attn_param_defs(cfg, (L,))}
         if cfg.is_moe and cfg.moe.layout == "all":
-            blocks["moe"] = moe_mod.moe_param_defs(cfg, (L,))
+            blocks["moe"] = moe_mod.moe_param_defs(cfg, (L,), dist)
         else:
             blocks["mlp"] = mlp_param_defs(cfg, (L,))
     return {

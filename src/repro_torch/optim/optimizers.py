@@ -7,8 +7,19 @@ Parameters are plain tensors in the port's nested-dict param tree.
 each state leaf in place (JAX returns new, donated buffers); the
 arithmetic is the reference's: f32, cast back to the param dtype. The
 step count is a 0-d int32 tensor on the params' device, so a step makes
-no host sync. ``opt_state_specs`` and ``abstract_opt_state`` wait for
-the sharding: ``init_opt_state`` on meta params gives the abstract state.
+no host sync. ``abstract_opt_state`` is the state on meta params, and
+``opt_state_specs`` its layout on a mesh (the reference's,
+``optimizers.py:76-111``): each state leaf takes its param's spec, and
+Adafactor's factored stats the spec of the param's dims without the
+last (``vr``) or the second-to-last (``vc``).
+
+On a mesh ``apply_updates`` runs on each rank's local shards, with
+``shards``, a tree of ``LeafShards`` beside the params
+(``distributed/steps.py`` builds it). SGD, momentum and AdamW are
+elementwise and do not read it. Adafactor's row and column means, the
+mean of its row factor and its update-clip RMS reduce over dims that a
+mesh may shard: there each sums its local part, all-reduces it over the
+ranks that hold the other parts and divides by the whole dim.
 """
 from __future__ import annotations
 
@@ -86,15 +97,82 @@ def init_opt_state(cfg: OptConfig, params) -> Dict[str, Any]:
     raise ValueError(cfg.name)
 
 
+def abstract_opt_state(cfg: OptConfig, abstract_params):
+    """The state of ``cfg.name`` for params on the meta device: shapes
+    and dtypes, no data (the reference's ``jax.eval_shape``)."""
+    return init_opt_state(cfg, abstract_params)
+
+
+def opt_state_specs(cfg: OptConfig, param_defs, dist):
+    """PartitionSpecs of the optimizer state, derived from the param defs
+    so that Adafactor's factored stats get specs of their own shapes; the
+    ``vc`` of an unfactored leaf, a (0,) marker, gets ``P()``."""
+    from repro_torch.distributed.sharding import P, spec_for
+    scalar = P()
+
+    def full():
+        return map_leaves(lambda _p, d: spec_for(dist, d.dims, d.shape),
+                          param_defs)
+    if cfg.name == "sgd":
+        return {"step": scalar}
+    if cfg.name == "momentum":
+        return {"step": scalar, "m": full()}
+    if cfg.name == "adamw":
+        return {"step": scalar, "m": full(), "v": full()}
+    if cfg.name == "adafactor":
+        def fac(d, which: str):
+            if not _factored(cfg, d.shape):
+                if which == "vr":
+                    return spec_for(dist, d.dims, d.shape)
+                return P()           # vc is a (0,) marker
+            if which == "vr":
+                return spec_for(dist, d.dims[:-1], d.shape[:-1])
+            return spec_for(dist, d.dims[:-2] + d.dims[-1:],
+                            d.shape[:-2] + d.shape[-1:])
+        return {"step": scalar,
+                "vr": map_leaves(lambda _p, d: fac(d, "vr"), param_defs),
+                "vc": map_leaves(lambda _p, d: fac(d, "vc"), param_defs)}
+    raise ValueError(cfg.name)
+
+
+class LeafShards:
+    """The whole leaf on one device: Adafactor's means are
+    ``torch.mean``. ``distributed/steps.py`` subclasses it for a shard
+    on a mesh, whose means all-reduce."""
+
+    def mean(self, t, dim: int, pdim: int):
+        """``t`` averaged over its ``dim``, which is param dim ``pdim``."""
+        return torch.mean(t, dim=dim)
+
+    def mean_all(self, t):
+        """The mean of ``t``, a tensor of the leaf's shape."""
+        return torch.mean(t)
+
+    def vc_in(self, vc):
+        """The column stats at this shard's columns, from the ``vc``
+        state's own local shard."""
+        return vc
+
+    def vc_out(self, vc):
+        """The ``vc`` state's local shard from the column stats at this
+        shard's columns."""
+        return vc
+
+
+WHOLE = LeafShards()
+
+
 def _zip(*trees):
     """Leaves of same-shaped trees, side by side, in flatten order."""
     return zip(*[[t for _, t in iter_leaves(tr)] for tr in trees])
 
 
 @torch.no_grad()
-def apply_updates(cfg: OptConfig, params, grads, state):
+def apply_updates(cfg: OptConfig, params, grads, state, shards=None):
     """One optimizer step, in place on ``params`` and ``state``; returns
-    (params, state) as the reference returns (new_params, new_state)."""
+    (params, state) as the reference returns (new_params, new_state).
+    On a mesh the trees hold local shards and ``shards`` is a tree of
+    ``LeafShards`` beside the params (read by Adafactor only)."""
     step = state["step"] + 1
     lr = cfg.lr
 
@@ -130,20 +208,26 @@ def apply_updates(cfg: OptConfig, params, grads, state):
 
     if cfg.name == "adafactor":
         beta = 1 - torch.pow(step.float(), -cfg.decay)
-        for p, g, vr, vc in _zip(params, grads, state["vr"], state["vc"]):
+        leaves = ([WHOLE] * len(list(iter_leaves(params))) if shards is None
+                  else [t for _, t in iter_leaves(shards)])
+        for (p, g, vr, vc), sh in zip(
+                _zip(params, grads, state["vr"], state["vc"]), leaves):
             g = g.float()
             g2 = g * g + 1e-30
-            if vc.numel() > 0 and vr.shape != p.shape:
-                vr.copy_(beta * vr + (1 - beta) * torch.mean(g2, dim=-1))
-                vc.copy_(beta * vc + (1 - beta) * torch.mean(g2, dim=-2))
-                rfac = vr / torch.mean(vr, dim=-1, keepdim=True)
-                prec = rfac[..., None] * vc[..., None, :]
+            nd = g.dim()
+            if vc.numel() > 0 and vr.dim() != p.dim():
+                vr.copy_(beta * vr + (1 - beta) * sh.mean(g2, -1, nd - 1))
+                cols = beta * sh.vc_in(vc) \
+                    + (1 - beta) * sh.mean(g2, -2, nd - 2)
+                vc.copy_(sh.vc_out(cols))
+                rfac = vr / sh.mean(vr, -1, nd - 2)[..., None]
+                prec = rfac[..., None] * cols[..., None, :]
             else:
                 vr.copy_(beta * vr + (1 - beta) * g2)
                 prec = vr
             u = g * torch.rsqrt(prec + 1e-30)
             # update clipping (RMS <= 1)
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+            rms = torch.sqrt(sh.mean_all(u * u) + 1e-30)
             u = u / torch.clamp(rms, min=1.0)
             pf = p.float() - lr * u
             if cfg.weight_decay:

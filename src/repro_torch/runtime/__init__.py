@@ -1,1 +1,2 @@
-"""Learner runtime: framework plugins and the learner body."""
+"""Runtimes: the learner (framework plugins and the learner body), the
+pjit trainer, and the execution backends."""

@@ -9,9 +9,12 @@ Manager deploys — and exposes launch plus checkpoint/pause/resume hooks:
   * ``software-ps`` — learner threads around a sharded
     ``SoftwareParameterServer`` on the device (runtime/learner.py), with a
     PS app deployed first for multi-learner jobs;
-  * ``pjit`` — registered so that a manifest resolves to the same name
-    in both packages, but not ported yet: its ``plan`` raises
-    ``UserError``;
+  * ``pjit`` — a gang of workers around ``runtime/trainer.py``'s
+    ``Trainer``: worker 0 drives the step (on a mesh, the sharded step of
+    distributed/steps.py), the rest mirror liveness; every incarnation
+    rebuilds the step for the current ``Dist`` and restores the latest
+    valid checkpoint, so elastic resume and preemption-resume are one
+    path;
   * ``serving`` (registered from serving/endpoint.py) — inference
     endpoints as platform jobs.
 
@@ -29,6 +32,7 @@ full width this way).
 """
 from __future__ import annotations
 
+import math
 import threading
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -254,19 +258,220 @@ class SoftwarePSBackend(ExecutionBackend):
 
 
 # ---------------------------------------------------------------------------
-# pjit: not ported yet
+# pjit: SPMD gang around Trainer / jit_train_step
 # ---------------------------------------------------------------------------
 
 
 @register_backend
 class PjitBackend(ExecutionBackend):
-    """The reference's SPMD gang around ``Trainer``/``jit_train_step``.
-    Registered under its name so that ``distribution: pjit`` resolves in
-    both packages; planning it raises until the port has the trainer."""
+    """The reference's SPMD gang (``backend.py:241-318``): worker 0
+    drives ``Trainer.step_once`` with the sharding policy of
+    distributed/sharding.py; the rest of the gang mirrors liveness, and
+    the gang is placed, queued, preempted and resumed as a unit. Every
+    incarnation rebuilds the step for the current ``Dist`` and restores
+    the latest valid checkpoint. The model config is ``plan_config``'s,
+    as for software-ps, so ``BackendContext.cfg`` trains full width."""
 
     name = "pjit"
 
     def plan(self, spec: JobSpec, manifest: Dict,
              ctx: BackendContext) -> ExecutionPlan:
-        raise UserError("distribution 'pjit' is not yet ported to "
-                        "repro_torch; use 'software-ps'")
+        from repro_torch.analysis.perf import JobPerf
+        from repro_torch.core.cursor import GlobalCursor
+        from repro_torch.data.pipeline import DatasetSpec
+        from repro_torch.service.manifest import resolve_framework
+
+        fw_name, fw_cfg = resolve_framework(manifest)
+        if fw_name != "repro-lm":
+            raise UserError(
+                f"distribution 'pjit' requires a model-zoo framework "
+                f"('repro-lm'); got {fw_name!r} — use "
+                f"'software-ps' for plugin frameworks")
+        arch = fw_cfg.get("arch", "stablelm-1.6b")
+        cfg = plan_config(ctx, fw_cfg)
+        data_cfg = manifest.get("data", {}) or {}
+        dspec = DatasetSpec(n_docs=int(data_cfg.get("n_docs", 512)),
+                            seq_len=int(data_cfg.get("seq_len", 32)),
+                            vocab_size=cfg.vocab_size,
+                            seed=int(data_cfg.get("seed", 0)))
+        cursor = GlobalCursor(ctx.zk,
+                              f"/dlaas/jobs/{spec.job_id}/cursor",
+                              dataset_size=dspec.n_docs)
+        results: Dict = {}
+        control = JobControl()
+        meta = {"arch": arch, "policy": fw_cfg.get("policy", "fsdp_tp"),
+                "steps": int(manifest.get("steps", 40)), "elastic": True,
+                # the step is built by the leader at run time, so the
+                # roofline estimate starts there (first incarnation)
+                "perf": JobPerf(spec.job_id, ctx.metrics)}
+        state = {"done": threading.Event()}
+        body = _make_pjit_body(
+            job_id=spec.job_id, cfg=cfg, dspec=dspec, cursor=cursor,
+            ctx=ctx, control=control, results=results, state=state,
+            meta=meta,
+            steps=int(manifest.get("steps", 40)),
+            batch_docs=int(manifest.get("batch_docs", 8)),
+            lr=float(manifest.get("lr", 0.1)),
+            optimizer=str(manifest.get("optimizer", "sgd")),
+            seed=int(manifest.get("seed", 0)),
+            ckpt_every=int(manifest.get("checkpoint_every", 20)),
+            user_error_at=manifest.get("user_error_at"),
+            fail_at_step={int(k): int(v) for k, v in
+                          (manifest.get("fail_at_step") or {}).items()},
+        )
+        groups = [TaskGroup(
+            "worker", spec.learners,
+            Resources(spec.cpus_per_learner, spec.gpus_per_learner,
+                      spec.memory_mb),
+            body=body)]
+        return ExecutionPlan(
+            job_id=spec.job_id, backend=self.name, groups=groups,
+            # an SPMD gang cannot limp along with missing members
+            min_alive_fraction=1.0,
+            tenant=spec.tenant, priority=spec.priority,
+            results=results, control=control, meta=meta)
+
+    def resume(self, handle: JobHandle, new_dist=None, **kw):
+        """Elastic resume: an optional new ``Dist`` takes effect on the
+        next (re)incarnation — the step is rebuilt and the checkpoint
+        restored with the new layout (the ``Trainer.resume`` path). Only
+        worker 0 runs the step, so a ``Dist`` whose mesh spans more than
+        one rank raises ``UserError``: the gang does not run SPMD ranks
+        yet."""
+        if new_dist is not None:
+            from repro_torch.distributed.sharding import mesh_axes
+            if new_dist.has_mesh and math.prod(
+                    mesh_axes(new_dist.mesh).values()) > 1:
+                raise UserError(
+                    "a pjit job's Dist on a mesh of more than one rank is "
+                    "not yet ported to repro_torch: only worker 0 of the "
+                    "gang runs the step; use a mesh-less Dist or a "
+                    "1-rank mesh")
+            handle.plan.meta["next_dist"] = new_dist
+        handle.plan.control.resume()
+
+
+def _make_pjit_body(*, job_id, cfg, dspec, cursor, ctx, control, results,
+                    state, meta, steps, batch_docs, lr, optimizer, seed,
+                    ckpt_every, user_error_at, fail_at_step):
+    """Body fn(watchdog, idx) for one gang member (``backend.py:321-437``
+    of the reference). Worker 0 runs the step; the others mirror
+    liveness until the leader finishes (or the gang is preempted or
+    killed)."""
+
+    def leader(wd):
+        import io
+        import time
+
+        import numpy as np
+        import torch
+
+        from repro_torch.data.pipeline import SyntheticCorpus
+        from repro_torch.distributed.sharding import Dist, gather
+        from repro_torch.models.layers import map_leaves
+        from repro_torch.observability.trace import (TRACE_STEP_SAMPLE,
+                                                     maybe_span)
+        from repro_torch.optim.optimizers import OptConfig
+        from repro_torch.platform.watchdog import CHECKPOINTING, TRAINING
+        from repro_torch.runtime.trainer import Trainer, TrainerConfig
+        from repro_torch.weights import flat_from_params
+
+        corpus = SyntheticCorpus(dspec)
+        # an elastic resume's new Dist wins once, then sticks
+        # (meta["dist"]) so later preemptions reincarnate at the
+        # rescaled distribution; otherwise the manifest's policy applies
+        # (mesh-less until a mesh is attached via resume(new_dist))
+        dist = (meta.pop("next_dist", None) or meta.get("dist")
+                or Dist(policy=meta.get("policy", "fsdp_tp")))
+        meta["dist"] = dist
+        tc = TrainerConfig(batch=batch_docs, seq=dspec.seq_len,
+                           ckpt_every=ckpt_every,
+                           ckpt_dir=f"{ctx.workdir}/ckpt/{job_id}",
+                           job_id=job_id,
+                           ckpt_mirror=(ctx.storage, "objectstore",
+                                        f"ckpt/{job_id}"))
+        tr = Trainer(cfg, dist, OptConfig(name=optimizer, lr=lr), tc,
+                     metrics=ctx.metrics, device=ctx.device).init(seed)
+        perf = meta.get("perf")
+        if perf is not None:
+            # idempotent across incarnations (start_async runs once)
+            perf.start_async(tr.program_cost)
+        last = tr.ckpt.latest_valid()
+        if last is not None:
+            extra = tr.restore(last)
+            cursor.restore(int(extra.get("epoch", 0)),
+                           int(extra.get("offset", 0)))
+            wd.log(f"resumed from checkpoint step={tr.step}")
+        tracer = ctx.tracer
+
+        def save_ckpt():
+            wd.set_status(CHECKPOINTING)
+            with maybe_span(tracer, job_id, "checkpoint_publish",
+                            step=tr.step):
+                epoch, offset = cursor.position()
+                tr.save(extra={"epoch": epoch, "offset": offset})
+            ctx.metrics.event(job_id, "checkpoint", tr.step)
+            wd.set_status(TRAINING)
+
+        loss = None
+        t_round = time.time()
+        while tr.step < steps:
+            # step boundary: preemption, pause and on-demand checkpoint
+            wd.maybe_preempt()
+            control.wait_while_paused(should_abort=wd.maybe_preempt)
+            if control.take_checkpoint_request():
+                save_ckpt()
+            step = tr.step
+            if fail_at_step.get(0) == step:
+                fail_at_step.pop(0)          # transient: fires once
+                wd.log(f"injected crash at step {step}")
+                wd.crash()
+                raise RuntimeError("simulated container crash")
+            if user_error_at is not None and step == user_error_at:
+                raise UserError("bad hyperparameter in user model")
+            batch = corpus.batch_for(cursor.next_chunk(batch_docs))
+            step_sp = (tracer.start(job_id, "step", step=step)
+                       if tracer is not None
+                       and step % TRACE_STEP_SAMPLE == 0 else None)
+            loss = tr.step_once({
+                k: torch.as_tensor(np.asarray(batch[k]),
+                                   dtype=torch.int64).to(tr.device)
+                for k in ("tokens", "labels")})
+            if step_sp is not None:
+                tracer.end(step_sp, loss=float(loss))
+            wd.heartbeat(step, loss=loss)
+            wd.log(f"step={step} loss={loss:.4f}")
+            ctx.metrics.record(job_id, "lr", step, lr)
+            ctx.metrics.record(job_id, "round_time_s", step,
+                               time.time() - t_round)
+            t_round = time.time()
+            if tr.step % ckpt_every == 0:
+                save_ckpt()
+        # store.sh analogue: upload the trained model, the flat f32
+        # vector in the reference's leaf order, gathered whole
+        pflat = flat_from_params(map_leaves(lambda _p, x: gather(x),
+                                            tr.params))
+        buf = io.BytesIO()
+        np.save(buf, pflat)
+        ctx.storage.upload("results", job_id, "trained_model.npy",
+                           buf.getbuffer())
+        del buf
+        if loss is not None:
+            results["final_loss"] = float(loss)
+        results["params"] = pflat
+        tr.ckpt.wait()
+        state["done"].set()
+
+    def body(wd, idx):
+        if idx == 0:
+            leader(wd)
+        else:
+            # gang member: the step runs everywhere at scale; here it
+            # mirrors liveness and yields with the gang
+            import time
+            while not state["done"].is_set():
+                wd.maybe_preempt()
+                control.wait_while_paused(should_abort=wd.maybe_preempt)
+                time.sleep(0.01)
+
+    return body

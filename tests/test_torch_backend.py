@@ -7,6 +7,15 @@ tests/test_torch_learner.py) from one initial vector; then the lifecycle
 hooks, a user error that fails the job without a restart, a crash that
 restarts and resumes, and no CPU fallback.
 
+``pjit`` (``PjitBackend``, the gang around ``runtime/trainer.py``): one
+manifest through the port's ``software-ps`` and ``pjit`` reaches final
+losses within the reference's 0.2 (tests/test_backends.py:54) and leaves
+a checkpoint a fresh mesh-less ``Trainer`` restores; the port's and the
+reference's ``pjit`` through each package's ``DLaaSCore`` from one
+initial param tree lose alike per step (``LOSS_TOL``) and upload the same
+``trained_model.npy`` (``PARAM_TOL``); a non-zoo framework is refused; a
+user error fails the gang, and a crash restarts it from its checkpoint.
+
 All on the CPU (``device="cpu"``) at the reference's smoke sizes. Torch
 cannot reproduce ``jax.random``, so the port's plan is given JAX's
 initial vector through a test-side plugin (``util_parity``)."""
@@ -107,10 +116,180 @@ def test_registry_has_the_reference_names():
         jax_backend.get_backend("horovod")
 
 
-def test_pjit_is_not_yet_ported(tmp_path):
+def test_pjit_rejects_non_zoo_framework(tmp_path):
     p = Platform("repro_torch", tmp_path, device="cpu")
-    with pytest.raises(UserError, match="'pjit' is not yet ported"):
-        p.plan("job-1", lm_manifest(distribution="pjit"))
+    with pytest.raises(UserError, match="model-zoo framework"):
+        p.plan("job-1", mlp_manifest(distribution="pjit"))
+
+
+def test_pjit_resume_refuses_a_mesh_of_several_ranks():
+    """Only worker 0 of the gang runs the step, so a ``Dist`` on a mesh
+    of more than one rank cannot reach it; a 1-rank mesh can."""
+    from repro_torch.distributed.sharding import Dist
+
+    class Mesh:
+        def __init__(self, **shape):
+            self.shape, self.axis_names = shape, tuple(shape)
+
+    class Handle:
+        def __init__(self):
+            from repro_torch.platform.lcm import JobControl
+            self.plan = type("Plan", (), {})()
+            self.plan.meta, self.plan.control = {}, JobControl()
+
+    be = port_backend.get_backend("pjit")
+    h = Handle()
+    with pytest.raises(UserError, match="more than one rank"):
+        be.resume(h, new_dist=Dist(mesh=Mesh(data=2, model=1)))
+    assert "next_dist" not in h.plan.meta
+    one = Dist(mesh=Mesh(data=1, model=1))
+    be.resume(h, new_dist=one)
+    assert h.plan.meta["next_dist"] is one
+
+
+# the reference's parity manifest (tests/test_backends.py:20-36) at lr
+# 2e-3: at its 0.1 SGD on the random smoke model is chaotic, so two
+# backends that agree to rounding for 6 steps part after that and their
+# step-25 losses differ by chance (0.14 in the reference, 0.23 in the
+# port, both deterministic)
+PJIT_PARITY = {"name": "parity-lm", "learners": 1, "gpus": 1, "steps": 25,
+               "checkpoint_every": 10, "lr": 2e-3, "optimizer": "sgd",
+               "seed": 3, "batch_docs": 4,
+               "data": {"n_docs": 128, "seq_len": 16},
+               "framework": {"name": "repro-lm", "arch": "stablelm-1.6b"}}
+
+
+def test_pjit_and_software_ps_reach_comparable_loss(tmp_path):
+    """The same manifest and seed on both of the port's backends: final
+    losses within 0.2, and the pjit checkpoint restores into a fresh
+    mesh-less ``Trainer`` at its step."""
+    import json as _json
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.sharding import Dist
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.service.core import DLaaSCore
+    finals, losses = {}, {}
+    for backend in ("software-ps", "pjit"):
+        core = DLaaSCore(str(tmp_path / backend), device="cpu")
+        try:
+            mid = core.deploy_model(_json.dumps(PJIT_PARITY))["model_id"]
+            out = core.create_training(
+                mid, overrides={"distribution": backend})
+            assert out["backend"] == backend
+            tid = out["training_id"]
+            assert core.wait_for(tid, timeout=240) == "COMPLETED"
+            status = core.training_status(tid)
+            assert status["backend"] == backend
+            assert status["steps_done"] >= 25
+            finals[backend] = core.trainings[tid]["results"]["final_loss"]
+            losses[backend] = core.metrics.series(tid, "loss").values
+            ckpt = CheckpointManager(f"{core.workdir}/ckpt/{tid}")
+            last = ckpt.latest_valid()
+            assert last is not None
+            if backend == "pjit":
+                tc = TrainerConfig(batch=4, seq=16,
+                                   ckpt_dir=f"{core.workdir}/ckpt/{tid}",
+                                   job_id="probe")
+                tr = Trainer(reduce_for_smoke(get_arch("stablelm-1.6b")),
+                             Dist(), OptConfig(name="sgd", lr=2e-3), tc,
+                             device="cpu").init(0)
+                tr._restore_latest()
+                assert tr.step == last == 20
+                params = core.trainings[tid]["results"]["params"]
+                assert params.shape == (flat_size_smoke(),)
+        finally:
+            core.close()
+    assert abs(finals["software-ps"] - finals["pjit"]) < 0.2, finals
+    # the same weights, data and update: the same losses step by step
+    np.testing.assert_allclose(losses["pjit"], losses["software-ps"],
+                               **LOSS_TOL)
+
+
+def flat_size_smoke():
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.weights import flat_size
+    return flat_size(reduce_for_smoke(get_arch("stablelm-1.6b")))
+
+
+def test_pjit_matches_the_jax_pjit(tmp_path, monkeypatch):
+    """One manifest through each package's ``DLaaSCore`` with
+    ``distribution: pjit``, the port's ``Model.init`` patched to the
+    reference's ``model.init(PRNGKey(seed))``: per-step losses within
+    ``LOSS_TOL``, the uploaded ``trained_model.npy`` (the flat f32
+    vector in the reference's leaf order) within ``PARAM_TOL``."""
+    import io
+    import json as _json
+
+    import jax
+
+    from repro.configs.base import reduce_for_smoke as jax_reduce
+    from repro.configs.registry import get_arch as jax_get_arch
+    from repro.models.model import make_model as jax_make_model
+    from repro.service.core import DLaaSCore as JaxCore
+    from repro_torch.models import model as port_model
+    from repro_torch.service.core import DLaaSCore
+    from repro_torch.weights import params_from_jax
+
+    manifest = dict(lm_manifest(learners=1, steps=6, checkpoint_every=3,
+                                optimizer="adamw", lr=1e-3),
+                    distribution="pjit")
+    jm = jax_make_model(jax_reduce(jax_get_arch("stablelm-1.6b")))
+    init = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(
+        manifest["seed"])))
+    monkeypatch.setattr(port_model.Model, "init",
+                        lambda self, gen: params_from_jax(init, gen.device))
+    out = {}
+    for name, core in (("jax", JaxCore(str(tmp_path / "jax"))),
+                       ("port", DLaaSCore(str(tmp_path / "port"),
+                                          device="cpu"))):
+        try:
+            mid = core.deploy_model(_json.dumps(manifest))["model_id"]
+            tid = core.create_training(mid)["training_id"]
+            assert core.wait_for(tid, timeout=240) == "COMPLETED"
+            st = core.training_status(tid)
+            assert st["backend"] == "pjit" and st["steps_done"] == 6
+            series = core.metrics.series(tid, "loss")
+            model = np.load(io.BytesIO(core.download_model(tid)))
+            out[name] = (series.steps, series.values, model)
+        finally:
+            core.close()
+    (jsteps, jl, jmodel), (psteps, pl, pmodel) = out["jax"], out["port"]
+    assert psteps == jsteps == list(range(6))
+    np.testing.assert_allclose(pl, jl, **LOSS_TOL)
+    assert pmodel.shape == jmodel.shape
+    np.testing.assert_allclose(pmodel, jmodel, **PARAM_TOL)
+
+
+def test_pjit_user_error_fails_the_gang(tmp_path):
+    p = Platform("repro_torch", tmp_path, device="cpu")
+    p.launch("job-1", lm_manifest(learners=2, distribution="pjit",
+                                  user_error_at=2))
+    assert p.drive("job-1") == "FAILED"
+    assert p.lcm._get("job-1", "state")["reason"] == "user error"
+    assert sorted(set(p.metrics.series("job-1", "loss").steps)) == [0, 1]
+
+
+def test_pjit_crash_restarts_and_resumes_from_the_checkpoint(tmp_path):
+    p = Platform("repro_torch", tmp_path, device="cpu")
+    h = p.launch("job-1", lm_manifest(learners=2, steps=6,
+                                      checkpoint_every=2,
+                                      distribution="pjit",
+                                      fail_at_step={0: 3}))
+    assert h.plan.min_alive_fraction == 1.0
+    assert [g.role for g in h.plan.groups] == ["worker"]
+    assert p.drive("job-1") == "COMPLETED"
+    assert p.learner_task("job-1", role="worker").restarts == 1
+    logs = p.log_lines("job-1", "worker-0")
+    assert "injected crash at step 3" in logs
+    assert "resumed from checkpoint step=2" in logs
+    assert p.metrics.series("job-1", "loss").steps == [0, 1, 2, 2, 3, 4, 5]
+    assert h.plan.results["params"].shape == (flat_size_smoke(),)
+    assert np.isfinite(h.plan.results["final_loss"])
 
 
 @pytest.mark.parametrize("framework", ["repro-lm", "repro-mlp"])

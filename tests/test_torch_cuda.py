@@ -5,9 +5,11 @@ wrappers' checks, the serving engines and the dense and ssm learner
 steps on CUDA against the same on the CPU, the platform and the
 service (``DLaaSCore``) training and serving on CUDA, the moe
 block and a moe engine on CUDA, the hybrid (jamba) family's kernel
-shapes, engine and learner step on CUDA, and K4/K4b at whisper-large-v3's
+shapes, engine and learner step on CUDA, K4/K4b at whisper-large-v3's
 and qwen2-vl-2b's attention shapes with the two families' model-level
-steps on CUDA.
+steps on CUDA, and the pjit distribution: a ``distribution: pjit``
+manifest trained on CUDA against the CPU, and the sharded step on a
+1-rank NCCL mesh against the mesh-less step.
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is false (the kernel has no CPU mode). This file imports no JAX, so it
@@ -1290,3 +1292,84 @@ def test_encdec_prefill_and_decode_on_cuda_match_cpu(cuda):
         scale = max(1.0, b.abs().max().item())
         torch.testing.assert_close(a, b, atol=1e-4 * scale, rtol=1e-4)
         assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# the pjit distribution (PjitBackend, Trainer, the sharded step)
+# ---------------------------------------------------------------------------
+
+# SGD: AdamW's normalised update would turn the card's and the CPU's
+# rounding in near-zero gradients into steps of up to 2 lr
+PJIT_SMOKE = {"name": "cuda-pjit", "learners": 1, "steps": 4,
+              "checkpoint_every": 2, "lr": 1e-2, "optimizer": "sgd",
+              "seed": 0, "batch_docs": 2, "distribution": "pjit",
+              "data": {"n_docs": 64, "seq_len": 32},
+              "framework": {"name": "repro-lm", "arch": "stablelm-1.6b"}}
+
+
+def test_pjit_trains_on_cuda_like_the_cpu(cuda, tmp_path, monkeypatch):
+    """The smoke manifest through ``PjitBackend`` with no device (CUDA):
+    K4 and K4b once a layer a step, per-step losses within 1e-4 of the
+    same manifest on the CPU, the uploaded models within 2e-3. A CUDA
+    ``torch.Generator`` draws other numbers than a CPU one of the same
+    seed, so both runs take the CPU generator's weights."""
+    from repro_torch.models import model as model_mod
+    draw = model_mod.Model.init
+    monkeypatch.setattr(model_mod.Model, "init", lambda self, gen: map_leaves(
+        lambda _p, t: t.to(gen.device),
+        draw(self, torch.Generator().manual_seed(gen.initial_seed()))))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = Platform("repro_torch", tmp_path / dev,
+                     **({"device": "cpu"} if dev == "cpu" else {}))
+        ops.reset_launch_counts()
+        p.launch("job-1", PJIT_SMOKE)
+        assert p.drive("job-1", timeout=300) == "COMPLETED"
+        counts = ops.launch_counts()
+        out[dev] = (p.metrics.series("job-1", "loss").values, np.load(
+            tmp_path / dev / "results" / "job-1" / "trained_model.npy"),
+            counts)
+    cfg = reduce_for_smoke(get_arch("stablelm-1.6b"))
+    n = cfg.n_layers * PJIT_SMOKE["steps"]
+    assert out["cuda"][2][kfa.NAME] == out["cuda"][2][kfab.NAME] == n
+    assert out["cpu"][2][kfa.NAME] == 0
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], atol=2e-3,
+                               rtol=2e-3)
+
+
+def test_sharded_step_on_a_one_rank_nccl_mesh(cuda, tmp_path):
+    """A 1-rank NCCL group and ``make_mesh(1, 1)`` on the card: the
+    ``fsdp_tp`` step of a ``Trainer`` on the mesh equals the mesh-less
+    trainer's, loss and every leaf, over 2 steps (AdamW and Adafactor);
+    the params are DTensors and K4/K4b launch on the mesh step."""
+    import torch.distributed as tdist
+    from repro_torch.distributed.sharding import Dist, gather
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg = reduce_for_smoke(get_arch("stablelm-1.6b"))
+    tdist.init_process_group(
+        "nccl", store=tdist.FileStore(str(tmp_path / "store"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        assert mesh.device_type == "cuda"
+        for name in ("adamw", "adafactor"):
+            opt = OptConfig(name=name, lr=1e-3, min_dim_factored=32)
+            runs = []
+            for d in (Dist(), Dist(mesh=mesh)):
+                tc = TrainerConfig(batch=2, seq=32,
+                                   ckpt_dir=str(tmp_path / name))
+                tr = Trainer(cfg, d, opt, tc).init(0)
+                ops.reset_launch_counts()
+                losses = [tr.step_once(tr._batch(s)) for s in range(2)]
+                assert ops.launch_counts()[kfab.NAME] == 2 * cfg.n_layers
+                runs.append((losses, {k: gather(v) for k, v in
+                                      iter_leaves(tr.params)}))
+            assert runs[0][0] == runs[1][0], name
+            for k, v in runs[0][1].items():
+                assert torch.equal(v, runs[1][1][k]), (name, k)
+    finally:
+        tdist.destroy_process_group()

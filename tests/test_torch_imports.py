@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch``
 loads neither ``jax`` nor anything of ``repro``, and no source of the
-port (nor ``chip_smoke.py``) imports them."""
+port (nor ``chip_smoke.py``, nor the scripts that run its phases) imports
+them."""
 import ast
 import os
 import subprocess
@@ -23,6 +24,9 @@ def _modules():
 def test_import_loads_no_jax_and_no_repro():
     mods = _modules()
     assert "repro_torch.serving.engine" in mods
+    for new in ("repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+                "repro_torch.runtime.trainer"):
+        assert new in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -49,8 +53,10 @@ def _imported_names(path: Path):
 
 
 def test_sources_import_no_jax_and_no_repro():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "scripts").glob("*.py")))
     assert (ROOT / "chip_smoke.py").is_file()
+    assert ROOT / "scripts" / "pjit_phase.py" in files
     bad = []
     for f in files:
         for name in _imported_names(f):

@@ -9,7 +9,11 @@ packages' cores from one initial vector to the same ``last_loss`` and
 frees its parameter server; the two packages' log hubs each see only
 their own job lines; a missed deadline is HTTP 504; endpoints deploy by
 arch and refuse an ``repro-mlp`` training; and the core wants CUDA
-unless it is given ``device="cpu"``.
+unless it is given ``device="cpu"``. ``distribution: pjit`` trains
+through the REST server, is preempted by a higher-priority job, requeued
+as PREEMPTED with backend ``pjit``, resumed from its checkpoint and
+COMPLETED (tests/test_backends.py:235); the core's ``rescale_training``
+and ``resume_training(new_dist=...)`` hooks reach its gang.
 
 All on the CPU (``device="cpu"``) at the reference's smoke sizes, each
 server and core in its own ``tmp_path``."""
@@ -160,14 +164,117 @@ def test_rest_overrides(server):
     assert server.core.training_status(tid)["steps_done"] >= 5
 
 
-def test_rest_pjit_is_a_user_error(server):
-    """``distribution: pjit`` resolves but is not ported: HTTP 400."""
-    out = _req(f"{server.url}/v1/models", "POST", {"manifest": MANIFEST})
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        _req(f"{server.url}/v1/trainings", "POST",
-             {"model_id": out["model_id"],
-              "overrides": {"distribution": "pjit"}})
-    assert ei.value.code == 400
+# the reference's pjit preemption scenario (tests/test_backends.py:200-297)
+PJIT_CONTENTION = """
+name: contention-pjit
+learners: 1
+gpus: 2
+steps: 120
+checkpoint_every: 10
+lr: 0.1
+optimizer: sgd
+seed: 0
+batch_docs: 4
+data:
+  n_docs: 128
+  seq_len: 16
+framework:
+  name: repro-lm
+  arch: stablelm-1.6b
+  distribution: pjit
+"""
+
+HI_MANIFEST = """
+name: hi-prio
+learners: 1
+gpus: 2
+steps: 30
+lr: 0.2
+framework:
+  name: repro-mlp
+  d_in: 16
+  n_classes: 4
+"""
+
+
+def test_pjit_preemption_checkpoint_resume(tmp_path):
+    """A pjit training submitted through REST is preempted by a
+    higher-priority job, requeues as PREEMPTED (still reporting its
+    backend), resumes from its checkpoint and completes; the pause hook
+    holds it at a step boundary to make the eviction window
+    deterministic."""
+    from repro_torch.platform.cluster import Cluster, Node, Resources
+    cluster = Cluster([Node("n0", Resources(cpus=16, gpus=2,
+                                            memory_mb=64000))])
+    with DLaaSServer(str(tmp_path), cluster=cluster, device="cpu") as srv:
+        mid = _req(f"{srv.url}/v1/models", "POST",
+                   {"manifest": PJIT_CONTENTION})["model_id"]
+        lo = _req(f"{srv.url}/v1/trainings", "POST",
+                  {"model_id": mid, "tenant": "research",
+                   "priority": 0})["training_id"]
+        core = srv.core
+        assert wait_until(lambda: core.metrics.checkpoints(lo) and
+                          core.training_status(lo)["steps_done"] >= 20,
+                          timeout=120), "no checkpoint in time"
+        core.pause_training(lo)        # hold at the next step boundary
+        hid = _req(f"{srv.url}/v1/models", "POST",
+                   {"manifest": HI_MANIFEST})["model_id"]
+        hi = _req(f"{srv.url}/v1/trainings", "POST",
+                  {"model_id": hid, "tenant": "prod",
+                   "priority": 10})["training_id"]
+        seen = []
+        assert wait_until(lambda: seen.append(_req(
+            f"{srv.url}/v1/trainings/{lo}")) or
+            seen[-1]["status"] == "PREEMPTED", timeout=60), \
+            "pjit job was never PREEMPTED"
+        assert seen[-1]["backend"] == "pjit"
+        assert _terminal(core, hi, timeout=90) == "COMPLETED"
+        assert wait_until(lambda: any(
+            "resumed from checkpoint" in line for line in _req(
+                f"{srv.url}/v1/trainings/{lo}/logs")["logs"]),
+            timeout=90), "preempted pjit job did not resume"
+        core.resume_training(lo)
+        assert _terminal(core, lo, timeout=180) == "COMPLETED"
+        st = _req(f"{srv.url}/v1/trainings/{lo}")
+        assert st["backend"] == "pjit" and st["steps_done"] >= 120
+        blob = urllib.request.urlopen(
+            f"{srv.url}/v1/trainings/{lo}/model").read()
+        model = np.load(io.BytesIO(blob))
+        assert model.dtype == np.float32 and np.isfinite(model).all()
+
+
+def test_rescale_and_resume_hooks_reach_the_pjit_gang(tmp_path):
+    """A ``new_dist`` handed to ``resume_training`` waits for the next
+    incarnation; ``rescale_training`` requeues the gang like a
+    preemption, and that incarnation runs with the new ``Dist`` and
+    restores the latest checkpoint. The job is paused around the hooks
+    so that it is still running when the rescale lands."""
+    from repro_torch.distributed.sharding import Dist
+    core = DLaaSCore(str(tmp_path / "w"), device="cpu")
+    try:
+        manifest = dict(LM_MANIFEST, steps=60, checkpoint_every=5,
+                        distribution="pjit")
+        mid = core.deploy_model(json.dumps(manifest))["model_id"]
+        tid = core.create_training(mid)["training_id"]
+        assert wait_until(lambda: core.metrics.checkpoints(tid),
+                          timeout=120)
+        core.pause_training(tid)
+        new = Dist(policy="dp_only")
+        core.resume_training(tid, new_dist=new)
+        core.pause_training(tid)
+        handle = core.trainings[tid]["handle"]
+        assert handle.plan.meta["next_dist"] is new
+        core.rescale_training(tid)
+        assert wait_until(lambda: "next_dist" not in handle.plan.meta,
+                          timeout=60)
+        core.resume_training(tid)
+        assert _terminal(core, tid, timeout=180) == "COMPLETED"
+        assert any("resumed from checkpoint" in line
+                   for line in core.training_logs(tid))
+        assert handle.plan.meta["dist"] is new
+        assert core.training_status(tid)["steps_done"] == 60
+    finally:
+        core.close()
 
 
 def test_metrics_content_type_is_prometheus_004(server):

@@ -1,0 +1,219 @@
+"""One rank of the sharded-step cases of tests/test_torch_dist_steps.py.
+
+    python tests/util_gloo_worker.py RANK WORLD WORKDIR
+
+Joins a gloo process group through a ``FileStore`` in ``WORKDIR`` (no
+port), loads the initial params and the global batch that the test wrote
+to ``WORKDIR/inputs.npz``, and runs every case of ``WORKDIR/cases.json``
+on the CPU with the port only (no JAX here):
+
+  * ``step``: ``jit_train_step`` on a mesh for a policy and an
+    optimizer, ``STEPS`` steps; rank 0 records the losses and every leaf
+    gathered after step 1 and the last step; every rank checks that its
+    local shard of every param and state leaf is its slice of the
+    gathered leaf; the collectives of step 1 counted by
+    ``analysis.roofline.ProgramCounter`` around the step, and counted on
+    the meta device (``steps.local_train_step``, which sends nothing);
+  * ``resume``: a ``Trainer`` on one mesh for some steps, ``resume`` onto
+    another mesh of the same ranks, and on; its ``program_cost`` beside
+    the count of its first step on the new mesh; then a step that fails
+    on every rank, which ``step_once`` raises without a restore;
+  * ``serve``: ``jit_prefill_step`` and ``jit_decode_step`` on a mesh.
+
+Writes ``WORKDIR/out-RANK.npz`` and ``WORKDIR/out-RANK.json``.
+"""
+import json
+import logging
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as tdist
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+sys.path.insert(0, str(SRC))
+
+from repro_torch.analysis.roofline import ProgramCounter, count_program  # noqa: E402
+from repro_torch.configs.base import ShapeSpec, reduce_for_smoke  # noqa: E402
+from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.distributed import steps  # noqa: E402
+from repro_torch.distributed.sharding import (Dist, Sharding, distribute,  # noqa: E402
+                                              gather)
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models import make_model  # noqa: E402
+from repro_torch.models.layers import iter_leaves, leaf_at, map_leaves  # noqa: E402
+from repro_torch.optim.optimizers import (OptConfig, init_opt_state,  # noqa: E402
+                                          opt_state_specs)
+from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
+
+
+def _cfg(arch):
+    return reduce_for_smoke(get_arch(arch))
+
+
+def _params(inputs):
+    out = {}
+    for k in inputs.files:
+        if k.startswith("p/"):
+            node = out
+            *parents, last = k[2:].split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[last] = torch.from_numpy(inputs[k].copy())
+    return out
+
+
+def _shards_match(tree, specs, mesh):
+    """Every leaf's local shard is its slice of the gathered leaf."""
+    ok = True
+    for path, x in iter_leaves(tree):
+        full = gather(x)
+        sh = Sharding(mesh, leaf_at(specs, path))
+        want = full[sh.local_slices(full.shape)]
+        ok &= bool(torch.equal(x.to_local(), want))
+    return ok
+
+
+def run_step(case, inputs, rank, out, arrays):
+    cfg = _cfg(case["arch"])
+    mesh = make_mesh(*case["mesh"], device="cpu")
+    B = int(inputs["tokens"].shape[0])
+    d = Dist(mesh=mesh, policy=case["policy"]).resolve_batch(B)
+    model = make_model(cfg, d)
+    opt = OptConfig(**case["opt"])
+    shape = ShapeSpec("t", int(inputs["tokens"].shape[1]), B, "train")
+    step = steps.jit_train_step(model, opt, shape)
+    psh = model.param_shardings()
+    params = map_leaves(lambda p, x: distribute(x, leaf_at(psh, p)),
+                        _params(inputs))
+    ospecs = opt_state_specs(opt, model.param_defs(), d)
+    full_state = init_opt_state(opt, _params(inputs))
+    state = {k: (distribute(v, Sharding(mesh, ospecs[k])) if k == "step"
+                 else map_leaves(lambda p, x, k=k: distribute(
+                     x, Sharding(mesh, leaf_at(ospecs[k], p))), v))
+             for k, v in full_state.items()}
+    batch = {"tokens": torch.from_numpy(inputs["tokens"]).long(),
+             "labels": torch.from_numpy(inputs["labels"]).long()}
+    losses, ok = [], True
+    for i in range(case["steps"]):
+        if i == 0:
+            with ProgramCounter() as pc:
+                params, state, loss = step(params, state, batch)
+            out["counted"] = pc.totals()["collective_bytes_by_kind"]
+            out["listed"] = count_program(
+                steps.local_train_step(model, opt, shape),
+                *steps.abstract_local_inputs(model, shape, opt))[
+                    "collective_bytes_by_kind"]
+        else:
+            params, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+        if i in (0, case["steps"] - 1):
+            for path, x in iter_leaves(params):
+                full = gather(x)
+                if rank == 0:
+                    arrays[f"{case['id']}/{i}/{path}"] = full.numpy().copy()
+        ok &= _shards_match(params, model.param_specs(), mesh)
+        ok &= _shards_match({k: v for k, v in state.items()
+                             if k != "step"},
+                            {k: v for k, v in ospecs.items()
+                             if k != "step"}, mesh)
+    out["losses"] = losses
+    out["shards_match"] = ok
+    out["step_count"] = int(gather(state["step"]))
+    x = torch.arange(8.0 * 6).reshape(8, 6)
+    c = d.constrain(x, steps.P("data", "model"))
+    out["constrain"] = bool(torch.equal(c.to_local(), x[Sharding(
+        mesh, steps.P("data", "model")).local_slices(x.shape)])) and bool(
+        torch.equal(gather(d.constrain(c, steps.P())), x))
+
+
+def run_resume(case, inputs, rank, out, arrays, workdir):
+    cfg = _cfg(case["arch"])
+    opt = OptConfig(**case["opt"])
+    tc = TrainerConfig(batch=case["batch"], seq=case["seq"],
+                       ckpt_dir=str(Path(workdir) / f"ckpt-{case['id']}"))
+    tr = Trainer(cfg, Dist(mesh=make_mesh(*case["mesh"], device="cpu")),
+                 opt, tc).init(case["seed"])
+    losses = [tr.step_once(tr._batch(s)) for s in range(case["before"])]
+    tr.resume(Dist(mesh=make_mesh(*case["to"], device="cpu")))
+    out["resumed_at"] = tr.step
+    out["mesh_after"] = list(tr.dist.mesh.mesh.shape)
+    cost = tr.program_cost()
+    out["cost"] = {k: cost[k] for k in ("collective_bytes_by_kind",
+                                         "ici_bytes_per_device",
+                                         "flops_per_device")}
+    with ProgramCounter() as pc:
+        losses.append(tr.step_once(tr._batch(case["before"])))
+    out["counted"] = pc.totals()["collective_bytes_by_kind"]
+    losses += [tr.step_once(tr._batch(s))
+               for s in range(case["before"] + 1, case["before"]
+                              + case["after"])]
+    out["losses"] = losses
+    restores = []
+    tr._restore_latest = lambda: restores.append(1)
+    tr._step_fn = lambda *a: (_ for _ in ()).throw(RuntimeError("down"))
+    try:
+        tr.step_once(tr._batch(tr.step))
+        out["failed_step"] = "returned"
+    except RuntimeError as e:
+        out["failed_step"] = str(e)
+    out["restores"] = len(restores)
+
+
+def run_serve(case, inputs, rank, out, arrays):
+    cfg = _cfg(case["arch"])
+    mesh = make_mesh(*case["mesh"], device="cpu")
+    prompt = torch.from_numpy(inputs["tokens"][:, :case["prompt"]]).long()
+    B = prompt.shape[0]
+    d = Dist(mesh=mesh, policy=case["policy"]).resolve_batch(B)
+    model = make_model(cfg, d)
+    shape = ShapeSpec("s", case["prompt"], B, "prefill")
+    psh = model.param_shardings()
+    params = map_leaves(lambda p, x: distribute(x, leaf_at(psh, p)),
+                        _params(inputs))
+    csh = model.cache_shardings(B)
+    empty = model.empty_cache(B, case["prompt"] + case["new"], "cpu")
+    cache = {k: distribute(v, csh[k]) for k, v in empty.items()}
+    logits, cache = steps.jit_prefill_step(model, shape)(
+        params, {"tokens": prompt}, cache=cache)
+    out["cache_layout"] = all(tuple(v.placements) == csh[k].placements
+                              for k, v in cache.items())
+    decode = steps.jit_decode_step(model, shape)
+    got = [logits.full_tensor()]
+    for _ in range(case["new"]):
+        nxt = got[-1].argmax(-1)
+        logits, cache = decode(params, cache, {"tokens": nxt})
+        got.append(logits.full_tensor())
+    whole = {k: v.full_tensor() for k, v in cache.items()}  # collective
+    if rank == 0:
+        arrays[f"{case['id']}/logits"] = torch.cat(got, 1).numpy()
+        for k, v in whole.items():
+            arrays[f"{case['id']}/cache/{k}"] = v.numpy()
+
+
+def main():
+    rank, world, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    logging.getLogger("torch.distributed").setLevel(logging.ERROR)
+    torch.manual_seed(0)
+    tdist.init_process_group(
+        "gloo", store=tdist.FileStore(str(Path(workdir) / "store"), world),
+        rank=rank, world_size=world)
+    inputs = np.load(Path(workdir) / "inputs.npz")
+    cases = json.loads((Path(workdir) / "cases.json").read_text())
+    results, arrays = {}, {}
+    for case in cases:
+        out = results[case["id"]] = {}
+        if case["kind"] == "step":
+            run_step(case, inputs, rank, out, arrays)
+        elif case["kind"] == "resume":
+            run_resume(case, inputs, rank, out, arrays, workdir)
+        else:
+            run_serve(case, inputs, rank, out, arrays)
+    np.savez(Path(workdir) / f"out-{rank}.npz", **arrays)
+    (Path(workdir) / f"out-{rank}.json").write_text(json.dumps(results))
+    tdist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
