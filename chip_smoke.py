@@ -20,9 +20,10 @@ first failing phase (no phase catches an exception):
      equal bits), with times of kernel, plain version and
      ``scaled_dot_product_attention`` (a yardstick the port never calls)
      beside the least time the card could take;
-  4. serve   — full-width StableLM-1.6B (bf16, random weights from a seed)
-     behind ``InferenceEngine``: 8 requests, 4 slots, mid-flight joins;
-     every request done, the kernel launched 24 times per prefill batch,
+  4. serve   — StableLM-1.6B at full width cut to 12 of 24 layers (bf16,
+     random weights from a seed) behind ``InferenceEngine``: 8 requests,
+     4 slots, mid-flight joins; every request done, the kernel launched
+     12 times per prefill batch,
      three engines with one seed (cold, warm, profiled) give the same
      tokens (the profiled serve's flash kernels all tensor-core
      instances); at full width cut to 2 layers, prefill (kernel attention)
@@ -33,12 +34,12 @@ first failing phase (no phase catches an exception):
      (G = 2 included), ragged tails (300 at chunk 256, 7 at chunk 32),
      the tensor-core instance's ragged and G = 2 shapes (1, 300) and
      (2, 700) at P 64 / N 128, and chunk 64 against 128 (each shape with
-     relative L2 and two calls giving equal bits); then full-width,
-     full-depth mamba2-1.3b
+     relative L2 and two calls giving equal bits); then mamba2-1.3b at
+     full width cut to 24 of 48 layers
      (bf16, random weights from a seed) behind ``InferenceEngine``: 8
      requests with prompts of 2,048 to 2 tokens, 4 slots, prefill
      batches (2, 2048), (2, 512), (1, 300), (1, 256), (1, 33), (1, 2)
-     (four mid-flight joins); every request done, K5 launched 48 times
+     (four mid-flight joins); every request done, K5 launched 24 times
      per prefill batch, every launch on the tensor-core instance, three
      engines with one seed (cold, warm, profiled: busy share, K5's share
      and its split by device kernel, every K5 product kernel a ``_tc``
@@ -66,17 +67,18 @@ first failing phase (no phase catches an exception):
   8. train   — full-width StableLM-1.6B cut to 12 layers (bf16, random
      weights from a seed): two learner threads run ``make_learner_body``
      under the port's ``Watchdog`` against one ``SoftwareParameterServer``
-     on the card (4 shards, adam, int8 wire, BSP) for 6 rounds of
+     on the card (4 shards, adam, int8 wire, BSP) for 3 rounds of
      2 x 512 tokens per learner, checkpointing every 3 steps; asserts the
      push/round counts, every kernel's launches (every flash kernel in
      the profiled rounds a tensor-core instance), and that the newest
      checkpoint, the PS params and ``trained_model.npy`` are bit for bit
      one vector; prints round and agg times, tokens per second, peak
      device memory, and a profiled extra round (busy share, the PS
-     kernels' share). The same at one 4,096-token sequence per learner
-     step (the model's context), then 3 rounds of the first traffic with
-     a device synchronise after every step, push and pull, for the
-     per-phase breakdown (those timers are not in the other two runs);
+     kernels' share). The same for 3 rounds at one 4,096-token sequence
+     per learner step (the model's context). After the first run's
+     checks, 3 more rounds on its PS with a device synchronise after
+     every step, push and pull, for the per-phase breakdown (those
+     timers are not in the runs);
   9. platform — train -> deploy -> predict through the port's platform:
      phase 8's first traffic as a ``repro-lm`` manifest, planned by
      ``SoftwarePSBackend`` with ``BackendContext.cfg`` the 12-layer
@@ -105,7 +107,7 @@ first failing phase (no phase catches an exception):
      ``arch_cfgs`` the 12-layer config, one node of 4 accounted GPUs,
      the health controller's remediation off) driven over HTTP: upload
      ``PLATFORM_MANIFEST`` as YAML, train it to COMPLETED with no
-     restart (six steps, ``data_plane``, the timeline's plan/queue_wait/
+     restart (three steps, ``data_plane``, the timeline's plan/queue_wait/
      run/checkpoint_publish spans, ``/metrics`` parses), the parameter
      server freed while the server stays up (``memory_allocated`` within
      0.5 GiB of its value before the submit), deploy the trained model
@@ -126,17 +128,17 @@ first failing phase (no phase catches an exception):
      gradient: every gradient within K5B_TOL of the plain version run in
      float64, two calls give equal bits; the instance that ran; kernel,
      plain and bound ms, library null; at the two full-width shapes the
-     device time by kernel (``scripts/ssd_kernel_split.py --bwd`` in a
-     child process); its device kernels' registers,
+     device time by kernel at the larger (``scripts/ssd_kernel_split.py
+     --bwd`` in a child process); its device kernels' registers,
      shared memory, spills and HGMMA counts in phase 2. K5b at (1, 2048)
      bf16 must take at most K5B_MAX_MS, and both full-width shapes run
      the tensor-core instance;
  12. ssm-step — the ssm learner step on the card (K5, K5b) against the
      CPU: mamba2-1.3b's smoke reduction in f32, 2 layers, 64 and a
      ragged 50 positions (loss 1e-4, flat gradient 2e-3);
- 13. ssm-train — full-width mamba2-1.3b cut to 32 of 48 layers (bf16,
+ 13. ssm-train — full-width mamba2-1.3b cut to 16 of 48 layers (bf16,
      random weights from a seed) through the learner body and the PS as
-     phase 8 (2 learners, 4 shards, adam, int8, BSP, 6 rounds, a
+     phase 8 (2 learners, 4 shards, adam, int8, BSP, 3 rounds, a
      checkpoint every 3 steps) at 2 x 512 and at 1 x 2,048 tokens per
      learner step: K5 and K5b launched once per layer per step, every
      launch on the tensor-core instances, every loss finite, the loss of a batch the run
@@ -147,7 +149,7 @@ first failing phase (no phase catches an exception):
      and a profiled round (busy share, K5 + K5b and K1-K3 shares; every
      K5 and K5b product kernel a ``_tc`` one);
  14. ssm-platform — the 2 x 512 traffic as a ``repro-lm`` manifest with
-     ``arch: mamba2-1.3b`` and the 32-layer config through
+     ``arch: mamba2-1.3b`` and the 16-layer config through
      ``SoftwarePSBackend`` under the LCM and scheduler to COMPLETED (the
      checks of phase 9, the PS's release included); its
      ``trained_model.npy`` deployed as a managed endpoint (capacity
@@ -227,7 +229,7 @@ first failing phase (no phase catches an exception):
      decode from a cache with room for 64 tokens; prefill of 289 embeds
      against 288 and one decode step of an embedding), K4 and K4b at (2,
      2048, GQA 6, hd 128) causal, and K4 alone at that prefill shape;
- 19. pjit    — stablelm-1.6b at full width and depth (24 layers, bf16)
+ 19. pjit    — stablelm-1.6b at full width cut to 12 of 24 layers (bf16)
      as a ``distribution: pjit`` manifest through ``PjitBackend``, the
      LCM and the scheduler: 12 Adafactor steps of 8 x 512 tokens over
      32 documents, a checkpoint every 4 (Adafactor and an object store in
@@ -235,7 +237,7 @@ first failing phase (no phase catches an exception):
      ``PJIT_MANIFEST``); paused once 6 steps are done,
      preempted, re-placed, restored from its step-4 checkpoint, resumed
      and COMPLETED; the last pass's mean loss below the first's, K4 and
-     K4b launched 24 times per step taken, the newest checkpoint restored
+     K4b launched 12 times per step taken, the newest checkpoint restored
      by a fresh ``Trainer`` equal to ``trained_model.npy``, the job's
      ``status.perf`` (collective term 0: no mesh), two warm steps under
      the profiler; b. a 1-rank NCCL mesh: the ``fsdp_tp`` AdamW step
@@ -244,10 +246,31 @@ first failing phase (no phase catches an exception):
      mesh at step 4 against an uninterrupted run; K4 and K4b at the
      step's shape (8, 512, 32 heads,
      hd 64) against their plain versions;
- 20. result  — ``{"kernels": [...]}`` on the line before the last (each
-     kernel's launches summed over the main paths, with
-     ``launches_by_path``) and ``{"ok": true, "device": {...}}`` as the
-     last line.
+ 20. solvers, zero3_sp — a. the paper's PS solvers (``core/solvers.py``)
+     at stablelm-1.6b's full width cut to 4 of 24 layers (F =
+     616,579,072), 4 learners on the card (the local path), 2 x 512
+     tokens per learner microstep on fixed batches, the server's AdamW
+     (K1's adam) and local SGD at SOLVER_LOCAL_LR: psgd, psgd with the
+     int8 push, modelavg, easgd and downpour (H = 2), 3 rounds each; the
+     loss falls, each round's launches are the derived counts (K4 =
+     K4b = layers x learners x microsteps, all on the tensor cores; K1
+     once, downpour once per arrival; K2 = K3 = learners with the int8
+     push); round ms, peak memory, ``wire_bytes_per_round`` in both push
+     modes (analytic); one round of each at smoke width in f32 on the
+     card against the CPU (SOLVER_ATOL); K1 at (4, F) and K2/K3 at the
+     push's F against their plain versions; b. K4 with its LSE and K4b
+     at the per-rank shapes of a 4-way "model" axis: qwen2-vl-2b's 512
+     queries of 2 x 2,048 against the gathered 2,048 keys at q_offset 0,
+     512, 1,024 and 1,536 (causal, GQA 6, hd 128) and whisper's encoder
+     slice (4, 375 of 1,500, non-causal); the zero3_sp train step of
+     qwen2-vl-2b at full width and depth (phase 18's weights) on a
+     1-rank NCCL mesh against the mesh-less step (loss and every leaf
+     within ``MODEL_TOL``);
+ 21. result  — each phase's wall seconds (a ``[phase]`` line as each
+     ends, and a ``[phases]`` line), ``{"kernels": [...]}`` on the line
+     before the last (each kernel's launches summed over the main paths,
+     with ``launches_by_path``) and ``{"ok": true, "device": {...}}`` as
+     the last line.
 
 ``PERF.md`` gives the measured run times on an H100 80GB HBM3 at 700 W,
 the kernel builds included.
@@ -273,6 +296,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # tests/test_kernels.py:34
 SERVE_ARCH = "stablelm-1.6b"
+SERVE_LAYERS = 12          # full width, 12 of 24 layers (PERF.md §4)
 SERVE_REQUESTS = [(128, 16), (128, 32), (128, 24), (128, 20),
                   (512, 32), (512, 16), (33, 24), (7, 32)]  # (prompt, max_new)
 # prefill (kernel) vs decode (plain) logits, relative L2, f32 at 2 layers:
@@ -311,14 +335,15 @@ STEP_LOSS_TOL = 1e-4       # loss, card vs CPU, f32 smoke width
 STEP_GRAD_TOL = 2e-3       # flat gradient, atol = rtol
 ROUND_PARAM_TOL = 1e-5     # PS params after one int8 + adam round
 TRAIN_ARCH_LAYERS = 12     # full width, depth cut to fit one card
-TRAIN = dict(n_learners=2, n_shards=4, steps=6, batch_docs=2, seq_len=512,
+# 3 rounds, a checkpoint at the last (the cuts of PERF.md §4)
+TRAIN = dict(n_learners=2, n_shards=4, steps=3, batch_docs=2, seq_len=512,
              checkpoint_every=3, lr=1e-4, optimizer="adam",
              compression="int8")
 # one sequence at the model's published context (StableLM 2 1.6B model
 # card, hf:stabilityai/stablelm-2-1_6b: 4,096 tokens) per learner step
 TRAIN_LONG = dict(TRAIN, batch_docs=1, seq_len=4096)
-# the per-phase breakdown: TRAIN's traffic with synchronised timers
-TRAIN_TIMED = dict(TRAIN, steps=3)
+# the per-phase breakdown: rounds with synchronised timers on TRAIN's PS
+BREAKDOWN_ROUNDS = 3
 PS_KERNELS = ("ps_aggregate", "quantize_ef", "dequantize")
 # phase 9: TRAIN's traffic as a manifest, planned by the software-ps
 # backend on one simulated node whose GPUs are accounted only (one card)
@@ -354,6 +379,7 @@ PERF_FLOPS_RANGE = (0.85, 1.15)
 # of 256, exactly one, a ragged tail, a prompt shorter than a chunk and
 # one shorter than the conv window
 SSM_ARCH = "mamba2-1.3b"
+SSM_SERVE_LAYERS = 24      # full width, 24 of 48 layers (PERF.md §4)
 SSM_REQUESTS = [(2048, 16), (2048, 32), (512, 24), (512, 16), (300, 32),
                 (256, 20), (33, 24), (2, 32)]           # (prompt, max_new)
 SSM_PREFILLS = [(2, 2048), (2, 512), (1, 300), (1, 256), (1, 33), (1, 2)]
@@ -375,10 +401,10 @@ K5B_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 # on an H100 80GB HBM3 at 700 W)
 K5B_MAX_MS = 1.0
 SSM_STEP_SEQS = (64, 50)   # the smoke step: two chunks of 32; ragged
-# mamba2-1.3b at full width cut to 32 of its 48 layers: F = 1,032,986,624,
-# within 0.6% of the dense train's F, which fits one card with its PS at
-# ~50 B/param (48 layers, F = 1,446,505,472, would take ~72 GB)
-SSM_TRAIN_LAYERS = 32
+# mamba2-1.3b at full width cut to 16 of its 48 layers (at 32,
+# F = 1,032,986,624; 48 layers, F = 1,446,505,472, would take ~72 GB with
+# its PS at ~50 B/param)
+SSM_TRAIN_LAYERS = 16
 SSM_TRAIN = dict(TRAIN)    # 2 x 512 tokens per learner step: two chunks
 # one sequence at the model's context (2,048, the ssm serve's longest
 # prompt) per learner step: eight chunks, K5 and K5b at their largest
@@ -472,8 +498,8 @@ VLM_NEW = 64
 # both: prefill against decode at full width cut to 2 layers in f32
 FAMILY_CHECK_LAYERS = 2
 FAMILY_CHECK_N = 32
-# phase 19: the pjit distribution. stablelm-1.6b at full width and depth
-# (24 layers) as a manifest through PjitBackend: 12 Adafactor steps of 8
+# phase 19: the pjit distribution. stablelm-1.6b at full width cut to
+# PJIT_LAYERS as a manifest through PjitBackend: 12 Adafactor steps of 8
 # x 512 tokens over 32 documents (each seen three times, one pass every
 # 4 steps), a checkpoint every 4 steps; paused once 6 steps are done,
 # preempted, resumed from its checkpoint. Adafactor, not AdamW: the
@@ -485,6 +511,11 @@ FAMILY_CHECK_N = 32
 # step on a 1-rank NCCL mesh against the mesh-less step (AdamW, no
 # checkpoint), and a resume onto that mesh (Adafactor)
 PJIT_ARCH = "stablelm-1.6b"
+# full width, 12 of 24 layers (PERF.md §4). Its status.perf check
+# holds the learner step's FLOPs within PERF_FLOPS_RANGE of model_flops,
+# whose share without the embedding's product falls with depth (0.870 at
+# 12 layers, 0.8126 at 6), so the depth is not cut below 12
+PJIT_LAYERS = 12
 PJIT_JOB = "chip-smoke-pjit"
 PJIT_MANIFEST = {
     "name": "chip-smoke-pjit", "learners": 1, "steps": 12,
@@ -497,6 +528,41 @@ PJIT_PAUSE_AFTER = 6       # steps done when the job is paused and preempted
 PJIT_MESH_STEPS = 8        # 19 b: mesh-less run; resumed onto the mesh at 4
 PJIT_MESH_LR = 3e-4        # 19 b's AdamW step
 MODEL_TOL = 1e-4           # atol = rtol, params (tests/test_torch_steps.py)
+
+# phase 20: the paper's PS solvers (core/solvers.py) at full width, L = 4
+# learners on the local path, and zero3_sp's sequence-parallel attention
+SOLVER_ARCH = "stablelm-1.6b"
+SOLVER_LAYERS = 4          # full width, 4 of 24 layers
+SOLVER_LEARNERS = 4
+SOLVER_DOCS, SOLVER_SEQ = 2, 512   # tokens per learner microstep: 2 x 512
+SOLVER_ROUNDS = 3
+# local SGD of modelavg / easgd / downpour. The gradient of the mean CE of
+# 1,024 tokens over a 100,352-token vocabulary is small: at 0.1 an SGD
+# step of the f32 center mostly vanishes when the weights are cast to
+# bf16 for the forward, and modelavg's loss did not fall in 3 rounds;
+# at 0.3, 1 and 3 every solver's fell, most at 3 (PERF.md §6)
+SOLVER_LOCAL_LR = 3.0
+SOLVER_OPT = dict(name="adamw", lr=1e-3)   # the server's: K1's adam
+SOLVER_RUNS = (("psgd", dict(name="psgd")),
+               ("psgd-q8", dict(name="psgd", compress=True)),
+               ("modelavg", dict(name="modelavg", comm_every=2)),
+               ("easgd", dict(name="easgd", comm_every=2)),
+               ("downpour", dict(name="downpour", comm_every=2)))
+# card vs CPU at smoke width, sgd on the server and locally
+SOLVER_SMOKE_LR = 2e-3
+SOLVER_ATOL = 1e-5         # tests/test_torch_solvers.py
+# An int8 push's rounding boundary can turn a 1e-7 difference between the
+# devices' gradients into one int8 code of difference, a quantization
+# step (~0.016 at the smoke gradients' block maxima) in that learner's
+# wire value and, opposite, in its error-feedback row. psgd-q8's center
+# is held to SOLVER_ATOL after each such flip's lr / L x step is taken
+# out (a flip: an element of ``err`` that differs by more than SOLVER_ATOL
+# and by more than its 256-block's largest |err| on the CPU, which is at
+# most half a step), and the flips to at most this share of the L x F
+# codes
+SOLVER_MAX_FLIP_SHARE = 1e-2
+SP_MODEL = 4               # the "model" axis whose per-rank shapes 20 b runs
+SP_ENC = (4, 1500, 20, 20, 64)   # whisper-large-v3's encoder: B, S, H, KV, hd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -520,6 +586,25 @@ PLATFORM = PlatformRun("platform", PLATFORM_JOB, PLATFORM_MANIFEST,
 SSM_PLATFORM = PlatformRun("ssm-platform", SSM_PLATFORM_JOB,
                            SSM_PLATFORM_MANIFEST, SSM_PLATFORM_ENDPOINT,
                            SSM_ENDPOINT_SERVING, SSM_REQUESTS, "phase 13")
+
+
+class PhaseClock:
+    """Wall seconds of each phase of ``main``, each printed on a line of
+    its own as the phase ends, and all of them at the end."""
+
+    def __init__(self):
+        self.start = self.t = time.perf_counter()
+        self.rows = []
+
+    def done(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.rows.append((phase, round(now - self.t, 1)))
+        print(f"[phase] {phase}: {now - self.t:.1f} s wall", flush=True)
+        self.t = now
+
+    def summary(self) -> str:
+        return (f"[phases] {json.dumps(dict(self.rows))}; total "
+                f"{time.perf_counter() - self.start:.1f} s")
 
 
 def card_line() -> str:
@@ -1044,7 +1129,7 @@ def serve_ssm(torch, ops, ref, kssd, card):
     print(f"[kernel] {card}: K5 chunk 64 vs 128 (y, state) max abs "
           f"difference {ssd_chunk_invariance(torch, ops)} (limit "
           f"{SSD_TOL['float32']})")
-    cfg = get_arch(SSM_ARCH)
+    cfg = dataclasses.replace(get_arch(SSM_ARCH), n_layers=SSM_SERVE_LAYERS)
     runs = []
     for label in ("cold", "warm", "profiled"):
         tokens, eng, rec, launches, wall, prof = serve(
@@ -1445,63 +1530,16 @@ def sync(torch, device):
         torch.cuda.synchronize()
 
 
-class TimedPlugin:
-    """The learner's plugin with each step's forward + backward timed on
-    the host clock up to a device synchronise. Only the breakdown run
-    uses it: the synchronise is not the port's own, and on a card both
-    learners share, a step's time includes the other's interleaved
-    work."""
-
-    def __init__(self, torch, plugin):
-        self._torch, self._plugin = torch, plugin
-        self.step_s = []
-
-    def flat_loss_grad(self, flat, batch):
-        t0 = time.perf_counter()
-        out = self._plugin.flat_loss_grad(flat, batch)
-        sync(self._torch, self._plugin.device)
-        self.step_s.append(time.perf_counter() - t0)
-        return out
-
-    def __getattr__(self, name):
-        return getattr(self._plugin, name)
-
-
-def stamped_ps(torch, timers: bool):
+def stamped_ps():
     """A SoftwareParameterServer class that stamps the end of every round
     on the host clock. That adds no synchronise: the PS already waits
-    for the round's K1 launches, through the event it times them with.
-    With ``timers`` its clients also time each push (K2, receive with
-    K3, the BSP wait, and K1 for the last pusher) and each pull up to a
-    device synchronise, the breakdown run's instrumentation, which the
-    port's own loop does not have."""
-    from repro_torch.core.software_ps import (PSClient,
-                                              SoftwareParameterServer)
-
-    class Client(PSClient):
-        def push(self, flat, timeout=30.0):
-            t0 = time.perf_counter()
-            ok = super().push(flat, timeout)
-            sync(torch, self.ps.device)
-            self.ps.push_s.append(time.perf_counter() - t0)
-            return ok
-
-        def pull(self):
-            t0 = time.perf_counter()
-            buf = super().pull()
-            sync(torch, self.ps.device)
-            self.ps.pull_s.append(time.perf_counter() - t0)
-            return buf
+    for the round's K1 launches, through the event it times them with."""
+    from repro_torch.core.software_ps import SoftwareParameterServer
 
     class PS(SoftwareParameterServer):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
-            self.push_s, self.pull_s, self.round_end = [], [], []
-
-        def make_client(self, learner_id):
-            if not timers:
-                return super().make_client(learner_id)
-            return Client(self, learner_id, compression=self.compression)
+            self.round_end = []
 
         def _finish_round_locked(self):
             super()._finish_round_locked()
@@ -1524,13 +1562,13 @@ def batch_loss(torch, plugin, flat, batch):
 
 def train_run(torch, ops, cfg, device, workdir, card, *, n_learners,
               n_shards, steps, batch_docs, seq_len, checkpoint_every, lr,
-              optimizer, compression, timers=False, profile=False):
+              optimizer, compression, profile=False, breakdown=0):
     """Train ``cfg`` with ``n_learners`` learner threads through the
     port's learner body and PS. Returns a dict of what the run counted
-    and measured; raises on any failed check. Without ``timers`` the
-    loop is the port's own (round ends stamped on the host, no added
-    synchronise); with them, every step, push and pull ends in a device
-    synchronise and is timed (the per-phase breakdown)."""
+    and measured; raises on any failed check. The loop is the port's own
+    (round ends stamped on the host, no added synchronise). After the
+    checks, ``profile`` adds one profiled round and ``breakdown`` that
+    many timed rounds on the same PS (``timed_rounds``)."""
     import numpy as np
     from repro_torch.checkpoint.checkpoint import CheckpointManager
     from repro_torch.core.cursor import Chunk, GlobalCursor
@@ -1547,7 +1585,6 @@ def train_run(torch, ops, cfg, device, workdir, card, *, n_learners,
     storage.register("results", LocalFSStore(str(workdir / "results")))
     metrics = MetricsService()
     base = LMPlugin({}, cfg=cfg, device=device)
-    plugin = TimedPlugin(torch, base) if timers else base
     data_cfg = {"seq_len": seq_len, "n_docs": 512, "seed": 0}
     jcfg = LearnerJobConfig(
         job_id=job, data_cfg=data_cfg, n_learners=n_learners,
@@ -1556,7 +1593,7 @@ def train_run(torch, ops, cfg, device, workdir, card, *, n_learners,
         checkpoint_dir=str(workdir / "ckpt"),
         checkpoint_every=checkpoint_every)
     t0 = time.perf_counter()
-    ps = stamped_ps(torch, timers)(plugin.flat_state(jcfg.seed),
+    ps = stamped_ps()(base.flat_state(jcfg.seed),
                                    n_shards=n_shards,
                          n_learners=n_learners, optimizer=optimizer, lr=lr,
                          trigger="bsp", compression=compression,
@@ -1566,7 +1603,7 @@ def train_run(torch, ops, cfg, device, workdir, card, *, n_learners,
     cursor = GlobalCursor(zk, f"/jobs/{job}/cursor", dataset_size=512)
     results = {}
     body = make_learner_body(jcfg, ps, cursor, storage, metrics, results,
-                             plugin=plugin)
+                             plugin=base)
     failed = []
 
     def run(idx):
@@ -1678,16 +1715,67 @@ def train_run(torch, ops, cfg, device, workdir, card, *, n_learners,
            "tokens": n_learners * steps * batch_docs * seq_len,
            "F": ps.size,
            "checkpoint_step": last}
-    if timers:
-        out.update(step_ms=[1e3 * s for s in plugin.step_s],
-                   push_ms=[1e3 * s for s in ps.push_s],
-                   pull_ms=[1e3 * s for s in ps.pull_s])
+    corpus = SyntheticCorpus(base.dataset_spec(data_cfg))
     if profile:
-        out["profile"] = profiled_round(torch, ps, base, cursor,
-                                        SyntheticCorpus(
-                                            base.dataset_spec(data_cfg)),
+        out["profile"] = profiled_round(torch, ps, base, cursor, corpus,
                                         batch_docs, card, cfg)
+    if breakdown:
+        out.update(timed_rounds(torch, ps, base, cursor, corpus,
+                                batch_docs, breakdown))
     del ps
+    return out
+
+
+def timed_rounds(torch, ps, plugin, cursor, corpus, batch_docs, rounds):
+    """``rounds`` more BSP rounds after the run's checks, through the
+    port's own plugin and client, with every learner's step (forward +
+    backward), push (K2, receive with K3, the BSP wait, and K1 for the
+    last pusher) and pull ended by a device synchronise and timed on the
+    host clock: the per-phase breakdown. The synchronises are not the
+    port's own, and on one card both learners' work interleaves, so a
+    step's time includes the other's. Returns {step_ms, push_ms,
+    pull_ms}."""
+    n = ps.n_learners
+    clients = [ps.make_client(i) for i in range(n)]
+    for i in range(n):
+        ps.join(i)
+    batches = [[corpus.batch_for(cursor.next_chunk(batch_docs))
+                for _ in range(n)] for _ in range(rounds)]
+    out = {"step_ms": [], "push_ms": [], "pull_ms": []}
+    lock = threading.Lock()
+    failed = []
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        sync(torch, ps.device)
+        with lock:
+            out[key].append(1e3 * (time.perf_counter() - t0))
+        return res
+
+    def learner(i):
+        try:
+            flat = clients[i].pull()
+            for r in range(rounds):
+                _, g = timed("step_ms", lambda: plugin.flat_loss_grad(
+                    flat, batches[r][i]))
+                if not timed("push_ms", lambda: clients[i].push(g)):
+                    raise AssertionError(f"learner {i}: push timed out")
+                del g
+                flat = timed("pull_ms", clients[i].pull)
+        except BaseException as e:       # handed to the main thread below
+            failed.append(e)
+            raise
+
+    ts = [threading.Thread(target=learner, args=(i,), daemon=True)
+          for i in range(n)]
+    [t.start() for t in ts]
+    [t.join(300) for t in ts]
+    for i in range(n):
+        ps.leave(i)
+    if failed or any(t.is_alive() for t in ts):
+        raise RuntimeError("timed rounds failed") from (
+            failed[0] if failed else None)
     return out
 
 
@@ -1778,7 +1866,8 @@ def print_train(label, res, card, cfg, traffic):
           f"{stats(res['agg_ms'])}; the learner's push + pull on the "
           f"host clock {stats(res['sync_ms'])}")
     if "step_ms" in res:
-        print(f"{tag} with a synchronise after each: learner step "
+        print(f"{tag} {BREAKDOWN_ROUNDS} more rounds with a synchronise "
+              f"after each: learner step "
               f"forward+backward {stats(res['step_ms'])}; push "
               f"{stats(res['push_ms'])}; pull {stats(res['pull_ms'])}")
     prof = res.get("profile")
@@ -3522,7 +3611,7 @@ def vlm_batch(torch, cfg, B, S, seed, grid=None, text_at_index=False):
             "labels": labels}
 
 
-def train_vlm(torch, ops, ref, kfa, kfab, card):
+def train_vlm(torch, ops, ref, kfa, kfab, card, keep=None):
     """Phase 18: qwen2-vl-2b fed with ``embeds`` at full width and depth
     through ``distributed/steps.py``. a. VLM_STEPS AdamW steps on one
     batch of VLM_BATCH x VLM_SEQ positions (one image of VLM_GRID^2
@@ -3532,7 +3621,9 @@ def train_vlm(torch, ops, ref, kfa, kfab, card):
     FAMILY_CHECK_LAYERS layers in f32; d. K4 and K4b at the model's
     shape, and K4 at the prefill's; e. the smoke-width step on the card
     against the CPU. Returns
-    (K4 results, K4b results, the main path's launches)."""
+    (K4 results, K4b results, the main path's launches); with a dict
+    ``keep``, the trained weights go into ``keep["params"]`` (phase 20's
+    zero3_sp step) instead of being freed."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.distributed import steps
     from repro_torch.models import make_model
@@ -3588,6 +3679,8 @@ def train_vlm(torch, ops, ref, kfa, kfab, card):
           f"{new[:, :8].tolist()}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; main-path "
           f"launches {got} (on the tensor cores {tc})")
+    if keep is not None:
+        keep["params"] = params
     del params, cache, batch, logits, last
     gc.collect()
     torch.cuda.empty_cache()
@@ -3925,7 +4018,7 @@ def train_pjit(torch, ops, ref, kfa, kfab, card):
     attention shape against their plain versions. Returns (K4 results,
     K4b results, 19 a's launch counts: the main path)."""
     from repro_torch.configs.registry import get_arch
-    cfg = get_arch(PJIT_ARCH)
+    cfg = dataclasses.replace(get_arch(PJIT_ARCH), n_layers=PJIT_LAYERS)
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-pjit-",
@@ -3948,6 +4041,308 @@ def train_pjit(torch, ops, ref, kfa, kfab, card):
               f"{json.dumps(r)}")
     torch.cuda.empty_cache()
     return [fwd], [bwd], res["launches"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the paper's PS solvers and zero3_sp's sequence parallelism
+# ---------------------------------------------------------------------------
+
+
+def solver_launches(name: str, cfg, compress: bool, h: int):
+    """Kernel launches of one round of solver ``name`` on the local path
+    with SOLVER_LEARNERS learners: K4 and K4b once per layer per learner
+    per microstep; K2 and K3 once per learner's push when ``compress``;
+    K1 once (psgd's update, modelavg's ``average``, easgd's
+    ``easgd_center``), downpour once per arrival."""
+    n = SOLVER_LEARNERS
+    steps = n * (1 if name == "psgd" else h)
+    return {"flash_attention": cfg.n_layers * steps,
+            "flash_attention_bwd": cfg.n_layers * steps,
+            "ps_aggregate": n if name == "downpour" else 1,
+            "quantize_ef": n if compress else 0,
+            "dequantize": n if compress else 0,
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
+
+
+def lm_solver(torch, model, scfg, opt, n_learners, device):
+    """``core.solvers.make_solver`` over ``model``'s loss: the solver's f32
+    leaves (per-layer lists for the stacked blocks) cast to the model
+    dtype, then ``Model.loss`` (K4/K4b on the card)."""
+    from repro_torch.core.solvers import make_solver
+    from repro_torch.models.layers import is_stacked, map_leaves
+    dt = model.dtype
+
+    def cast(_p, t):
+        return [x.to(dt) for x in t] if isinstance(t, list) else t.to(dt)
+
+    def loss_fn(tree, batch):
+        return model.loss(map_leaves(cast, tree), batch)
+    return make_solver(loss_fn, model.abstract_params(), opt, scfg,
+                       n_learners, device=device, per_layer=is_stacked)
+
+
+def solver_batches(torch, cfg, h, n, b, seq, seed, device):
+    """Fixed (H, L, b, seq) token batches and their next-token labels."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (h, n, b, seq + 1),
+                         generator=g, device=device)
+    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+
+
+def solvers_card_vs_cpu(torch, ops):
+    """One round of each SOLVER_RUNS solver at smoke width in f32 on the
+    card and on the CPU from the same params and batches, SGD at
+    SOLVER_SMOKE_LR on the server and locally: the centers within
+    SOLVER_ATOL, the losses within STEP_LOSS_TOL. A compressed psgd run's
+    center is held after its int8 flips are taken out (see
+    SOLVER_MAX_FLIP_SHARE). Returns {run: (center err, loss err, flips)}."""
+    from repro_torch.configs.base import reduce_for_smoke
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.solvers import SolverConfig
+    from repro_torch.models import make_model
+    from repro_torch.optim.optimizers import OptConfig
+    cfg = reduce_for_smoke(get_arch(SOLVER_ARCH))
+    model = make_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    opt = OptConfig(name="sgd", lr=SOLVER_SMOKE_LR)
+    out = {}
+    for label, kw in SOLVER_RUNS:
+        scfg = SolverConfig(local_lr=SOLVER_SMOKE_LR, **kw)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            s = lm_solver(torch, model, scfg, opt, SOLVER_LEARNERS, dev)
+            st = s.init_state(params)
+            b = solver_batches(torch, cfg, scfg.rounds_h, SOLVER_LEARNERS,
+                               2, 64, 20, "cpu")
+            st, m = s.round(st, {k: v.to(dev) for k, v in b.items()})
+            res[dev] = (st["center"].cpu(), float(m["loss"]),
+                        st["err"].cpu() if scfg.compress else None)
+        diff = res["cuda"][0] - res["cpu"][0]
+        flips = 0
+        if scfg.compress:
+            # psgd, sgd server: center -= lr * mean over learners of
+            # (y - err), so a flip's step in err moves the center by
+            # lr / L x that step
+            assert scfg.name == "psgd" and opt.name == "sgd", label
+            cpu_err = res["cpu"][2]
+            derr = res["cuda"][2] - cpu_err
+            half = cpu_err.abs().view(cpu_err.shape[0], -1, 256).amax(
+                -1, keepdim=True).expand(-1, -1, 256).reshape(cpu_err.shape)
+            flipped = (derr.abs() > SOLVER_ATOL) & (derr.abs() > half)
+            flips = int(flipped.sum())
+            diff = diff - SOLVER_SMOKE_LR * (derr * flipped).mean(0)
+            if flips > SOLVER_MAX_FLIP_SHARE * derr.numel():
+                raise AssertionError(f"{label}: {flips} int8 codes of "
+                                     f"{derr.numel()} differ (limit "
+                                     f"{SOLVER_MAX_FLIP_SHARE} of them)")
+        err = diff.abs().max().item()
+        lerr = abs(res["cuda"][1] - res["cpu"][1])
+        if err > SOLVER_ATOL or lerr > STEP_LOSS_TOL:
+            raise AssertionError(f"{label} round at smoke width: center "
+                                 f"err {err} (limit {SOLVER_ATOL}), loss "
+                                 f"err {lerr}")
+        out[label] = (err, lerr, flips)
+    return out
+
+
+def train_solvers(torch, ops, kfa, kfab, card):
+    """20 a: each SOLVER_RUNS solver for SOLVER_ROUNDS rounds at full width
+    (SOLVER_ARCH cut to SOLVER_LAYERS layers), SOLVER_LEARNERS learners
+    on one card (the local path), fixed batches; the loss falls, every
+    round's launches are the derived counts, bf16 K4/K4b on the tensor
+    cores. Then one round of each at smoke width against the CPU.
+    Returns (the main path's launches summed over the runs, the solver's
+    padded F)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.solvers import SolverConfig
+    from repro_torch.models import make_model
+    from repro_torch.optim.optimizers import OptConfig
+    cfg = dataclasses.replace(get_arch(SOLVER_ARCH), n_layers=SOLVER_LAYERS)
+    model = make_model(cfg)
+    opt = OptConfig(**SOLVER_OPT)
+    print(f"[solvers] {card}: {memory_line(torch, 'before phase 20:')}")
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    padded = None
+    for label, kw in SOLVER_RUNS:
+        scfg = SolverConfig(local_lr=SOLVER_LOCAL_LR, **kw)
+        s = lm_solver(torch, model, scfg, opt, SOLVER_LEARNERS, "cuda")
+        padded = s.padded
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        st = s.init_state(params)
+        del params
+        batches = solver_batches(torch, cfg, scfg.rounds_h, SOLVER_LEARNERS,
+                                 SOLVER_DOCS, SOLVER_SEQ, 20, "cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        want = solver_launches(scfg.name, cfg, scfg.compress, scfg.rounds_h)
+        losses, ms, metrics = [], [], {}
+        for r in range(SOLVER_ROUNDS):
+            ops.reset_launch_counts()
+            tc0 = (kfa.launches_tc, kfab.launches_tc)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = s.round(st, batches)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            got = ops.launch_counts()
+            tc = (kfa.launches_tc - tc0[0], kfab.launches_tc - tc0[1])
+            if got != want or tc != (want[kfa.NAME], want[kfab.NAME]):
+                raise AssertionError(f"{label} round {r}: launches {got}, "
+                                     f"on the tensor cores {tc}; want "
+                                     f"{want}, K4/K4b all on them")
+            for k, v in got.items():
+                total[k] += v
+            losses.append(float(m["loss"]))
+            metrics = {k: float(v) for k, v in m.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+            raise AssertionError(f"{label}: losses {losses} do not fall on "
+                                 f"the batches it trains on")
+        wire = {mode: lm_solver(torch, model, SolverConfig(
+            push_mode=mode, **kw), opt, SOLVER_LEARNERS,
+            "cuda").wire_bytes_per_round() for mode in ("ps", "broadcast")}
+        tokens = SOLVER_LEARNERS * scfg.rounds_h * SOLVER_DOCS * SOLVER_SEQ
+        warm = sorted(ms[1:])[len(ms[1:]) // 2]
+        print(f"[solvers] {card}: {label} {dataclasses.asdict(scfg)}, "
+              f"server {SOLVER_OPT}, {SOLVER_ARCH} L={cfg.n_layers} "
+              f"d={cfg.d_model} bf16, F={s.true_size} (padded {s.padded}), "
+              f"{SOLVER_LEARNERS} learners x {SOLVER_DOCS} x {SOLVER_SEQ} "
+              f"tokens per microstep: losses {[round(x, 4) for x in losses]}"
+              f"; last metrics {metrics}; round ms "
+              f"{[round(t, 2) for t in ms]} (warm median {warm:.2f} ms = "
+              f"{tokens / (warm / 1e3):.1f} tokens/s); peak device memory "
+              f"{peak:.2f} GiB; launches a round {want}; "
+              f"wire_bytes_per_round (analytic, per learner; one card has "
+              f"no wire) ps {wire['ps']:,} B, broadcast "
+              f"{wire['broadcast']:,} B")
+        del st, s, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, (err, lerr, flips) in solvers_card_vs_cpu(torch,
+                                                         ops).items():
+        print(f"[solvers] {card}: {label} smoke width f32, one round on the "
+              f"card vs the CPU (sgd lr {SOLVER_SMOKE_LR}): center max abs "
+              f"err {err:.3e} (limit {SOLVER_ATOL}; int8 codes that differ "
+              f"{flips}, taken out), loss err {lerr:.3e} "
+              f"(limit {STEP_LOSS_TOL})")
+    return total, padded
+
+
+def sp_kernels(torch, ops, ref, card):
+    """20 b: K4 with LSE and K4b against their plain versions at the
+    per-rank shapes of a SP_MODEL-way "model" axis: qwen2-vl-2b's (its
+    VLM_BATCH x VLM_SEQ, causal, q_offset = rank * S / SP_MODEL) and
+    whisper-large-v3's encoder (non-causal). Returns (K4 results, K4b
+    results)."""
+    from repro_torch.configs.registry import get_arch
+    vl = get_arch(VLM_ARCH)
+    n = VLM_SEQ // SP_MODEL
+    shapes = [((VLM_BATCH, n, vl.n_heads, vl.n_kv_heads, vl.hd, "bfloat16",
+                True, r * n), VLM_SEQ) for r in range(SP_MODEL)]
+    B, S, H, KV, hd = SP_ENC
+    shapes.append(((B, S // SP_MODEL, H, KV, hd, "bfloat16", False, 0), S))
+    fwd, bwd = [], []
+    for i, (shape, sk) in enumerate(shapes):
+        r = check_attention_bwd(torch, ops, ref, shape, seed=40 + i, sk=sk)
+        print(f"[kernel] {card}: K4 with LSE and K4b at a zero3_sp rank's "
+              f"shape {json.dumps(r)}")
+        fwd.append(r["fwd"])
+        bwd.append(r)
+        torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def sp_step(torch, ops, kfa, kfab, params, card):
+    """20 b: the zero3_sp train step of qwen2-vl-2b at full width and depth
+    on a 1-rank NCCL mesh (data 1, model 1) against the mesh-less step,
+    from ``params`` (phase 18's weights, consumed) on one VLM_BATCH x
+    VLM_SEQ batch, default optimizer: the loss and every updated leaf
+    within MODEL_TOL. Returns the mesh step's launches (the main path)."""
+    import torch.distributed as tdist
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.sharding import (Dist, Sharding,
+                                                  distribute, gather)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import make_model
+    from repro_torch.models.layers import iter_leaves, leaf_at, map_leaves
+    from repro_torch.optim.optimizers import init_opt_state, opt_state_specs
+    cfg = get_arch(VLM_ARCH)
+    B, S = VLM_BATCH, VLM_SEQ
+    batch = vlm_batch(torch, cfg, B, S, 2)
+    opt = steps.default_optimizer(cfg)
+    mesh_params = map_leaves(lambda _p, t: t.clone(), params)
+    flat_model = make_model(cfg)
+    state = init_opt_state(opt, params)
+    params, state, la = steps.build_train_step(flat_model, opt)(
+        params, state, batch)
+    la = la.item()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-sp-", dir=build_dir))
+    tdist.init_process_group(
+        "nccl", store=tdist.FileStore(str(workdir / "pg-store"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        d = Dist(mesh=mesh, policy="zero3_sp").resolve_batch(B)
+        model = make_model(cfg, d)
+        psh = model.param_shardings()
+        ospecs = opt_state_specs(opt, model.param_defs(), d)
+        full_state = init_opt_state(opt, mesh_params)
+        mp = map_leaves(lambda p, x: distribute(x, leaf_at(psh, p)),
+                        mesh_params)
+        mstate = {k: (distribute(v, Sharding(mesh, ospecs[k])) if k == "step"
+                      else map_leaves(lambda p, x, k=k: distribute(
+                          x, Sharding(mesh, leaf_at(ospecs[k], p))), v))
+                  for k, v in full_state.items()}
+        del mesh_params, full_state
+        shape = ShapeSpec("t", S, B, "train")
+        step = steps.jit_train_step(model, opt, shape)
+        sp = steps.local_loss_and_grads(model, shape).seq_parallel(batch)
+        ops.reset_launch_counts()
+        tc0 = (kfa.launches_tc, kfab.launches_tc)
+        mp, mstate, lb = step(mp, mstate, batch)
+        lb = lb.item()
+        launches = ops.launch_counts()
+        tc = (kfa.launches_tc - tc0[0], kfab.launches_tc - tc0[1])
+        diff = 0.0
+        for (k, x), (_, y) in zip(iter_leaves(params), iter_leaves(mp)):
+            y = gather(y)
+            dd = (x.float() - y.float()).abs()
+            diff = max(diff, dd.max().item())
+            if (dd > MODEL_TOL + MODEL_TOL * x.float().abs()).any().item():
+                raise AssertionError(f"the zero3_sp step's {k} differs "
+                                     f"from the mesh-less step's by {diff}")
+        del mp, mstate
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(workdir, ignore_errors=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = cfg.n_layers
+    if not sp or abs(la - lb) > MODEL_TOL + MODEL_TOL * abs(la) or \
+            (launches[kfa.NAME], launches[kfab.NAME]) != (want, want) or \
+            tc != (want, want):
+        raise AssertionError(f"zero3_sp step: sequence-parallel {sp}, loss "
+                             f"{lb} vs mesh-less {la}, launches {launches},"
+                             f" on the tensor cores {tc}")
+    print(f"[train-sp] {card}: {VLM_ARCH} L={cfg.n_layers} d={cfg.d_model} "
+          f"bf16, B={B} x {S} embeds with M-RoPE positions, {opt.name} lr "
+          f"{opt.lr}: the zero3_sp step on a 1-rank NCCL mesh (data 1, "
+          f"model 1; sequence-parallel {sp}, one rank: the K/V gather is "
+          f"the identity and q_offset 0) loss {lb:.6f} vs mesh-less "
+          f"{la:.6f}; every updated leaf within atol=rtol {MODEL_TOL}, "
+          f"largest difference {diff:.3e}; launches {launches} (on the "
+          f"tensor cores {tc})")
+    return launches
+
 
 
 def main() -> int:
@@ -3973,6 +4368,9 @@ def main() -> int:
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    clock = PhaseClock()
+    clock.done("1 device")
+
     # 2. build
     t0 = time.perf_counter()
     built = build.build_all()
@@ -3987,6 +4385,7 @@ def main() -> int:
                 print(f"[build] {r.name}: {line.strip()}")
     hgmma, ptxas_reports = report_tc_build(build, built, card)
     k5b_ptxas = ptxas_reports["ssd_scan_bwd"]
+    clock.done("2 build")
 
     # 3. kernel against its plain version
     for shape in [(1, 512, 32, 32, 64, "bfloat16", True),
@@ -3994,11 +4393,12 @@ def main() -> int:
                   (3, 37, 4, 2, 16, "float32", True)]:
         res = check_attention(torch, ops, ref, shape)
         print(f"[kernel] {card}: {json.dumps(res)}")
+    clock.done("3 kernel")
 
     # 4. serve at full width: cold (first use of every library kernel),
     # then warm with the same seed (same tokens), then warm under the
     # profiler (device busy share and where the device time goes)
-    cfg = get_arch(SERVE_ARCH)
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=SERVE_LAYERS)
     runs = []
     for label in ("cold", "warm", "profiled"):
         run = serve(torch, cfg, ops, 0, card, profile=label == "profiled")
@@ -4059,12 +4459,14 @@ def main() -> int:
                  for i, (n, plen) in enumerate(sorted(set(prefills)))]
     for res in main_path:
         print(f"[kernel] {card}: main path {json.dumps(res)}")
+    clock.done("4 serve")
 
     # 5. the ssm serve: K5 against its plain version, mamba2-1.3b at full
     # width and depth through the engine, prefill against decode
     ssd_main, ssd_others, ssm_launches = serve_ssm(torch, ops, ref, kssd,
                                                    card)
     torch.cuda.empty_cache()
+    clock.done("5 serve-ssm")
 
     # 6. the training slice's kernels against their plain versions
     tcfg = dataclasses.replace(get_arch(SERVE_ARCH),
@@ -4126,6 +4528,7 @@ def main() -> int:
                                  f"SDPA at the model's context (limit "
                                  f"{TC_MAX_X_SDPA})")
     torch.cuda.empty_cache()
+    clock.done("6 kernels of training")
 
     # 7. a training step on the card against the CPU (smoke width, f32)
     loss_err, grad_err, round_err = step_card_vs_cpu(torch, ops)
@@ -4134,27 +4537,29 @@ def main() -> int:
           f"err {grad_err:.3e} (atol=rtol {STEP_GRAD_TOL}); one int8 + adam "
           f"PS round, 2 learners: params max abs err {round_err:.3e} "
           f"(limit {ROUND_PARAM_TOL})")
+    clock.done("7 step")
 
     # 8. full-width training, 12 layers, through the learner body and PS:
     # the main path (its launches go into the kernels line), the model's
     # context per learner step, and the per-phase breakdown with timers
+    # in rounds after the first run's checks
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     train = {}
-    for label, traffic, timers in (("train", TRAIN, False),
-                                   ("train-4k", TRAIN_LONG, False),
-                                   ("train-timed", TRAIN_TIMED, True)):
+    for label, traffic, breakdown in (("train", TRAIN, BREAKDOWN_ROUNDS),
+                                      ("train-4k", TRAIN_LONG, 0)):
         workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-train-",
                                         dir=build_dir))
         try:
             train[label] = train_run(torch, ops, tcfg, "cuda", workdir,
-                                     card, timers=timers,
-                                     profile=not timers, **traffic)
+                                     card, profile=True,
+                                     breakdown=breakdown, **traffic)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         print_train(label, train[label], card, tcfg, traffic)
         torch.cuda.empty_cache()
     train_launches = train["train"]["launches"]
+    clock.done("8 train")
 
     # 9. platform: the same traffic planned by the software-ps backend and
     # run under the LCM and scheduler, then a managed endpoint deployed on
@@ -4183,6 +4588,7 @@ def main() -> int:
           f"params with seed 0 (prefill batches {rec.prefills}; the bare "
           f"engine {bare_tok} tokens in {bare_wall:.3f} s = "
           f"{bare_tok / bare_wall:.1f} tokens/s)")
+    clock.done("9 platform")
 
     # 10. service: the same manifest through the port's REST server, the
     # trained model deployed and served over HTTP
@@ -4207,6 +4613,7 @@ def main() -> int:
     print(f"[service] {card}: the tokens of the {len(bare)} requests served "
           f"alone == a bare InferenceEngine's on the downloaded "
           f"trained_model.npy, each request alone")
+    clock.done("10 service")
 
     # 11. K5b, the SSD scan backward, against its plain version: the
     # learner's full-width shapes, the smoke width, a ragged tail, a
@@ -4234,7 +4641,9 @@ def main() -> int:
         print(f"[kernel] {card}: K5b main path {json.dumps(res)}")
     for res in k5b_others:
         print(f"[kernel] {card}: K5b {json.dumps(res)}")
-    for res in k5b_main:
+    # the split by device kernel at the head shape (the largest bound;
+    # at one of the two full-width shapes, to keep the run short)
+    for res in [max(k5b_main, key=lambda r: r["bound_ms"])]:
         sh = res["shape"]
         split = k5b_split([sh[k] for k in "B S H P G N chunk".split()])
         res["split"] = split["split"]
@@ -4260,6 +4669,7 @@ def main() -> int:
                              f"ms); off the tensor cores: "
                              f"{[r['shape'] for r in bad]}")
     torch.cuda.empty_cache()
+    clock.done("11 K5b")
 
     # 12. the ssm learner step on the card against the CPU
     scfg_smoke, ssm_step = lm_step_card_vs_cpu(torch, ops, SSM_ARCH,
@@ -4270,8 +4680,9 @@ def main() -> int:
               f"CPU: loss err {loss_err:.3e} (limit {STEP_LOSS_TOL}), flat "
               f"gradient max abs err {grad_err:.3e} (atol=rtol "
               f"{STEP_GRAD_TOL})")
+    clock.done("12 ssm-step")
 
-    # 13. full-width mamba2-1.3b, 32 of 48 layers, through the learner
+    # 13. full-width mamba2-1.3b, 16 of 48 layers, through the learner
     # body and the PS at 2 x 512 and 1 x 2,048 tokens per learner step
     scfg = dataclasses.replace(ssm, n_layers=SSM_TRAIN_LAYERS)
     for label, traffic in (("ssm-train", SSM_TRAIN),
@@ -4285,6 +4696,7 @@ def main() -> int:
             shutil.rmtree(workdir, ignore_errors=True)
         print_train(label, train[label], card, scfg, traffic)
         torch.cuda.empty_cache()
+    clock.done("13 ssm-train")
 
     # 14. ssm platform: the 2 x 512 traffic as a manifest through the
     # software-ps backend, the LCM and the scheduler, the PS released,
@@ -4316,12 +4728,14 @@ def main() -> int:
           f"params with seed 0 (prefill batches {rec.prefills}; the bare "
           f"engine {bare_tok} tokens in {bare_wall:.3f} s = "
           f"{bare_tok / bare_wall:.1f} tokens/s)")
+    clock.done("14 ssm-platform")
 
     # 15. moe: grok-1 at full width, one layer against the plain loop,
     # 4 of 64 layers served, prefill against decode, K4 at the serve's
     # shapes and the smoke-width step
     moe_main, moe_launches = serve_moe(torch, ops, ref, kfa, card)
     torch.cuda.empty_cache()
+    clock.done("15 moe")
 
     # 16. hybrid: Jamba-1.5-Large at full width, one period of 4 layers
     # served, prefill against decode, K4 and K5 at the serve's shapes and
@@ -4329,6 +4743,7 @@ def main() -> int:
     hy_k4, hy_k5, hybrid_launches = serve_hybrid(torch, ops, ref, kfa,
                                                  kssd, card)
     torch.cuda.empty_cache()
+    clock.done("16 hybrid")
 
     # 17. encdec: whisper-large-v3 at full width and depth trained through
     # the model-level step, prefill and greedy decode, prefill against
@@ -4336,11 +4751,15 @@ def main() -> int:
     wh_k4, wh_k4b, whisper_launches = train_encdec(torch, ops, ref, kfa,
                                                    kfab, card)
     torch.cuda.empty_cache()
+    clock.done("17 encdec")
 
-    # 18. vlm: qwen2-vl-2b fed with embeds and M-RoPE positions, the same
+    # 18. vlm: qwen2-vl-2b fed with embeds and M-RoPE positions, the same;
+    # its trained weights kept for phase 20's zero3_sp step
+    vl_kept = {}
     vl_k4, vl_k4b, vlm_launches = train_vlm(torch, ops, ref, kfa, kfab,
-                                            card)
+                                            card, keep=vl_kept)
     torch.cuda.empty_cache()
+    clock.done("18 vlm")
 
     # 19. pjit: stablelm-1.6b at full width and depth through PjitBackend
     # (preempted and resumed from its checkpoint), the sharded step on a
@@ -4348,8 +4767,26 @@ def main() -> int:
     pj_k4, pj_k4b, pjit_launches = train_pjit(torch, ops, ref, kfa, kfab,
                                               card)
     torch.cuda.empty_cache()
+    clock.done("19 pjit")
 
-    # 20. result
+    # 20. the paper's PS solvers at full width (4 learners on the card),
+    # K1-K3 at their shapes; zero3_sp: K4/K4b at a 4-way "model" axis's
+    # per-rank shapes (q_offset > 0), the qwen2-vl step on a 1-rank mesh
+    solver_launches_total, solver_f = train_solvers(torch, ops, kfa, kfab,
+                                                    card)
+    k1s = time_ps_aggregate(torch, ops, ref, SOLVER_LEARNERS, solver_f)
+    print(f"[kernel] {card}: K1 at the solvers' (L, F): {json.dumps(k1s)}")
+    torch.cuda.empty_cache()
+    k2s, k3s = time_quantize(torch, ops, ref, solver_f, torch.float32)
+    print(f"[kernel] {card}: K2 at the solvers' push: {json.dumps(k2s)}")
+    print(f"[kernel] {card}: K3 at the solvers' push: {json.dumps(k3s)}")
+    torch.cuda.empty_cache()
+    sp_k4, sp_k4b = sp_kernels(torch, ops, ref, card)
+    sp_launches = sp_step(torch, ops, kfa, kfab, vl_kept.pop("params"), card)
+    torch.cuda.empty_cache()
+    clock.done("20 solvers, zero3_sp")
+
+    # 21. result
     def entry(mod, launches, head, shapes):
         return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                 "replaces": mod.REPLACES, "launches": launches,
@@ -4369,7 +4806,9 @@ def main() -> int:
                    "service": svc["launches"],
                    "train-whisper": whisper_launches,
                    "train-qwen2-vl": vlm_launches,
-                   "train-pjit": pjit_launches}
+                   "train-pjit": pjit_launches,
+                   "solvers": solver_launches_total,
+                   "train-sp": sp_launches}
     ssm_paths = {"ssm-train": train["ssm-train"]["launches"],
                  "ssm-platform-train": sptrain["launches"]}
     k4_paths = by_path(kfa.NAME, {"serve": serve_launches, **dense_paths,
@@ -4377,22 +4816,24 @@ def main() -> int:
                                   "serve-moe": moe_launches,
                                   "serve-hybrid": hybrid_launches})
     k4_shapes = (main_path + train_fwd + moe_main + hy_k4 + wh_k4 + vl_k4
-                 + pj_k4)
+                 + pj_k4 + sp_k4)
     k4 = entry(kfa, sum(k4_paths.values()),
                max(k4_shapes, key=lambda r: r["bound_ms"]), k4_shapes)
     k4["launches_by_path"] = k4_paths
     k4b_main = [bwd[-1]] + wh_k4b + vl_k4b + pj_k4b
     k4b = entry(kfab, 0, max(k4b_main, key=lambda r: r["bound_ms"]),
-                bwd + wh_k4b + vl_k4b + pj_k4b)
+                bwd + wh_k4b + vl_k4b + pj_k4b + sp_k4b)
     for e, names in ((k4, TC_KERNELS[:1]), (k4b, TC_KERNELS[1:])):
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
         e["x_library"] = e["ms"] / e["library_ms"]
         e["sass_hgmma"] = {n: c for n, c in hgmma.items()
                            if n.split("<")[0] in names}
+    def biggest(rs):
+        return max(rs, key=lambda r: r["bound_ms"])
     kernels = [k4, k4b,
-               entry(kagg, 0, k1, [k1]),
-               entry(kq.QUANTIZE, 0, k2, [k2]),
-               entry(kq.DEQUANTIZE, 0, k3, [k3])]
+               entry(kagg, 0, biggest([k1, k1s]), [k1, k1s]),
+               entry(kq.QUANTIZE, 0, biggest([k2, k2s]), [k2, k2s]),
+               entry(kq.DEQUANTIZE, 0, biggest([k3, k3s]), [k3, k3s])]
     for e in kernels[1:]:
         paths = dense_paths if e is k4b else {**dense_paths, **ssm_paths}
         e["launches_by_path"] = by_path(e["name"], paths)
@@ -4420,6 +4861,7 @@ def main() -> int:
     k5b["sass_hgmma"] = {n: c for n, c in hgmma.items()
                          if n.split("<")[0] in SSD_BWD_TC_KERNELS}
     kernels += [k5, k5b]
+    print(clock.summary())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -221,11 +221,18 @@ def causal_pairs(sq: int, sk: int, causal: bool, q_offset: int = 0) -> int:
     return t * (t + 1) // 2 + t * q_offset + (sq - t) * sk
 
 
+def keys_read(sq: int, sk: int, causal: bool, q_offset: int = 0) -> int:
+    """Keys attention reads: causal, the last query sees the first
+    sq + q_offset of them; otherwise all sk."""
+    return min(sk, sq + q_offset) if causal else sk
+
+
 def _flash_attention(B, Sq, Sk, H, KV, hd, dtype, causal, q_offset=0,
                      lse=False):
-    """q, k, v read once, o (and the f32 row LSE) written once; QK^T and
-    PV over the pairs."""
-    nbytes = (2 * B * Sq * H + 2 * B * Sk * KV) * hd * _esize(dtype)
+    """q, o (and the f32 row LSE) and the keys and values some query
+    sees read or written once; QK^T and PV over the pairs."""
+    sk = keys_read(Sq, Sk, causal, q_offset)
+    nbytes = (2 * B * Sq * H + 2 * B * sk * KV) * hd * _esize(dtype)
     if lse:
         nbytes += 4 * B * H * Sq
     flops = 4 * B * H * hd * causal_pairs(Sq, Sk, causal, q_offset)
@@ -233,10 +240,12 @@ def _flash_attention(B, Sq, Sk, H, KV, hd, dtype, causal, q_offset=0,
 
 
 def _flash_attention_bwd(B, Sq, Sk, H, KV, hd, dtype, causal, q_offset=0):
-    """q, k, v, o, dO and the LSE read, dq, dk, dv written; five
-    products over the pairs (S and dP recomputed, dV, dQ, dK)."""
-    nbytes = ((4 * B * Sq * H + 4 * B * Sk * KV) * hd * _esize(dtype)
-              + 4 * B * H * Sq)
+    """q, o, dO, the LSE and the keys and values some query sees read,
+    dq, dk, dv written (dk, dv over all Sk); five products over the pairs
+    (S and dP recomputed, dV, dQ, dK)."""
+    sk = keys_read(Sq, Sk, causal, q_offset)
+    nbytes = ((4 * B * Sq * H + 2 * B * (sk + Sk) * KV) * hd
+              * _esize(dtype) + 4 * B * H * Sq)
     flops = 10 * B * H * hd * causal_pairs(Sq, Sk, causal, q_offset)
     return KernelCost(flops, nbytes, _dtype_name(dtype))
 

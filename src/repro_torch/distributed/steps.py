@@ -21,21 +21,32 @@ numbers equal the one-card step's:
   * forward and backward: the whole tree of weights is all-gathered at
     the start of the step, and the one-card ``value_and_grad`` runs on
     the rank's rows with the port's kernels (K4, K4b on CUDA);
+  * sequence parallelism (the ``zero3_sp`` policy, ``_seq_parallel``):
+    where the reference's ``_use_sp`` / ``_sp_ok`` hold for the rank's
+    rows (an attention family, every sequence divisible by the "model"
+    size and longer than 1), each rank also takes its slice of the
+    sequence over "model", with its global positions (RoPE, M-RoPE and
+    the sinusoids start at the slice's offset; the labels are cut beside
+    the tokens they follow), and attention gathers the group's K/V
+    (``models.attention.sp_flash_attention``: K4/K4b with ``q_offset``,
+    the gather's backward a reduce-scatter);
   * gradients (``_constrain_grads``): each is divided by the number of
-    batch shards and reduce-scattered onto its leaf's shards over the
-    batch axes, so it is the mean over ranks that hold different rows;
-    ranks that differ only in an axis that does not shard the batch
-    ("model") computed the same gradient and take their slice of it.
-    The loss is the all-reduced mean of the ranks' losses;
+    shards of the tokens and reduce-scattered onto its leaf's shards over
+    the axes that shard them ("model" too under sequence parallelism), or
+    all-reduced where the leaf is whole along one, so it is the mean over
+    ranks that hold different tokens; ranks that differ only in an axis
+    that does not shard the tokens computed the same gradient and take
+    their slice of it. The loss is the all-reduced mean of the ranks'
+    losses (their token counts are equal);
   * update: ``apply_updates`` on the local shards; Adafactor's means
     all-reduce over the mesh dims that shard the dims they reduce
     (``MeshLeaf``).
 
 The "model" axis thus saves memory, not time: no matmul is split over
-it. A ``Dist`` the port cannot run raises ``UserError``: the
-``zero3_sp`` policy (its sequence-parallel attention is not ported) and
-a moe arch whose expert axis is larger than 1 (the sharded dispatch is
-not ported). Every group a step uses is a mesh dim's.
+it. A ``Dist`` the port cannot run raises ``UserError``: a moe arch
+whose expert axis is larger than 1 (the sharded dispatch is not ported;
+``zero3_sp`` keeps the expert axis). Every group a step uses is a mesh
+dim's.
 """
 from __future__ import annotations
 
@@ -50,7 +61,10 @@ from repro_torch.distributed.sharding import (Dist, P, Sharding, axes_of,
                                               contiguous_stride, mesh_axes,
                                               placements, shard_slices)
 from repro_torch.errors import UserError
-from repro_torch.models.layers import iter_leaves, leaf_at, map_leaves
+from repro_torch.launch.mesh import wait
+from repro_torch.models.attention import SeqParallel
+from repro_torch.models.layers import (is_stacked, iter_leaves, leaf_at,
+                                       map_leaves)
 from repro_torch.models.model import Model, make_model
 from repro_torch.optim.optimizers import (LeafShards, OptConfig,
                                           apply_updates, init_opt_state,
@@ -73,11 +87,8 @@ def expert_grad_tie(cfg: ArchConfig, model: Model):
     return lambda g: g
 
 
-# top-level keys whose leaves stack the layers on their leading dim
-STACKED = ("blocks", "enc_blocks", "dec_blocks")
-
-
-def value_and_grad(model: Model, params, batch):
+def value_and_grad(model: Model, params, batch,
+                   sp: Optional[SeqParallel] = None):
     """(loss, grads) of ``model.loss`` at ``params``: the loss a detached
     0-d f32 tensor, the gradients a tree like ``params`` in the params'
     dtypes. The params are not modified and need no ``requires_grad``.
@@ -87,7 +98,7 @@ def value_and_grad(model: Model, params, batch):
     ``(L, ...)`` tensors would scatter every layer's gradient into a
     full-size zero tensor and add them: L^2 / 2 leaf-sized passes."""
     def live(path, t):
-        if path.split("/")[0] in STACKED:
+        if is_stacked(path):
             return [t[l].detach().requires_grad_() for l in
                     range(t.shape[0])]
         return t.detach().requires_grad_()
@@ -95,7 +106,7 @@ def value_and_grad(model: Model, params, batch):
         tree = map_leaves(live, params)
         groups = [v if isinstance(v, list) else [v]
                   for _, v in iter_leaves(tree)]
-        loss = model.loss(tree, batch)
+        loss = model.loss(tree, batch, sp=sp)
         flat = torch.autograd.grad(loss, [t for g in groups for t in g],
                                    allow_unused=True)
     # a leaf the loss does not read (the token table under ``embeds``)
@@ -116,7 +127,7 @@ def split_batch(batch: Dict[str, torch.Tensor], n: int):
     splits every leaf on dim 0 (``steps.py:83-85``), which cuts the
     three position rows instead (see ROADMAP Queue 3)."""
     def split(key, x):
-        dim = 1 if key == "positions" else 0
+        dim = 1 if key == "positions" and x.dim() == 3 else 0
         if x.shape[dim] % n:
             raise ValueError(f"{key}: batch {x.shape[dim]} is not a "
                              f"multiple of grad_accum {n}")
@@ -125,17 +136,18 @@ def split_batch(batch: Dict[str, torch.Tensor], n: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
-def loss_and_grads(model: Model, params, batch, grad_accum: int = 1):
+def loss_and_grads(model: Model, params, batch, grad_accum: int = 1,
+                   sp: Optional[SeqParallel] = None):
     """(loss, grads) of ``model.loss``; with ``grad_accum`` > 1 over that
     many micro-batches, their losses and f32 gradients summed and divided
     by ``grad_accum``, as the reference's scan does."""
     if grad_accum == 1:
-        return value_and_grad(model, params, batch)
+        return value_and_grad(model, params, batch, sp)
     loss = None
     grads = map_leaves(lambda _p, t: torch.zeros(
         t.shape, dtype=torch.float32, device=t.device), params)
     for mb in split_batch(batch, grad_accum):
-        l, g = value_and_grad(model, params, mb)
+        l, g = value_and_grad(model, params, mb, sp)
         loss = l if loss is None else loss + l
         for acc, gi in zip([t for _, t in iter_leaves(grads)],
                            [t for _, t in iter_leaves(g)]):
@@ -193,10 +205,6 @@ def check_dist(model: Model) -> None:
     d = model.dist
     if not d.has_mesh:
         return
-    if d.policy == "zero3_sp":
-        raise UserError("the zero3_sp policy (sequence-parallel attention "
-                        "over 'model') is not yet ported to repro_torch; "
-                        "use fsdp_tp, tp_dp or dp_only")
     if model.cfg.moe is not None and d.expert_axis is not None \
             and d.model_size > 1:
         raise UserError(f"{model.cfg.arch_id!r}: moe's sharded dispatch "
@@ -236,11 +244,54 @@ def local_batch(model: Model, shape: ShapeSpec,
             for k, x in batch.items()}
 
 
-def _done(t):
-    """A functional collective's result once it has arrived (an
-    ``AsyncCollectiveTensor``, or a plain tensor under a dispatch mode)."""
-    import torch.distributed._functional_collectives as funcol
-    return t.wait() if hasattr(t, "wait") else funcol.wait_tensor(t)
+def _seq_lens(model: Model, rows: Dict[str, torch.Tensor]):
+    """The sequence lengths of a batch: the frames' and the tokens'
+    (encdec), else the tokens' or embeds'."""
+    if model.encdec:
+        return (rows["enc_embeds"].shape[1], rows["tokens"].shape[1])
+    x = rows["embeds"] if "embeds" in rows else rows["tokens"]
+    return (x.shape[1],)
+
+
+def _seq_parallel(model: Model, rows) -> Optional[SeqParallel]:
+    """This rank's ``SeqParallel`` over "model" where the step runs
+    sequence-parallel on ``rows`` (the reference's ``_use_sp`` /
+    ``_sp_ok``: the ``zero3_sp`` policy, a dense, moe, vlm or encdec
+    arch, every sequence divisible by the "model" size and longer than
+    1), else None."""
+    from repro_torch.models.transformer import SP_FAMILIES
+    d = model.dist
+    if not d.seq_parallel or model.cfg.family not in SP_FAMILIES + (
+            "encdec",):
+        return None
+    n = d.model_size
+    if any(s % n or s <= 1 for s in _seq_lens(model, rows)):
+        return None
+    j = list(mesh_axes(d.mesh)).index("model")
+    return SeqParallel(group=(d.mesh, j), rank=_coord(d)["model"], size=n)
+
+
+def seq_slice(model: Model, rows: Dict[str, torch.Tensor],
+              sp: SeqParallel):
+    """This rank's slice of the sequence of ``rows`` (views), with the
+    slice's global ``positions`` ((B, S) or M-RoPE's (3, B, S): the
+    batch's own, else 0..S-1 as the loss would make them), so RoPE does
+    not restart at 0. The labels are cut beside their tokens: each
+    position's next-token target comes from the whole batch."""
+    def cut(x, dim):
+        n = x.shape[dim] // sp.size
+        return x.narrow(dim, sp.rank * n, n)
+    out = {}
+    for k, x in rows.items():
+        out[k] = cut(x, 2 if k == "positions" and x.dim() == 3 else 1)
+    if not model.encdec and "positions" not in rows:
+        x = rows["embeds"] if "embeds" in rows else rows["tokens"]
+        B, S = x.shape[:2]
+        pos = torch.arange(S, device=x.device).expand(B, S)
+        if model.cfg.mrope:
+            pos = pos.expand(3, B, S)
+        out["positions"] = cut(pos, pos.dim() - 1)
+    return out
 
 
 def _all_reduce(t, mesh, dims):
@@ -249,7 +300,7 @@ def _all_reduce(t, mesh, dims):
     import torch.distributed._functional_collectives as funcol
     for j in dims:
         if mesh.size(j) > 1:
-            t = _done(funcol.all_reduce(t, "sum", (mesh, j)))
+            t = wait(funcol.all_reduce(t, "sum", (mesh, j)))
     return t
 
 
@@ -346,18 +397,31 @@ def _grad_plan(spec, ndim: int, names, batch):
     return head + mid + tail
 
 
-def _constrain_grads(model: Model, grads):
-    """Each whole-leaf gradient of this rank's rows -> the local shard of
-    the mean gradient over the batch shards, on its leaf's spec: divided
-    by the number of batch shards, sliced along the axes that do not
-    shard the batch, reduce-scattered (or all-reduced, where the leaf is
-    whole along it) over those that do (``_grad_plan``)."""
+def _token_group(d: Dist, seq: bool):
+    """(mesh dims that shard the step's tokens, their number of shards):
+    the batch axes, and "model" under sequence parallelism."""
+    dims, n = _batch_group(d)
+    if seq:
+        dims = dims + [list(mesh_axes(d.mesh)).index("model")]
+        n *= d.model_size
+    return dims, n
+
+
+def _constrain_grads(model: Model, grads, seq: bool = False):
+    """Each whole-leaf gradient of this rank's tokens -> the local shard
+    of the mean gradient over the token shards, on its leaf's spec:
+    divided by the number of token shards, sliced along the axes that do
+    not shard the tokens, reduce-scattered (or all-reduced, where the
+    leaf is whole along it) over those that do (``_grad_plan``): the
+    batch axes, and "model" when ``seq`` (the step ran
+    sequence-parallel: ranks that differ only in "model" hold partial
+    gradients of different tokens, which sum)."""
     import torch.distributed._functional_collectives as funcol
     d = model.dist
     mesh = d.mesh
     names = list(mesh_axes(mesh))
-    batch = set(d.batch_axes or ())
-    _, n_b = _batch_group(d)
+    batch = set(d.batch_axes or ()) | ({"model"} if seq else set())
+    _, n_b = _token_group(d, seq)
     coord = mesh.get_coordinate()
     specs = model.param_specs()
 
@@ -374,9 +438,9 @@ def _constrain_grads(model: Model, grads):
             elif op == "rs":
                 rs = getattr(funcol, "reduce_scatter_single",
                              funcol.reduce_scatter_tensor)
-                g = _done(rs(g.contiguous(), "sum", i, (mesh, j)))
+                g = wait(rs(g.contiguous(), "sum", i, (mesh, j)))
             else:
-                g = _done(funcol.all_reduce(g, "sum", (mesh, j)))
+                g = wait(funcol.all_reduce(g, "sum", (mesh, j)))
         return g.contiguous()
     return map_leaves(one, grads)
 
@@ -392,7 +456,7 @@ def _gatherleaf_at(x, spec, mesh):
             if mesh.size(j) > 1:
                 ag = getattr(funcol, "all_gather_single",
                              funcol.all_gather_tensor)
-                x = _done(ag(x.contiguous(), i, (mesh, j)))
+                x = wait(ag(x.contiguous(), i, (mesh, j)))
     return x
 
 
@@ -401,6 +465,40 @@ def _gather_tree(params, pspecs, mesh):
     per ``pspecs``): ``_gatherleaf_at`` of every leaf."""
     return map_leaves(lambda path, x: _gatherleaf_at(
         x, leaf_at(pspecs, path), mesh), params)
+
+
+def local_loss_and_grads(model: Model, shape: ShapeSpec,
+                         grad_accum: int = 1):
+    """fn(params, batch) -> (global mean loss, gradients): the forward and
+    backward of the sharded step on this rank's local shards of the
+    params (plain tensors laid out per ``param_specs``) and the global
+    ``batch`` of ``shape``; each gradient this rank's shard of the mean
+    gradient (``_constrain_grads``). ``fn.seq_parallel(batch)`` says
+    whether the step runs sequence-parallel on ``batch``."""
+    d = model.dist
+    mesh = d.mesh
+    local_model = make_model(model.cfg, d.local(), model.opts)
+    pspecs = model.param_specs()
+
+    def rows_of(batch):
+        rows = local_batch(model, shape, batch)
+        sp = _seq_parallel(model, rows)
+        return (rows if sp is None else seq_slice(model, rows, sp)), sp
+
+    def fn(params, batch):
+        full = _gather_tree(params, pspecs, mesh)
+        rows, sp = rows_of(batch)
+        loss, grads = loss_and_grads(local_model, full, rows, grad_accum,
+                                     sp)
+        del full
+        grads = _constrain_grads(model, grads, sp is not None)
+        dims, n = _token_group(d, sp is not None)
+        if n > 1:
+            loss = _all_reduce(loss, mesh, dims) / n
+        return loss, grads
+
+    fn.seq_parallel = lambda batch: rows_of(batch)[1] is not None
+    return fn
 
 
 def local_train_step(model: Model, opt_cfg: OptConfig, shape: ShapeSpec,
@@ -415,7 +513,6 @@ def local_train_step(model: Model, opt_cfg: OptConfig, shape: ShapeSpec,
     collective term counted from the very calls the step issues."""
     d = model.dist
     mesh = d.mesh
-    local_model = make_model(model.cfg, d.local(), model.opts)
     defs = model.param_defs()
     pspecs = model.param_specs()
     vc_specs = (opt_state_specs(opt_cfg, defs, d)["vc"]
@@ -423,17 +520,10 @@ def local_train_step(model: Model, opt_cfg: OptConfig, shape: ShapeSpec,
     shards = map_leaves(
         lambda path, dd: MeshLeaf(dd.shape, mesh, leaf_at(pspecs, path),
                                   leaf_at(vc_specs, path)), defs)
-    dims, n_b = _batch_group(d)
+    loss_grads = local_loss_and_grads(model, shape, grad_accum)
 
     def step(params, state, batch):
-        full = _gather_tree(params, pspecs, mesh)
-        loss, grads = loss_and_grads(local_model, full,
-                                     local_batch(model, shape, batch),
-                                     grad_accum)
-        del full
-        grads = _constrain_grads(model, grads)
-        if n_b > 1:
-            loss = _all_reduce(loss, mesh, dims) / n_b
+        loss, grads = loss_grads(params, batch)
         _, new = apply_updates(opt_cfg, params, grads, state, shards=shards)
         return new["step"], loss
 

@@ -35,6 +35,13 @@ def make_production_mesh(*, multi_pod: bool = False,
     return _mk(PRODUCTION_SHAPE, ("data", "model"), device)
 
 
+def wait(t):
+    """A functional collective's result once it has arrived (an
+    ``AsyncCollectiveTensor``, or a plain tensor under a dispatch mode)."""
+    import torch.distributed._functional_collectives as funcol
+    return t.wait() if hasattr(t, "wait") else funcol.wait_tensor(t)
+
+
 def make_mesh(data: int, model: int, pod: int = 1,
               device: DeviceLike = None):
     """Any mesh for tests and examples (e.g. 2x2 over 4 gloo ranks)."""

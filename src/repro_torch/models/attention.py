@@ -9,12 +9,23 @@ through ``FlashAttention``, whose forward is the same kernel with its
 row log-sum-exp and whose backward is the flash backward kernel (K4b),
 the counterpart of JAX's custom VJP ``_flash_vjp`` (attention.py:214-296).
 Decode stays plain PyTorch, as the JAX decode is plain jnp.
+
+``sp_flash_attention`` is the ``zero3_sp`` policy's sequence-parallel
+attention (``attention.py:133-164``): queries sharded on the sequence
+over "model", the compact K/V (KV heads, not repeated) all-gathered over
+"model" inside it (``GatherSeq``: the backward reduce-scatters dK/dV),
+and the flash kernels run on the rank's slice with ``q_offset = rank *
+S_local`` and GQA by index, where the reference repeats the KV heads and
+runs its jnp flash inside a ``shard_map``.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import wait
 
 NEG_INF = -1e30
 
@@ -57,6 +68,57 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0):
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, q_offset)
     return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+
+@dataclass(frozen=True)
+class SeqParallel:
+    """This rank's place in a sequence-parallel group (the "model" dim of
+    a ``zero3_sp`` mesh): ``group`` the functional collectives' group
+    (mesh, dim index), ``rank`` its index in it, ``size`` its ranks. Each
+    rank holds the ``rank``-th of ``size`` equal slices of the
+    sequence."""
+    group: object
+    rank: int
+    size: int
+
+
+class GatherSeq(torch.autograd.Function):
+    """x (B, S_local, ...) -> (B, S_local * size, ...): every rank's slice
+    in rank order (an all-gather on dim 1). Its backward is the
+    reduce-scatter of the gradient on dim 1 (sum): each slice's gradient
+    from every rank's use of it."""
+
+    @staticmethod
+    def forward(ctx, x, sp: SeqParallel):
+        import torch.distributed._functional_collectives as funcol
+        ctx.sp = sp
+        return wait(funcol.all_gather_tensor(x.contiguous(), 1, sp.group))
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+        return wait(funcol.reduce_scatter_tensor(
+            g.contiguous(), "sum", 1, ctx.sp.group)), None
+
+
+def gather_seq(x, sp: SeqParallel):
+    """``GatherSeq`` of ``x``; ``x`` itself on a group of one rank."""
+    if sp.size == 1:
+        return x
+    return GatherSeq.apply(x, sp)
+
+
+def sp_flash_attention(q, k, v, sp: SeqParallel, *, causal: bool):
+    """Sequence-parallel attention: q (B, S/n, H, hd) this rank's slice
+    of the queries, k/v (B, S_kv/n, KV, hd) its slice of the compact keys
+    and values -> (B, S/n, H, hd). K/V are gathered over the group (any
+    head count: heads are not split), and ``flash_attention`` runs with
+    the slice's causal offset ``rank * S/n``. No reduction of the output:
+    the wo projection contracts whole heads."""
+    kf = gather_seq(k, sp)
+    vf = gather_seq(v, sp)
+    return flash_attention(q, kf, vf, causal=causal,
+                           q_offset=sp.rank * q.shape[1])
 
 
 def decode_attention(q, k_cache, v_cache, length):

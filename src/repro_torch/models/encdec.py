@@ -15,8 +15,13 @@ Differences from the JAX module, by design:
     under autograd, where JAX calls the jnp ``flash_attention_ref``.
     Encoder self-attention is non-causal, decoder self-attention causal,
     cross-attention non-causal over the encoder's S_enc keys;
-  * there is no mesh, so ``_attn_full``'s sequence-parallel branch
-    (``encdec.py:72-86``) is not here;
+  * ``_attn_full``'s sequence-parallel branch (``encdec.py:60-86``) is
+    the loss's ``sp`` argument (a ``models.attention.SeqParallel``):
+    ``distributed.steps`` passes it when the frames and the tokens it
+    hands in are the rank's slices of both sequences (``_sp_ok`` of
+    each); the sinusoid rows are then the slices' global positions, and
+    self and cross attention run ``sp_flash_attention``, which gathers
+    the group's K/V of the encoder or decoder slice;
   * the cache's ``pos`` is per slot (B,), as in ``models.transformer``:
     the decoder's sinusoid row is a per-slot gather, and each slot's
     self-attention K/V is written at its own position, in place;
@@ -35,7 +40,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import decode_attention, flash_attention
+from repro_torch.models.attention import (SeqParallel, decode_attention,
+                                         flash_attention,
+                                         sp_flash_attention)
 from repro_torch.models.layers import (ParamDef, chunked_xent, embed_tokens,
                                        gated_mlp, last_token_logits,
                                        sinusoid_positions)
@@ -82,15 +89,20 @@ def _out_proj(out, wo):
     return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def _attn_full(h, p, cfg: ArchConfig, causal: bool, kv_h=None):
+def _attn_full(h, p, cfg: ArchConfig, causal: bool, kv_h=None,
+               sp: Optional[SeqParallel] = None):
     """Self (``kv_h`` None) or cross (``kv_h`` the encoder states)
     attention over the whole sequence; returns (out, (k, v)) with k/v in
-    the cache dtype."""
+    the cache dtype. With ``sp`` both ``h`` and ``kv_h`` are the rank's
+    slices, and the K/V of the group's slices are gathered."""
     src = h if kv_h is None else kv_h
     q = _proj(h, p["wq"], cfg.n_heads)
     k = _proj(src, p["wk"], cfg.n_kv_heads)
     v = _proj(src, p["wv"], cfg.n_kv_heads)
-    out = flash_attention(q, k, v, causal=causal)
+    if sp is not None:
+        out = sp_flash_attention(q, k, v, sp, causal=causal)
+    else:
+        out = flash_attention(q, k, v, causal=causal)
     cd = cache_dtype(cfg)
     return _out_proj(out, p["wo"]), (k.to(cd), v.to(cd))
 
@@ -99,40 +111,52 @@ def _mlp(x, m):
     return gated_mlp(x, m["wg"], m["wu"], m["wd"])
 
 
-def encode(params, enc_embeds, cfg: ArchConfig):
+def _start(sp: Optional[SeqParallel], seq: int) -> int:
+    """The global position of a slice's first row."""
+    return 0 if sp is None else sp.rank * seq
+
+
+def encode(params, enc_embeds, cfg: ArchConfig,
+           sp: Optional[SeqParallel] = None):
     """Encoder states (B, S_enc, D) of the frame embeddings: sinusoid
     positions, then per layer LayerNorm -> non-causal self-attention ->
-    residual -> LayerNorm -> SwiGLU -> residual; the final LayerNorm."""
+    residual -> LayerNorm -> SwiGLU -> residual; the final LayerNorm.
+    With ``sp``, of the rank's slice of the frames."""
     h = enc_embeds.to(model_dtype(cfg))
-    h = h + sinusoid_positions(h.shape[1], cfg.d_model, h.dtype, h.device)
+    S = h.shape[1]
+    h = h + sinusoid_positions(S, cfg.d_model, h.dtype, h.device,
+                               start=_start(sp, S))
     blocks = params["enc_blocks"]
     for l in range(cfg.n_layers):
         bp = layer_params(blocks, l)
         x = norm_apply(h, bp["ln1"], cfg)
-        h = h + _attn_full(x, bp["attn"], cfg, causal=False)[0]
+        h = h + _attn_full(x, bp["attn"], cfg, causal=False, sp=sp)[0]
         x = norm_apply(h, bp["ln2"], cfg)
         h = h + _mlp(x, bp["mlp"])
     return norm_apply(h, params["enc_norm"], cfg)
 
 
 def _decode_stack(params, tokens, enc_h, cfg: ArchConfig, cache=None,
-                  slots=None):
+                  slots=None, sp: Optional[SeqParallel] = None):
     """The decoder over ``tokens`` (B, S) against the encoder states.
     With ``cache``, writes each row's self K/V at positions 0..S-1 and
     its cross K/V into slot ``slots[b]`` (the reference's ``collect``).
+    With ``sp``, of the rank's slices of the tokens and encoder states.
     Returns the final-normed states."""
     h = embed_tokens(tokens, params["embed"])
     S = h.shape[1]
-    h = h + sinusoid_positions(S, cfg.d_model, h.dtype, h.device)
+    h = h + sinusoid_positions(S, cfg.d_model, h.dtype, h.device,
+                               start=_start(sp, S))
     blocks = params["dec_blocks"]
     for l in range(cfg.n_layers):
         bp = layer_params(blocks, l)
         x = norm_apply(h, bp["ln1"], cfg)
-        a, (sk, sv) = _attn_full(x, bp["self_attn"], cfg, causal=True)
+        a, (sk, sv) = _attn_full(x, bp["self_attn"], cfg, causal=True,
+                                 sp=sp)
         h = h + a
         x = norm_apply(h, bp["ln2"], cfg)
         a, (ck, cv) = _attn_full(x, bp["cross_attn"], cfg, causal=False,
-                                 kv_h=enc_h)
+                                 kv_h=enc_h, sp=sp)
         h = h + a
         x = norm_apply(h, bp["ln3"], cfg)
         h = h + _mlp(x, bp["mlp"])
@@ -144,12 +168,15 @@ def _decode_stack(params, tokens, enc_h, cfg: ArchConfig, cache=None,
     return norm_apply(h, params["final_norm"], cfg)
 
 
-def encdec_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512):
+def encdec_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512,
+                sp: Optional[SeqParallel] = None):
     """Mean next-token CE of the decoder. batch: enc_embeds (B, S_enc,
     D), tokens (B, S), labels (B, S); chunked CE with chunk
-    ``min(xent_chunk, S)``. No remat."""
-    enc_h = encode(params, batch["enc_embeds"], cfg)
-    h = _decode_stack(params, batch["tokens"], enc_h, cfg)
+    ``min(xent_chunk, S)``. No remat. With ``sp``, the batch holds the
+    rank's slices of the frames and of the tokens and labels, and the
+    loss is the slice's mean."""
+    enc_h = encode(params, batch["enc_embeds"], cfg, sp)
+    h = _decode_stack(params, batch["tokens"], enc_h, cfg, sp=sp)
     return chunked_xent(h, params["head"], batch["labels"],
                         chunk=min(xent_chunk, h.shape[1]))
 

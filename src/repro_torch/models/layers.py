@@ -30,6 +30,17 @@ class ParamDef:
             raise ValueError(f"shape {self.shape} vs dims {self.dims}")
 
 
+# top-level keys of a param tree whose leaves stack the layers on their
+# leading dim
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+
+
+def is_stacked(path: str) -> bool:
+    """Whether the leaf at ``path`` of a model's param tree stacks the
+    layers on its leading dim."""
+    return path.split("/")[0] in STACKED
+
+
 def iter_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
     """(path, leaf) in ``jax.tree.flatten`` order: dict keys sorted,
     depth first. Paths join keys with ``/`` (``blocks/attn/wq``)."""
@@ -176,12 +187,14 @@ def apply_rope(x, positions, theta: float,
 
 
 def sinusoid_positions(seq: int, d_model: int, dtype=torch.float32,
-                       device=None):
+                       device=None, start: int = 0):
     """Whisper-style sinusoidal embeddings (seq, d_model): ``[sin, cos]``
     of ``pos * exp(-ln(10000) k / max(1, half - 1))``, k < half, in f32,
-    then cast (``repro/models/layers.py:135-141``)."""
+    then cast (``repro/models/layers.py:135-141``); rows ``start`` to
+    ``start + seq - 1`` (a sequence-parallel slice's)."""
     half = d_model // 2
-    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    pos = torch.arange(start, start + seq, dtype=torch.float32,
+                       device=device)[:, None]
     k = torch.arange(half, dtype=torch.float32, device=device)
     freq = torch.exp(-math.log(10000.0) * k / max(1, half - 1))
     ang = pos * freq

@@ -77,16 +77,20 @@ class Model:
     def param_shardings(self):
         return tree_shardings(self.dist, self.param_defs())
 
-    def loss(self, params, batch, xent_chunk: Optional[int] = None):
+    def loss(self, params, batch, xent_chunk: Optional[int] = None,
+             sp=None):
         """Mean next-token CE of ``batch`` (tokens or embeds, labels;
         encdec: enc_embeds, tokens, labels); ``xent_chunk`` defaults to
-        ``opts["xent_chunk"]``, else 512."""
+        ``opts["xent_chunk"]``, else 512. ``sp`` (a
+        ``models.attention.SeqParallel``): ``batch`` is this rank's slice
+        of the sequence and attention is sequence-parallel."""
         if xent_chunk is None:
             xent_chunk = (self.opts or {}).get("xent_chunk", 512)
         if self.encdec:
             return ed.encdec_loss(params, batch, self.cfg,
-                                  xent_chunk=xent_chunk)
-        return tf.lm_loss(params, batch, self.cfg, xent_chunk=xent_chunk)
+                                  xent_chunk=xent_chunk, sp=sp)
+        return tf.lm_loss(params, batch, self.cfg, xent_chunk=xent_chunk,
+                          sp=sp)
 
     def prefill(self, params, batch, *, cache=None, slots=None):
         """Into a new cache as long as the prompt, or into ``slots`` of a

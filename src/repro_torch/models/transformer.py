@@ -34,7 +34,14 @@ Differences from the JAX module, by design:
     token is dropped, as in the serving engine's per-slot
     ``vmap(decode_one)``. The reference's batched ``lm_decode`` uses
     ``_capacity(B, ...)`` and agrees whenever that drops nothing. The
-    hybrid's MoE layers decode the same way.
+    hybrid's MoE layers decode the same way;
+  * ``zero3_sp``'s sequence parallelism (``_use_sp``, ``transformer.py:
+    156-166, 194-208``) is an argument of the loss, ``sp`` (a
+    ``models.attention.SeqParallel``), which ``distributed.steps``
+    passes when the batch it hands in is the rank's slice of the
+    sequence (with its global ``positions``): attention then runs
+    ``sp_flash_attention``. The dense, moe and vlm families take it;
+    ``SP_FAMILIES`` are those, as ``_use_sp`` says.
 """
 from __future__ import annotations
 
@@ -46,13 +53,18 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.errors import UserError
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.attention import decode_attention, flash_attention
+from repro_torch.models.attention import (SeqParallel, decode_attention,
+                                         flash_attention,
+                                         sp_flash_attention)
 from repro_torch.models.layers import (ParamDef, apply_rope, chunked_xent,
                                        embed_tokens, gated_mlp,
                                        last_token_logits, layer_norm,
                                        rms_norm)
 
 PORTED_FAMILIES = ("dense", "vlm", "ssm", "moe", "hybrid", "encdec")
+# families whose attention runs sequence-parallel under zero3_sp (the SSD
+# scan needs its whole sequence per rank)
+SP_FAMILIES = ("dense", "moe", "vlm")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -206,12 +218,18 @@ def _out_proj(out, p, cfg: ArchConfig):
     return out.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
 
 
-def attn_prefill(h, p, cfg: ArchConfig, positions, causal: bool = True):
+def attn_prefill(h, p, cfg: ArchConfig, positions, causal: bool = True,
+                 sp: Optional[SeqParallel] = None):
     """Full-sequence attention (prefill, and the training loss, where
     autograd differentiates it through the flash kernels); returns (out,
-    (k, v)) with k after RoPE, both in the cache dtype."""
+    (k, v)) with k after RoPE, both in the cache dtype. With ``sp``, ``h``
+    and ``positions`` are the rank's slice of the sequence and attention
+    is ``sp_flash_attention`` (k, v stay the slice's)."""
     q, k, v = _qkv(h, p, cfg, positions)
-    out = flash_attention(q, k, v, causal=causal)
+    if sp is not None:
+        out = sp_flash_attention(q, k, v, sp, causal=causal)
+    else:
+        out = flash_attention(q, k, v, causal=causal)
     cd = cache_dtype(cfg)
     return _out_proj(out, p, cfg), (k.to(cd), v.to(cd))
 
@@ -435,7 +453,8 @@ def _positions(batch, B: int, S: int, cfg: ArchConfig, dev):
     return positions
 
 
-def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512):
+def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512,
+            sp: Optional[SeqParallel] = None):
     """Next-token CE loss (``transformer.py:272-332`` and
     ``_hybrid_loss``). batch: tokens (B, S), labels (B, S)[, positions].
     Embed; per layer, dense and moe: norm -> attention (RoPE, flash
@@ -445,7 +464,14 @@ def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512):
     the two mixers; final norm; chunked CE with chunk
     ``min(xent_chunk, S)``. No remat of the layers (the learner's
     ``remat: none``). ``embeds`` (B, S, D) may stand in for tokens, as
-    in ``lm_prefill``."""
+    in ``lm_prefill``.
+
+    With ``sp`` (``SP_FAMILIES`` only) the batch is this rank's slice of
+    the sequence, with its global ``positions``, attention gathers the
+    group's K/V, and the loss is the slice's mean CE (the group's mean is
+    the mean of its ranks': the slices are equal)."""
+    if sp is not None and cfg.family not in SP_FAMILIES:
+        raise ValueError(f"{cfg.family}: no sequence-parallel loss")
     h, positions = _inputs_to_h(params, batch, cfg)
     S = h.shape[1]
     blocks = params["blocks"]
@@ -463,7 +489,8 @@ def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512):
         for l in range(cfg.n_layers):
             bp = layer_params(blocks, l)
             x = norm_apply(h, bp["ln1"], cfg)
-            h = h + attn_prefill(x, bp["attn"], cfg, positions)[0]
+            h = h + attn_prefill(x, bp["attn"], cfg, positions,
+                                 sp=sp)[0]
             x = norm_apply(h, bp["ln2"], cfg)
             h = h + ffn_apply(x, bp, cfg)
     h = norm_apply(h, params["final_norm"], cfg)

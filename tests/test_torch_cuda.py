@@ -9,7 +9,10 @@ shapes, engine and learner step on CUDA, K4/K4b at whisper-large-v3's
 and qwen2-vl-2b's attention shapes with the two families' model-level
 steps on CUDA, and the pjit distribution: a ``distribution: pjit``
 manifest trained on CUDA against the CPU, and the sharded step on a
-1-rank NCCL mesh against the mesh-less step.
+1-rank NCCL mesh against the mesh-less step; the PS solvers' server
+updates (K1), int8 push (K2, K3) and means on a (4, F) stack, K4/K4b at
+a zero3_sp rank's shapes (``q_offset`` > 0), and the zero3_sp step on a
+1-rank NCCL mesh.
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is false (the kernel has no CPU mode). This file imports no JAX, so it
@@ -1371,5 +1374,147 @@ def test_sharded_step_on_a_one_rank_nccl_mesh(cuda, tmp_path):
             assert runs[0][0] == runs[1][0], name
             for k, v in runs[0][1].items():
                 assert torch.equal(v, runs[1][1][k]), (name, k)
+    finally:
+        tdist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The paper's PS solvers (core/ps.py, core/solvers.py) and zero3_sp's
+# sequence-parallel attention
+# ---------------------------------------------------------------------------
+
+SOLVER_F = 4 * 256 * 97               # a (4, F) stack, F % (256 * 4) == 0
+
+
+@pytest.mark.parametrize("opt", [dict(name="sgd", lr=0.1),
+                                 dict(name="momentum", lr=0.1),
+                                 dict(name="adamw", lr=0.01)],
+                         ids=lambda o: o["name"])
+def test_solver_server_updates_vs_plain(cuda, opt):
+    """``ps.push_update_pull`` and ``ps.downpour_round`` on a (4, F)
+    stack: K1 on the card, its plain version on the CPU, the same
+    numbers (K1's tolerances); one K1 launch a push, one an arrival."""
+    from repro_torch.core import ps
+    from repro_torch.optim.optimizers import OptConfig, flat_init
+    rng = np.random.RandomState(30)
+    stack = rng.standard_normal((4, SOLVER_F)).astype(np.float32)
+    center = rng.standard_normal(SOLVER_F).astype(np.float32)
+    ctx = ps.PSContext(mesh=None, n_learners=4)
+    upd = ps.ServerUpdate(OptConfig(**opt))
+    assert upd.uses_k1
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = flat_init(OptConfig(**opt), SOLVER_F, dev)
+        c = torch.from_numpy(center.copy()).to(dev)
+        g = torch.from_numpy(stack).to(dev)
+        before = kagg.launches
+        ps.push_update_pull(g, c, st, upd, "ps", ctx)
+        _, st, pre, _ = ps.downpour_round(g, c, st, upd, ctx)
+        if dev == "cuda":
+            assert kagg.launches == before + 1 + 4
+        out[dev] = (c.cpu(), pre.cpu(), {k: v.cpu() for k, v in st.items()})
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-5,
+                               rtol=1e-5)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-5,
+                               rtol=1e-5)
+    for k in out["cpu"][2]:
+        torch.testing.assert_close(out["cuda"][2][k], out["cpu"][2][k],
+                                   atol=1e-6, rtol=1e-6)
+
+
+def test_solver_int8_push_and_means_vs_plain(cuda):
+    """The int8 push of a (4, F) stack (K2 then K3 per row, the error
+    feedback in place) and K1's ``average`` and ``easgd_center`` on it,
+    against their plain versions on the CPU."""
+    from repro_torch.core import ps
+    from repro_torch.core.solvers import SolverConfig, make_solver
+    from repro_torch.optim.optimizers import OptConfig
+    rng = np.random.RandomState(31)
+    stack = rng.standard_normal((4, SOLVER_F)).astype(np.float32)
+    center = rng.standard_normal(SOLVER_F).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = make_solver(lambda p, b: p["w"].sum(), {"w": torch.zeros(
+            SOLVER_F)}, OptConfig(name="sgd"), SolverConfig(compress=True),
+            4, device=dev)
+        state = {"err": torch.full((4, SOLVER_F), 0.01, device=dev)}
+        before = (kq.QUANTIZE.launches, kq.DEQUANTIZE.launches)
+        wire = s._maybe_compress(torch.from_numpy(stack).to(dev), state)
+        if dev == "cuda":
+            assert (kq.QUANTIZE.launches - before[0],
+                    kq.DEQUANTIZE.launches - before[1]) == (4, 4)
+        avg = ps.push_mean(wire, "ps", ps.PSContext(None, 4))
+        c = torch.from_numpy(center.copy()).to(dev)
+        ps._aggregate(wire, c, "easgd_center", 0.9)
+        out[dev] = [t.cpu() for t in (wire, state["err"], avg, c)]
+    for name, a, b in zip(("wire", "err", "average", "easgd_center"),
+                          out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6, msg=name)
+
+
+@pytest.mark.parametrize("q_offset", [512, 1024, 1536])
+def test_flash_kernels_at_zero3_sp_rank_shapes(cuda, q_offset):
+    """K4 with its LSE and K4b at a rank's slice of qwen2-vl-2b's 2 x
+    2,048 batch on a 4-way "model" axis: 512 queries against the 2,048
+    gathered keys at ``q_offset``, GQA 6, hd 128, causal, on the tensor
+    cores, against their plain versions."""
+    B, Sq, Sk, H, KV, hd = 2, 512, 2048, 12, 2, 128
+    q, k, v = _qkv(B, Sq, Sk, H, KV, hd, torch.bfloat16, seed=32)
+    do = _qkv(B, Sq, Sq, H, H, hd, torch.bfloat16, seed=33)[0]
+    kw = dict(causal=True, q_offset=q_offset)
+    tc, tcb = kfa.launches_tc, kfab.launches_tc
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (kfa.launches_tc - tc, kfab.launches_tc - tcb) == (1, 1)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
+        assert rel <= BWD_BF16_REL_L2, rel
+
+
+def test_zero3_sp_step_on_a_one_rank_nccl_mesh(cuda, tmp_path):
+    """The zero3_sp train step of the qwen2-vl smoke model (embeds and
+    M-RoPE positions) on a 1-rank NCCL mesh: sequence-parallel, and its
+    loss and every updated leaf equal the mesh-less step's."""
+    import torch.distributed as tdist
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.sharding import (Dist, P, Sharding,
+                                                  distribute, gather)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import make_model
+    from repro_torch.models.layers import iter_leaves, leaf_at, map_leaves
+    from repro_torch.optim.optimizers import OptConfig, init_opt_state
+    cfg = reduce_for_smoke(get_arch("qwen2-vl-2b"))
+    b = _family_batch(cfg, "cuda", 34)
+    B, S = b["labels"].shape
+    opt = OptConfig(name="sgd", lr=0.1)
+    params = make_model(cfg).init(torch.Generator(device="cuda")
+                                  .manual_seed(0))
+    mine = map_leaves(lambda _p, t: t.clone(), params)
+    params, _, la = steps.build_train_step(make_model(cfg), opt)(
+        params, init_opt_state(opt, params), b)
+    tdist.init_process_group("nccl", store=tdist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        d = Dist(mesh=make_mesh(1, 1), policy="zero3_sp").resolve_batch(B)
+        model = make_model(cfg, d)
+        psh = model.param_shardings()
+        mp = map_leaves(lambda p, x: distribute(x, leaf_at(psh, p)), mine)
+        shape = ShapeSpec("t", S, B, "train")
+        assert steps.local_loss_and_grads(model, shape).seq_parallel(b)
+        state = {"step": distribute(torch.zeros((), dtype=torch.int32,
+                                                device="cuda"),
+                                    Sharding(d.mesh, P()))}
+        mp, _, lb = steps.jit_train_step(model, opt, shape)(mp, state, b)
+        assert abs(lb.item() - la.item()) <= 1e-6
+        for (k, x), (_, y) in zip(iter_leaves(params), iter_leaves(mp)):
+            torch.testing.assert_close(gather(y), x, atol=1e-6, rtol=1e-6,
+                                       msg=k)
     finally:
         tdist.destroy_process_group()

@@ -28,12 +28,9 @@ inside them; the tests read their results. Cases, at smoke size
     ``cache_sharding_specs``.
 
 And without processes: a moe arch on a mesh whose "model" axis is larger
-than 1, and the ``zero3_sp`` policy, raise ``UserError``; so does a
-cache whose batch the data axes do not divide."""
+than 1 raises ``UserError``, under ``zero3_sp`` too; so does a cache
+whose batch the data axes do not divide."""
 import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -56,6 +53,7 @@ from repro_torch.models import make_model
 from repro_torch.models.layers import iter_leaves
 from repro_torch.optim.optimizers import OptConfig
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
+from util_gloo import spawn_ranks
 
 FWD_TOL = dict(atol=2e-5, rtol=2e-5)     # tests/test_torch_steps.py
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -111,24 +109,7 @@ def ranks(tmp_path_factory):
     np.savez(work / "inputs.npz", tokens=tokens, labels=labels,
              **{f"p/{k}": v for k, v in params.items()})
     (work / "cases.json").write_text(json.dumps(_cases()))
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = []
-    for r in range(WORLD):
-        log = open(work / f"log-{r}.txt", "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, str(WORKER), str(r), str(WORLD), str(work)],
-            stdout=log, stderr=subprocess.STDOUT, env=env), log))
-    try:
-        for p, _ in procs:
-            p.wait(timeout=600)
-    finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            log.close()
-    for r, (p, _) in enumerate(procs):
-        assert p.returncode == 0, (work / f"log-{r}.txt").read_text()[-4000:]
+    spawn_ranks(WORKER, work, WORLD, timeout=600)
     every = [json.loads((work / f"out-{r}.json").read_text())
              for r in range(WORLD)]
     arrays = dict(np.load(work / "out-0.npz"))
@@ -357,13 +338,25 @@ def test_moe_with_an_expert_axis_raises():
 
 
 def test_zero3_sp_raises():
-    cfg = reduce_for_smoke(get_arch(ARCH))
-    d = Dist(mesh=FakeMesh({"data": 2, "model": 2}),
-             policy="zero3_sp").resolve_batch(B)
+    """``zero3_sp`` keeps the expert axis on "model": a moe arch on a mesh
+    whose "model" axis is larger than 1 still raises under it (the
+    sharded dispatch is not ported), and with "model" 1 it builds; a
+    dense arch builds under it (its sequence-parallel step:
+    tests/test_torch_sp.py)."""
+    moe = reduce_for_smoke(get_arch("grok-1-314b"))
+    wide = Dist(mesh=FakeMesh({"data": 2, "model": 2}),
+                policy="zero3_sp").resolve_batch(B)
     for build in (lambda m: steps.jit_train_step(m, OptConfig(), _shape()),
                   lambda m: steps.jit_decode_step(m, _shape())):
-        with pytest.raises(UserError, match="zero3_sp"):
-            build(make_model(cfg, d))
+        with pytest.raises(UserError, match="moe's sharded dispatch"):
+            build(make_model(moe, wide))
+    narrow = Dist(mesh=FakeMesh({"data": 4, "model": 1}),
+                  policy="zero3_sp").resolve_batch(B)
+    assert callable(steps.jit_train_step(make_model(moe, narrow),
+                                         OptConfig(), _shape()))
+    dense = reduce_for_smoke(get_arch(ARCH))
+    assert callable(steps.jit_train_step(make_model(dense, wide),
+                                         OptConfig(), _shape()))
 
 
 def test_cache_of_an_indivisible_batch_raises():

@@ -25,7 +25,8 @@ def test_import_loads_no_jax_and_no_repro():
     mods = _modules()
     assert "repro_torch.serving.engine" in mods
     for new in ("repro_torch.launch.mesh", "repro_torch.distributed.sharding",
-                "repro_torch.runtime.trainer"):
+                "repro_torch.runtime.trainer", "repro_torch.core.ps",
+                "repro_torch.core.solvers"):
         assert new in mods
     code = (
         "import importlib, sys\n"
@@ -57,6 +58,9 @@ def test_sources_import_no_jax_and_no_repro():
              + sorted((ROOT / "scripts").glob("*.py")))
     assert (ROOT / "chip_smoke.py").is_file()
     assert ROOT / "scripts" / "pjit_phase.py" in files
+    assert ROOT / "scripts" / "solvers_phase.py" in files
+    assert PKG / "core" / "ps.py" in files and PKG / "core" / "solvers.py" \
+        in files
     bad = []
     for f in files:
         for name in _imported_names(f):

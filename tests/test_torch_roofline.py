@@ -99,39 +99,50 @@ def test_causal_pairs_closed_form(sq, sk, causal, q_offset):
         _pairs_loop(sq, sk, causal, q_offset)
 
 
-def _flash_case(dtype, return_lse, q_offset):
-    B, S, H, KV, hd = 2, 48, 8, 2, 64
+def _keys_loop(sq, sk, q_offset):
+    """Keys some query of a causal call sees."""
+    return len({j for i in range(sq) for j in range(sk)
+                if j <= i + q_offset})
+
+
+def _flash_case(dtype, return_lse, q_offset, Sq=48, Sk=48):
+    B, H, KV, hd = 2, 8, 2, 64
     es = torch.empty((), dtype=dtype).element_size()
-    pairs = _pairs_loop(S, S, True, q_offset)
+    pairs = _pairs_loop(Sq, Sk, True, q_offset)
 
     def call():
-        return ops.flash_attention(_meta((B, S, H, hd), dtype),
-                                   _meta((B, S, KV, hd), dtype),
-                                   _meta((B, S, KV, hd), dtype),
+        return ops.flash_attention(_meta((B, Sq, H, hd), dtype),
+                                   _meta((B, Sk, KV, hd), dtype),
+                                   _meta((B, Sk, KV, hd), dtype),
                                    causal=True, q_offset=q_offset,
                                    return_lse=return_lse)
-    out = [((B, S, H, hd), dtype)]
+    out = [((B, Sq, H, hd), dtype)]
     if return_lse:
-        out.append(((B, H, S), torch.float32))
-    nbytes = (2 * B * S * H + 2 * B * S * KV) * hd * es \
-        + (4 * B * H * S if return_lse else 0)
+        out.append(((B, H, Sq), torch.float32))
+    # q read, o written; k and v only over the keys some query sees
+    nbytes = (2 * B * Sq * H + 2 * B * _keys_loop(Sq, Sk, q_offset) * KV) \
+        * hd * es + (4 * B * H * Sq if return_lse else 0)
     return call, out, 4 * B * H * hd * pairs, nbytes
 
 
-def _flash_bwd_case(dtype):
-    B, Sq, Sk, H, KV, hd = 1, 33, 33, 4, 2, 32
+def _flash_bwd_case(dtype, q_offset=0, Sq=33, Sk=33):
+    B, H, KV, hd = 1, 4, 2, 32
     es = torch.empty((), dtype=dtype).element_size()
     q, o, do = (_meta((B, Sq, H, hd), dtype) for _ in range(3))
     k, v = (_meta((B, Sk, KV, hd), dtype) for _ in range(2))
     lse = _meta((B, H, Sq))
 
     def call():
-        return ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        return ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                       q_offset=q_offset)
     out = [((B, Sq, H, hd), dtype), ((B, Sk, KV, hd), dtype),
            ((B, Sk, KV, hd), dtype)]
-    # q, o, dO, k, v and the LSE read; dq, dk, dv written; five products
-    nbytes = (4 * B * Sq * H + 4 * B * Sk * KV) * hd * es + 4 * B * H * Sq
-    return call, out, 10 * B * H * hd * _pairs_loop(Sq, Sk, True, 0), nbytes
+    # q, o, dO, the LSE and the keys some query sees read; dq, dk, dv
+    # (all Sk) written; five products
+    nbytes = (4 * B * Sq * H + 2 * B * (_keys_loop(Sq, Sk, q_offset) + Sk)
+              * KV) * hd * es + 4 * B * H * Sq
+    return call, out, \
+        10 * B * H * hd * _pairs_loop(Sq, Sk, True, q_offset), nbytes
 
 
 def _ssd_case(dtype):
@@ -213,6 +224,20 @@ KERNEL_CASES = {
                                  lambda: _flash_bwd_case(torch.bfloat16)),
     "flash_attention_bwd-f32": ("flash_attention_bwd",
                                 lambda: _flash_bwd_case(torch.float32)),
+    # a sequence-parallel rank's first slice: fewer queries than keys at
+    # q_offset 0 read only the first Sq keys; at q_offset 16 Sq + 16
+    "flash_attention-bf16-sq-lt-sk": (
+        "flash_attention",
+        lambda: _flash_case(torch.bfloat16, True, 0, Sq=16, Sk=64)),
+    "flash_attention-bf16-sq-lt-sk-offset": (
+        "flash_attention",
+        lambda: _flash_case(torch.bfloat16, True, 16, Sq=16, Sk=64)),
+    "flash_attention_bwd-bf16-sq-lt-sk": (
+        "flash_attention_bwd",
+        lambda: _flash_bwd_case(torch.bfloat16, 0, Sq=16, Sk=64)),
+    "flash_attention_bwd-bf16-sq-lt-sk-offset": (
+        "flash_attention_bwd",
+        lambda: _flash_bwd_case(torch.bfloat16, 16, Sq=16, Sk=64)),
     "ssd_scan-bf16": ("ssd_scan", lambda: _ssd_case(torch.bfloat16)),
     "ssd_scan-f32": ("ssd_scan", lambda: _ssd_case(torch.float32)),
     "ssd_scan_bwd-bf16": ("ssd_scan_bwd",

@@ -18,7 +18,12 @@ on the CPU with the port only (no JAX here):
     another mesh of the same ranks, and on; its ``program_cost`` beside
     the count of its first step on the new mesh; then a step that fails
     on every rank, which ``step_once`` raises without a restore;
-  * ``serve``: ``jit_prefill_step`` and ``jit_decode_step`` on a mesh.
+  * ``serve``: ``jit_prefill_step`` and ``jit_decode_step`` on a mesh;
+  * ``sp``: the ``zero3_sp`` step's loss and gradients
+    (``steps.local_loss_and_grads``) on one batch of the case's arch and
+    params (``CASE/b/*``, ``CASE/p/*``); rank 0 records the loss and every
+    gradient leaf gathered, every rank whether the step ran
+    sequence-parallel.
 
 Writes ``WORKDIR/out-RANK.npz`` and ``WORKDIR/out-RANK.json``.
 """
@@ -52,12 +57,12 @@ def _cfg(arch):
     return reduce_for_smoke(get_arch(arch))
 
 
-def _params(inputs):
+def _params(inputs, prefix="p/"):
     out = {}
     for k in inputs.files:
-        if k.startswith("p/"):
+        if k.startswith(prefix):
             node = out
-            *parents, last = k[2:].split("/")
+            *parents, last = k[len(prefix):].split("/")
             for p in parents:
                 node = node.setdefault(p, {})
             node[last] = torch.from_numpy(inputs[k].copy())
@@ -192,6 +197,32 @@ def run_serve(case, inputs, rank, out, arrays):
             arrays[f"{case['id']}/cache/{k}"] = v.numpy()
 
 
+def run_sp(case, inputs, rank, out, arrays):
+    cfg = _cfg(case["arch"])
+    mesh = make_mesh(*case["mesh"], device="cpu")
+    pre = f"{case['data']}/b/"
+    batch = {k[len(pre):]: torch.from_numpy(inputs[k].copy())
+             for k in inputs.files if k.startswith(pre)}
+    batch = {k: v.long() if not v.is_floating_point() else v
+             for k, v in batch.items()}
+    B = batch["labels"].shape[0]
+    d = Dist(mesh=mesh, policy="zero3_sp").resolve_batch(B)
+    model = make_model(cfg, d, case["opts"])
+    shape = ShapeSpec("t", int(batch["labels"].shape[1]), B, "train")
+    psh = model.param_shardings()
+    params = map_leaves(lambda p, x: distribute(x, leaf_at(psh, p)),
+                        _params(inputs, f"{case['data']}/p/"))
+    fn = steps.local_loss_and_grads(model, shape)
+    out["sp"] = fn.seq_parallel(batch)
+    loss, grads = fn(steps._local(params), batch)
+    out["loss"] = float(loss)
+    specs = model.param_specs()
+    for path, g in iter_leaves(grads):
+        whole = steps._gatherleaf_at(g, leaf_at(specs, path), mesh)
+        if rank == 0:
+            arrays[f"{case['id']}/{path}"] = whole.numpy().copy()
+
+
 def main():
     rank, world, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     logging.getLogger("torch.distributed").setLevel(logging.ERROR)
@@ -208,6 +239,8 @@ def main():
             run_step(case, inputs, rank, out, arrays)
         elif case["kind"] == "resume":
             run_resume(case, inputs, rank, out, arrays, workdir)
+        elif case["kind"] == "sp":
+            run_sp(case, inputs, rank, out, arrays)
         else:
             run_serve(case, inputs, rank, out, arrays)
     np.savez(Path(workdir) / f"out-{rank}.npz", **arrays)
