@@ -13,11 +13,14 @@ first failing phase (no phase catches an exception):
      kept beside the library) and its tensor-core (HGMMA) instructions
      counted in the machine code (cuobjdump -sass): every ``_tc`` kernel
      of the bf16 instances (K5b's ``ssd_bwd_states_tc``,
-     ``ssd_bwd_dbx_tc`` and ``ssd_bwd_dc_tc`` included) must hold some;
+     ``ssd_bwd_dbx_tc`` and ``ssd_bwd_dc_tc`` included; K4's forward
+     at head dims 64, 112 and 128) must hold some;
   3. kernel  — the flash-attention kernel against its plain PyTorch
      version at three shapes (StableLM-1.6B prefill in bf16, GQA and
-     ragged in f32; here and at every later K4 shape two calls give
-     equal bits), with times of kernel, plain version and
+     ragged in f32; then head dim 112, kimi-k2's, in bf16 and f32,
+     causal and not, with ragged Sq / Sk; here and at every later K4
+     shape two calls give equal bits), with times of kernel, plain
+     version and
      ``scaled_dot_product_attention`` (a yardstick the port never calls)
      beside the least time the card could take;
   4. serve   — StableLM-1.6B at full width cut to 12 of 24 layers (bf16,
@@ -266,7 +269,23 @@ first failing phase (no phase catches an exception):
      qwen2-vl-2b at full width and depth (phase 18's weights) on a
      1-rank NCCL mesh against the mesh-less step (loss and every leaf
      within ``MODEL_TOL``);
- 21. result  — each phase's wall seconds (a ``[phase]`` line as each
+ 21. kimi, expert-parallel — a. kimi-k2-1t-a32b at full width cut to
+     1 of 61 layers (d 7168, 64 heads over 8 of head dim 112, 384
+     experts top-8, vocab 163,840; ~39 GB of bf16, random weights from
+     a seed) behind ``InferenceEngine``, cold and warm, phase 15's 8
+     requests: every request done, the same tokens, K4 on its hd-112
+     tensor-core instance at every prefill; tokens/s, prefill ms by
+     batch, decode ms a step beside the bound of the bytes a step reads
+     (``status.perf``); ``moe_block`` against ``moe_ref`` on its layer
+     at k = 8 (relative L2 within ``MOE_REL_L2``, equal dropped pairs,
+     a forced-drop input); b. on a 1-rank NCCL mesh (``fsdp_tp``), the
+     expert-parallel ``jit_prefill_step`` (the all-to-all body) and
+     ``jit_decode_step`` (the all-reduce body) of kimi-k2's weights,
+     and then of grok-1's (phase 15's configuration, seed 0), against
+     the mesh-less steps: logits and caches equal (``EP_DIFF_LIMIT``);
+     c. K4 at kimi-k2's prefill shape (4, 512, 64, KV 8, hd 112) and at
+     the serve's, with kernel, plain, bound and SDPA ms;
+ 22. result  — each phase's wall seconds (a ``[phase]`` line as each
      ends, and a ``[phases]`` line), ``{"kernels": [...]}`` on the line
      before the last (each kernel's launches summed over the main paths,
      with ``launches_by_path``) and ``{"ok": true, "device": {...}}`` as
@@ -563,6 +582,36 @@ SOLVER_ATOL = 1e-5         # tests/test_torch_solvers.py
 SOLVER_MAX_FLIP_SHARE = 1e-2
 SP_MODEL = 4               # the "model" axis whose per-rank shapes 20 b runs
 SP_ENC = (4, 1500, 20, 20, 64)   # whisper-large-v3's encoder: B, S, H, KV, hd
+# phase 21: kimi-k2-1t-a32b (configs/kimi_k2_1t_a32b.py) at full width, d
+# 7168, 64 heads over 8 KV heads of head dim 112, 384 experts top-8 of
+# d_ff 2048, vocab 163,840: one of its 61 layers holds 33.82 GB of bf16
+# experts and 0.23 GB of attention; with the untied embedding and head
+# (2 x 2.35 GB) the serve holds ~39 GB (grok-1's 42.6 GB of phase 15 is
+# freed before it and built again after it for 21 b)
+KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI_SERVE_LAYERS = 1
+# moe_block against moe_ref on the serve's layer (k = 8): T = 512 (the
+# serve's (4, 128) batch) and 1,024, and 512 rows of one vector plus 1e-3
+# noise (every pair picks the same 8 experts: capacity 16 of 512 each)
+KIMI_BLOCK_CASES = [((4, 128), "random"), ((2, 512), "random"),
+                    ((4, 128), "drop")]
+# K4 at kimi-k2's prefill shape: B, S, H, KV, hd 112, bf16, causal
+KIMI_PREFILL = (4, 512, 64, 8, 112, "bfloat16", True)
+# 21 b: the expert-parallel prefill (EP_PROMPT tokens: the train body)
+# and EP_DECODE decode steps (the decode body) of EP_BATCH rows on a
+# 1-rank mesh against the mesh-less steps: the same arithmetic in the
+# same order (the collectives over one rank are copies, the capacities
+# equal), so the limit is no difference at all
+EP_BATCH = 4
+EP_PROMPT = 128
+EP_DECODE = 2
+EP_DIFF_LIMIT = 0.0
+# phase 3: K4 at head dim 112 in both instances, causal and not, ragged
+# Sq / Sk: (B, S, H, KV, hd, dtype, causal), Sk
+K4_HD112_CASES = [((2, 300, 16, 2, 112, "bfloat16", True), None),
+                  ((1, 100, 8, 1, 112, "bfloat16", False), 230),
+                  ((1, 37, 8, 2, 112, "float32", True), None),
+                  ((2, 77, 8, 1, 112, "float32", False), 141)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -682,8 +731,9 @@ def report_tc_build(build, built, card):
     bwd = ctypes.CDLL(str(built["flash_attention_bwd"].library))
     ssd = ctypes.CDLL(str(built["ssd_scan"].library))
     ssdb = ctypes.CDLL(str(built["ssd_scan_bwd"].library))
-    for hd in (64, 128):
+    for hd in (64, 112, 128):
         dyn[f"flash_fwd_kernel_tc<{hd}>"] = fwd.flash_attention_fwd_tc_smem(hd)
+    for hd in (64, 128):
         dyn[f"flash_bwd_dq_tc_kernel<{hd}>"] = \
             bwd.flash_attention_bwd_tc_smem(hd, 0)
         dyn[f"flash_bwd_dkv_tc_kernel<{hd}>"] = \
@@ -717,10 +767,13 @@ def report_tc_build(build, built, card):
     for base in TC_KERNELS + SSD_TC_KERNELS + SSD_BWD_TC_KERNELS:
         found = {n: c for n, c in counts.items()
                  if n.split("<")[0].endswith(base)}
-        if len(found) != 2 or not all(found.values()):
+        # K4's forward has a third instance: head dim 112 (kimi-k2)
+        widths = 3 if base == TC_KERNELS[0] else 2
+        if len(found) != widths or not all(found.values()):
             raise AssertionError(f"tensor-core kernel {base}: HGMMA "
-                                 f"counts {found} (want > 0 at both "
-                                 f"widths, 64 and 128)")
+                                 f"counts {found} (want > 0 at each of "
+                                 f"{widths} widths: 64, 128 and for K4's "
+                                 f"forward 112)")
     return counts, reports
 
 
@@ -4345,6 +4398,212 @@ def sp_step(torch, ops, kfa, kfab, params, card):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: kimi-k2 at full width (K4 at head dim 112) and the
+# expert-parallel steps on a 1-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+
+def kimi_moe_checks(torch, cfg, params, card):
+    """21 a: ``moe_block`` against ``moe_ref`` on the serve's layer 0 at
+    kimi-k2's full width (384 experts, top-8: the first card check of the
+    combine with k = 8) for each of KIMI_BLOCK_CASES."""
+    from repro_torch.models.transformer import layer_params
+    layer = layer_params(params["blocks"], 0)["moe"]
+    out = []
+    for i, (shape, kind) in enumerate(KIMI_BLOCK_CASES):
+        res = check_moe_block(torch, cfg, layer, shape, kind, seed=21 + i)
+        print(f"[kimi] {card}: moe_block vs moe_ref {json.dumps(res)}")
+        out.append(res)
+    return out
+
+
+def ep_prefill_decode(torch, cfg, params, label, card, cache_len):
+    """21 b: ``jit_prefill_step`` and ``jit_decode_step`` of ``cfg`` on a
+    1-rank NCCL mesh under ``fsdp_tp`` (the expert-parallel path: the
+    train body's two all-to-alls over one rank in the prefill of
+    EP_PROMPT tokens, the decode body's all-reduce over one rank in
+    EP_DECODE decode steps) against the mesh-less
+    ``build_prefill_step`` / ``build_decode_step`` on the same params and
+    batch: the largest difference of the logits and of the cache (limit
+    EP_DIFF_LIMIT: the same arithmetic in the same order). The process
+    group is up."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.sharding import Dist, distribute
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import make_model
+    from repro_torch.models.layers import leaf_at, map_leaves
+    B = EP_BATCH
+    g = torch.Generator(device="cuda").manual_seed(21)
+    toks = torch.randint(0, cfg.vocab_size, (B, EP_PROMPT + EP_DECODE),
+                         generator=g, device="cuda")
+    model = make_model(cfg)
+    dist = Dist(mesh=make_mesh(1, 1)).resolve_batch(B)
+    mmodel = make_model(cfg, dist)
+    shape = ShapeSpec("ep", EP_PROMPT, B, "prefill")
+    psh = mmodel.param_shardings()
+    dparams = map_leaves(lambda p, x: distribute(x, leaf_at(psh, p)), params)
+    csh = mmodel.cache_shardings(B)
+    runs = {}
+    for name, prefill, decode, wrap in (
+            ("mesh-less", steps.build_prefill_step(model),
+             steps.build_decode_step(model), None),
+            ("mesh", steps.jit_prefill_step(mmodel, shape),
+             steps.jit_decode_step(mmodel, shape), csh)):
+        cache = model.empty_cache(B, cache_len, "cuda")
+        p = params
+        if wrap is not None:
+            cache = {k: distribute(v, wrap[k]) for k, v in cache.items()}
+            p = dparams
+        kw = {"cache": cache} if wrap is not None else {
+            "cache": cache, "slots": torch.arange(B, device="cuda")}
+        logits, cache = prefill(p, {"tokens": toks[:, :EP_PROMPT]}, **kw)
+        got = [logits]
+        for i in range(EP_DECODE):
+            logits, cache = decode(p, cache, {"tokens": toks[
+                :, EP_PROMPT + i:EP_PROMPT + i + 1]})
+            got.append(logits)
+        if wrap is not None:
+            got = [x.full_tensor() for x in got]
+            cache = {k: v.full_tensor() for k, v in cache.items()}
+        runs[name] = (torch.cat(got, 1), cache)
+    (a, ca), (b, cb) = runs["mesh-less"], runs["mesh"]
+    if not torch.isfinite(a).all().item() or a.shape != (
+            B, 1 + EP_DECODE, cfg.vocab_size):
+        raise AssertionError(f"{label}: logits {tuple(a.shape)} or "
+                             f"non-finite values")
+    diff = (a.float() - b.float()).abs().max().item()
+    cdiff = max((ca[k].float() - cb[k].float()).abs().max().item()
+                for k in ca)
+    print(f"[ep] {card}: {label}: jit_prefill_step ({B} x {EP_PROMPT}, the "
+          f"all-to-all body) + {EP_DECODE} jit_decode_step (the all-reduce "
+          f"body) on a 1-rank NCCL mesh (data 1, model 1, fsdp_tp) vs the "
+          f"mesh-less steps: logits max abs difference {diff:.3e}, cache "
+          f"{cdiff:.3e} (limit {EP_DIFF_LIMIT}; predicted 0.000e+00)")
+    if diff > EP_DIFF_LIMIT or cdiff > EP_DIFF_LIMIT:
+        raise AssertionError(f"{label}: the expert-parallel steps differ "
+                             f"from the mesh-less steps by {diff} "
+                             f"(logits), {cdiff} (cache)")
+    return {"logits_diff": diff, "cache_diff": cdiff}
+
+
+def serve_kimi(torch, ops, ref, kfa, card):
+    """Phase 21: a. kimi-k2 at full width cut to KIMI_SERVE_LAYERS layer
+    behind ``InferenceEngine`` (cold, warm) with phase 15's requests, K4
+    at head dim 112 on the tensor cores at every prefill, ``moe_block``
+    against ``moe_ref`` on its layer (k = 8); b. the expert-parallel
+    prefill and decode steps on a 1-rank NCCL mesh against the mesh-less
+    steps, on kimi-k2's weights and then on grok-1's (phase 15's
+    configuration, seed 0); c. K4 at kimi-k2's prefill shape and at the
+    serve's, against its plain version and SDPA. Returns (K4 results,
+    the cold serve's launches, the EP differences)."""
+    import torch.distributed as tdist
+    from repro_torch.analysis.roofline import HBM_BW
+    from repro_torch.configs.registry import get_arch
+    full = get_arch(KIMI_ARCH)
+    cfg = dataclasses.replace(full, n_layers=KIMI_SERVE_LAYERS)
+    m = cfg.moe
+    print(f"[kimi] {card}: {memory_line(torch, 'before phase 21:')}")
+    runs, ep = [], {}
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-ep-", dir=build_dir))
+    tdist.init_process_group(
+        "nccl", store=tdist.FileStore(str(workdir / "pg-store"), 1),
+        rank=0, world_size=1)
+    try:
+        for label in ("cold", "warm"):
+            tokens, eng, rec, launches, wall, _ = serve(torch, cfg, ops, 0,
+                                                        card)
+            st = eng.stats()
+            n_batches = eng.prefill_batches
+            if launches[kfa.NAME] != cfg.n_layers * n_batches or \
+                    kfa.launches_tc != launches[kfa.NAME]:
+                raise AssertionError(
+                    f"K4 launches {launches} ({kfa.launches_tc} on the "
+                    f"tensor cores), want {cfg.n_layers} x {n_batches} "
+                    f"prefill batches, all on the tensor cores (hd "
+                    f"{cfg.hd})")
+            if runs and tokens != runs[0]:
+                raise AssertionError("same seed, same requests, different "
+                                     "tokens")
+            n_tok = st["tokens_out_total"]
+            decode_ms = 1e3 * eng.decode_seconds / st["decode_steps"]
+            by_batch = ", ".join(f"{nb}x{pl} {1e3 * t:.2f}" for (nb, pl), t
+                                 in zip(rec.prefills, rec.prefill_s))
+            snap = wait_perf(eng)
+            check_perf(snap, "serve-kimi")
+            step_bytes = snap["memory_s"] * HBM_BW
+            print(f"[serve-kimi] {card}: {label}: {KIMI_ARCH} L="
+                  f"{cfg.n_layers} of {full.n_layers}, d={cfg.d_model}, "
+                  f"{cfg.n_heads} heads over {cfg.n_kv_heads} of hd "
+                  f"{cfg.hd}, {m.n_experts} experts top-{m.top_k}, vocab "
+                  f"{cfg.vocab_size}, bf16, capacity 4, max_seq 1024: "
+                  f"{st['completed_total']} requests, {n_tok} tokens in "
+                  f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s; prefill ms "
+                  f"by batch (n x plen): {by_batch}; mean "
+                  f"{1e3 * eng.prefill_seconds / n_batches:.2f} ms per "
+                  f"batch; decode {st['decode_steps']} steps: "
+                  f"{decode_ms:.2f} ms per step, bound "
+                  f"{1e3 * snap['memory_s']:.2f} ms ({step_bytes / 1e9:.2f}"
+                  f" GB a step reads at {HBM_BW / 1e12} TB/s, counted on "
+                  f"the meta device: status.perf) = "
+                  f"{snap['memory_s'] * 1e3 / decode_ms:.3f} of it; request "
+                  f"latency p50 {st['p50_latency_s']} s, p99 "
+                  f"{st['p99_latency_s']} s; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                  f"kernel launches {launches} ({kfa.launches_tc} K4 on the "
+                  f"tensor cores)")
+            runs.append(tokens)
+            if label == "cold":
+                cold_launches, cold_prefills = launches, rec.prefills
+                eng.release()
+                del eng
+                torch.cuda.empty_cache()
+        print(f"[serve-kimi] {card}: {len(runs)} engines, same seed: "
+              f"identical tokens")
+        blocks = kimi_moe_checks(torch, cfg, eng.params, card)
+        ep[KIMI_ARCH] = ep_prefill_decode(torch, cfg, eng.params, KIMI_ARCH,
+                                          card, EP_PROMPT + EP_DECODE)
+        eng.release()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        gcfg = dataclasses.replace(get_arch(MOE_ARCH),
+                                   n_layers=MOE_SERVE_LAYERS)
+        from repro_torch.models import make_model
+        gparams = make_model(gcfg).init(
+            torch.Generator(device="cuda").manual_seed(0))
+        ep[MOE_ARCH] = ep_prefill_decode(torch, gcfg, gparams, MOE_ARCH,
+                                         card, EP_PROMPT + EP_DECODE)
+        del gparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # c. K4 at head dim 112: kimi-k2's prefill shape, and every prefill
+    # shape of the serve
+    shapes = [KIMI_PREFILL] + [(n, plen, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.hd, "bfloat16", True)
+                               for n, plen in sorted(set(cold_prefills))]
+    k4 = [check_attention(torch, ops, ref, s, seed=21 + i)
+          for i, s in enumerate(shapes)]
+    for res in k4:
+        print(f"[kernel] {card}: K4 serve-kimi path {json.dumps(res)}")
+    if any(r["instance"] != "tensor cores" for r in k4):
+        raise AssertionError("K4 at hd 112 in bf16 off the tensor cores")
+    head = k4[0]
+    print(f"[kernel] {card}: K4k (hd 112) at {head['shape']}: "
+          f"{head['ms']:.4f} ms, bound {head['bound_ms']:.4f} ms "
+          f"({head['bound_by']}, the 112 real dims) = "
+          f"{head['share_of_bound']:.3f} of it; plain "
+          f"{head['plain_ms']:.3f} ms; SDPA {head['library_ms']:.4f} ms")
+    return k4, blocks, cold_launches, ep
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4393,6 +4652,11 @@ def main() -> int:
                   (3, 37, 4, 2, 16, "float32", True)]:
         res = check_attention(torch, ops, ref, shape)
         print(f"[kernel] {card}: {json.dumps(res)}")
+    # head dim 112 (kimi-k2): the hd-128 tiles with zero-filled columns
+    k4_hd112 = [check_attention(torch, ops, ref, shape, seed=3 + i, sk=sk)
+                for i, (shape, sk) in enumerate(K4_HD112_CASES)]
+    for res in k4_hd112:
+        print(f"[kernel] {card}: K4 at hd 112 {json.dumps(res)}")
     clock.done("3 kernel")
 
     # 4. serve at full width: cold (first use of every library kernel),
@@ -4786,7 +5050,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.done("20 solvers, zero3_sp")
 
-    # 21. result
+    # 21. kimi-k2 at full width (one layer) served with K4 at head dim 112,
+    # moe_block against moe_ref at k = 8, and the expert-parallel prefill
+    # and decode steps on a 1-rank NCCL mesh (kimi-k2's and grok-1's
+    # weights) against the mesh-less steps
+    kimi_k4, _, kimi_launches, _ = serve_kimi(torch, ops, ref, kfa, card)
+    torch.cuda.empty_cache()
+    clock.done("21 kimi, expert-parallel")
+
+    # 22. result
     def entry(mod, launches, head, shapes):
         return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                 "replaces": mod.REPLACES, "launches": launches,
@@ -4814,9 +5086,10 @@ def main() -> int:
     k4_paths = by_path(kfa.NAME, {"serve": serve_launches, **dense_paths,
                                   "platform-serve": psv["launches"],
                                   "serve-moe": moe_launches,
-                                  "serve-hybrid": hybrid_launches})
+                                  "serve-hybrid": hybrid_launches,
+                                  "serve-kimi": kimi_launches})
     k4_shapes = (main_path + train_fwd + moe_main + hy_k4 + wh_k4 + vl_k4
-                 + pj_k4 + sp_k4)
+                 + pj_k4 + sp_k4 + kimi_k4 + k4_hd112)
     k4 = entry(kfa, sum(k4_paths.values()),
                max(k4_shapes, key=lambda r: r["bound_ms"]), k4_shapes)
     k4["launches_by_path"] = k4_paths

@@ -17,8 +17,8 @@ Policies:
   fsdp_tp  — params/optimizer additionally sharded over the data (and
              optionally pod) axis: the paper's PS partition scheme as a
              resident layout (ZeRO lineage).
-  zero3_sp — "model" carries no TP and joins the FSDP axes; its
-             sequence-parallel attention is not ported (the specs are).
+  zero3_sp — "model" carries no TP and joins the FSDP axes; attention
+             runs sequence-parallel over it (``distributed.steps``).
 
 A spec is a ``PartitionSpec`` of the port's own: one entry per tensor
 dim, each ``None``, an axis name or a tuple of names, singleton tuples

@@ -20,7 +20,14 @@ numbers equal the one-card step's:
     ``dist.batch_axes`` (every rank the whole batch when none divides);
   * forward and backward: the whole tree of weights is all-gathered at
     the start of the step, and the one-card ``value_and_grad`` runs on
-    the rank's rows with the port's kernels (K4, K4b on CUDA);
+    the rank's rows with the port's kernels (K4, K4b on CUDA); a moe
+    arch's expert weights, where the ``Dist`` has an expert axis
+    ("model"), are gathered over their FSDP axes only, each rank keeping
+    its "model" block of experts (the reference's ``P("model", fsdp,
+    None)``, moe.py:159-160), and its moe layers run expert-parallel
+    (``_expert_parallel``, ``models.moe.ExpertParallel``: an all-to-all
+    over "model" for a sequence that divides it, else the decode body's
+    local experts and an all-reduce);
   * sequence parallelism (the ``zero3_sp`` policy, ``_seq_parallel``):
     where the reference's ``_use_sp`` / ``_sp_ok`` hold for the rank's
     rows (an attention family, every sequence divisible by the "model"
@@ -36,17 +43,20 @@ numbers equal the one-card step's:
     all-reduced where the leaf is whole along one, so it is the mean over
     ranks that hold different tokens; ranks that differ only in an axis
     that does not shard the tokens computed the same gradient and take
-    their slice of it. The loss is the all-reduced mean of the ranks'
-    losses (their token counts are equal);
+    their slice of it. An expert leaf's gradient is already its owner's
+    whole "model" block (the all-to-all's backward brought every rank's
+    tokens to it), so it is not reduced or sliced over "model"; with r
+    copies of each expert (fewer experts than "model" ranks) the copies'
+    gradients are then averaged (``expert_grad_tie``). The loss is the
+    all-reduced mean of the ranks' losses (their token counts are
+    equal);
   * update: ``apply_updates`` on the local shards; Adafactor's means
     all-reduce over the mesh dims that shard the dims they reduce
     (``MeshLeaf``).
 
-The "model" axis thus saves memory, not time: no matmul is split over
-it. A ``Dist`` the port cannot run raises ``UserError``: a moe arch
-whose expert axis is larger than 1 (the sharded dispatch is not ported;
-``zero3_sp`` keeps the expert axis). Every group a step uses is a mesh
-dim's.
+The "model" axis thus saves memory, not time, but for the experts: no
+dense matmul is split over it. A ``Dist`` the port cannot run raises
+``UserError``. Every group a step uses is a mesh dim's.
 """
 from __future__ import annotations
 
@@ -66,6 +76,8 @@ from repro_torch.models.attention import SeqParallel
 from repro_torch.models.layers import (is_stacked, iter_leaves, leaf_at,
                                        map_leaves)
 from repro_torch.models.model import Model, make_model
+from repro_torch.models.moe import (ExpertParallel, is_expert_leaf,
+                                    replication_factor)
 from repro_torch.optim.optimizers import (LeafShards, OptConfig,
                                           apply_updates, init_opt_state,
                                           opt_state_specs)
@@ -79,16 +91,35 @@ def default_optimizer(cfg: ArchConfig) -> OptConfig:
 
 
 def expert_grad_tie(cfg: ArchConfig, model: Model):
-    """Gradient-tying transform for replicated ('virtual') MoE experts:
-    the identity here. The reference replicates each expert R times when
-    there are fewer experts than model-axis shards and averages the
-    copies' gradients; with no mesh every expert lives once on the one
-    card (``replication_factor`` is 1), so there is nothing to tie."""
-    return lambda g: g
+    """Gradient-tying transform for replicated ('virtual') MoE experts
+    (``steps.py:33-64``): where the expert axis outnumbers the experts,
+    each expert is replicated r times and its copies receive different
+    tokens; averaging the copies' gradients keeps them tied to the
+    paper-listed E-expert model. The identity where r is 1 (no mesh, or
+    enough experts). Takes a tree of whole gradients."""
+    if cfg.moe is None:
+        return lambda g: g
+    r = replication_factor(cfg.moe, model.dist)
+    if r == 1:
+        return lambda g: g
+    defs = model.param_defs()
+    e = cfg.moe.n_experts
+
+    def one(path, g):
+        if not is_expert_leaf(path):
+            return g
+        i, s = leaf_at(defs, path).dims.index("expert"), g.shape
+        gr = g.reshape(s[:i] + (e, r) + s[i + 1:])
+        return gr.mean(i + 1, keepdim=True).expand(gr.shape).reshape(s)
+
+    def tie(grads):
+        return map_leaves(one, grads)
+    return tie
 
 
 def value_and_grad(model: Model, params, batch,
-                   sp: Optional[SeqParallel] = None):
+                   sp: Optional[SeqParallel] = None,
+                   ep: Optional[ExpertParallel] = None):
     """(loss, grads) of ``model.loss`` at ``params``: the loss a detached
     0-d f32 tensor, the gradients a tree like ``params`` in the params'
     dtypes. The params are not modified and need no ``requires_grad``.
@@ -106,7 +137,7 @@ def value_and_grad(model: Model, params, batch,
         tree = map_leaves(live, params)
         groups = [v if isinstance(v, list) else [v]
                   for _, v in iter_leaves(tree)]
-        loss = model.loss(tree, batch, sp=sp)
+        loss = model.loss(tree, batch, sp=sp, ep=ep)
         flat = torch.autograd.grad(loss, [t for g in groups for t in g],
                                    allow_unused=True)
     # a leaf the loss does not read (the token table under ``embeds``)
@@ -137,17 +168,18 @@ def split_batch(batch: Dict[str, torch.Tensor], n: int):
 
 
 def loss_and_grads(model: Model, params, batch, grad_accum: int = 1,
-                   sp: Optional[SeqParallel] = None):
+                   sp: Optional[SeqParallel] = None,
+                   ep: Optional[ExpertParallel] = None):
     """(loss, grads) of ``model.loss``; with ``grad_accum`` > 1 over that
     many micro-batches, their losses and f32 gradients summed and divided
     by ``grad_accum``, as the reference's scan does."""
     if grad_accum == 1:
-        return value_and_grad(model, params, batch, sp)
+        return value_and_grad(model, params, batch, sp, ep)
     loss = None
     grads = map_leaves(lambda _p, t: torch.zeros(
         t.shape, dtype=torch.float32, device=t.device), params)
     for mb in split_batch(batch, grad_accum):
-        l, g = value_and_grad(model, params, mb, sp)
+        l, g = value_and_grad(model, params, mb, sp, ep)
         loss = l if loss is None else loss + l
         for acc, gi in zip([t for _, t in iter_leaves(grads)],
                            [t for _, t in iter_leaves(g)]):
@@ -178,10 +210,12 @@ def build_train_step(model: Model, opt_cfg: OptConfig, grad_accum: int = 1):
 def build_prefill_step(model: Model):
     """prefill_step(params, batch, cache=None, slots=None) -> (logits,
     cache) under no_grad: ``Model.prefill``, into a new cache or into
-    ``slots`` of a batched one."""
+    ``slots`` of a batched one (``ep``: its moe layers expert-parallel,
+    as the sharded step runs it on each rank)."""
     @torch.no_grad()
-    def prefill_step(params, batch, *, cache=None, slots=None):
-        return model.prefill(params, batch, cache=cache, slots=slots)
+    def prefill_step(params, batch, *, cache=None, slots=None, ep=None):
+        return model.prefill(params, batch, cache=cache, slots=slots,
+                             ep=ep)
     return prefill_step
 
 
@@ -189,8 +223,8 @@ def build_decode_step(model: Model):
     """decode_step(params, cache, batch) -> (logits, cache) under
     no_grad; the cache is updated in place."""
     @torch.no_grad()
-    def decode_step(params, cache, batch):
-        return model.decode(params, cache, batch)
+    def decode_step(params, cache, batch, ep=None):
+        return model.decode(params, cache, batch, ep=ep)
     return decode_step
 
 
@@ -200,17 +234,33 @@ def build_decode_step(model: Model):
 
 
 def check_dist(model: Model) -> None:
-    """Raise ``UserError`` for a ``Dist`` whose sharded step the port
-    cannot run (see the module docstring)."""
+    """Raise ``UserError`` for a ``Dist`` whose sharded step cannot run:
+    a moe arch whose experts and "model" axis do not divide one another
+    (the reference asserts, ``moe.py:32-40``)."""
     d = model.dist
-    if not d.has_mesh:
+    if not d.has_mesh or model.cfg.moe is None:
         return
-    if model.cfg.moe is not None and d.expert_axis is not None \
-            and d.model_size > 1:
-        raise UserError(f"{model.cfg.arch_id!r}: moe's sharded dispatch "
-                        f"over an expert axis of {d.model_size} is not yet "
-                        f"ported to repro_torch; use a mesh with model=1 "
-                        f"or the dp_only policy")
+    try:
+        replication_factor(model.cfg.moe, d)
+    except ValueError as e:
+        raise UserError(f"{model.cfg.arch_id!r}: {e}") from None
+
+
+def _expert_parallel(model: Model, sp: Optional[SeqParallel] = None
+                     ) -> Optional[ExpertParallel]:
+    """This rank's ``ExpertParallel`` where the model's moe layers run
+    expert-parallel (a moe arch, or the hybrid's moe layers, on a mesh
+    with an expert axis: "model", even of size 1), else None. ``sp``:
+    the step hands the moe layers the rank's slice of the sequence."""
+    d = model.dist
+    if model.cfg.moe is None or not d.has_mesh or d.expert_axis is None:
+        return None
+    j = list(mesh_axes(d.mesh)).index("model")
+    fsdp = tuple(a for a in (d.fsdp_axes or ()) if a != "model")
+    return ExpertParallel(group=(d.mesh, j),
+                          rank=_coord(d)["model"], size=d.model_size,
+                          r=replication_factor(model.cfg.moe, d), fsdp=fsdp,
+                          sliced=sp is not None)
 
 
 def _ns(dist: Dist, spec_tree):
@@ -407,7 +457,8 @@ def _token_group(d: Dist, seq: bool):
     return dims, n
 
 
-def _constrain_grads(model: Model, grads, seq: bool = False):
+def _constrain_grads(model: Model, grads, seq: bool = False,
+                     ep: Optional[ExpertParallel] = None):
     """Each whole-leaf gradient of this rank's tokens -> the local shard
     of the mean gradient over the token shards, on its leaf's spec:
     divided by the number of token shards, sliced along the axes that do
@@ -415,7 +466,9 @@ def _constrain_grads(model: Model, grads, seq: bool = False):
     leaf is whole along it) over those that do (``_grad_plan``): the
     batch axes, and "model" when ``seq`` (the step ran
     sequence-parallel: ranks that differ only in "model" hold partial
-    gradients of different tokens, which sum)."""
+    gradients of different tokens, which sum). Under ``ep`` an expert
+    leaf's gradient is already this rank's "model" block, summed over
+    the group's tokens: nothing is done to it over "model"."""
     import torch.distributed._functional_collectives as funcol
     d = model.dist
     mesh = d.mesh
@@ -424,12 +477,15 @@ def _constrain_grads(model: Model, grads, seq: bool = False):
     _, n_b = _token_group(d, seq)
     coord = mesh.get_coordinate()
     specs = model.param_specs()
+    j_model = names.index("model") if "model" in names else None
 
     def one(path, g):
         if n_b > 1:
             g = g / n_b
-        for op, i, j in _grad_plan(leaf_at(specs, path), g.dim(), names,
-                                   batch):
+        plan = _grad_plan(leaf_at(specs, path), g.dim(), names, batch)
+        if ep is not None and is_expert_leaf(path):
+            plan = [st for st in plan if st[2] != j_model]
+        for op, i, j in plan:
             n = mesh.size(j)
             if op == "slice":
                 g = g.chunk(n, dim=i)[coord[j]]
@@ -445,13 +501,17 @@ def _constrain_grads(model: Model, grads, seq: bool = False):
     return map_leaves(one, grads)
 
 
-def _gatherleaf_at(x, spec, mesh):
+def _gatherleaf_at(x, spec, mesh, only=None):
     """The whole leaf from this rank's shard ``x`` laid out as ``spec``:
-    per tensor dim, an all-gather over each of its axes, minor first."""
+    per tensor dim, an all-gather over each of its axes, minor first;
+    with ``only``, over those of its axes alone (the rank keeps its block
+    along the others)."""
     import torch.distributed._functional_collectives as funcol
     names = list(mesh_axes(mesh))
     for i in range(x.dim()):
         for a in reversed(_axes_of(spec, i)):
+            if only is not None and a not in only:
+                continue
             j = names.index(a)
             if mesh.size(j) > 1:
                 ag = getattr(funcol, "all_gather_single",
@@ -460,11 +520,36 @@ def _gatherleaf_at(x, spec, mesh):
     return x
 
 
-def _gather_tree(params, pspecs, mesh):
+def _gather_tree(params, pspecs, mesh, ep: Optional[ExpertParallel] = None):
     """The whole weights from this rank's shards (plain tensors laid out
-    per ``pspecs``): ``_gatherleaf_at`` of every leaf."""
+    per ``pspecs``): ``_gatherleaf_at`` of every leaf; under ``ep`` an
+    expert leaf is gathered over its FSDP axes only and keeps its
+    "model" block of experts (the reference's ``_gather_fsdp``)."""
     return map_leaves(lambda path, x: _gatherleaf_at(
-        x, leaf_at(pspecs, path), mesh), params)
+        x, leaf_at(pspecs, path), mesh,
+        ep.fsdp if ep is not None and is_expert_leaf(path) else None),
+        params)
+
+
+def _tie_sharded(model: Model, grads, ep: Optional[ExpertParallel]):
+    """``expert_grad_tie`` on this rank's gradient shards: with r > 1
+    copies of each expert (one copy per "model" rank), each expert leaf's
+    shard is all-gathered over "model" on its expert dim, the whole tied
+    by ``expert_grad_tie``, and the rank's block kept."""
+    if ep is None or ep.r == 1:
+        return grads
+    import torch.distributed._functional_collectives as funcol
+    ag = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
+    defs = model.param_defs()
+
+    def dim(path):
+        return leaf_at(defs, path).dims.index("expert")
+    whole = map_leaves(lambda path, g: wait(ag(
+        g.contiguous(), dim(path), ep.group)) if is_expert_leaf(path)
+        else g, grads)
+    tied = expert_grad_tie(model.cfg, model)(whole)
+    return map_leaves(lambda path, g: g.chunk(ep.size, dim(path))[
+        ep.rank].contiguous() if is_expert_leaf(path) else g, tied)
 
 
 def local_loss_and_grads(model: Model, shape: ShapeSpec,
@@ -486,12 +571,14 @@ def local_loss_and_grads(model: Model, shape: ShapeSpec,
         return (rows if sp is None else seq_slice(model, rows, sp)), sp
 
     def fn(params, batch):
-        full = _gather_tree(params, pspecs, mesh)
         rows, sp = rows_of(batch)
+        ep = _expert_parallel(model, sp)
+        full = _gather_tree(params, pspecs, mesh, ep)
         loss, grads = loss_and_grads(local_model, full, rows, grad_accum,
-                                     sp)
+                                     sp, ep)
         del full
-        grads = _constrain_grads(model, grads, sp is not None)
+        grads = _tie_sharded(model, _constrain_grads(
+            model, grads, sp is not None, ep), ep)
         dims, n = _token_group(d, sp is not None)
         if n > 1:
             loss = _all_reduce(loss, mesh, dims) / n
@@ -626,15 +713,16 @@ def jit_prefill_step(model: Model, shape: ShapeSpec):
     pspecs = model.param_specs()
 
     def prefill_step(params, batch, *, cache=None):
-        full = _gather_tree(_local(params), pspecs, d.mesh)
+        ep = _expert_parallel(model)
+        full = _gather_tree(_local(params), pspecs, d.mesh, ep)
         rows = local_batch(model, shape, batch)
         if cache is None:
-            logits, mine = local(full, rows)
+            logits, mine = local(full, rows, ep=ep)
         else:
             mine = _cache_rows(model, cache, cspecs)
             n = next(iter(rows.values())).shape[0]
             slots = torch.arange(n, device=next(iter(mine.values())).device)
-            logits, mine = local(full, rows, cache=mine, slots=slots)
+            logits, mine = local(full, rows, cache=mine, slots=slots, ep=ep)
         return _relay(model, logits, mine, cspecs)
     return prefill_step
 
@@ -676,9 +764,10 @@ def jit_decode_step(model: Model, shape: ShapeSpec):
     one = dataclasses.replace(shape, kind="decode")
 
     def decode_step(params, cache, batch):
-        full = _gather_tree(_local(params), pspecs, d.mesh)
+        ep = _expert_parallel(model)
+        full = _gather_tree(_local(params), pspecs, d.mesh, ep)
         logits, mine = local(full, _cache_rows(model, cache, cspecs),
-                             local_batch(model, one, batch))
+                             local_batch(model, one, batch), ep=ep)
         return _relay(model, logits, mine, cspecs)
     return decode_step
 

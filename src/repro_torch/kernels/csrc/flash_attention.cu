@@ -40,7 +40,7 @@
 // Two instances, chosen by dtype and head dim inside the C entry point
 // (a choice of design, not a fallback):
 //
-// * bf16 at hd 64 and 128: `flash_fwd_kernel_tc`, on the tensor cores.
+// * bf16 at hd 64, 112 and 128: `flash_fwd_kernel_tc`, on the tensor cores.
 //   One block of two warpgroups owns 128 query rows of one (b, h), each
 //   warpgroup 64 of them, and walks the key tiles of 64 up to the causal
 //   limit of its rows; tiles wholly above the diagonal are never loaded,
@@ -69,7 +69,8 @@
 //   a query row is split over hd/32 neighbouring threads (32 of its q and
 //   accumulator values each), whose partial dot products meet in a
 //   shuffle; the online-softmax rescale is paid once per 16 keys; k-tiles
-//   past the causal limit are never loaded.
+//   past the causal limit are never loaded. hd 112 runs the hd-128 tile
+//   (`Tile<112>`, four threads a row), its columns 112..127 zero.
 //
 // Later work, not here: a producer warp with TMA and `setmaxnreg`,
 // overlap of one warpgroup's softmax with its own next products,
@@ -91,12 +92,15 @@ constexpr int kThreads = 128;        // threads per block
 constexpr int kSub = 16;             // keys per online-softmax update
 
 template <int HD> struct Tile {
-  static constexpr int kDpt = HD < 32 ? HD : 32;      // dims per thread
-  static constexpr int kTpr = HD / kDpt;              // threads per row
+  // tile width: hd 112 runs the hd-128 tiles, columns 112..127 zero
+  static constexpr int kTw = HD > 64 ? 128 : HD;
+  static constexpr int kDpt = kTw < 32 ? kTw : 32;    // dims per thread
+  static constexpr int kTpr = kTw / kDpt;             // threads per row
   static constexpr int kBq = kThreads / kTpr;         // query rows / block
-  static constexpr int kBk = HD <= 64 ? 64 : 32;      // keys per smem tile
+  static constexpr int kBk = kTw <= 64 ? 64 : 32;     // keys per smem tile
+  static_assert(HD <= kTw && HD % 8 == 0, "bad head dim");
   static_assert(kBk % kSub == 0, "k tile must hold whole sub-chunks");
-  static_assert(HD % kDpt == 0 && 32 % kTpr == 0, "bad head dim");
+  static_assert(kTw % kDpt == 0 && 32 % kTpr == 0, "bad tile width");
 };
 
 template <typename T, int HD>
@@ -111,8 +115,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int TPR = Tile<HD>::kTpr;
   constexpr int BQ = Tile<HD>::kBq;
   constexpr int BK = Tile<HD>::kBk;
-  __shared__ float k_tile[BK][HD];
-  __shared__ float v_tile[BK][HD];
+  constexpr int TW = Tile<HD>::kTw;
+  __shared__ float k_tile[BK][TW];
+  __shared__ float v_tile[BK][TW];
 
   const int tid = threadIdx.x;
   const int row = tid / TPR;
@@ -129,7 +134,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qrow = q + b * qs.b + (int64_t)qi * qs.s + h * qs.h;
 #pragma unroll
   for (int i = 0; i < DPT; ++i) {
-    qr[i] = row_ok ? C::load(qrow[i * TPR + t]) : 0.f;
+    qr[i] = row_ok && i * TPR + t < HD ? C::load(qrow[i * TPR + t]) : 0.f;
     acc[i] = 0.f;
   }
   float m = kNegInf, l = 0.f;
@@ -145,11 +150,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();                     // previous tile fully consumed
-    for (int idx = tid; idx < BK * HD; idx += kThreads) {
-      const int r = idx / HD, d = idx % HD;
+    for (int idx = tid; idx < BK * TW; idx += kThreads) {
+      const int r = idx / TW, d = idx % TW;
       const int kp = k0 + r;
       float kx = 0.f, vx = 0.f;
-      if (kp < Sk) {                     // ragged tail: zero, masked below
+      if (kp < Sk && d < HD) {           // ragged tail: zero, masked below
         kx = C::load(kb[(int64_t)kp * ks.s + d]);
         vx = C::load(vb[(int64_t)kp * vs.s + d]);
       }
@@ -200,28 +205,37 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l, 1e-30f);
     T* orow = o + b * os.b + (int64_t)qi * os.s + h * os.h;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) orow[i * TPR + t] = C::store(acc[i] / denom);
+    for (int i = 0; i < DPT; ++i)
+      if (i * TPR + t < HD) orow[i * TPR + t] = C::store(acc[i] / denom);
     if (lse != nullptr && t == 0)
       lse[((int64_t)b * H + h) * Sq + qi] = m + logf(denom);
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16, hd 64 / 128: the tensor-core instance
+// bf16, hd 64 / 112 / 128: the tensor-core instance. Head dim 112
+// (kimi-k2) runs the hd-128 tiles: columns 112..127 of every Q, K and V
+// tile are zero-filled by the copies (cp.async with a source size of 0),
+// so they add nothing to Q.K^T, the scale is the caller's 112^-0.5, and
+// only the 112 real output columns are stored. No padded copy of q/k/v
+// is made in global memory; rows there are 224 bytes, 14 chunks.
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD> struct TcFwd {
+  // tile width: the head dim rounded up to whole 64-column blocks; hd
+  // 112 runs the hd-128 tiles with columns 112..127 zero-filled
+  static constexpr int kTW = (HD + 63) / 64 * 64;
   static constexpr int kThreads = 256;                 // two warpgroups
   static constexpr int kBQ = 128;                      // 64 rows each
   static constexpr int kBK = 64;                       // keys per tile
   // at hd 64 two blocks share an SM (<= 128 registers a thread), so one
   // block's softmax overlaps the other's products
-  static constexpr int kMinBlocks = HD == 64 ? 2 : 1;
-  static constexpr int kQBytes = kBQ * HD * 2;
-  static constexpr int kKVBytes = kBK * HD * 2;        // one K or V tile
+  static constexpr int kMinBlocks = kTW == 64 ? 2 : 1;
+  static constexpr int kQBytes = kBQ * kTW * 2;
+  static constexpr int kKVBytes = kBK * kTW * 2;       // one K or V tile
   // Q, then two stages of (K, V); +1024 to align the base
   static constexpr int kSmem = kQBytes + 4 * kKVBytes + 1024;
 };
@@ -234,8 +248,8 @@ flash_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     int Sk, Strides qs, Strides ks, Strides vs, Strides os,
                     int causal, int q_offset, float scale) {
   using P = TcFwd<HD>;
-  constexpr int BQ = P::kBQ, BK = P::kBK, NT = P::kThreads;
-  constexpr int NS = BK / 2, NO = HD / 2;   // accumulator floats / thread
+  constexpr int BQ = P::kBQ, BK = P::kBK, NT = P::kThreads, TW = P::kTW;
+  constexpr int NS = BK / 2, NO = TW / 2;   // accumulator floats / thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (tc::smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t skv = sq + P::kQBytes;     // stage s: K at skv + 2 s KV
@@ -260,9 +274,9 @@ flash_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + b * qs.b + h * qs.h;
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
-  tc::load_tile<BQ, HD, NT>(sq, qb, qs.s, q0, Sq, tid);
-  tc::load_tile<BK, HD, NT>(skv, kb, ks.s, 0, Sk, tid);
-  tc::load_tile<BK, HD, NT>(skv + P::kKVBytes, vb, vs.s, 0, Sk, tid);
+  tc::load_tile<BQ, TW, NT, HD>(sq, qb, qs.s, q0, Sq, tid);
+  tc::load_tile<BK, TW, NT, HD>(skv, kb, ks.s, 0, Sk, tid);
+  tc::load_tile<BK, TW, NT, HD>(skv + P::kKVBytes, vb, vs.s, 0, Sk, tid);
   tc::cp_commit();
 
   float oacc[NO];
@@ -282,9 +296,9 @@ flash_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();                 // tile j landed; tile j - 1 consumed
     if (j + 1 < n_tiles) {           // next tile into the other stage
       const uint32_t nk = skv + ((j + 1) & 1) * 2 * P::kKVBytes;
-      tc::load_tile<BK, HD, NT>(nk, kb, ks.s, k0 + BK, Sk, tid);
-      tc::load_tile<BK, HD, NT>(nk + P::kKVBytes, vb, vs.s, k0 + BK, Sk,
-                                tid);
+      tc::load_tile<BK, TW, NT, HD>(nk, kb, ks.s, k0 + BK, Sk, tid);
+      tc::load_tile<BK, TW, NT, HD>(nk + P::kKVBytes, vb, vs.s, k0 + BK,
+                                    Sk, tid);
       tc::cp_commit();
     }
     if (k0 >= wg_end) continue;      // above this warpgroup's diagonal
@@ -294,7 +308,7 @@ flash_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < NS; ++i) s[i] = 0.f;
     tc::wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < TW / 16; ++kk)
       tc::mma_ss<BK>(s, tc::desc_k<BQ>(sq + wg * 64 * 128, kk),
                      tc::desc_k<BK>(sk, kk), kk > 0);
     tc::wg_commit();
@@ -342,7 +356,7 @@ flash_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      tc::mma_rs<HD>(oacc, &pa[4 * kk], tc::desc_mn<BK>(sv, kk), 1);
+      tc::mma_rs<TW>(oacc, &pa[4 * kk], tc::desc_mn<BK>(sv, kk), 1);
     tc::wg_commit();
     tc::wg_wait<0>();
     tc::reg_fence(oacc);
@@ -419,11 +433,13 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 16: return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
     case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
     case 64:
+    case 112:
     case 128:
-      // bf16 at hd 64 / 128 runs the tensor-core instance instead
+      // bf16 at hd 64 / 112 / 128 runs the tensor-core instance instead
       if constexpr (std::is_same_v<T, float>)
         return hd == 64 ? launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream)
-                        : launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
+             : hd == 112 ? launch<T, 112>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream)
+                         : launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
@@ -432,7 +448,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. dtype: 0 = float32, 1 = bf16.
-// bf16 at hd 64 / 128 runs the tensor-core instance, which needs 16-byte
+// bf16 at hd 64 / 112 / 128 runs the tensor-core instance, which needs 16-byte
 // aligned pointers and strides that are multiples of 8 elements
 // (cudaErrorMisalignedAddress otherwise); every other case runs the
 // CUDA-core instance.
@@ -457,14 +473,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 0)
     err = dispatch_hd<float>(hd, q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal,
                              q_offset, scale, s);
-  else if (dtype == 1 && (hd == 64 || hd == 128)) {
+  else if (dtype == 1 && (hd == 64 || hd == 112 || hd == 128)) {
     const void* ptrs[4] = {q, k, v, o};
     if (!rows_aligned(ptrs, 4, st))
       return static_cast<int>(cudaErrorMisalignedAddress);
-    err = hd == 64 ? launch_tc<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, st,
-                                   causal, q_offset, scale, s)
-                   : launch_tc<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, st,
-                                    causal, q_offset, scale, s);
+    err = hd == 64    ? launch_tc<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, st,
+                                      causal, q_offset, scale, s)
+          : hd == 112 ? launch_tc<112>(q, k, v, o, lse, B, Sq, Sk, H, KV, st,
+                                       causal, q_offset, scale, s)
+                      : launch_tc<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, st,
+                                       causal, q_offset, scale, s);
   } else if (dtype == 1)
     err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, Sq, Sk, H, KV, st,
                                      causal, q_offset, scale, s);
@@ -474,7 +492,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 }
 
 // Dynamic shared memory (bytes) of the tensor-core instance at head dim
-// `hd` (64 or 128; 0 otherwise), for reports.
+// `hd` (64, 112 or 128; 0 otherwise), for reports.
 extern "C" int flash_attention_fwd_tc_smem(int hd) {
-  return hd == 64 ? TcFwd<64>::kSmem : hd == 128 ? TcFwd<128>::kSmem : 0;
+  return hd == 64    ? TcFwd<64>::kSmem
+         : hd == 112 ? TcFwd<112>::kSmem
+         : hd == 128 ? TcFwd<128>::kSmem : 0;
 }

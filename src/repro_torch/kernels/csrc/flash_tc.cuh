@@ -77,23 +77,26 @@ __device__ __forceinline__ void fence_to_async() {
 }
 
 // Copy rows [row0, row0 + ROWS) of one head (row r at g + r * stride,
-// HD contiguous bf16) into the swizzled tile at `tile`, rows >= nrows
-// zero-filled. All NT threads of the block take part.
-template <int ROWS, int HD, int NT>
+// VALID contiguous bf16) into the swizzled tile at `tile`, HD values a
+// row: rows >= nrows and columns >= VALID (a head dim padded up to the
+// tile's, e.g. 112 in a 128-wide tile) zero-filled. All NT threads of
+// the block take part.
+template <int ROWS, int HD, int NT, int VALID = HD>
 __device__ __forceinline__ void load_tile(uint32_t tile,
                                           const __nv_bfloat16* g,
                                           int64_t stride, int row0,
                                           int nrows, int tid) {
   constexpr int kChunks = ROWS * HD / 8;
   static_assert(kChunks % NT == 0, "tile must split evenly over threads");
+  static_assert(VALID % 8 == 0 && VALID <= HD, "whole 16-byte chunks");
 #pragma unroll
   for (int it = 0; it < kChunks / NT; ++it) {
     const int i = tid + it * NT;
     const int r = i / (HD / 8), c = i % (HD / 8);
     const int gr = row0 + r;
-    const bool ok = gr < nrows;
+    const bool ok = gr < nrows && c < VALID / 8;
     cp_async16(tile + chunk_offset<ROWS>(r, c),
-               g + (ok ? (int64_t)gr * stride : 0) + c * 8, ok);
+               g + (ok ? (int64_t)gr * stride + c * 8 : 0), ok);
   }
 }
 

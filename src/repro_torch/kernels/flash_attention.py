@@ -3,8 +3,11 @@
 ``repro/kernels/flash_attention.py:_flash_kernel``.
 
 The C entry point picks the instance by dtype and head dim: bf16 at hd
-64 and 128 runs on the tensor cores (``wgmma``, ``flash_fwd_kernel_tc``),
-float32 and bf16 at hd 16/32 on the CUDA cores (``flash_fwd_kernel``).
+64, 112 and 128 runs on the tensor cores (``wgmma``,
+``flash_fwd_kernel_tc``), float32 and bf16 at hd 16/32 on the CUDA cores
+(``flash_fwd_kernel``). Head dim 112 (kimi-k2) runs the hd-128 tiles of
+either instance with columns 112..127 zero-filled as each tile is loaded
+and the scale 112^-0.5; the wrapper pads nothing.
 The wrapper checks what the kernel takes (for the tensor-core instance,
 16-byte aligned rows), allocates the output with ``torch.empty``,
 launches on the current stream and raises if the launch is refused.
@@ -24,11 +27,11 @@ from repro_torch.kernels import build
 NAME = "flash_attention"
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:23"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # bf16 at these head dims runs on the tensor cores (wgmma), whose 16-byte
 # copies need aligned rows; every other case runs on the CUDA cores
-TENSOR_CORE_HEAD_DIMS = (64, 128)
+TENSOR_CORE_HEAD_DIMS = (64, 112, 128)
 
 launches = 0          # kernel launches in this process (see ops.py)
 launches_tc = 0       # of them, on the tensor-core instance

@@ -27,6 +27,9 @@ NAME = "flash_attention_bwd"
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 REPLACES = "src/repro/models/attention.py:232"
 
+# K4b's instances; the forward's hd 112 (kimi-k2, served only) has none
+HEAD_DIMS = (16, 32, 64, 128)
+
 launches = 0          # kernel launches in this process (see ops.py)
 launches_tc = 0       # of them, on the tensor-core instance
 _fn = None
@@ -78,8 +81,10 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool,
         raise ValueError("lse must be contiguous float32 (B, H, Sq)")
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    if hd not in _fa.HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {_fa.HEAD_DIMS}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"K4b (flash_attention_bwd) has no instance at "
+                         f"head_dim {hd}: it takes {HEAD_DIMS} (hd 112 is "
+                         f"K4's alone, for serving)")
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the grid limit 65535")
     for name, t in ts.items():

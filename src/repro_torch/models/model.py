@@ -13,7 +13,8 @@ layout of the params, the batch and the caches on a mesh:
 ``cache_sharding_specs``, the reference's (``model.py:28-50, 115-200``).
 The compute itself is the one-card code: the sharded steps of
 ``distributed/steps.py`` gather the weights and run it on each rank's
-batch shard. ``opts`` holds the reference's model options the port reads:
+batch shard, a moe arch's expert layers expert-parallel over "model"
+(``ep``, a ``models.moe.ExpertParallel``). ``opts`` holds the reference's model options the port reads:
 ``xent_chunk`` (default 512).
 """
 from __future__ import annotations
@@ -78,30 +79,35 @@ class Model:
         return tree_shardings(self.dist, self.param_defs())
 
     def loss(self, params, batch, xent_chunk: Optional[int] = None,
-             sp=None):
+             sp=None, ep=None):
         """Mean next-token CE of ``batch`` (tokens or embeds, labels;
         encdec: enc_embeds, tokens, labels); ``xent_chunk`` defaults to
         ``opts["xent_chunk"]``, else 512. ``sp`` (a
         ``models.attention.SeqParallel``): ``batch`` is this rank's slice
-        of the sequence and attention is sequence-parallel."""
+        of the sequence and attention is sequence-parallel. ``ep`` (a
+        ``models.moe.ExpertParallel``): the moe layers run
+        expert-parallel on this rank's experts."""
         if xent_chunk is None:
             xent_chunk = (self.opts or {}).get("xent_chunk", 512)
         if self.encdec:
             return ed.encdec_loss(params, batch, self.cfg,
                                   xent_chunk=xent_chunk, sp=sp)
         return tf.lm_loss(params, batch, self.cfg, xent_chunk=xent_chunk,
-                          sp=sp)
+                          sp=sp, ep=ep)
 
-    def prefill(self, params, batch, *, cache=None, slots=None):
+    def prefill(self, params, batch, *, cache=None, slots=None, ep=None):
         """Into a new cache as long as the prompt, or into ``slots`` of a
-        batched ``cache`` (``empty_cache``)."""
-        fn = ed.encdec_prefill if self.encdec else tf.lm_prefill
-        return fn(params, batch, self.cfg, cache=cache, slots=slots)
+        batched ``cache`` (``empty_cache``); ``ep`` as in ``loss``."""
+        if self.encdec:
+            return ed.encdec_prefill(params, batch, self.cfg, cache=cache,
+                                     slots=slots)
+        return tf.lm_prefill(params, batch, self.cfg, cache=cache,
+                             slots=slots, ep=ep)
 
-    def decode(self, params, cache, batch):
+    def decode(self, params, cache, batch, ep=None):
         if self.encdec:
             return ed.encdec_decode(params, cache, batch, self.cfg)
-        return tf.lm_decode(params, cache, batch, self.cfg)
+        return tf.lm_decode(params, cache, batch, self.cfg, ep=ep)
 
     def input_specs(self, shape: ShapeSpec) -> Dict[str, CacheSpec]:
         """Shapes and dtypes of one step's batch (``model.py:73-112``).

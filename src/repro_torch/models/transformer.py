@@ -28,8 +28,12 @@ Differences from the JAX module, by design:
   * the ssm family runs the SSD scan through ``models.mamba.ssd_scan``
     (K5 on the card; under autograd ``SSDScan``, with the K5b backward)
     where JAX calls the jnp ``ssd_scan_ref`` and differentiates it;
-  * the moe family's FFN is ``models.moe.moe_block`` on one card (the
-    reference's ``_moe_single``); a batched decode step gives each expert
+  * the moe family's FFN is ``models.moe.moe_block``: on one card the
+    reference's ``_moe_single``, and on a mesh whose expert axis is
+    "model" its expert-parallel bodies, through an ``ep`` argument (a
+    ``models.moe.ExpertParallel``) of the loss, prefill and decode,
+    which ``distributed.steps`` passes as it passes ``sp``; a batched
+    decode step on one card gives each expert
     ``moe.decode_capacity(B)`` slots, at least one per slot, so no slot's
     token is dropped, as in the serving engine's per-slot
     ``vmap(decode_one)``. The reference's batched ``lm_decode`` uses
@@ -53,6 +57,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.errors import UserError
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
+from repro_torch.models.moe import ExpertParallel
 from repro_torch.models.attention import (SeqParallel, decode_attention,
                                          flash_attention,
                                          sp_flash_attention)
@@ -258,24 +263,27 @@ def attn_decode(h, p, cfg: ArchConfig, pos, kc, vc):
     return _out_proj(out, p, cfg), kc, vc
 
 
-def ffn_apply(h, bp, cfg: ArchConfig, capacity: Optional[int] = None):
+def ffn_apply(h, bp, cfg: ArchConfig, capacity: Optional[int] = None,
+              ep: Optional[ExpertParallel] = None):
     """The block's FFN: the moe block where the layer has one
     (``capacity`` slots per expert, by default ``moe._capacity`` of the
-    tokens), else the SwiGLU MLP."""
+    tokens; expert-parallel with ``ep``), else the SwiGLU MLP."""
     if "moe" in bp:
-        return moe_mod.moe_block(h, bp["moe"], cfg, capacity)
+        return moe_mod.moe_block(h, bp["moe"], cfg, capacity, ep)
     return gated_mlp(h, bp["mlp"]["wg"], bp["mlp"]["wu"], bp["mlp"]["wd"])
 
 
 def hybrid_stack(h, blocks, cfg: ArchConfig, attn, mamba,
-                 capacity: Optional[int] = None):
+                 capacity: Optional[int] = None,
+                 ep: Optional[ExpertParallel] = None):
     """The hybrid's layers in order (the reference's ``_hybrid_period``,
     period after period): in period p, layer j = 0 mixes with
     ``attn(p, x, weights)`` and layer j >= 1 with ``mamba(p, j - 1, x,
     weights)``, x the normed residual; each mixer's output is added to
     the residual, then the layer's FFN (``moe_block`` with ``capacity``
-    at odd j, sub-index (j - 1) // 2; SwiGLU at even j, sub-index
-    j // 2). The callbacks write the caches of prefill and decode."""
+    at odd j, sub-index (j - 1) // 2, expert-parallel with ``ep``;
+    SwiGLU at even j, sub-index j // 2). The callbacks write the caches
+    of prefill and decode."""
     for p in range(n_periods(cfg)):
         bp = layer_params(blocks, p)
         for j in range(cfg.attn_period):
@@ -288,7 +296,8 @@ def hybrid_stack(h, blocks, cfg: ArchConfig, attn, mamba,
             x = norm_apply(h, layer_params(bp["ffn_ln"], j), cfg)
             if j % 2:
                 h = h + moe_mod.moe_block(
-                    x, layer_params(bp["moe"], (j - 1) // 2), cfg, capacity)
+                    x, layer_params(bp["moe"], (j - 1) // 2), cfg, capacity,
+                    ep)
             else:
                 mp = layer_params(bp["mlp"], j // 2)
                 h = h + gated_mlp(x, mp["wg"], mp["wu"], mp["wd"])
@@ -340,7 +349,8 @@ def cache_shapes(cfg: ArchConfig, B: int, S: int) -> Dict[str, Tuple]:
 
 
 def lm_prefill(params, batch, cfg: ArchConfig, *,
-               cache: Optional[Dict] = None, slots=None):
+               cache: Optional[Dict] = None, slots=None,
+               ep: Optional[ExpertParallel] = None):
     """Prefill ``batch["tokens"]`` (B, S), or ``batch["embeds"]`` (B, S,
     D) with optional ``positions``. Returns (logits (B,1,V) f32, cache).
 
@@ -349,7 +359,8 @@ def lm_prefill(params, batch, cfg: ArchConfig, *,
     ``slots`` (B,) row b goes straight into slot ``slots[b]``: its K/V
     at positions 0..S-1 (positions past S keep what they held, which
     decode masks), its ssm state and conv tail, or the hybrid's both;
-    its ``pos`` becomes S."""
+    its ``pos`` becomes S. ``ep``: the moe layers run expert-parallel
+    (``moe.moe_block``)."""
     h, positions = _inputs_to_h(params, batch, cfg)
     B, S = h.shape[:2]
     dev = h.device
@@ -381,7 +392,7 @@ def lm_prefill(params, batch, cfg: ArchConfig, *,
             cache["ssm"][p, i, slots] = state
             cache["conv"][p, i, slots] = tail
             return out
-        h = hybrid_stack(h, blocks, cfg, attn, mamba)
+        h = hybrid_stack(h, blocks, cfg, attn, mamba, ep=ep)
     else:
         for l in range(cfg.n_layers):
             bp = layer_params(blocks, l)
@@ -389,7 +400,7 @@ def lm_prefill(params, batch, cfg: ArchConfig, *,
             a, (k, v) = attn_prefill(x, bp["attn"], cfg, positions)
             h = h + a
             x = norm_apply(h, bp["ln2"], cfg)
-            h = h + ffn_apply(x, bp, cfg)
+            h = h + ffn_apply(x, bp, cfg, ep=ep)
             cache["k"][l, slots, :S] = k
             cache["v"][l, slots, :S] = v
     cache["pos"][slots] = S
@@ -398,12 +409,15 @@ def lm_prefill(params, batch, cfg: ArchConfig, *,
     return logits, cache
 
 
-def lm_decode(params, cache, batch, cfg: ArchConfig):
+def lm_decode(params, cache, batch, cfg: ArchConfig,
+              ep: Optional[ExpertParallel] = None):
     """One decode step for every slot. batch: tokens (B,1), or (not the
     hybrid, as in the reference) embeds (B,1,D). cache: as
     ``cache_shapes``, updated in place (pos advances by one). Returns
     (logits (B,1,V) f32, cache). RoPE's position is each slot's cache
-    position, in all three M-RoPE sections (``attn_decode``)."""
+    position, in all three M-RoPE sections (``attn_decode``). With ``ep``
+    the moe layers run expert-parallel, their capacity the reference's
+    ``_capacity`` of the rank's tokens."""
     if "embeds" in batch and cfg.family != "hybrid":
         h = batch["embeds"].to(model_dtype(cfg))
     else:
@@ -422,7 +436,7 @@ def lm_decode(params, cache, batch, cfg: ArchConfig):
             cache["ssm"][p, i] = state
             cache["conv"][p, i] = tail
             return out
-        h = hybrid_stack(h, blocks, cfg, attn, mamba, capacity)
+        h = hybrid_stack(h, blocks, cfg, attn, mamba, capacity, ep)
     else:
         for l in range(cfg.n_layers):
             bp = layer_params(blocks, l)
@@ -438,7 +452,7 @@ def lm_decode(params, cache, batch, cfg: ArchConfig):
                                   cache["v"][l])
             h = h + a
             x = norm_apply(h, bp["ln2"], cfg)
-            h = h + ffn_apply(x, bp, cfg, capacity)
+            h = h + ffn_apply(x, bp, cfg, capacity, ep)
     cache["pos"] = pos + 1
     h = norm_apply(h, params["final_norm"], cfg)
     return last_token_logits(h, params["head"]), cache
@@ -454,7 +468,8 @@ def _positions(batch, B: int, S: int, cfg: ArchConfig, dev):
 
 
 def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512,
-            sp: Optional[SeqParallel] = None):
+            sp: Optional[SeqParallel] = None,
+            ep: Optional[ExpertParallel] = None):
     """Next-token CE loss (``transformer.py:272-332`` and
     ``_hybrid_loss``). batch: tokens (B, S), labels (B, S)[, positions].
     Embed; per layer, dense and moe: norm -> attention (RoPE, flash
@@ -469,7 +484,8 @@ def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512,
     With ``sp`` (``SP_FAMILIES`` only) the batch is this rank's slice of
     the sequence, with its global ``positions``, attention gathers the
     group's K/V, and the loss is the slice's mean CE (the group's mean is
-    the mean of its ranks': the slices are equal)."""
+    the mean of its ranks': the slices are equal). With ``ep`` the moe
+    layers run expert-parallel (``ep.sliced`` when ``sp`` is given)."""
     if sp is not None and cfg.family not in SP_FAMILIES:
         raise ValueError(f"{cfg.family}: no sequence-parallel loss")
     h, positions = _inputs_to_h(params, batch, cfg)
@@ -484,7 +500,7 @@ def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512,
         h = hybrid_stack(
             h, blocks, cfg,
             lambda p, x, w: attn_prefill(x, w, cfg, positions)[0],
-            lambda p, i, x, w: mam.mamba_block(x, w, cfg)[0])
+            lambda p, i, x, w: mam.mamba_block(x, w, cfg)[0], ep=ep)
     else:
         for l in range(cfg.n_layers):
             bp = layer_params(blocks, l)
@@ -492,7 +508,7 @@ def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512,
             h = h + attn_prefill(x, bp["attn"], cfg, positions,
                                  sp=sp)[0]
             x = norm_apply(h, bp["ln2"], cfg)
-            h = h + ffn_apply(x, bp, cfg)
+            h = h + ffn_apply(x, bp, cfg, ep=ep)
     h = norm_apply(h, params["final_norm"], cfg)
     return chunked_xent(h, params["head"], batch["labels"],
                         chunk=min(xent_chunk, S))

@@ -12,7 +12,9 @@ manifest trained on CUDA against the CPU, and the sharded step on a
 1-rank NCCL mesh against the mesh-less step; the PS solvers' server
 updates (K1), int8 push (K2, K3) and means on a (4, F) stack, K4/K4b at
 a zero3_sp rank's shapes (``q_offset`` > 0), and the zero3_sp step on a
-1-rank NCCL mesh.
+1-rank NCCL mesh; K4 at kimi-k2's head dim 112 (K4b raising there), and
+the moe and hybrid families' expert-parallel steps on a 1-rank NCCL
+mesh.
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is false (the kernel has no CPU mode). This file imports no JAX, so it
@@ -62,7 +64,8 @@ def _qkv(B, Sq, Sk, H, KV, hd, dtype, seed=0):
 
 
 def _on_tensor_cores(q):
-    """bf16 at head dim 64 or 128: the tensor-core instances of K4/K4b."""
+    """bf16 at head dim 64 or 128: the tensor-core instances of K4/K4b
+    (K4's also at 112, ``test_flash_kernel_at_head_dim_112``)."""
     return q.dtype == torch.bfloat16 and q.shape[3] in (64, 128)
 
 
@@ -258,6 +261,49 @@ def test_flash_tensor_core_kernels_are_deterministic(cuda, hd):
     g2 = ops.flash_attention_bwd(q, k, v, o1, l1, do, causal=True)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+# kimi-k2's head dim 112: the hd-128 tiles of either instance with
+# columns 112..127 zero-filled on load; causal and not, ragged Sq / Sk
+# (past one key tile), q_offset, GQA 8 as kimi's 64 / 8
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,q_offset", [
+    (2, 300, 300, 8, 1, True, 0),
+    (1, 37, 37, 16, 2, True, 0),
+    (2, 23, 141, 8, 1, False, 0),
+    (2, 23, 41, 8, 2, True, 9),
+])
+def test_flash_kernel_at_head_dim_112(cuda, dtype, B, Sq, Sk, H, KV, causal,
+                                      q_offset):
+    q, k, v = _qkv(B, Sq, Sk, H, KV, 112, dtype, seed=13)
+    before, before_tc = kfa.launches, kfa.launches_tc
+    o, lse = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                 return_lse=True)
+    torch.cuda.synchronize()
+    assert kfa.launches == before + 1
+    assert kfa.launches_tc == before_tc + (dtype == torch.bfloat16)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal=causal,
+                                             q_offset=q_offset,
+                                             return_lse=True)
+    tol = TOL[dtype]
+    assert o.shape == q.shape and torch.isfinite(o).all()
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    again = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    assert torch.equal(o, again)
+
+
+def test_flash_bwd_kernel_raises_at_head_dim_112(cuda):
+    """K4b has no hd-112 instance (kimi-k2 is served, not trained, on
+    one card): its wrapper raises, naming K4b and the head dim."""
+    from repro_torch.kernels import flash_attention_bwd as kfab
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _qkv(1, 64, 64, 8, 1, 112, dtype, seed=14)
+        o, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
+        before = kfab.launches
+        with pytest.raises(ValueError, match="K4b.*112"):
+            ops.flash_attention_bwd(q, k, v, o, lse, o, causal=True)
+        assert kfab.launches == before
 
 
 def test_flash_tensor_core_kernels_reject_unaligned_rows(cuda):
@@ -1508,6 +1554,72 @@ def test_zero3_sp_step_on_a_one_rank_nccl_mesh(cuda, tmp_path):
         mp = map_leaves(lambda p, x: distribute(x, leaf_at(psh, p)), mine)
         shape = ShapeSpec("t", S, B, "train")
         assert steps.local_loss_and_grads(model, shape).seq_parallel(b)
+        state = {"step": distribute(torch.zeros((), dtype=torch.int32,
+                                                device="cuda"),
+                                    Sharding(d.mesh, P()))}
+        mp, _, lb = steps.jit_train_step(model, opt, shape)(mp, state, b)
+        assert abs(lb.item() - la.item()) <= 1e-6
+        for (k, x), (_, y) in zip(iter_leaves(params), iter_leaves(mp)):
+            torch.testing.assert_close(gather(y), x, atol=1e-6, rtol=1e-6,
+                                       msg=k)
+    finally:
+        tdist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "jamba-1.5-large-398b"])
+def test_expert_parallel_steps_on_a_one_rank_nccl_mesh(cuda, tmp_path,
+                                                       arch):
+    """The moe and hybrid smoke models' expert-parallel steps on a 1-rank
+    NCCL mesh (``fsdp_tp``): an SGD train step (the all-to-all body and
+    its backward), then prefill (all-to-all) and a decode step (local
+    experts, all-reduce) equal the mesh-less steps on the card."""
+    import torch.distributed as tdist
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.sharding import (Dist, P, Sharding,
+                                                  distribute, gather)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import make_model
+    from repro_torch.models.layers import iter_leaves, leaf_at, map_leaves
+    from repro_torch.optim.optimizers import OptConfig, init_opt_state
+    cfg = reduce_for_smoke(get_arch(arch))
+    B, S = 2, 32
+    g = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         device="cuda")
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = OptConfig(name="sgd", lr=0.1)
+    params = make_model(cfg).init(torch.Generator(device="cuda")
+                                  .manual_seed(0))
+    mine = map_leaves(lambda _p, t: t.clone(), params)
+    flat = make_model(cfg)
+    logits_a, cache_a = steps.build_prefill_step(flat)(
+        mine, {"tokens": b["tokens"][:, :16]}, cache=flat.empty_cache(
+            B, 17, "cuda"), slots=torch.arange(B, device="cuda"))
+    step_a, cache_a = steps.build_decode_step(flat)(
+        mine, cache_a, {"tokens": b["tokens"][:, 16:17]})
+    params, _, la = steps.build_train_step(flat, opt)(
+        params, init_opt_state(opt, params), b)
+    tdist.init_process_group("nccl", store=tdist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        d = Dist(mesh=make_mesh(1, 1)).resolve_batch(B)
+        model = make_model(cfg, d)
+        psh = model.param_shardings()
+        mp = map_leaves(lambda p, x: distribute(x, leaf_at(psh, p)), mine)
+        pshape = ShapeSpec("p", 16, B, "prefill")
+        csh = model.cache_shardings(B)
+        cache = {k: distribute(v, csh[k]) for k, v in
+                 model.empty_cache(B, 17, "cuda").items()}
+        logits_b, cache = steps.jit_prefill_step(model, pshape)(
+            mp, {"tokens": b["tokens"][:, :16]}, cache=cache)
+        step_b, cache = steps.jit_decode_step(model, pshape)(
+            mp, cache, {"tokens": b["tokens"][:, 16:17]})
+        assert torch.equal(logits_b.full_tensor(), logits_a)
+        assert torch.equal(step_b.full_tensor(), step_a)
+        for k, v in cache.items():
+            assert torch.equal(v.full_tensor(), cache_a[k]), k
+        shape = ShapeSpec("t", S, B, "train")
         state = {"step": distribute(torch.zeros((), dtype=torch.int32,
                                                 device="cuda"),
                                     Sharding(d.mesh, P()))}

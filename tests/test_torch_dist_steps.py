@@ -27,9 +27,12 @@ inside them; the tests read their results. Cases, at smoke size
     one-card steps', and the cache is laid out per
     ``cache_sharding_specs``.
 
-And without processes: a moe arch on a mesh whose "model" axis is larger
-than 1 raises ``UserError``, under ``zero3_sp`` too; so does a cache
-whose batch the data axes do not divide."""
+And without processes: a moe arch's steps build on a mesh whose "model"
+axis is larger than 1, under ``zero3_sp`` too (they run expert-parallel:
+tests/test_torch_moe_ep.py runs them on 4 gloo ranks against the
+reference); one whose experts and "model" axis do not divide one another
+raises ``UserError``, as does a cache whose batch the data axes do not
+divide."""
 import json
 from pathlib import Path
 
@@ -320,14 +323,18 @@ def _shape():
     return ShapeSpec("t", S, B, "train")
 
 
-def test_moe_with_an_expert_axis_raises():
+def test_moe_steps_build_on_an_expert_axis():
+    """The expert-parallel steps build for a "model" axis of 2 (4
+    experts, 2 a rank) and of 8 (2 copies of each), of 1, and under
+    ``dp_only``. The steps on a real mesh: tests/test_torch_moe_ep.py."""
     cfg = reduce_for_smoke(get_arch("grok-1-314b"))
     opt = OptConfig()
-    wide = Dist(mesh=FakeMesh({"data": 2, "model": 2})).resolve_batch(B)
-    with pytest.raises(UserError, match="moe's sharded dispatch"):
-        steps.jit_train_step(make_model(cfg, wide), opt, _shape())
-    with pytest.raises(UserError, match="moe's sharded dispatch"):
-        steps.jit_prefill_step(make_model(cfg, wide), _shape())
+    for m in (2, 8):
+        wide = Dist(mesh=FakeMesh({"data": 2, "model": m})).resolve_batch(B)
+        for build in (lambda mm: steps.jit_train_step(mm, opt, _shape()),
+                      lambda mm: steps.jit_prefill_step(mm, _shape()),
+                      lambda mm: steps.jit_decode_step(mm, _shape())):
+            assert callable(build(make_model(cfg, wide)))
     narrow = Dist(mesh=FakeMesh({"data": 4, "model": 1})).resolve_batch(B)
     assert callable(steps.jit_train_step(make_model(cfg, narrow), opt,
                                          _shape()))
@@ -337,19 +344,30 @@ def test_moe_with_an_expert_axis_raises():
                                          _shape()))
 
 
-def test_zero3_sp_raises():
-    """``zero3_sp`` keeps the expert axis on "model": a moe arch on a mesh
-    whose "model" axis is larger than 1 still raises under it (the
-    sharded dispatch is not ported), and with "model" 1 it builds; a
-    dense arch builds under it (its sequence-parallel step:
-    tests/test_torch_sp.py)."""
+def test_moe_with_an_expert_axis_raises():
+    """A "model" axis of 3 neither divides grok-1's 4 smoke experts nor
+    holds whole copies of them: every step raises ``UserError``."""
+    cfg = reduce_for_smoke(get_arch("grok-1-314b"))
+    odd = Dist(mesh=FakeMesh({"data": 1, "model": 3})).resolve_batch(B)
+    for build in (lambda mm: steps.jit_train_step(mm, OptConfig(), _shape()),
+                  lambda mm: steps.jit_prefill_step(mm, _shape()),
+                  lambda mm: steps.jit_decode_step(mm, _shape())):
+        with pytest.raises(UserError, match="do not split"):
+            build(make_model(cfg, odd))
+
+
+def test_zero3_sp_steps_build():
+    """``zero3_sp`` keeps the expert axis on "model": a moe arch's steps
+    build under it on a "model" axis of 2 (expert-parallel, the rows the
+    rank's slice where the step is sequence-parallel: run on 4 gloo
+    ranks in tests/test_torch_moe_ep.py) and of 1; a dense arch builds
+    under it (its sequence-parallel step: tests/test_torch_sp.py)."""
     moe = reduce_for_smoke(get_arch("grok-1-314b"))
     wide = Dist(mesh=FakeMesh({"data": 2, "model": 2}),
                 policy="zero3_sp").resolve_batch(B)
     for build in (lambda m: steps.jit_train_step(m, OptConfig(), _shape()),
                   lambda m: steps.jit_decode_step(m, _shape())):
-        with pytest.raises(UserError, match="moe's sharded dispatch"):
-            build(make_model(moe, wide))
+        assert callable(build(make_model(moe, wide)))
     narrow = Dist(mesh=FakeMesh({"data": 4, "model": 1}),
                   policy="zero3_sp").resolve_batch(B)
     assert callable(steps.jit_train_step(make_model(moe, narrow),
@@ -357,6 +375,18 @@ def test_zero3_sp_raises():
     dense = reduce_for_smoke(get_arch(ARCH))
     assert callable(steps.jit_train_step(make_model(dense, wide),
                                          OptConfig(), _shape()))
+
+
+def test_zero3_sp_raises():
+    """Under ``zero3_sp`` a moe arch on a "model" axis of 3, which does
+    not divide its 4 experts, raises ``UserError``."""
+    moe = reduce_for_smoke(get_arch("grok-1-314b"))
+    odd = Dist(mesh=FakeMesh({"data": 1, "model": 3}),
+               policy="zero3_sp").resolve_batch(B)
+    for build in (lambda m: steps.jit_train_step(m, OptConfig(), _shape()),
+                  lambda m: steps.jit_decode_step(m, _shape())):
+        with pytest.raises(UserError, match="do not split"):
+            build(make_model(moe, odd))
 
 
 def test_cache_of_an_indivisible_batch_raises():

@@ -52,16 +52,32 @@ def _pad_rows(x, r0, n, total):
 
 
 def emulate_fwd(q, k, v, *, causal, q_offset=0, round_ops=True,
-                visits=None):
+                visits=None, tile_hd=None):
     """q (B, H, Sq, hd), k/v (B, KV, Sk, hd) f32 -> o (B, H, Sq, hd), lse
     (B, H, Sq). ``visits`` collects (warpgroup first row, key tile start)
-    of every tile a warpgroup multiplies."""
+    of every tile a warpgroup multiplies. ``tile_hd`` > hd: the tiles are
+    that wide, their columns past hd zero-filled as the kernel's copies
+    fill them (hd 112 in the hd-128 tiles), the scale hd^-0.5 of the real
+    head dim, and only hd output columns kept."""
+    hd = q.shape[-1]
+    scale = hd ** -0.5
+    if tile_hd is not None and tile_hd > hd:
+        def pad(t):
+            return torch.nn.functional.pad(t, (0, tile_hd - hd))
+        o, lse = _emulate_fwd(pad(q), pad(k), pad(v), causal=causal,
+                              q_offset=q_offset, round_ops=round_ops,
+                              visits=visits, scale=scale)
+        return o[..., :hd], lse
+    return _emulate_fwd(q, k, v, causal=causal, q_offset=q_offset,
+                        round_ops=round_ops, visits=visits, scale=scale)
+
+
+def _emulate_fwd(q, k, v, *, causal, q_offset, round_ops, visits, scale):
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     BK, _ = _tiles(hd)
     kh = k.repeat_interleave(H // KV, dim=1)          # GQA by index
     vh = v.repeat_interleave(H // KV, dim=1)
-    scale = hd ** -0.5
     o = torch.zeros_like(q)
     lse = torch.zeros(B, H, Sq)
     for q0 in range(0, Sq, 2 * WG):
@@ -247,6 +263,32 @@ def test_tile_emulation_vs_jax(B, Sq, Sk, H, KV, hd, causal, q_offset,
     for g, w in zip(got, want_g):
         rel = np.linalg.norm(_bshd(g) - w) / np.linalg.norm(w)
         assert rel <= BWD_REL_L2, rel
+
+
+# kimi-k2's head dim 112 in the hd-128 tiles (columns 112..127 zero):
+# B, Sq, Sk, H, KV, causal, q_offset
+CASES_112 = [
+    (1, 150, 150, 8, 1, True, 0),          # two q blocks, ragged key tile
+    (2, 37, 37, 4, 2, True, 0),            # shorter than one tile
+    (1, 23, 141, 4, 1, False, 0),          # not causal, ragged keys
+    (1, 23, 41, 4, 2, True, 9),            # Sq != Sk, q_offset
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,q_offset", CASES_112)
+@pytest.mark.parametrize("round_ops", [False, True])
+def test_tile_emulation_at_head_dim_112_vs_jax(B, Sq, Sk, H, KV, causal,
+                                                q_offset, round_ops):
+    """The forward's hd-128 tiles with head dim 112's zero-filled columns
+    and the scale 112^-0.5 against JAX's flash attention at hd 112."""
+    q, k, v, do = _inputs(1, B, Sq, Sk, H, KV, 112, bf16_values=round_ops)
+    want_o, _ = _jax_reference(q, k, v, do, H, causal, q_offset)
+    tq, tk, tv = (_bhsd(a) for a in (q, k, v))
+    o, _ = emulate_fwd(tq, tk, tv, causal=causal, q_offset=q_offset,
+                       round_ops=round_ops, tile_hd=128)
+    assert o.shape[-1] == 112
+    tol = 1e-5 if not round_ops else 2e-2
+    np.testing.assert_allclose(_bshd(o), want_o, atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("Sq,Sk,hd,q_offset", [(300, 300, 64, 0),

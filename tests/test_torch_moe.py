@@ -404,3 +404,76 @@ def test_init_leaf_small_leaf_is_one_draw():
     a = torch.randn(d.shape, generator=torch.Generator().manual_seed(5))
     torch.testing.assert_close(got, (a / 8).to(torch.bfloat16), rtol=0,
                                atol=0)
+
+
+# ---------------------------------------------------------------------------
+# kimi-k2's head dim 112 at a narrow width
+# ---------------------------------------------------------------------------
+
+
+def _kimi_narrow(get, moe_config):
+    """kimi-k2 narrowed to d_model 448 over 4 heads (head dim 112, as the
+    full model's 7168 over 64), KV 2, 2 layers, 16 experts top-8, vocab
+    256, f32."""
+    import dataclasses
+    c = get("kimi-k2-1t-a32b")
+    return dataclasses.replace(
+        c, arch_id=c.arch_id + "-narrow", d_model=448, n_heads=4,
+        n_kv_heads=2, n_layers=2, vocab_size=256, dtype="float32",
+        moe=moe_config(n_experts=16, top_k=8, d_ff_expert=64))
+
+
+def test_kimi_narrow_head_dim_112_matches_jax():
+    """Loss, prefill (logits and caches) and two batched decode steps of
+    the narrow kimi-k2 against the JAX model, from JAX-initialised
+    params carried over as numpy; the attention at head dim 112 (the
+    plain flash on the CPU, whose kernel is K4's hd-128 tile with zero
+    columns on the card). Loss and logits at ``MODEL_TOL``. The caches
+    at ``MODEL_TOL`` of their largest magnitude: the reference's init
+    draws wk/wv with std ~0.7 at this width, so the keys reach ~68, and
+    layer 1's, after a moe layer whose eight contributions a token the
+    two packages sum in different orders, differ by up to 1.5e-3 (2.4e-5
+    of the keys' scale; layer 0's by 5e-5)."""
+    from repro.configs.base import MoEConfig as JMoE
+    from repro_torch.configs.base import MoEConfig as TMoE
+    jcfg = _kimi_narrow(jax_get_arch, JMoE)
+    cfg = _kimi_narrow(get_arch, TMoE)
+    assert cfg.hd == jcfg.hd == 112
+    jmodel = jax_make_model(jcfg, Dist(), dict(OPTS))
+    ravel, unravel = _flat_io(_jax_shapes(jcfg))
+    flat = np.array(ravel(jmodel.init(jax.random.PRNGKey(3))))
+    jparams = unravel(jnp.asarray(flat))
+    model = make_model(cfg)
+    params = params_from_flat(flat, cfg, device="cpu")
+    rng = np.random.RandomState(8)
+    toks = rng.randint(0, cfg.vocab_size, size=(2, 33)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    jl = jmodel.loss(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    tl_ = model.loss(params, {k: torch.from_numpy(v).long()
+                              for k, v in batch.items()}, xent_chunk=32)
+    np.testing.assert_allclose(tl_.item(), float(jl), **MODEL_TOL)
+
+    prompt = toks[:, :20]
+    jlog, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(prompt)})
+    cache = model.empty_cache(2, 22, "cpu")
+    tlog, cache = model.prefill(params, {"tokens": torch.from_numpy(
+        prompt).long()}, cache=cache, slots=torch.arange(2))
+    np.testing.assert_allclose(_np(tlog), _np(jlog), **MODEL_TOL)
+    def close_at_scale(got, want):
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got, want, rtol=MODEL_TOL["rtol"],
+                                   atol=MODEL_TOL["atol"] * scale)
+    for key in ("k", "v"):
+        assert cache[key].shape[-1] == 112
+        close_at_scale(_np(cache[key])[:, :, :20], _np(jc[key]))
+    pad = [(0, 0)] * 5
+    pad[2] = (0, 2)
+    jc = dict(jc, k=jnp.pad(jc["k"], pad), v=jnp.pad(jc["v"], pad))
+    for i in range(2):
+        tok = toks[:, 20 + i:21 + i]
+        jlog, jc = jmodel.decode(jparams, jc, {"tokens": jnp.asarray(tok)})
+        tlog, cache = model.decode(params, cache,
+                                   {"tokens": torch.from_numpy(tok).long()})
+        np.testing.assert_allclose(_np(tlog), _np(jlog), **MODEL_TOL)
+    for key in ("k", "v"):
+        close_at_scale(_np(cache[key]), _np(jc[key]))

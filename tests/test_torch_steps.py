@@ -189,6 +189,75 @@ def test_expert_grad_tie_is_the_identity_on_one_card():
     assert steps.expert_grad_tie(cfg, make_model(cfg))(g) is g
 
 
+class _FakeMesh:
+    """The spec engine's duck-typed mesh: axis names and sizes."""
+
+    def __init__(self, shape):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+
+
+def _nested(flat, conv):
+    tree = {}
+    for k, v in flat.items():
+        node = tree
+        *parents, last = k.split("/")
+        for q in parents:
+            node = node.setdefault(q, {})
+        node[last] = conv(v)
+    return tree
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "jamba-1.5-large-398b"])
+def test_expert_grad_tie_with_copies(arch):
+    """2 experts on a "model" axis of 4: two copies of each, whose
+    gradients the tie replaces by their mean on the experts' dim; the
+    router and every other leaf untouched. kimi-k2 (moe leaves (L = 2,
+    E r = 4, ...)) against the reference's tie, leaf for leaf. jamba
+    against the mean over copies computed here: the reference's tie
+    averages the first dim of size E * r of any wg/wu/wd under "blocks",
+    which for jamba's smoke period is the layer dim of the moe leaves
+    (np, 4 moe layers, E r = 4, ...) and of the SwiGLU stack
+    ``blocks/mlp/*`` (4 layers) as well."""
+    from repro_torch.distributed.sharding import Dist as TDist
+    jcfg = jax_reduce(jax_get_arch(arch))
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+        jcfg.moe, n_experts=2))
+    cfg = reduce_for_smoke(get_arch(arch))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           n_experts=2))
+    mesh = {"data": 1, "model": 4}
+    tm = make_model(cfg, TDist(mesh=_FakeMesh(mesh)))
+    rng = np.random.default_rng(0)
+    defs = dict(iter_leaves(tm.param_defs()))
+    grads = {p: rng.standard_normal(d.shape).astype(np.float32)
+             for p, d in defs.items()}
+    assert grads["blocks/moe/wg"].shape[-3] == 4         # E * r
+    got = dict(iter_leaves(steps.expert_grad_tie(cfg, tm)(
+        _nested(grads, torch.from_numpy))))
+    assert set(got) == set(grads)
+    if arch.startswith("kimi"):
+        jm = jax_make_model(jcfg, Dist(mesh=_FakeMesh(mesh)))
+        want = {"/".join(str(q.key) for q in path): np.asarray(v)
+                for path, v in jax.tree_util.tree_flatten_with_path(
+                    jax_steps.expert_grad_tie(jcfg, jm)(
+                        _nested(grads, jnp.asarray)))[0]}
+    else:
+        want = {}
+        for k, g in grads.items():
+            if "/moe/" in k and not k.endswith("router"):
+                i = defs[k].dims.index("expert")
+                gr = g.reshape(g.shape[:i] + (2, 2) + g.shape[i + 1:])
+                g = np.broadcast_to(gr.mean(i + 1, keepdims=True),
+                                    gr.shape).reshape(g.shape)
+            want[k] = g
+    for k, v in got.items():
+        np.testing.assert_allclose(v.numpy(), want[k], rtol=1e-6,
+                                   atol=1e-7, err_msg=k)
+        tied = "/moe/" in k and not k.endswith("router")
+        assert tied != np.array_equal(v.numpy(), grads[k]), k
+
+
 def _setup(arch, seed=0):
     jcfg = jax_reduce(jax_get_arch(arch))
     cfg = reduce_for_smoke(get_arch(arch))

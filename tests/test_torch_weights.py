@@ -91,3 +91,40 @@ def test_params_from_flat_rejects_wrong_size():
     cfg = reduce_for_smoke(get_arch("stablelm-1.6b"))
     with pytest.raises(ValueError):
         params_from_flat(np.zeros(7, np.float32), cfg, device="cpu")
+
+
+class _FakeMesh:
+    def __init__(self, shape):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "jamba-1.5-large-398b"])
+def test_expert_copies_carry_across(arch):
+    """2 experts on a "model" axis of 4 (r = 2): the reference's numpy
+    tree holds 4 expert copies and loads into the port leaf for leaf,
+    every value equal and every shape the port's ``make_model(cfg,
+    dist)`` param defs under the same mesh."""
+    import dataclasses
+    from repro_torch.distributed.sharding import Dist as TDist
+    from repro_torch.models.model import make_model
+    mesh = _FakeMesh({"data": 1, "model": 4})
+    jcfg = jax_reduce(jax_get_arch(arch))
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+        jcfg.moe, n_experts=2))
+    cfg = reduce_for_smoke(get_arch(arch))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           n_experts=2))
+    jparams = jax.tree.map(np.asarray, jax_make_model(
+        jcfg, Dist(mesh=mesh)).init(jax.random.PRNGKey(0)))
+    got = dict(iter_leaves(params_from_jax(jparams, device="cpu")))
+    want = {"/".join(p.key for p in path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(jparams)[0]}
+    defs = dict(iter_leaves(make_model(cfg, TDist(mesh=mesh))
+                            .param_defs()))
+    assert got["blocks/moe/wg"].shape[-3] == 4
+    assert set(got) == set(want) == set(defs)
+    for k, v in got.items():
+        assert tuple(v.shape) == tuple(defs[k].shape), k
+        np.testing.assert_array_equal(
+            v.float().numpy(), np.asarray(want[k], np.float32), err_msg=k)

@@ -23,7 +23,19 @@ on the CPU with the port only (no JAX here):
     (``steps.local_loss_and_grads``) on one batch of the case's arch and
     params (``CASE/b/*``, ``CASE/p/*``); rank 0 records the loss and every
     gradient leaf gathered, every rank whether the step ran
-    sequence-parallel.
+    sequence-parallel;
+  * ``ep_block``: the expert-parallel ``moe_block`` (tests/
+    test_torch_moe_ep.py) on the rank's rows (its slice of the sequence
+    under ``zero3_sp``) and its block of experts, and the gradients of
+    ``sum(out * w)``; every rank records its output and gradients, and
+    the collectives of the forward and of the backward as
+    ``analysis.roofline.ProgramCounter`` counts them;
+  * ``ep_step``: a moe or hybrid arch's ``jit_train_step`` for some
+    AdamW steps from the case's params and batch (``CASE/p/*``,
+    ``CASE/b/*``), then, from the same initial params,
+    ``jit_prefill_step`` into a longer cache and ``jit_decode_step`` on
+    fixed tokens; rank 0 records the losses, every leaf gathered after
+    the last step, the logits and the cache.
 
 Writes ``WORKDIR/out-RANK.npz`` and ``WORKDIR/out-RANK.json``.
 """
@@ -223,6 +235,108 @@ def run_sp(case, inputs, rank, out, arrays):
             arrays[f"{case['id']}/{path}"] = whole.numpy().copy()
 
 
+def _moe_cfg(case):
+    import dataclasses
+    cfg = _cfg(case["arch"])
+    over = {k: case[k] for k in ("n_experts", "capacity_factor")
+            if case.get(k) is not None}
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **over))
+
+
+def run_ep_block(case, inputs, rank, out, arrays):
+    import dataclasses
+    from repro_torch.models import moe
+    cfg = _moe_cfg(case)
+    mesh = make_mesh(*case["mesh"], device="cpu")
+    pre = case["id"] + "/"
+    x = torch.from_numpy(inputs[pre + "x"].copy())
+    w = torch.from_numpy(inputs[pre + "w"].copy())
+    d = Dist(mesh=mesh, policy=case["policy"]).resolve_batch(x.shape[0])
+    ep = steps._expert_parallel(make_model(cfg, d))
+    coord = dict(zip(("data", "model"), mesh.get_coordinate()))
+    nb = x.shape[0] // case["mesh"][0]
+    rows = slice(coord["data"] * nb, (coord["data"] + 1) * nb)
+    x, w = x[rows], w[rows]
+    if case["policy"] == "zero3_sp":
+        ep = dataclasses.replace(ep, sliced=True)
+        n = x.shape[1] // ep.size
+        x, w = (t[:, ep.rank * n:(ep.rank + 1) * n] for t in (x, w))
+    e_local = inputs[pre + "p/wg"].shape[0] // ep.size
+    mine = slice(ep.rank * e_local, (ep.rank + 1) * e_local)
+    params = {k: torch.from_numpy(inputs[pre + "p/" + k].copy())
+              for k in ("router", "wg", "wu", "wd")}
+    params = {k: (v if k == "router" else v[mine]).clone().requires_grad_()
+              for k, v in params.items()}
+    x = x.clone().requires_grad_()
+    with ProgramCounter() as fwd:
+        y = moe.moe_block(x, params, cfg, ep=ep)
+    with ProgramCounter() as bwd:
+        (y.float() * w).sum().backward()
+    out["coord"] = [coord["data"], coord["model"]]
+    out["colls"] = {"fwd": [list(c) for c in fwd.colls],
+                    "bwd": [list(c) for c in bwd.colls]}
+    out["r"] = ep.r
+    arrays[pre + "out"] = y.detach().numpy()
+    arrays[pre + "dx"] = x.grad.numpy()
+    for k, v in params.items():
+        arrays[pre + "d" + k] = v.grad.numpy()
+
+
+def run_ep_step(case, inputs, rank, out, arrays):
+    cfg = _moe_cfg(case)
+    mesh = make_mesh(*case["mesh"], device="cpu")
+    pre = case["id"] + "/"
+    tokens = torch.from_numpy(inputs[pre + "b/tokens"]).long()
+    labels = torch.from_numpy(inputs[pre + "b/labels"]).long()
+    B, S = tokens.shape
+    d = Dist(mesh=mesh, policy=case["policy"]).resolve_batch(B)
+    model = make_model(cfg, d)
+    opt = OptConfig(name="adamw", lr=case["lr"])
+    shape = ShapeSpec("t", S, B, "train")
+    psh = model.param_shardings()
+    params = map_leaves(lambda p, x: distribute(x, leaf_at(psh, p)),
+                        _params(inputs, pre + "p/"))
+    ospecs = opt_state_specs(opt, model.param_defs(), d)
+    full_state = init_opt_state(opt, _params(inputs, pre + "p/"))
+    state = {k: (distribute(v, Sharding(mesh, ospecs[k])) if k == "step"
+                 else map_leaves(lambda p, x, k=k: distribute(
+                     x, Sharding(mesh, leaf_at(ospecs[k], p))), v))
+             for k, v in full_state.items()}
+    step = steps.jit_train_step(model, opt, shape)
+    losses = []
+    for _ in range(case["steps"]):
+        params, state, loss = step(params, state,
+                                   {"tokens": tokens, "labels": labels})
+        losses.append(float(loss))
+    out["losses"] = losses
+    for path, x in iter_leaves(params):
+        full = gather(x)
+        if rank == 0:
+            arrays[f"{pre}params/{path}"] = full.numpy().copy()
+    if not case.get("prompt"):
+        return
+    params = map_leaves(lambda p, x: distribute(x, leaf_at(psh, p)),
+                        _params(inputs, pre + "p/"))
+    plen = case["prompt"]
+    pshape = ShapeSpec("s", plen, B, "prefill")
+    csh = model.cache_shardings(B)
+    empty = model.empty_cache(B, plen + case["new"], "cpu")
+    cache = {k: distribute(v, csh[k]) for k, v in empty.items()}
+    logits, cache = steps.jit_prefill_step(model, pshape)(
+        params, {"tokens": tokens[:, :plen]}, cache=cache)
+    got = [logits.full_tensor()]
+    decode = steps.jit_decode_step(model, pshape)
+    for i in range(case["new"]):
+        logits, cache = decode(params, cache,
+                               {"tokens": tokens[:, plen + i:plen + i + 1]})
+        got.append(logits.full_tensor())
+    whole = {k: v.full_tensor() for k, v in cache.items()}  # collective
+    if rank == 0:
+        arrays[pre + "logits"] = torch.cat(got, 1).numpy()
+        for k, v in whole.items():
+            arrays[f"{pre}cache/{k}"] = v.numpy()
+
+
 def main():
     rank, world, workdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     logging.getLogger("torch.distributed").setLevel(logging.ERROR)
@@ -241,6 +355,10 @@ def main():
             run_resume(case, inputs, rank, out, arrays, workdir)
         elif case["kind"] == "sp":
             run_sp(case, inputs, rank, out, arrays)
+        elif case["kind"] == "ep_block":
+            run_ep_block(case, inputs, rank, out, arrays)
+        elif case["kind"] == "ep_step":
+            run_ep_step(case, inputs, rank, out, arrays)
         else:
             run_serve(case, inputs, rank, out, arrays)
     np.savez(Path(workdir) / f"out-{rank}.npz", **arrays)
