@@ -14,7 +14,8 @@ first failing phase (no phase catches an exception):
      counted in the machine code (cuobjdump -sass): every ``_tc`` kernel
      of the bf16 instances (K5b's ``ssd_bwd_states_tc``,
      ``ssd_bwd_dbx_tc`` and ``ssd_bwd_dc_tc`` included; K4's forward
-     at head dims 64, 112 and 128) must hold some;
+     at head dims 64, 112 and 128, each at block_q 64 and 128) must
+     hold some;
   3. kernel  — the flash-attention kernel against its plain PyTorch
      version at three shapes (StableLM-1.6B prefill in bf16, GQA and
      ragged in f32; then head dim 112, kimi-k2's, in bf16 and f32,
@@ -285,23 +286,47 @@ first failing phase (no phase catches an exception):
      the mesh-less steps: logits and caches equal (``EP_DIFF_LIMIT``);
      c. K4 at kimi-k2's prefill shape (4, 512, 64, KV 8, hd 112) and at
      the serve's, with kernel, plain, bound and SDPA ms;
- 22. result  — each phase's wall seconds (a ``[phase]`` line as each
-     ends, and a ``[phases]`` line), ``{"kernels": [...]}`` on the line
-     before the last (each kernel's launches summed over the main paths,
-     with ``launches_by_path``) and ``{"ok": true, "device": {...}}`` as
-     the last line.
+ 22. autotune — the launch-shape tuner (``kernels/autotune.py``) from a
+     fresh cache: a. K1 at the PS shard (2 learners) and the solvers'
+     (4, F), K2 and K3 at the PS push (bf16 x) and the solvers' push (f32
+     x), K4 at Jamba's serve, the 4,096-token training forward (LSE),
+     qwen2-vl's training forward (LSE), a zero3_sp rank slice (512 of
+     2,048 at q_offset 0), kimi-k2's serve (hd 112) and a 33-token
+     prompt, each looked up as ``ops`` does (a miss, measured on scratch),
+     then every candidate run at the full shape on scratch: its outputs
+     ``torch.equal`` to the default's (any difference fails), its median
+     ms beside the predicted and the tuner's measured us, the default's
+     ms and the bound; b. each shape looked up again: a hit with no probe
+     launch, hits and misses equal to the calls made, and a
+     ``DLaaSCore``'s ``prometheus_text()`` carrying the three
+     ``dlaas_autotune_cache_*`` families with those numbers; c.
+     ``fit_block`` at an F that degrades it raises the core's
+     ``kernels_small_block_total`` by one. The run's tuner reads and
+     writes a fresh cache file under ``build/`` (each run tunes from
+     scratch); every ``[phase]`` line gives the seconds the tuner spent
+     measuring that phase's new shapes and its probe launches, which the
+     kernels' launch counts leave out;
+ 23. result  — each phase's wall seconds (a ``[phase]`` line as each
+     ends, and a ``[phases]`` line with the tuning seconds by phase),
+     ``{"kernels": [...]}`` on the line before the last (each kernel's
+     launches summed over the main paths, with ``launches_by_path``;
+     K1-K4 with phase 22's chosen and default shapes and times) and
+     ``{"ok": true, "device": {...}}`` as the last line.
 
 ``PERF.md`` gives the measured run times on an H100 80GB HBM3 at 700 W,
 the kernel builds included.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -639,21 +664,45 @@ SSM_PLATFORM = PlatformRun("ssm-platform", SSM_PLATFORM_JOB,
 
 class PhaseClock:
     """Wall seconds of each phase of ``main``, each printed on a line of
-    its own as the phase ends, and all of them at the end."""
+    its own as the phase ends, and all of them at the end; beside each,
+    the seconds the launch-shape tuner spent measuring the phase's new
+    shapes (``autotune.tuning_seconds``, inside the wall seconds) and its
+    probe launches, so that a first round's time is not misread."""
 
     def __init__(self):
+        from repro_torch.kernels import autotune
+        self.autotune = autotune
         self.start = self.t = time.perf_counter()
-        self.rows = []
+        self.tuned, self.probes = 0.0, 0
+        self.rows, self.tuning = [], []
 
     def done(self, phase: str) -> None:
         now = time.perf_counter()
+        tuned = self.autotune.tuning_seconds - self.tuned
+        probes = self.autotune.probe_launches - self.probes
         self.rows.append((phase, round(now - self.t, 1)))
-        print(f"[phase] {phase}: {now - self.t:.1f} s wall", flush=True)
-        self.t = now
+        self.tuning.append((phase, round(tuned, 3)))
+        print(f"[phase] {phase}: {now - self.t:.1f} s wall; tuning "
+              f"{tuned:.3f} s of it ({probes} probe launches)", flush=True)
+        self.t, self.tuned = now, self.autotune.tuning_seconds
+        self.probes = self.autotune.probe_launches
 
     def summary(self) -> str:
         return (f"[phases] {json.dumps(dict(self.rows))}; total "
-                f"{time.perf_counter() - self.start:.1f} s")
+                f"{time.perf_counter() - self.start:.1f} s; tuning s by "
+                f"phase {json.dumps(dict(self.tuning))}")
+
+
+def fresh_autotune_cache() -> None:
+    """Point the launch-shape tuner at a new cache file under
+    ``build/`` (removed at exit), so each run tunes from scratch and no
+    earlier run's records steer it."""
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-autotune-",
+                                 dir=build_dir))
+    atexit.register(shutil.rmtree, work, True)
+    os.environ["DLAAS_AUTOTUNE_CACHE"] = str(work / "cache.json")
 
 
 def card_line() -> str:
@@ -666,8 +715,9 @@ def card_line() -> str:
 
 def phase_setup(script: str):
     """The start of a script that runs phases of this file alone: exit
-    2 without a card; else TF32 off, the card's name and power limit
-    printed, every kernel built. Returns (torch, the card's line)."""
+    2 without a card; else TF32 off, a fresh autotune cache, the card's
+    name and power limit printed, every kernel built. Returns (torch, the
+    card's line)."""
     import torch
     if not torch.cuda.is_available():
         print(f"{script}: needs a CUDA card", file=sys.stderr)
@@ -675,6 +725,7 @@ def phase_setup(script: str):
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    fresh_autotune_cache()
     card = card_line()
     print(card)
     build.build_all()
@@ -732,7 +783,9 @@ def report_tc_build(build, built, card):
     ssd = ctypes.CDLL(str(built["ssd_scan"].library))
     ssdb = ctypes.CDLL(str(built["ssd_scan_bwd"].library))
     for hd in (64, 112, 128):
-        dyn[f"flash_fwd_kernel_tc<{hd}>"] = fwd.flash_attention_fwd_tc_smem(hd)
+        for bq in (64, 128):
+            dyn[f"flash_fwd_kernel_tc<{hd}, {bq}>"] = \
+                fwd.flash_attention_fwd_tc_smem(hd, bq)
     for hd in (64, 128):
         dyn[f"flash_bwd_dq_tc_kernel<{hd}>"] = \
             bwd.flash_attention_bwd_tc_smem(hd, 0)
@@ -767,13 +820,15 @@ def report_tc_build(build, built, card):
     for base in TC_KERNELS + SSD_TC_KERNELS + SSD_BWD_TC_KERNELS:
         found = {n: c for n, c in counts.items()
                  if n.split("<")[0].endswith(base)}
-        # K4's forward has a third instance: head dim 112 (kimi-k2)
-        widths = 3 if base == TC_KERNELS[0] else 2
+        # K4's forward has a third width, head dim 112 (kimi-k2), and
+        # each width at block_q 64 and 128
+        widths = 6 if base == TC_KERNELS[0] else 2
         if len(found) != widths or not all(found.values()):
             raise AssertionError(f"tensor-core kernel {base}: HGMMA "
                                  f"counts {found} (want > 0 at each of "
-                                 f"{widths} widths: 64, 128 and for K4's "
-                                 f"forward 112)")
+                                 f"{widths} instances: widths 64, 128 and "
+                                 f"for K4's forward 112, each of those at "
+                                 f"block_q 64 and 128)")
     return counts, reports
 
 
@@ -4603,6 +4658,195 @@ def serve_kimi(torch, ops, ref, kfa, card):
           f"{head['plain_ms']:.3f} ms; SDPA {head['library_ms']:.4f} ms")
     return k4, blocks, cold_launches, ep
 
+# ---------------------------------------------------------------------------
+# Phase 22: the launch-shape tuner
+# ---------------------------------------------------------------------------
+
+# an F whose fit_block(F, 1024) degrades to 2: 2 x 3 x 5 x 7 x 11 x 13
+SMALL_BLOCK_F = 30030
+
+
+def autotune_lengths():
+    """(the PS shard, the PS push, the solvers' padded F) of phases 8 and
+    20, from the configurations alone (no device memory)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.compression import pad_to_block
+    from repro_torch.core.software_ps import ShardLayout
+    from repro_torch.models import make_model
+    from repro_torch.models.layers import iter_leaves
+    from repro_torch.weights import flat_size
+    lay = ShardLayout.build(flat_size(dataclasses.replace(
+        get_arch(SERVE_ARCH), n_layers=TRAIN_ARCH_LAYERS)),
+        TRAIN["n_shards"])
+    model = make_model(dataclasses.replace(get_arch(SOLVER_ARCH),
+                                           n_layers=SOLVER_LAYERS))
+    n = sum(math.prod(t.shape) for _, t in
+            iter_leaves(model.abstract_params()))
+    block = 256 * SOLVER_LEARNERS                # core/solvers.py:122
+    return lay.shard_len, lay.padded, max(pad_to_block(n, block), block)
+
+
+def autotune_shapes(shard, push, solver_f):
+    """(label, plan, the lookup ops makes) of every kernel shape phase 22
+    tunes: K1 at the PS shard (adam, 2 learners) and the solvers' (4,
+    F); K2 / K3 at the PS push (bf16 x) and the solvers' (f32 x); K4 at
+    Jamba's serve, the 4,096-token training forward, qwen2-vl's training
+    forward, a zero3_sp rank slice, kimi-k2's serve and a serve prompt."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import autotune as at
+    out = []
+    for label, nl, f in (("PS shard", TRAIN["n_learners"], shard),
+                         ("solvers", SOLVER_LEARNERS, solver_f)):
+        out.append((f"K1 {label}", at.ps_plan(nl, f), functools.partial(
+            at.tuned_ps_block, nl, f, torch.float32, device="cuda")))
+    for kname, label, f, dt in (
+            ("K2", "PS push", push, torch.bfloat16),
+            ("K2", "solvers", solver_f, torch.float32),
+            ("K3", "PS push", push, torch.int8),
+            ("K3", "solvers", solver_f, torch.int8)):
+        out.append((f"{kname} {label}", at.quantize_plan(f, 256, dt),
+                    functools.partial(at.tuned_quantize_block, f, 256, dt,
+                                      device="cuda")))
+    for label, arch, B, Sq, Sk, causal, q_offset, lse in (
+            ("K4 serve-hybrid", HYBRID_ARCH, 2, 2048, 2048, True, 0, False),
+            ("K4 train-4k", SERVE_ARCH, 1, 4096, 4096, True, 0, True),
+            ("K4 train-qwen2-vl", VLM_ARCH, 2, 2048, 2048, True, 0, True),
+            ("K4 zero3_sp rank 0", VLM_ARCH, 2, 512, 2048, True, 0, True),
+            ("K4 serve-kimi", KIMI_ARCH, 4, 512, 512, True, 0, False),
+            ("K4 serve prompt", SERVE_ARCH, 1, 33, 33, True, 0, False)):
+        cfg = get_arch(arch)
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        kw = dict(heads=(H, KV), causal=causal, q_offset=q_offset, lse=lse)
+        out.append((label, at.flash_plan(B * H, Sq, Sk, hd, torch.bfloat16,
+                                         **kw),
+                    functools.partial(at.tuned_flash_blocks, B * H, Sq, Sk,
+                                      hd, torch.bfloat16, device="cuda",
+                                      **kw)))
+    return out
+
+
+def prom_values(text, prefix):
+    """{family: value} of the unlabelled samples whose names start with
+    ``prefix`` in Prometheus text."""
+    out = {}
+    for line in text.splitlines():
+        name, _, value = line.partition(" ")
+        if name.startswith(prefix):
+            out[name] = float(value)
+    return out
+
+
+def autotune_phase(torch, card, shapes):
+    """a. Each shape tuned from a fresh cache (the lookup ops makes: a
+    miss, measured), then every candidate run at the full shape on
+    scratch: its outputs ``torch.equal`` to the default's (any
+    difference fails the phase) and its median ms; b. each shape looked
+    up again: hits with no probe launch, the counters equal to the calls
+    made, and a ``DLaaSCore``'s ``/metrics`` text carrying them; c. a
+    degraded ``fit_block`` raises the core's
+    ``kernels_small_block_total``. Returns {label: result}."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import grid
+    from repro_torch.service.core import DLaaSCore
+    build_dir = ROOT / "build"
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-autotune-22-",
+                                 dir=build_dir))
+    run_cache = os.environ["DLAAS_AUTOTUNE_CACHE"]
+    os.environ["DLAAS_AUTOTUNE_CACHE"] = str(work / "cache.json")
+    dev = torch.device("cuda")
+    results = {}
+    try:
+        cache = at.get_cache()
+        for label, plan, lookup in shapes:
+            probes, t0 = at.probe_launches, time.perf_counter()
+            choice = lookup()
+            tune_s = time.perf_counter() - t0
+            with torch.cuda.device(dev):
+                key = at.make_key(plan.kernel, plan.shape, plan.dtype,
+                                  plan.extra_key)
+            rec = json.loads(Path(at.cache_path()).read_text())[key]
+            tuner_probes = at.probe_launches - probes
+            probe = plan.probe(dev, limit=None)
+            want = probe.run(plan.default)
+            equal, ms = {}, {}
+            for c in dict.fromkeys(list(plan.candidates) + [plan.default]):
+                equal[str(c)] = probe.matches(c, want)
+                ms[str(c)] = round(1e3 * probe.seconds(c), 4)
+            del probe, want
+            torch.cuda.empty_cache()
+            bound_ms, bound_by = bound(plan.cost[0], **plan.cost[1])
+            res = {"kernel": plan.kernel, "shape": list(plan.shape),
+                   "key": key, "choice": choice, "source": rec["source"],
+                   "default": plan.default,
+                   "predicted_us": rec["predicted_us"],
+                   "probe_us": rec["measured_us"], "ms": ms,
+                   "choice_ms": ms[str(choice)],
+                   "default_ms": ms[str(plan.default)],
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bits_equal": equal, "tuning_s": round(tune_s, 4),
+                   "tuner_probe_launches": tuner_probes}
+            results[label] = res
+            print(f"[autotune] {card}: {label} {key}: choice {choice} "
+                  f"({rec['source']}); predicted us "
+                  f"{json.dumps(rec['predicted_us'])}; the tuner's "
+                  f"measured us (probe, median of {at.MEASURE_REPS}) "
+                  f"{json.dumps(rec['measured_us'])}; ms at the full shape "
+                  f"by candidate {json.dumps(ms)}; default "
+                  f"{plan.default} {res['default_ms']:.4f} ms, chosen "
+                  f"{res['choice_ms']:.4f} ms, bound {bound_ms:.5f} ms "
+                  f"({bound_by}); torch.equal to the default's outputs "
+                  f"{json.dumps(equal)}; tuning {tune_s:.3f} s, "
+                  f"{tuner_probes} probe launches", flush=True)
+            if not all(equal.values()):
+                raise AssertionError(f"autotune {label}: candidates whose "
+                                     f"outputs differ from the default's: "
+                                     f"{[c for c, e in equal.items() if not e]}")
+        n = len(shapes)
+        if (cache.hits, cache.misses, cache.size()) != (0, n, n):
+            raise AssertionError(f"autotune: after {n} first lookups the "
+                                 f"cache has hits {cache.hits}, misses "
+                                 f"{cache.misses}, size {cache.size()}")
+        probes = at.probe_launches
+        for label, plan, lookup in shapes:
+            if lookup() != results[label]["choice"]:
+                raise AssertionError(f"autotune {label}: a second lookup "
+                                     f"chose otherwise")
+        if at.probe_launches != probes or cache.hits != n or \
+                cache.misses != n:
+            raise AssertionError(f"autotune: {n} second lookups made "
+                                 f"{at.probe_launches - probes} probe "
+                                 f"launches; hits {cache.hits}, misses "
+                                 f"{cache.misses} (want {n}, {n})")
+        core = DLaaSCore(str(work / "core"), device="cuda")
+        try:
+            fams = prom_values(core.prometheus_text(),
+                               "dlaas_autotune_cache_")
+            want = {"dlaas_autotune_cache_entries": float(n),
+                    "dlaas_autotune_cache_hits_total": float(n),
+                    "dlaas_autotune_cache_misses_total": float(n)}
+            if fams != want:
+                raise AssertionError(f"autotune families {fams} != {want}")
+            counters = core.metrics.counters
+            before = counters("platform").get("kernels_small_block_total",
+                                              0)
+            chosen = grid.fit_block(SMALL_BLOCK_F, 1024)
+            after = counters("platform").get("kernels_small_block_total", 0)
+            if chosen >= grid.SMALL_BLOCK_FLOOR or after != before + 1:
+                raise AssertionError(f"fit_block({SMALL_BLOCK_F}, 1024) = "
+                                     f"{chosen}: kernels_small_block_total "
+                                     f"{before} -> {after}")
+        finally:
+            core.close()
+        print(f"[autotune] {card}: {n} shapes looked up again: {n} hits, "
+              f"0 probe launches; the exporter's families {json.dumps(fams)}"
+              f"; fit_block({SMALL_BLOCK_F}, 1024) = {chosen}: the core's "
+              f"kernels_small_block_total {before} -> {after}", flush=True)
+    finally:
+        os.environ["DLAAS_AUTOTUNE_CACHE"] = run_cache
+        shutil.rmtree(work, ignore_errors=True)
+    return results
+
 
 def main() -> int:
     import torch
@@ -4622,6 +4866,7 @@ def main() -> int:
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    fresh_autotune_cache()
     card = card_line()
     print(card)
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5058,7 +5303,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.done("21 kimi, expert-parallel")
 
-    # 22. result
+    # 22. the launch-shape tuner: K1-K4 at the paths' shapes from a fresh
+    # cache, every candidate's bits against the default's, the second
+    # lookups, the exporter's families and the small-block counter
+    tuned = autotune_phase(torch, card, autotune_shapes(
+        lay.shard_len, lay.padded, solver_f))
+    torch.cuda.empty_cache()
+    clock.done("22 autotune")
+
+    # 23. result
     def entry(mod, launches, head, shapes):
         return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                 "replaces": mod.REPLACES, "launches": launches,
@@ -5134,6 +5387,14 @@ def main() -> int:
     k5b["sass_hgmma"] = {n: c for n, c in hgmma.items()
                          if n.split("<")[0] in SSD_BWD_TC_KERNELS}
     kernels += [k5, k5b]
+    for e in kernels:
+        label = {kfa.NAME: "K4", kagg.NAME: "K1", kq.QUANTIZE.NAME: "K2",
+                 kq.DEQUANTIZE.NAME: "K3"}.get(e["name"])
+        if label:
+            e["autotune"] = {k: {f: r[f] for f in (
+                "shape", "choice", "default", "choice_ms", "default_ms",
+                "bound_ms")} for k, r in tuned.items()
+                if k.startswith(label + " ")}
     print(clock.summary())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -62,6 +62,16 @@
 //   rows (highest q-tile first), so the last wave is the short tiles.
 //   The wrapper requires 16-byte aligned rows (strides multiples of 8
 //   elements) for the copies and raises otherwise.
+//   Launch shape: block_q, the query rows of a block, is 128 (two
+//   warpgroups) or 64 (one, 128 threads, two or four blocks an SM), a
+//   runtime argument that kernels/autotune.py chooses (the reference's
+//   tuned (block_q, block_k), autotune.py:339; block_k stays 64). A
+//   warpgroup's 64 rows walk the same key tiles in the same order at
+//   either block_q: a block loads the tiles up to its last row's causal
+//   limit, and each warpgroup skips those past its own rows' limit
+//   (`wg_end`), so the second warpgroup of a 128-row block computes
+//   what a 64-row block over its rows computes, product for product, and
+//   every block_q gives the same bits.
 // * float32 (any hd), and bf16 at hd 16 and 32: `flash_fwd_kernel`, the
 //   first version, on the CUDA cores. f32 keeps it because TF32 would
 //   break the f32 tolerance (2e-5); hd 16/32 are only the smoke configs.
@@ -224,31 +234,34 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD> struct TcFwd {
+template <int HD, int BQ> struct TcFwd {
   // tile width: the head dim rounded up to whole 64-column blocks; hd
   // 112 runs the hd-128 tiles with columns 112..127 zero-filled
   static constexpr int kTW = (HD + 63) / 64 * 64;
-  static constexpr int kThreads = 256;                 // two warpgroups
-  static constexpr int kBQ = 128;                      // 64 rows each
+  static constexpr int kBQ = BQ;                       // 64 rows a warpgroup
+  static constexpr int kThreads = 2 * BQ;              // BQ / 64 warpgroups
   static constexpr int kBK = 64;                       // keys per tile
-  // at hd 64 two blocks share an SM (<= 128 registers a thread), so one
-  // block's softmax overlaps the other's products
-  static constexpr int kMinBlocks = kTW == 64 ? 2 : 1;
+  // at most 128 registers a thread at hd 64 (two 128-row or four 64-row
+  // blocks an SM), 255 at 112 / 128 (one 128-row or two 64-row blocks),
+  // so one block's softmax overlaps another's products
+  static constexpr int kMinBlocks = (kTW == 64 ? 2 : 1) * (128 / BQ);
+  static_assert(BQ == 64 || BQ == 128, "one or two warpgroups");
   static constexpr int kQBytes = kBQ * kTW * 2;
   static constexpr int kKVBytes = kBK * kTW * 2;       // one K or V tile
   // Q, then two stages of (K, V); +1024 to align the base
   static constexpr int kSmem = kQBytes + 4 * kKVBytes + 1024;
 };
 
-template <int HD>
-__global__ void __launch_bounds__(256, TcFwd<HD>::kMinBlocks)
+template <int HD, int BQ>
+__global__ void __launch_bounds__(TcFwd<HD, BQ>::kThreads,
+                                  TcFwd<HD, BQ>::kMinBlocks)
 flash_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     float* __restrict__ lse, int H, int group, int Sq,
                     int Sk, Strides qs, Strides ks, Strides vs, Strides os,
                     int causal, int q_offset, float scale) {
-  using P = TcFwd<HD>;
-  constexpr int BQ = P::kBQ, BK = P::kBK, NT = P::kThreads, TW = P::kTW;
+  using P = TcFwd<HD, BQ>;
+  constexpr int BK = P::kBK, NT = P::kThreads, TW = P::kTW;
   constexpr int NS = BK / 2, NO = TW / 2;   // accumulator floats / thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (tc::smem_addr(smem_raw) + 1023) & ~1023u;
@@ -382,22 +395,37 @@ flash_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int HD>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      float* lse, int B, int Sq, int Sk, int H, int KV,
-                      const Strides* st, int causal, int q_offset,
-                      float scale, cudaStream_t stream) {
-  using P = TcFwd<HD>;
+template <int HD, int BQ>
+cudaError_t launch_tc_shape(const void* q, const void* k, const void* v,
+                            void* o, float* lse, int B, int Sq, int Sk,
+                            int H, int KV, const Strides* st, int causal,
+                            int q_offset, float scale, cudaStream_t stream) {
+  using P = TcFwd<HD, BQ>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      P::kSmem);
+      flash_fwd_kernel_tc<HD, BQ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((Sq + P::kBQ - 1) / P::kBQ, B * H);
-  flash_fwd_kernel_tc<HD><<<grid, P::kThreads, P::kSmem, stream>>>(
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  flash_fwd_kernel_tc<HD, BQ><<<grid, P::kThreads, P::kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, H / KV,
       Sq, Sk, st[0], st[1], st[2], st[3], causal, q_offset, scale);
   return cudaGetLastError();
+}
+
+// the tensor-core instance at block_q 64 or 128
+template <int HD>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int B, int Sq, int Sk, int H, int KV,
+                      int block_q, const Strides* st, int causal,
+                      int q_offset, float scale, cudaStream_t stream) {
+  if (block_q == 128)
+    return launch_tc_shape<HD, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, st,
+                                    causal, q_offset, scale, stream);
+  if (block_q == 64)
+    return launch_tc_shape<HD, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, st,
+                                   causal, q_offset, scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 // 16-byte aligned rows: what the tensor-core instance's copies need
@@ -413,9 +441,10 @@ bool rows_aligned(const void* const* ptrs, int n, const Strides* st) {
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int Sq, int Sk, int H, int KV,
-                   const Strides* st, int causal, int q_offset, float scale,
-                   cudaStream_t stream) {
+                   int block_q, const Strides* st, int causal, int q_offset,
+                   float scale, cudaStream_t stream) {
   constexpr int BQ = Tile<HD>::kBq;
+  if (block_q != BQ) return cudaErrorInvalidValue;   // its one shape
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -427,19 +456,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         void* o, float* lse, int B, int Sq, int Sk, int H, int KV,
-                        const Strides* st, int causal, int q_offset,
-                        float scale, cudaStream_t stream) {
+                        int block_q, const Strides* st, int causal,
+                        int q_offset, float scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, H, KV, block_q, st, causal, q_offset, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, KV, block_q, st, causal, q_offset, scale, stream);
     case 64:
     case 112:
     case 128:
       // bf16 at hd 64 / 112 / 128 runs the tensor-core instance instead
       if constexpr (std::is_same_v<T, float>)
-        return hd == 64 ? launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream)
-             : hd == 112 ? launch<T, 112>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream)
-                         : launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, q_offset, scale, stream);
+        return hd == 64 ? launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, block_q, st, causal, q_offset, scale, stream)
+             : hd == 112 ? launch<T, 112>(q, k, v, o, lse, B, Sq, Sk, H, KV, block_q, st, causal, q_offset, scale, stream)
+                         : launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, block_q, st, causal, q_offset, scale, stream);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
@@ -450,8 +479,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 // Plain C entry point, loaded with ctypes. dtype: 0 = float32, 1 = bf16.
 // bf16 at hd 64 / 112 / 128 runs the tensor-core instance, which needs 16-byte
 // aligned pointers and strides that are multiples of 8 elements
-// (cudaErrorMisalignedAddress otherwise); every other case runs the
-// CUDA-core instance.
+// (cudaErrorMisalignedAddress otherwise) and takes block_q 64 or 128;
+// every other case runs the CUDA-core instance, whose one block_q is its
+// tile's (Tile<HD>::kBq: 128 at hd 16 / 32, 64 at 64, 32 at 112 / 128).
 // strides: 12 element strides, (B, S, H) of q, k, v, o in that order.
 // lse: null, or (B, H, Sq) contiguous f32 for the row log-sum-exp.
 // Launches on `stream`, does not synchronise, allocates nothing, and
@@ -460,8 +490,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int dtype, int B,
                                    int Sq, int Sk, int H, int KV, int hd,
-                                   const int64_t* strides, int causal,
-                                   int q_offset, float scale, void* stream) {
+                                   int block_q, const int64_t* strides,
+                                   int causal, int q_offset, float scale,
+                                   void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       q_offset < 0 || B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -471,30 +502,37 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_hd<float>(hd, q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal,
-                             q_offset, scale, s);
+    err = dispatch_hd<float>(hd, q, k, v, o, lse, B, Sq, Sk, H, KV, block_q,
+                             st, causal, q_offset, scale, s);
   else if (dtype == 1 && (hd == 64 || hd == 112 || hd == 128)) {
     const void* ptrs[4] = {q, k, v, o};
     if (!rows_aligned(ptrs, 4, st))
       return static_cast<int>(cudaErrorMisalignedAddress);
-    err = hd == 64    ? launch_tc<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, st,
-                                      causal, q_offset, scale, s)
-          : hd == 112 ? launch_tc<112>(q, k, v, o, lse, B, Sq, Sk, H, KV, st,
-                                       causal, q_offset, scale, s)
-                      : launch_tc<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, st,
-                                       causal, q_offset, scale, s);
+    err = hd == 64    ? launch_tc<64>(q, k, v, o, lse, B, Sq, Sk, H, KV,
+                                      block_q, st, causal, q_offset, scale, s)
+          : hd == 112 ? launch_tc<112>(q, k, v, o, lse, B, Sq, Sk, H, KV,
+                                       block_q, st, causal, q_offset, scale, s)
+                      : launch_tc<128>(q, k, v, o, lse, B, Sq, Sk, H, KV,
+                                       block_q, st, causal, q_offset, scale, s);
   } else if (dtype == 1)
-    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, Sq, Sk, H, KV, st,
-                                     causal, q_offset, scale, s);
+    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, Sq, Sk, H, KV,
+                                     block_q, st, causal, q_offset, scale, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 
 // Dynamic shared memory (bytes) of the tensor-core instance at head dim
-// `hd` (64, 112 or 128; 0 otherwise), for reports.
-extern "C" int flash_attention_fwd_tc_smem(int hd) {
-  return hd == 64    ? TcFwd<64>::kSmem
-         : hd == 112 ? TcFwd<112>::kSmem
-         : hd == 128 ? TcFwd<128>::kSmem : 0;
+// `hd` (64, 112 or 128) and block_q `bq` (64 or 128); 0 otherwise, for
+// reports.
+extern "C" int flash_attention_fwd_tc_smem(int hd, int bq) {
+  if (bq == 128)
+    return hd == 64    ? TcFwd<64, 128>::kSmem
+           : hd == 112 ? TcFwd<112, 128>::kSmem
+           : hd == 128 ? TcFwd<128, 128>::kSmem : 0;
+  if (bq == 64)
+    return hd == 64    ? TcFwd<64, 64>::kSmem
+           : hd == 112 ? TcFwd<112, 64>::kSmem
+           : hd == 128 ? TcFwd<128, 64>::kSmem : 0;
+  return 0;
 }

@@ -34,8 +34,20 @@
 //     buffer straight in: no contiguous copy per shard (JAX's CPU path
 //     made one, core/software_ps.py:209).
 //   * F is any positive count (the PS pads shards to multiples of 256);
-//     the tail of the grid is masked. One thread per value, no block size
-//     to fit.
+//     the tail of the grid is masked, so a block that does not divide F
+//     is never a fault.
+//
+// Launch shape. Each block (CTA) of 256 threads owns `block` consecutive
+// values, 1 to 2,048, a runtime argument that kernels/autotune.py
+// chooses (the reference's grid block, autotune.py:266); thread t
+// handles values t, t + 256, ... of the block's range, so every load and
+// store of a warp is one coalesced segment. The values a thread handles,
+// ceil(block / 256), is a template parameter (1 to 8), its loop unrolled
+// (a loop with a runtime trip count took more registers for adam than
+// eight blocks an SM leave a thread, and was slower on the card). The
+// shape changes which thread computes a value, never how: each value's
+// sum over rows and its update are the same instructions in the same
+// order, so every block gives the same bits.
 //
 // What bounds it on the H100: bytes. Per value it reads NL row values and
 // p (and m, v) and writes p (and m, v): (NL + 6) * 4 bytes for adam, about
@@ -57,14 +69,15 @@ struct Hyper {
 };
 
 constexpr int kThreads = 256;
+constexpr int kMaxPerThread = 8;   // values a thread: block <= 2,048
 
 template <int S>
-__global__ void __launch_bounds__(kThreads)
-ps_aggregate_kernel(const float* __restrict__ rows, int64_t row_stride,
-                    int n_rows, float* __restrict__ p, float* __restrict__ m,
-                    float* __restrict__ v, int64_t f, Hyper h) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= f) return;
+__device__ __forceinline__ void update(const float* __restrict__ rows,
+                                       int64_t row_stride, int n_rows,
+                                       float* __restrict__ p,
+                                       float* __restrict__ m,
+                                       float* __restrict__ v, int64_t i,
+                                       const Hyper& h) {
   float sum = 0.f;
   for (int r = 0; r < n_rows; ++r) sum += rows[r * row_stride + i];
   const float g = sum / static_cast<float>(n_rows);
@@ -89,14 +102,46 @@ ps_aggregate_kernel(const float* __restrict__ rows, int64_t row_stride,
   }
 }
 
-template <int S>
+// VPT = ceil(block / 256) values a thread, masked to the block and to f
+template <int S, int VPT>
+__global__ void __launch_bounds__(kThreads)
+ps_aggregate_kernel(const float* __restrict__ rows, int64_t row_stride,
+                    int n_rows, float* __restrict__ p, float* __restrict__ m,
+                    float* __restrict__ v, int64_t f, int block, Hyper h) {
+  const int64_t base = (int64_t)blockIdx.x * block;
+#pragma unroll
+  for (int u = 0; u < VPT; ++u) {
+    const int j = u * kThreads + threadIdx.x;
+    const int64_t i = base + j;
+    if (j < block && i < f) update<S>(rows, row_stride, n_rows, p, m, v, i, h);
+  }
+}
+
+template <int S, int VPT>
 cudaError_t launch(const float* rows, int64_t row_stride, int n_rows,
-                   float* p, float* m, float* v, int64_t f, Hyper h,
-                   cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((f + kThreads - 1) / kThreads));
-  ps_aggregate_kernel<S><<<grid, kThreads, 0, stream>>>(
-      rows, row_stride, n_rows, p, m, v, f, h);
+                   float* p, float* m, float* v, int64_t f, int block,
+                   Hyper h, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((f + block - 1) / block));
+  ps_aggregate_kernel<S, VPT><<<grid, kThreads, 0, stream>>>(
+      rows, row_stride, n_rows, p, m, v, f, block, h);
   return cudaGetLastError();
+}
+
+template <int S>
+cudaError_t launch_block(const float* rows, int64_t row_stride, int n_rows,
+                         float* p, float* m, float* v, int64_t f, int block,
+                         Hyper h, cudaStream_t s) {
+  switch ((block + kThreads - 1) / kThreads) {
+    case 1: return launch<S, 1>(rows, row_stride, n_rows, p, m, v, f, block, h, s);
+    case 2: return launch<S, 2>(rows, row_stride, n_rows, p, m, v, f, block, h, s);
+    case 3: return launch<S, 3>(rows, row_stride, n_rows, p, m, v, f, block, h, s);
+    case 4: return launch<S, 4>(rows, row_stride, n_rows, p, m, v, f, block, h, s);
+    case 5: return launch<S, 5>(rows, row_stride, n_rows, p, m, v, f, block, h, s);
+    case 6: return launch<S, 6>(rows, row_stride, n_rows, p, m, v, f, block, h, s);
+    case 7: return launch<S, 7>(rows, row_stride, n_rows, p, m, v, f, block, h, s);
+    case 8: return launch<S, 8>(rows, row_stride, n_rows, p, m, v, f, block, h, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -105,26 +150,27 @@ cudaError_t launch(const float* rows, int64_t row_stride, int n_rows,
 // 2 adam, 3 easgd_center, 4 average. rows: n_rows rows of f values,
 // row r at rows + r * row_stride (elements). p/m/v: f values each,
 // updated in place (m/v are read and written only by the solvers that
-// use them). Launches on `stream`, does not synchronise, allocates
-// nothing, and returns the cudaError_t of the launch (0 on success).
+// use them). block: values per thread block, 1 to 2,048. Launches on
+// `stream`, does not synchronise, allocates nothing, and returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int ps_aggregate(const float* rows, int64_t row_stride,
                             int n_rows, float* p, float* m, float* v,
-                            int64_t f, int solver, float lr, float b1,
-                            float b2, float one_minus_b1,
+                            int64_t f, int block, int solver, float lr,
+                            float b1, float b2, float one_minus_b1,
                             float one_minus_b2, float eps, float momentum,
                             float beta, float step, void* stream) {
-  if (n_rows <= 0 || f <= 0 || row_stride < f ||
-      (f + kThreads - 1) / kThreads > 0x7fffffff)
+  if (n_rows <= 0 || f <= 0 || row_stride < f || block <= 0 ||
+      block > kThreads * kMaxPerThread || (f + block - 1) / block > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   const Hyper h{lr, b1, b2, one_minus_b1, one_minus_b2, eps, momentum,
                 beta, step};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (solver) {
-    case kSgd: return launch<kSgd>(rows, row_stride, n_rows, p, m, v, f, h, s);
-    case kMomentum: return launch<kMomentum>(rows, row_stride, n_rows, p, m, v, f, h, s);
-    case kAdam: return launch<kAdam>(rows, row_stride, n_rows, p, m, v, f, h, s);
-    case kEasgdCenter: return launch<kEasgdCenter>(rows, row_stride, n_rows, p, m, v, f, h, s);
-    case kAverage: return launch<kAverage>(rows, row_stride, n_rows, p, m, v, f, h, s);
+    case kSgd: return launch_block<kSgd>(rows, row_stride, n_rows, p, m, v, f, block, h, s);
+    case kMomentum: return launch_block<kMomentum>(rows, row_stride, n_rows, p, m, v, f, block, h, s);
+    case kAdam: return launch_block<kAdam>(rows, row_stride, n_rows, p, m, v, f, block, h, s);
+    case kEasgdCenter: return launch_block<kEasgdCenter>(rows, row_stride, n_rows, p, m, v, f, block, h, s);
+    case kAverage: return launch_block<kAverage>(rows, row_stride, n_rows, p, m, v, f, block, h, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

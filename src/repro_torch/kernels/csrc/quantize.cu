@@ -39,6 +39,13 @@
 //   * nothing is staged: each value is read once and written once.
 // Wider (16-byte) loads and more values per thread are left for a later
 // PR.
+//
+// Launch shape. A thread block (CTA) holds `block` / 256 warps, one
+// 256-block each: `block`, a multiple of 256 up to 8,192 (1,024
+// threads), is a runtime argument that kernels/autotune.py chooses (the
+// reference's grid block, autotune.py:303). A warp's arithmetic does not
+// depend on its CTA, so every block gives the same bits; a CTA past the
+// last 256-block masks its idle warps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,7 +54,7 @@
 namespace {
 
 constexpr int kBlock = 256;                  // values per scale (QBLOCK)
-constexpr int kWarpsPerCta = 8;              // 256-blocks per thread block
+constexpr int kMaxThreads = 1024;            // 32 warps: block <= 8,192
 constexpr int kPerLane = kBlock / 32;        // values per lane
 
 __device__ __forceinline__ float widen(float x) { return x; }
@@ -56,12 +63,13 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(32 * kWarpsPerCta)
+__global__ void __launch_bounds__(kMaxThreads)
 quantize_ef_kernel(const T* __restrict__ x, const float* err,
                    int8_t* __restrict__ q, float* __restrict__ scales,
                    float* new_err, int64_t n_blocks) {
   const int lane = threadIdx.x & 31;
-  const int64_t blk = (int64_t)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
+  const int64_t blk =
+      (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (blk >= n_blocks) return;
   const int64_t base = blk * kBlock;
   float y[kPerLane];
@@ -87,12 +95,13 @@ quantize_ef_kernel(const T* __restrict__ x, const float* err,
   if (lane == 0) scales[blk] = scale;
 }
 
-__global__ void __launch_bounds__(32 * kWarpsPerCta)
+__global__ void __launch_bounds__(kMaxThreads)
 dequantize_kernel(const int8_t* __restrict__ q,
                   const float* __restrict__ scales, float* __restrict__ out,
                   int64_t n_blocks) {
   const int lane = threadIdx.x & 31;
-  const int64_t blk = (int64_t)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
+  const int64_t blk =
+      (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (blk >= n_blocks) return;
   const int64_t base = blk * kBlock;
   const float scale = scales[blk];
@@ -103,44 +112,54 @@ dequantize_kernel(const int8_t* __restrict__ q,
   }
 }
 
-dim3 grid_for(int64_t n_blocks) {
-  return dim3(static_cast<unsigned>((n_blocks + kWarpsPerCta - 1) /
-                                    kWarpsPerCta));
+// the grid of `block`-value CTAs over n_blocks 256-blocks; false when
+// `block` is no multiple of 256 in [256, 8192] or the grid is too large
+bool shape_for(int64_t n_blocks, int block, dim3* grid, dim3* threads) {
+  if (block < kBlock || block > kMaxThreads / 32 * kBlock || block % kBlock)
+    return false;
+  const int64_t warps = block / kBlock;
+  const int64_t ctas = (n_blocks + warps - 1) / warps;
+  if (ctas > 0x7fffffff) return false;
+  *grid = dim3(static_cast<unsigned>(ctas));
+  *threads = dim3(static_cast<unsigned>(32 * warps));
+  return true;
 }
 
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. `n` is the number of values,
-// a positive multiple of 256. x_dtype: 0 = float32, 1 = bfloat16. Each
-// launches on `stream`, does not synchronise, allocates nothing, and
-// returns the cudaError_t of the launch (0 on success).
+// a positive multiple of 256; `block` the values per thread block, a
+// multiple of 256 in [256, 8192]. x_dtype: 0 = float32, 1 = bfloat16.
+// Each launches on `stream`, does not synchronise, allocates nothing,
+// and returns the cudaError_t of the launch (0 on success).
 extern "C" int quantize_ef(const void* x, int x_dtype, const float* err,
                            int8_t* q, float* scales, float* new_err,
-                           int64_t n, void* stream) {
-  if (n <= 0 || n % kBlock != 0 || n / kBlock > (int64_t)kWarpsPerCta * 0x7fffffff)
+                           int64_t n, int block, void* stream) {
+  dim3 grid, threads;
+  if (n <= 0 || n % kBlock != 0 ||
+      !shape_for(n / kBlock, block, &grid, &threads))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n_blocks = n / kBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0)
-    quantize_ef_kernel<float><<<grid_for(n_blocks), 32 * kWarpsPerCta, 0, s>>>(
+    quantize_ef_kernel<float><<<grid, threads, 0, s>>>(
         static_cast<const float*>(x), err, q, scales, new_err, n_blocks);
   else if (x_dtype == 1)
-    quantize_ef_kernel<__nv_bfloat16>
-        <<<grid_for(n_blocks), 32 * kWarpsPerCta, 0, s>>>(
-            static_cast<const __nv_bfloat16*>(x), err, q, scales, new_err,
-            n_blocks);
+    quantize_ef_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), err, q, scales, new_err,
+        n_blocks);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int dequantize(const int8_t* q, const float* scales, float* out,
-                          int64_t n, void* stream) {
-  if (n <= 0 || n % kBlock != 0 || n / kBlock > (int64_t)kWarpsPerCta * 0x7fffffff)
+                          int64_t n, int block, void* stream) {
+  dim3 grid, threads;
+  if (n <= 0 || n % kBlock != 0 ||
+      !shape_for(n / kBlock, block, &grid, &threads))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n_blocks = n / kBlock;
-  dequantize_kernel<<<grid_for(n_blocks), 32 * kWarpsPerCta, 0,
-                      static_cast<cudaStream_t>(stream)>>>(q, scales, out,
-                                                           n_blocks);
+  dequantize_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      q, scales, out, n / kBlock);
   return static_cast<int>(cudaGetLastError());
 }

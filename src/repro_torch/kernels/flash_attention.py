@@ -13,8 +13,13 @@ The wrapper checks what the kernel takes (for the tensor-core instance,
 launches on the current stream and raises if the launch is refused.
 ``launches`` counts the launches, so a run can show that its main path
 went through the kernel, and ``launches_tc`` those of them on the
-tensor-core instance. Nothing is built or loaded at import time; the
-first call builds the library (``kernels/build.py``).
+tensor-core instance; the tuner's probes (``probe=True``) move neither.
+``block_q`` is the launch shape, the query rows a thread block owns:
+64 or 128 (one or two warpgroups) on the tensor-core instance, which
+``kernels/autotune.py`` chooses between; the CUDA-core instance has one,
+its tile's (``launch_shapes``). Every block_q gives the same bits.
+Nothing is built or loaded at import time; the first call builds the
+library (``kernels/build.py``).
 """
 from __future__ import annotations
 
@@ -32,6 +37,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # bf16 at these head dims runs on the tensor cores (wgmma), whose 16-byte
 # copies need aligned rows; every other case runs on the CUDA cores
 TENSOR_CORE_HEAD_DIMS = (64, 112, 128)
+# (block_q, block_k) a launch may take: the tensor-core instance one or
+# two warpgroups of 64 rows over key tiles of 64, the first its default;
+# the CUDA-core instance its tile at each head dim (Tile<HD>: kBq, kBk)
+TC_SHAPES = ((128, 64), (64, 64))
+CUDA_CORE_SHAPES = {16: (128, 64), 32: (128, 64), 64: (64, 64),
+                    112: (32, 32), 128: (32, 32)}
 
 launches = 0          # kernel launches in this process (see ops.py)
 launches_tc = 0       # of them, on the tensor-core instance
@@ -42,7 +53,7 @@ def _entry():
     global _fn
     if _fn is None:
         fn = build.load(NAME).flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -73,6 +84,17 @@ def uses_tensor_cores(q) -> bool:
     return q.dtype == torch.bfloat16 and q.shape[3] in TENSOR_CORE_HEAD_DIMS
 
 
+def launch_shapes(dtype, hd: int):
+    """The (block_q, block_k) launches of the instance that runs q of
+    ``dtype`` at head dim ``hd``, its default first; () where no
+    instance takes them."""
+    if dtype == torch.bfloat16 and hd in TENSOR_CORE_HEAD_DIMS:
+        return TC_SHAPES
+    if dtype in DTYPE_CODES and hd in CUDA_CORE_SHAPES:
+        return (CUDA_CORE_SHAPES[hd],)
+    return ()
+
+
 def check_tensor_core_rows(named):
     """The tensor-core instance copies 16-byte chunks of each row: every
     tensor's data pointer must be 16-byte aligned and its (B, S, H)
@@ -87,10 +109,13 @@ def check_tensor_core_rows(named):
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, q_offset: int = 0,
-                         return_lse: bool = False):
+                         return_lse: bool = False, block_q=None,
+                         probe: bool = False):
     """Launch the kernel on CUDA tensors; raises on anything it does not
     take (no fallback to the plain version). With ``return_lse`` it
-    returns (o, lse) with the row log-sum-exp lse (B, H, Sq) f32."""
+    returns (o, lse) with the row log-sum-exp lse (B, H, Sq) f32.
+    ``block_q``: one of ``launch_shapes`` (None: the default);
+    ``probe``: a tuning probe, which the launch counts leave out."""
     global launches, launches_tc
     check_shapes(q, k, v, q_offset)
     dev = q.device
@@ -115,6 +140,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool, q_offset: int = 0,
     tc = uses_tensor_cores(q)
     if tc:
         check_tensor_core_rows({"q": q, "k": k, "v": v})
+    shapes = launch_shapes(q.dtype, hd)
+    block_q = shapes[0][0] if block_q is None else int(block_q)
+    if block_q not in [bq for bq, _ in shapes]:
+        raise ValueError(f"block_q {block_q} is not a launch of the "
+                         f"{'tensor' if tc else 'CUDA'}-core instance "
+                         f"(one of {shapes})")
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
            if return_lse else None)
@@ -127,12 +158,13 @@ def flash_attention_cuda(q, k, v, *, causal: bool, q_offset: int = 0,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr() if return_lse else None,
-                 DTYPE_CODES[q.dtype], B, Sq, Sk, H, KV, hd, strides,
-                 int(bool(causal)), int(q_offset), float(hd ** -0.5),
-                 stream)
+                 DTYPE_CODES[q.dtype], B, Sq, Sk, H, KV, hd, block_q,
+                 strides, int(bool(causal)), int(q_offset),
+                 float(hd ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError_t {err}")
-    launches += 1
-    launches_tc += tc
+    if not probe:
+        launches += 1
+        launches_tc += tc
     return (o, lse) if return_lse else o

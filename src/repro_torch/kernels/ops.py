@@ -5,6 +5,12 @@ else: a CPU tensor goes to the plain PyTorch version (``ref.py``), a
 CUDA tensor to the hand-written kernel, which either launches or raises.
 There is no ``try`` that falls back from the kernel to the plain version.
 
+For CUDA tensors K1-K4 launch at the shape ``kernels/autotune.py``
+chooses (the reference's ops resolve their blocks through it too): the
+first call of a shape measures the candidates on scratch tensors, every
+later one is an in-memory cache hit (no file read, no launch). Every
+candidate gives the same bits, so the choice changes time only.
+
 A meta tensor (``analysis.roofline.count_program`` runs a program on the
 meta device to count it) takes a third path that computes nothing: the
 op adds its kernel's ``kernel_cost`` at these shapes to the active count
@@ -19,6 +25,7 @@ from typing import Dict
 import torch
 
 from repro_torch.analysis import roofline
+from repro_torch.kernels import autotune
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import ps_aggregate as _agg
@@ -55,9 +62,9 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     keys j <= i + q_offset. Any Sq/Sk. With ``return_lse``, returns
     (o, lse) with the row log-sum-exp lse (B, H, Sq) f32."""
     where = _where("flash_attention", q, k, v)
+    _fa.check_shapes(q, k, v, q_offset)
+    B, Sq, H, hd = q.shape
     if where == "meta":
-        _fa.check_shapes(q, k, v, q_offset)
-        B, Sq, H, hd = q.shape
         _count(_fa.NAME, B=B, Sq=Sq, Sk=k.shape[1], H=H, KV=k.shape[2],
                hd=hd, dtype=q.dtype, causal=causal, q_offset=q_offset,
                lse=return_lse)
@@ -66,13 +73,15 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
             return o, q.new_empty((B, H, Sq), dtype=torch.float32)
         return o
     if where == "cpu":
-        _fa.check_shapes(q, k, v, q_offset)
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_offset=q_offset,
                                        return_lse=return_lse)
+    block_q, _ = autotune.tuned_flash_blocks(
+        B * H, Sq, k.shape[1], hd, q.dtype, heads=(H, k.shape[2]),
+        causal=causal, q_offset=q_offset, lse=return_lse, device=q.device)
     return _fa.flash_attention_cuda(q, k, v, causal=causal,
                                     q_offset=q_offset,
-                                    return_lse=return_lse)
+                                    return_lse=return_lse, block_q=block_q)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool,
@@ -147,35 +156,37 @@ def quantize_ef(x, err, *, out_err=None):
     ``x + err`` with error feedback. ``out_err`` (may be ``err``) takes
     new_err in place."""
     where = _where("quantize_ef", x, err)
+    _q.check_quantize(x, err)
+    n = x.numel()
     if where == "meta":
-        _q.check_quantize(x, err)
-        n = x.numel()
         _count(_q.QUANTIZE.NAME, F=n, x_dtype=x.dtype)
         return (x.new_empty(n, dtype=torch.int8),
                 x.new_empty(n // _q.QBLOCK, dtype=torch.float32),
                 out_err if out_err is not None else torch.empty_like(err))
     if where == "cpu":
-        _q.check_quantize(x, err)
         q, scales, new_err = ref.quantize_ref(x, err)
         if out_err is not None:
             new_err = out_err.copy_(new_err)
         return q, scales, new_err
-    return _q.quantize_ef_cuda(x, err, out_err=out_err)
+    block = autotune.tuned_quantize_block(n, _q.QBLOCK, x.dtype,
+                                          device=x.device)
+    return _q.quantize_ef_cuda(x, err, out_err=out_err, block=block)
 
 
 def dequantize(q, scales, *, out=None):
     """q int8 (F,), scales f32 (F/256,) -> q * scale per block, f32
     (F,), written into ``out`` when given."""
     where = _where("dequantize", q, scales)
+    _q.check_dequantize(q, scales, out)
     if where == "meta":
-        _q.check_dequantize(q, scales, out)
         _count(_q.DEQUANTIZE.NAME, F=q.numel())
         return out if out is not None else q.new_empty(
             q.numel(), dtype=torch.float32)
     if where == "cpu":
-        _q.check_dequantize(q, scales, out)
         return ref.dequantize_ref(q, scales, out=out)
-    return _q.dequantize_cuda(q, scales, out=out)
+    block = autotune.tuned_quantize_block(q.numel(), _q.QBLOCK, q.dtype,
+                                          device=q.device)
+    return _q.dequantize_cuda(q, scales, out=out, block=block)
 
 
 def ps_aggregate(rows, params, m, v, step, *, solver: str = "adam",
@@ -188,14 +199,16 @@ def ps_aggregate(rows, params, m, v, step, *, solver: str = "adam",
     kw = dict(solver=solver, lr=lr, b1=b1, b2=b2, eps=eps,
               momentum=momentum, beta=beta)
     where = _where("ps_aggregate", rows, params, m, v)
+    _agg.check_args(rows, params, m, v, solver)
+    nl, f = rows.shape
     if where == "meta":
-        _agg.check_args(rows, params, m, v, solver)
-        _count(_agg.NAME, NL=rows.shape[0], F=rows.shape[1], solver=solver)
+        _count(_agg.NAME, NL=nl, F=f, solver=solver)
         return params, m, v
     if where == "cpu":
-        _agg.check_args(rows, params, m, v, solver)
         return ref.ps_aggregate_ref(rows, params, m, v, step, **kw)
-    return _agg.ps_aggregate_cuda(rows, params, m, v, step, **kw)
+    block = autotune.tuned_ps_block(nl, f, rows.dtype, device=rows.device)
+    return _agg.ps_aggregate_cuda(rows, params, m, v, step, block=block,
+                                  **kw)
 
 
 def launch_counts() -> Dict[str, int]:

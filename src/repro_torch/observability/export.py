@@ -15,11 +15,10 @@ and the tests feed scraped output through it and fail on any malformed
 line, so the exporter can never silently drift from the format.
 
 Copied from ``repro/observability/export.py`` unchanged apart from
-import paths, the logger's name (under ``"repro_torch"``, see
-``log.py``) and one difference: the three autotune-cache families
-(``dlaas_autotune_cache_*``) are left out, because the port has no
-autotune cache yet (``kernels/autotune.py`` is not ported). The port
-imports nothing of ``repro``.
+import paths and the logger's name (under ``"repro_torch"``, see
+``log.py``): the three autotune-cache families
+(``dlaas_autotune_cache_*``) read the port's own cache
+(``kernels/autotune.py``). The port imports nothing of ``repro``.
 """
 from __future__ import annotations
 
@@ -242,6 +241,26 @@ def build_platform_families(core) -> List[Family]:
         # a scrape must never 500
         log.debug("%s collector failed: %s: %s",
                   'serving', type(e).__name__, e)
+
+    # -- autotune cache ---------------------------------------------------
+    fae = Family("dlaas_autotune_cache_entries", "gauge",
+                 "Autotune cache entries loaded in process.")
+    fah = Family("dlaas_autotune_cache_hits_total", "counter",
+                 "Autotune cache hits this process.")
+    fam_ = Family("dlaas_autotune_cache_misses_total", "counter",
+                  "Autotune cache misses this process.")
+    fams += [fae, fah, fam_]
+    try:
+        from repro_torch.kernels.autotune import get_cache
+        cache = get_cache()
+        fae.add(cache.size())
+        fah.add(cache.hits)
+        fam_.add(cache.misses)
+    except Exception as e:
+        # a broken surface degrades to an empty family;
+        # a scrape must never 500
+        log.debug("%s collector failed: %s: %s",
+                  'autotune', type(e).__name__, e)
 
     # -- journal ----------------------------------------------------------
     fj = {key: Family(f"dlaas_journal_{key}", mtype, help_text)

@@ -34,8 +34,10 @@ reference's. What differs:
     and its learner body keeps it alive; at full width on one card that
     would hold tens of GiB for the life of the service.
   * No XLA compilation cache (kernels build from the repo's sources into
-    ``build/kernels/`` at first use) and no ``kernels.grid`` hook (not
-    ported).
+    ``build/kernels/`` at first use).
+
+As in the reference, ``kernels.grid``'s small-block degradations count
+as the ``platform`` counter ``kernels_small_block_total``.
 """
 from __future__ import annotations
 
@@ -162,6 +164,19 @@ class DLaaSCore:
         self._ticker = threading.Thread(target=self._tick_loop,
                                         args=(tick_interval,), daemon=True)
         self._ticker.start()
+        # kernel-grid degradations surface as a platform counter
+        # (kernels/grid.py warns once per signature; the metric counts
+        # every occurrence). Weakly bound: cores come and go in tests.
+        import weakref
+
+        from repro_torch.kernels import grid as _grid
+        wself = weakref.ref(self)
+
+        def _small_block(f, requested, chosen):
+            c = wself()
+            if c is not None:
+                c.metrics.incr("platform", "kernels_small_block_total")
+        _grid.on_small_block(_small_block)
 
     def close(self):
         self._stop.set()

@@ -14,7 +14,10 @@ updates (K1), int8 push (K2, K3) and means on a (4, F) stack, K4/K4b at
 a zero3_sp rank's shapes (``q_offset`` > 0), and the zero3_sp step on a
 1-rank NCCL mesh; K4 at kimi-k2's head dim 112 (K4b raising there), and
 the moe and hybrid families' expert-parallel steps on a 1-rank NCCL
-mesh.
+mesh; the launch-shape tuner (``kernels/autotune.py``): every candidate
+of K1-K4 gives the default's bits, a failing one raises, and its probes
+leave the launch counts alone. The tuner's cache lives in a file of the
+module's temporary directory.
 
 They carry the ``cuda`` marker and skip where ``torch.cuda.is_available()``
 is false (the kernel has no CPU mode). This file imports no JAX, so it
@@ -29,6 +32,7 @@ products are full float32.
 """
 import dataclasses
 import gc
+import json
 import threading
 import time
 
@@ -44,6 +48,16 @@ from repro_torch.serving.engine import InferenceEngine
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _autotune_cache(tmp_path_factory):
+    """The tuner's cache in a file of this module's own (no earlier
+    run's records steer a test)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DLAAS_AUTOTUNE_CACHE", str(
+            tmp_path_factory.mktemp("autotune") / "cache.json"))
+        yield
 
 
 @pytest.fixture
@@ -1630,3 +1644,132 @@ def test_expert_parallel_steps_on_a_one_rank_nccl_mesh(cuda, tmp_path,
                                        msg=k)
     finally:
         tdist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The launch-shape tuner: every candidate gives the default's bits
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import autotune  # noqa: E402
+
+
+def _same_bits(probe, blocks, default):
+    want = probe.run(default)
+    for c in blocks:
+        assert probe.matches(c, want), c
+
+
+@pytest.mark.parametrize("nl,f", [(2, 2304), (4, 1 << 20), (3, 1000),
+                                  (2, 256 * 4920)])
+def test_ps_aggregate_every_block_gives_the_default_bits(cuda, nl, f):
+    """K1 at its candidates and at blocks that divide nothing (1, 300,
+    2,000: masked tails), against the default, from one scratch state;
+    probes move no launch count."""
+    plan = autotune.ps_plan(nl, f)
+    probe = plan.probe(cuda, limit=None)
+    before, probes = kagg.launches, autotune.probe_launches
+    blocks = list(plan.candidates) + [1, 300, 2000]
+    _same_bits(probe, blocks, plan.default)
+    assert kagg.launches == before
+    assert autotune.probe_launches == probes + len(blocks) + 1
+
+
+@pytest.mark.parametrize("f", [768, 256 * 21, 1 << 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_quantize_every_block_gives_the_default_bits(cuda, f, dtype):
+    """K2 (x f32 or bf16) and K3 (int8) at every multiple of 256 up to
+    8,192, divisor of F or not, against the default."""
+    plan = autotune.quantize_plan(f, 256, dtype)
+    probe = plan.probe(cuda, limit=None)
+    rec = kq.DEQUANTIZE if dtype == torch.int8 else kq.QUANTIZE
+    before = rec.launches
+    _same_bits(probe, range(256, 8192 + 1, 256), plan.default)
+    assert rec.launches == before
+
+
+@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("shape", [
+    (2, 300, 300, 8, 2, True, 0), (1, 33, 33, 4, 4, True, 0),
+    (2, 512, 2048, 12, 2, True, 1536), (2, 200, 1500, 4, 1, False, 0),
+    (1, 130, 130, 2, 2, False, 0)])
+@pytest.mark.parametrize("lse", [False, True])
+def test_flash_block_q_64_gives_the_bits_of_128(cuda, hd, shape, lse):
+    """K4's tensor-core instance at block_q 64 (one warpgroup) and 128
+    (two), ragged Sq included: o and lse bit for bit."""
+    B, Sq, Sk, H, KV, causal, q_offset = shape
+    q, k, v = _qkv(B, Sq, Sk, H, KV, hd, torch.bfloat16, seed=hd)
+    before = (kfa.launches, kfa.launches_tc)
+    outs = {}
+    for bq, _ in kfa.TC_SHAPES:
+        o = kfa.flash_attention_cuda(q, k, v, causal=causal,
+                                     q_offset=q_offset, return_lse=lse,
+                                     block_q=bq, probe=True)
+        outs[bq] = o if lse else (o,)
+    torch.cuda.synchronize()
+    assert (kfa.launches, kfa.launches_tc) == before
+    for a, b in zip(outs[64], outs[128]):
+        assert torch.equal(a, b)
+    # and the tuner's own probe of the shape agrees
+    plan = autotune.flash_plan(B * H, Sq, Sk, hd, torch.bfloat16,
+                               heads=(H, KV), causal=causal,
+                               q_offset=q_offset, lse=lse)
+    _same_bits(plan.probe(cuda), plan.candidates, plan.default)
+
+
+def test_a_failing_candidate_raises(cuda):
+    """A launch shape a kernel does not take raises at the wrapper, and
+    through the tuner; so does a candidate whose bits differ."""
+    q, k, v = _qkv(1, 64, 64, 2, 2, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="block_q 96"):
+        kfa.flash_attention_cuda(q, k, v, causal=True, block_q=96)
+    x = torch.zeros(1024, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 256"):
+        kq.quantize_ef_cuda(x, x, block=300)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        kq.dequantize_cuda(x.to(torch.int8), x[:4], block=16384)
+    for block in (0, kagg.MAX_BLOCK + 256):
+        with pytest.raises(ValueError, match="1 to 2048"):
+            kagg.ps_aggregate_cuda(x[None], x, x.clone(), x.clone(), 1,
+                                   solver="sgd", lr=0.1, b1=0.9, b2=0.999,
+                                   eps=1e-8, momentum=0.9, beta=0.9,
+                                   block=block)
+    plan = autotune.flash_plan(2, 64, 64, 64, torch.bfloat16, heads=(2, 2))
+    bad = dataclasses.replace(plan, candidates=[(128, 64), (96, 64)],
+                              predict_us=lambda c: 1.0, extra_key="shape")
+    with pytest.raises(ValueError, match="block_q 96"):
+        autotune._tuned(bad, cuda)
+
+    def differing(device, limit=None):
+        return autotune.Probe(lambda c: (torch.full((4,), float(c[0]),
+                                                    device=device),), {})
+    bad = dataclasses.replace(plan, probe=differing,
+                              predict_us=lambda c: 1.0, extra_key="bits")
+    with pytest.raises(RuntimeError, match="other bits"):
+        autotune._tuned(bad, cuda)
+
+
+def test_ops_tunes_a_new_shape_once_without_counting_probes(cuda):
+    """The first ops call of a shape measures its candidates (probes, not
+    launches); the second is a cache hit with no probe."""
+    q, k, v = _qkv(3, 257, 257, 4, 2, 128, torch.bfloat16, seed=5)
+    cache = autotune.get_cache()
+    before = (kfa.launches, autotune.probe_launches, cache.misses,
+              cache.hits)
+    first = ops.flash_attention(q, k, v, causal=True)
+    assert kfa.launches == before[0] + 1
+    assert autotune.probe_launches > before[1]
+    assert cache.misses == before[2] + 1
+    probes = autotune.probe_launches
+    again = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert kfa.launches == before[0] + 2
+    assert autotune.probe_launches == probes
+    assert cache.hits == before[3] + 1
+    key = autotune.make_key("flash_attention", (12, 257, 257, 128),
+                            torch.bfloat16, "h4kv2|causal1|off0|lse0")
+    rec = json.loads(open(autotune.cache_path()).read())[key]
+    assert rec["source"] == "measured"
+    assert set(rec["measured_us"]) == {"(128, 64)", "(64, 64)"}
+    assert key.split("|")[3] == f"cuda:{torch.cuda.get_device_name()}"

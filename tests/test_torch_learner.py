@@ -355,7 +355,8 @@ COPIES = ["platform/journal.py", "platform/zookeeper.py",
           "observability/stream.py", "observability/trace.py",
           "observability/log.py", "observability/slo.py",
           "observability/export.py", "service/manifest.py",
-          "service/cli.py", "core/cursor.py", "data/pipeline.py"]
+          "service/cli.py", "core/cursor.py", "data/pipeline.py",
+          "kernels/grid.py"]
 
 
 def _logger(name, var="log", indent=""):
@@ -375,8 +376,6 @@ def _logger(name, var="log", indent=""):
 #     its observability/log.py sets up, never the reference's ``"repro"``:
 #     one tree for both packages would hand the port's job lines to the
 #     reference's log hubs in a process that loads both.
-#   * observability/export.py has no autotune-cache families: the port
-#     has no autotune cache (``kernels/autotune.py`` is not ported).
 #   * platform/lcm.py's ``_set`` writes a znode that another thread
 #     created between its check and its create, where the reference's
 #     raises ``NodeExistsError`` (test_lcm_set_survives_a_concurrent_create).
@@ -407,29 +406,8 @@ REFERENCE_ONLY = {
     "observability/trace.py": [_logger("trace")],
     "observability/log.py": [_logger("", var="root", indent="    ")],
     "observability/slo.py": [_logger("slo")],
-    "observability/export.py": [
-        _logger("export"),
-        (["    # -- autotune cache -----------------------------------------"
-          "----------",
-          '    fae = Family("dlaas_autotune_cache_entries", "gauge",',
-          '                 "Autotune cache entries loaded in process.")',
-          '    fah = Family("dlaas_autotune_cache_hits_total", "counter",',
-          '                 "Autotune cache hits this process.")',
-          '    fam_ = Family("dlaas_autotune_cache_misses_total", '
-          '"counter",',
-          '                  "Autotune cache misses this process.")',
-          "    fams += [fae, fah, fam_]",
-          "    try:",
-          "        cache = get_cache()",
-          "        fae.add(cache.size())",
-          "        fah.add(cache.hits)",
-          "        fam_.add(cache.misses)",
-          "    except Exception as e:",
-          "        # a broken surface degrades to an empty family;",
-          "        # a scrape must never 500",
-          '        log.debug("%s collector failed: %s: %s",',
-          "                  'autotune', type(e).__name__, e)",
-          ""], [])],
+    "observability/export.py": [_logger("export")],
+    "kernels/grid.py": [_logger("kernels.grid")],
 }
 
 
