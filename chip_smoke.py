@@ -285,7 +285,16 @@ first failing phase (no phase catches an exception):
      and then of grok-1's (phase 15's configuration, seed 0), against
      the mesh-less steps: logits and caches equal (``EP_DIFF_LIMIT``);
      c. K4 at kimi-k2's prefill shape (4, 512, 64, KV 8, hd 112) and at
-     the serve's, with kernel, plain, bound and SDPA ms;
+     the serve's, with kernel, plain, bound and SDPA ms; K4b at hd 112
+     (``KIMI_BWD_CASES``: (1, 4,096) and the prefill shape in bf16 on the
+     tensor cores within ``BWD_BF16_REL_L2``, a ragged f32 shape within
+     ``BWD_TOL``; two calls equal in their bits; kernel, plain, bound and
+     SDPA-backward ms); the gradient of one attention sub-block (RMSNorm
+     -> QKV + RoPE -> K4 -> output projection) on layer 0's weights at
+     ``KIMI_GRAD`` through autograd, against the same function with the
+     plain attention on the card (every gradient within
+     ``BWD_BF16_REL_L2``; one K4 and one K4b launch: the path
+     ``grad-kimi-attn``);
  22. autotune — the launch-shape tuner (``kernels/autotune.py``) from a
      fresh cache: a. K1 at the PS shard (2 learners) and the solvers'
      (4, F), K2 and K3 at the PS push (bf16 x) and the solvers' push (f32
@@ -306,7 +315,21 @@ first failing phase (no phase catches an exception):
      scratch); every ``[phase]`` line gives the seconds the tuner spent
      measuring that phase's new shapes and its probe launches, which the
      kernels' launch counts leave out;
- 23. result  — each phase's wall seconds (a ``[phase]`` line as each
+ 23. dryrun  — a. a child process with no card visible, started before
+     phase 2 and waited for here (``--dryrun-child``): ``run_cell`` of
+     ``DRYRUN_CELLS`` (stablelm-1.6b train_4k on (16, 16), kimi-k2
+     train_4k on (2, 16, 16)) on the meta device over a fake 512-rank
+     group, and ``dry_step`` of phase 19 b's step (12 layers, 8 x 512,
+     AdamW, fsdp_tp on a 1-rank mesh) at remat none and full; every
+     record ``ok``; b. that step on the card, a fresh trainer at each
+     remat value: the bytes of its params, optimizer state and batch
+     equal the dry-run's ``argument_size_in_bytes`` to the byte, and
+     ``max_memory_allocated() - memory_allocated()`` across one
+     ``step_once`` is within ``REMAT_TEMP_TOL`` of its
+     ``temp_size_in_bytes``; remat full's loss and updated leaves equal
+     remat none's within ``MODEL_TOL``; K4 and K4b launch once a layer
+     at none, K4 twice at full (the path ``train-pjit-remat``);
+ 24. result  — each phase's wall seconds (a ``[phase]`` line as each
      ends, and a ``[phases]`` line with the tuning seconds by phase),
      ``{"kernels": [...]}`` on the line before the last (each kernel's
      launches summed over the main paths, with ``launches_by_path``;
@@ -572,6 +595,10 @@ PJIT_PAUSE_AFTER = 6       # steps done when the job is paused and preempted
 PJIT_MESH_STEPS = 8        # 19 b: mesh-less run; resumed onto the mesh at 4
 PJIT_MESH_LR = 3e-4        # 19 b's AdamW step
 MODEL_TOL = 1e-4           # atol = rtol, params (tests/test_torch_steps.py)
+# every model the phases train runs without remat, as the learner, the
+# trainer and the engine do (the reference's "remat": "none"): a
+# recomputed forward would launch K4 and K5 again
+NO_REMAT = {"remat": "none"}
 
 # phase 20: the paper's PS solvers (core/solvers.py) at full width, L = 4
 # learners on the local path, and zero3_sp's sequence-parallel attention
@@ -637,6 +664,28 @@ K4_HD112_CASES = [((2, 300, 16, 2, 112, "bfloat16", True), None),
                   ((1, 100, 8, 1, 112, "bfloat16", False), 230),
                   ((1, 37, 8, 2, 112, "float32", True), None),
                   ((2, 77, 8, 1, 112, "float32", False), 141)]
+# 21 c: K4b at kimi-k2's head dim 112 (the hd-128 tiles, columns
+# 112..127 zero-filled): (1, 4096) and the prefill shape in bf16, causal
+# with the LSE, and a small ragged shape in f32; then the gradient of one
+# kimi-k2 attention sub-block at full width (KIMI_GRAD: batch, tokens),
+# kernels against the plain versions on the card
+KIMI_BWD_CASES = [(1, 4096, 64, 8, 112, "bfloat16", True, 0),
+                  KIMI_PREFILL + (0,),
+                  (2, 300, 8, 1, 112, "float32", True, 0)]
+KIMI_GRAD = (1, 2048)
+
+# Phase 23, the dry-run: a child process with no card counts these cells
+# on the meta device over a fake 512-rank group while the card phases
+# run, and phase 19 b's step (PJIT_LAYERS layers, PJIT_MANIFEST's batch,
+# AdamW at PJIT_MESH_LR, fsdp_tp on a 1-rank mesh) at each REMAT_MODES
+# value; the card then runs that step at each value and holds its bytes
+# to the count: the arguments to the byte, the temp bytes within
+# REMAT_TEMP_TOL
+DRYRUN_CELLS = (("stablelm-1.6b", "train_4k", "single"),
+                ("kimi-k2-1t-a32b", "train_4k", "multi"))
+REMAT_MODES = ("none", "full")
+REMAT_TEMP_TOL = 0.10
+DRYRUN_CHILD_TIMEOUT = 600
 
 
 @dataclasses.dataclass(frozen=True)
@@ -773,7 +822,7 @@ def report_tc_build(build, built, card):
     each device kernel's registers, shared memory and spills (nvcc's
     ptxas report, kept beside the library) and its count of tensor-core
     instructions in the machine code (cuobjdump -sass). Raises if a
-    ``_tc`` kernel holds no HGMMA at either of its two widths. Returns
+    ``_tc`` kernel holds no HGMMA at any of its widths. Returns
     (the HGMMA counts by readable kernel name, {library: {readable kernel
     name: its ptxas report}})."""
     import ctypes
@@ -786,11 +835,12 @@ def report_tc_build(build, built, card):
         for bq in (64, 128):
             dyn[f"flash_fwd_kernel_tc<{hd}, {bq}>"] = \
                 fwd.flash_attention_fwd_tc_smem(hd, bq)
-    for hd in (64, 128):
+    for hd in (64, 112, 128):
         dyn[f"flash_bwd_dq_tc_kernel<{hd}>"] = \
             bwd.flash_attention_bwd_tc_smem(hd, 0)
         dyn[f"flash_bwd_dkv_tc_kernel<{hd}>"] = \
             bwd.flash_attention_bwd_tc_smem(hd, 1)
+    for hd in (64, 128):
         for i, name in enumerate(SSD_TC_KERNELS):
             dyn[f"{name}<{hd}>"] = ssd.ssd_scan_tc_smem(i, hd)
         for i, name in enumerate(SSD_BWD_TC_KERNELS):
@@ -820,15 +870,16 @@ def report_tc_build(build, built, card):
     for base in TC_KERNELS + SSD_TC_KERNELS + SSD_BWD_TC_KERNELS:
         found = {n: c for n, c in counts.items()
                  if n.split("<")[0].endswith(base)}
-        # K4's forward has a third width, head dim 112 (kimi-k2), and
-        # each width at block_q 64 and 128
-        widths = 6 if base == TC_KERNELS[0] else 2
+        # K4 and K4b have a third width, head dim 112 (kimi-k2), and
+        # K4's forward each width at block_q 64 and 128
+        widths = (6 if base == TC_KERNELS[0] else
+                  3 if base in TC_KERNELS else 2)
         if len(found) != widths or not all(found.values()):
             raise AssertionError(f"tensor-core kernel {base}: HGMMA "
                                  f"counts {found} (want > 0 at each of "
                                  f"{widths} instances: widths 64, 128 and "
-                                 f"for K4's forward 112, each of those at "
-                                 f"block_q 64 and 128)")
+                                 f"for K4 and K4b 112, K4's forward each "
+                                 f"at block_q 64 and 128)")
     return counts, reports
 
 
@@ -1115,7 +1166,7 @@ def prefill_vs_decode(torch, cfg, prompt, seed=0):
     two paths grow layer by layer through a randomly initialised stack
     (bf16 at 24 layers reaches tens of percent on the CPU too)."""
     from repro_torch.models import make_model
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     toks = torch.tensor(prompt, device="cuda", dtype=torch.int64)[None]
     with torch.no_grad():
@@ -3086,7 +3137,7 @@ def hybrid_prefill_vs_decode(torch, cfg, n, prompts, seed=0):
     MoE layer])."""
     from repro_torch.models import make_model
     from repro_torch.models import moe
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     n_moe = cfg.n_layers // 2
     tried = []
@@ -3480,7 +3531,7 @@ def family_step_card_vs_cpu(torch, ops, arch, batch_fn, scaled=False):
     from repro_torch.models import make_model
     from repro_torch.models.layers import map_leaves
     cfg = reduce_for_smoke(get_arch(arch))
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     params = model.init(torch.Generator().manual_seed(0))
     gparams = map_leaves(lambda _p, t: t.cuda(), params)
     ops.reset_launch_counts()
@@ -3538,7 +3589,7 @@ def train_encdec(torch, ops, ref, kfa, kfab, card):
     cfg = get_arch(ENCDEC_ARCH)
     L, B = cfg.n_layers, ENCDEC_BATCH
     print(f"[encdec] {card}: {memory_line(torch, 'before phase 17:')}")
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     frames, toks = whisper_prompt_batch(torch, cfg, B, ENCDEC_FRAMES,
                                         ENCDEC_TOKENS, 0)
@@ -3604,7 +3655,7 @@ def train_encdec(torch, ops, ref, kfa, kfab, card):
     # decode attention), full width, 2 layers, f32
     cut = dataclasses.replace(cfg, n_layers=FAMILY_CHECK_LAYERS,
                               dtype="float32")
-    cm = make_model(cut)
+    cm = make_model(cut, opts=NO_REMAT)
     cp = cm.init(torch.Generator(device="cuda").manual_seed(1))
     frames, toks = whisper_prompt_batch(torch, cut, 1, ENCDEC_FRAMES,
                                         FAMILY_CHECK_N, 1)
@@ -3739,7 +3790,7 @@ def train_vlm(torch, ops, ref, kfa, kfab, card, keep=None):
     cfg = get_arch(VLM_ARCH)
     L, B, S = cfg.n_layers, VLM_BATCH, VLM_SEQ
     print(f"[vlm] {card}: {memory_line(torch, 'before phase 18:')}")
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     batch = vlm_batch(torch, cfg, B, S, 0)
 
@@ -3798,7 +3849,7 @@ def train_vlm(torch, ops, ref, kfa, kfab, card, keep=None):
     # positions at their index, where decode puts them
     cut = dataclasses.replace(cfg, n_layers=FAMILY_CHECK_LAYERS,
                               dtype="float32")
-    cm = make_model(cut)
+    cm = make_model(cut, opts=NO_REMAT)
     cp = cm.init(torch.Generator(device="cuda").manual_seed(1))
     n = FAMILY_CHECK_N + VLM_GRID * VLM_GRID
     b = vlm_batch(torch, cut, 1, n + 1, 1, text_at_index=True)
@@ -4210,7 +4261,7 @@ def solvers_card_vs_cpu(torch, ops):
     from repro_torch.models import make_model
     from repro_torch.optim.optimizers import OptConfig
     cfg = reduce_for_smoke(get_arch(SOLVER_ARCH))
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     params = model.init(torch.Generator().manual_seed(0))
     opt = OptConfig(name="sgd", lr=SOLVER_SMOKE_LR)
     out = {}
@@ -4266,7 +4317,7 @@ def train_solvers(torch, ops, kfa, kfab, card):
     from repro_torch.models import make_model
     from repro_torch.optim.optimizers import OptConfig
     cfg = dataclasses.replace(get_arch(SOLVER_ARCH), n_layers=SOLVER_LAYERS)
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     opt = OptConfig(**SOLVER_OPT)
     print(f"[solvers] {card}: {memory_line(torch, 'before phase 20:')}")
     total = dict.fromkeys(ops.launch_counts(), 0)
@@ -4382,7 +4433,7 @@ def sp_step(torch, ops, kfa, kfab, params, card):
     batch = vlm_batch(torch, cfg, B, S, 2)
     opt = steps.default_optimizer(cfg)
     mesh_params = map_leaves(lambda _p, t: t.clone(), params)
-    flat_model = make_model(cfg)
+    flat_model = make_model(cfg, opts=NO_REMAT)
     state = init_opt_state(opt, params)
     params, state, la = steps.build_train_step(flat_model, opt)(
         params, state, batch)
@@ -4399,7 +4450,7 @@ def sp_step(torch, ops, kfa, kfab, params, card):
     try:
         mesh = make_mesh(1, 1)
         d = Dist(mesh=mesh, policy="zero3_sp").resolve_batch(B)
-        model = make_model(cfg, d)
+        model = make_model(cfg, d, NO_REMAT)
         psh = model.param_shardings()
         ospecs = opt_state_specs(opt, model.param_defs(), d)
         full_state = init_opt_state(opt, mesh_params)
@@ -4493,9 +4544,9 @@ def ep_prefill_decode(torch, cfg, params, label, card, cache_len):
     g = torch.Generator(device="cuda").manual_seed(21)
     toks = torch.randint(0, cfg.vocab_size, (B, EP_PROMPT + EP_DECODE),
                          generator=g, device="cuda")
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     dist = Dist(mesh=make_mesh(1, 1)).resolve_batch(B)
-    mmodel = make_model(cfg, dist)
+    mmodel = make_model(cfg, dist, NO_REMAT)
     shape = ShapeSpec("ep", EP_PROMPT, B, "prefill")
     psh = mmodel.param_shardings()
     dparams = map_leaves(lambda p, x: distribute(x, leaf_at(psh, p)), params)
@@ -4551,8 +4602,11 @@ def serve_kimi(torch, ops, ref, kfa, card):
     prefill and decode steps on a 1-rank NCCL mesh against the mesh-less
     steps, on kimi-k2's weights and then on grok-1's (phase 15's
     configuration, seed 0); c. K4 at kimi-k2's prefill shape and at the
-    serve's, against its plain version and SDPA. Returns (K4 results,
-    the cold serve's launches, the EP differences)."""
+    serve's, against its plain version and SDPA, then K4b at head dim
+    112 and the gradient of one attention sub-block on layer 0's weights
+    (``kimi_attention_grad``). Returns (K4 results, the moe_block
+    results, the cold serve's launches, the EP differences, (K4b
+    results, the sub-block gradient's launches))."""
     import torch.distributed as tdist
     from repro_torch.analysis.roofline import HBM_BW
     from repro_torch.configs.registry import get_arch
@@ -4621,6 +4675,11 @@ def serve_kimi(torch, ops, ref, kfa, card):
         blocks = kimi_moe_checks(torch, cfg, eng.params, card)
         ep[KIMI_ARCH] = ep_prefill_decode(torch, cfg, eng.params, KIMI_ARCH,
                                           card, EP_PROMPT + EP_DECODE)
+        # layer 0's attention weights, for 21 c's sub-block gradient
+        pb = eng.params["blocks"]
+        attn_w = {"ln": pb["ln1"]["w"][0].clone(),
+                  "attn": {k: v[0].clone() for k, v in pb["attn"].items()}}
+        del pb
         eng.release()
         del eng
         gc.collect()
@@ -4628,7 +4687,7 @@ def serve_kimi(torch, ops, ref, kfa, card):
         gcfg = dataclasses.replace(get_arch(MOE_ARCH),
                                    n_layers=MOE_SERVE_LAYERS)
         from repro_torch.models import make_model
-        gparams = make_model(gcfg).init(
+        gparams = make_model(gcfg, opts=NO_REMAT).init(
             torch.Generator(device="cuda").manual_seed(0))
         ep[MOE_ARCH] = ep_prefill_decode(torch, gcfg, gparams, MOE_ARCH,
                                          card, EP_PROMPT + EP_DECODE)
@@ -4656,7 +4715,95 @@ def serve_kimi(torch, ops, ref, kfa, card):
           f"({head['bound_by']}, the 112 real dims) = "
           f"{head['share_of_bound']:.3f} of it; plain "
           f"{head['plain_ms']:.3f} ms; SDPA {head['library_ms']:.4f} ms")
-    return k4, blocks, cold_launches, ep
+    torch.cuda.empty_cache()
+    k4b, grad_launches = kimi_attention_grad(torch, ops, ref, cfg, attn_w,
+                                             card)
+    del attn_w
+    torch.cuda.empty_cache()
+    return k4, blocks, cold_launches, ep, (k4b, grad_launches)
+
+def kimi_attention_grad(torch, ops, ref, cfg, w, card):
+    """21 c (second part): K4b at head dim 112 (KIMI_BWD_CASES) against
+    its plain version (``check_attention_bwd``: bf16 within relative L2
+    BWD_BF16_REL_L2 per gradient on the tensor cores, f32 within
+    BWD_TOL, two calls equal in their bits, kernel, plain, bound and
+    SDPA-backward ms); then the gradient of one kimi-k2 attention
+    sub-block at full width (RMSNorm -> QKV + RoPE -> attention ->
+    output projection, layer 0's weights ``w`` of phase 21's serve) at
+    KIMI_GRAD through autograd: with the kernels (K4 with the LSE, K4b)
+    against the same function with the plain attention on the card,
+    every gradient within BWD_BF16_REL_L2. Returns (the K4b results, the
+    sub-block's launches: the path ``grad-kimi-attn``)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_attention_bwd as kfab
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.attention import flash_attention
+    k4b = [check_attention_bwd(torch, ops, ref, s, seed=210 + i)
+           for i, s in enumerate(KIMI_BWD_CASES)]
+    for r in k4b:
+        print(f"[kernel] {card}: K4b at hd 112 {json.dumps(r)}")
+        if r["shape"]["dtype"] == "bfloat16" and \
+                r["instance"] != "tensor cores":
+            raise AssertionError("K4b at hd 112 in bf16 off the tensor "
+                                 "cores")
+    head = k4b[0]
+    print(f"[kernel] {card}: K4bk (hd 112) at {head['shape']}: "
+          f"{head['ms']:.4f} ms, bound {head['bound_ms']:.4f} ms "
+          f"({head['bound_by']}, the 112 real dims) = "
+          f"{head['share_of_bound']:.3f} of it; plain "
+          f"{head['plain_ms']:.3f} ms; SDPA backward "
+          f"{head['library_ms']:.4f} ms; relative L2 {head['rel_l2']}")
+
+    B, S = KIMI_GRAD
+    g = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn(B, S, cfg.d_model, generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    dy = torch.randn(B, S, cfg.d_model, generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    positions = torch.arange(S, device="cuda").expand(B, S)
+    names = ["x", "ln"] + sorted(w["attn"])
+
+    def grads(attend):
+        xs = x.detach().requires_grad_()
+        ln = w["ln"].detach().requires_grad_()
+        p = {k: v.detach().requires_grad_() for k, v in w["attn"].items()}
+        h = tf.norm_apply(xs, {"w": ln}, cfg)
+        q, k, v = tf._qkv(h, p, cfg, positions)
+        y = tf._out_proj(attend(q, k, v), p, cfg)
+        return torch.autograd.grad(y, [xs, ln] + [p[n] for n in names[2:]],
+                                   dy)
+    before = ops.launch_counts()
+    got = grads(lambda q, k, v: flash_attention(q, k, v, causal=True))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    want = grads(lambda q, k, v: ref.flash_attention_ref(q, k, v,
+                                                         causal=True))
+    rels = {}
+    for n, a, b in zip(names, got, want):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all().item():
+            raise AssertionError(f"kimi-k2 attention gradient {n} is not "
+                                 f"finite")
+        rels[n] = ((a - b).norm() / b.norm()).item()
+    del got, want
+    torch.cuda.empty_cache()
+    if max(rels.values()) > BWD_BF16_REL_L2:
+        raise AssertionError(f"kimi-k2 attention sub-block: relative L2 "
+                             f"{rels} > {BWD_BF16_REL_L2}")
+    if (launches[kfa.NAME], launches[kfab.NAME]) != (1, 1):
+        raise AssertionError(f"kimi-k2 attention sub-block launches "
+                             f"{launches}, want one K4 and one K4b")
+    print(f"[kimi] {card}: the gradient of one {KIMI_ARCH} attention "
+          f"sub-block at full width (d {cfg.d_model}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv_heads} of hd {cfg.hd}, {B} x {S} tokens, bf16, "
+          f"layer 0 of phase 21's weights): K4 + K4b against the plain "
+          f"attention on the card, relative L2 by gradient "
+          f"{json.dumps({k: round(v, 6) for k, v in rels.items()})} "
+          f"(limit {BWD_BF16_REL_L2}); launches K4 {launches[kfa.NAME]}, "
+          f"K4b {launches[kfab.NAME]}")
+    return k4b, launches
+
 
 # ---------------------------------------------------------------------------
 # Phase 22: the launch-shape tuner
@@ -4848,6 +4995,251 @@ def autotune_phase(torch, card, shapes):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the dry-run on the meta device, held against the card
+# ---------------------------------------------------------------------------
+
+
+def dryrun_child() -> int:
+    """The dry-run child (``chip_smoke.py --dryrun-child``, started with
+    no card visible): ``run_cell`` of each DRYRUN_CELLS cell on a fake
+    512-rank group, then ``dry_step`` of phase 19 b's step on a 1-rank
+    mesh of it at each REMAT_MODES value; one JSON record a line."""
+    os.nice(10)                 # the card phases come first
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.sharding import Dist
+    from repro_torch.launch.dryrun import dry_step, fake_world, run_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import make_model
+    from repro_torch.optim.optimizers import OptConfig
+    fake_world(512)
+    for arch, shape, mesh in DRYRUN_CELLS:
+        try:
+            rec = run_cell(arch, shape, mesh, save_ops=False)
+        except Exception as e:      # recorded; the parent fails the phase
+            rec = {"arch": arch, "shape": shape, "mesh": mesh,
+                   "status": "error", "error": f"{type(e).__name__}: {e}"}
+        print(json.dumps(rec), flush=True)
+    m = PJIT_MANIFEST
+    cfg = dataclasses.replace(get_arch(PJIT_ARCH), n_layers=PJIT_LAYERS)
+    shape = ShapeSpec("trainer", m["data"]["seq_len"], m["batch_docs"],
+                      "train")
+    dist = Dist(mesh=make_mesh(1, 1, device="cpu")).resolve_batch(
+        m["batch_docs"])
+    for remat in REMAT_MODES:
+        rec = dry_step(make_model(cfg, dist, {"remat": remat}), shape,
+                       OptConfig(name="adamw", lr=PJIT_MESH_LR))
+        rec.pop("rows")
+        print(json.dumps({"step": "19b", "remat": remat, "status": "ok",
+                          **rec}), flush=True)
+    return 0
+
+
+def start_dryrun_child():
+    """Start ``dryrun_child`` in a process of its own, with no card
+    visible, its records going to a file under ``build/``; it is stopped
+    at exit if it still runs. Returns (the process, the file)."""
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-",
+                                dir=build_dir)) / "records.jsonl"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    log = open(out, "w")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--dryrun-child"], stdout=log,
+                            stderr=subprocess.STDOUT, env=env,
+                            cwd=str(ROOT))
+    log.close()
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(out.parent, ignore_errors=True)
+    atexit.register(stop)
+    return proc, out
+
+
+def storage_bytes(trees) -> int:
+    """Bytes of the distinct storages of the tensors in ``trees`` (a
+    DTensor's, its local tensor's)."""
+    from repro_torch.models.layers import iter_leaves
+    seen, n = set(), 0
+    for tree in trees:
+        for _, t in iter_leaves(tree):
+            st = getattr(t, "_local_tensor", t).untyped_storage()
+            if st._cdata not in seen:
+                seen.add(st._cdata)
+                n += st.nbytes()
+    return n
+
+
+def remat_steps(torch, cfg, workdir, card):
+    """23 b: phase 19 b's step on a 1-rank NCCL mesh, one fresh trainer
+    at each REMAT_MODES value from the same seed and batch: the bytes of
+    its params, optimizer state and batch, and ``max_memory_allocated()
+    - memory_allocated()`` across one ``step_once`` (the peak reset just
+    before it); its loss, updated leaves and K4/K4b launches. K4 is
+    tuned at the step's shape first, so no probe falls inside a step."""
+    import torch.distributed as tdist
+    from repro_torch.distributed.sharding import Dist, gather
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import iter_leaves
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    m = PJIT_MANIFEST
+    B, S = m["batch_docs"], m["data"]["seq_len"]
+    bf = torch.bfloat16
+    q = torch.zeros(B, S, cfg.n_heads, cfg.hd, dtype=bf, device="cuda")
+    kv = torch.zeros(B, S, cfg.n_kv_heads, cfg.hd, dtype=bf, device="cuda")
+    ops.flash_attention(q, kv, kv, causal=True, return_lse=True)
+    del q, kv
+    tdist.init_process_group(
+        "nccl", store=tdist.FileStore(str(Path(workdir) / "pg-remat"), 1),
+        rank=0, world_size=1)
+    runs, leaves = {}, {}
+    try:
+        mesh = make_mesh(1, 1)
+        for remat in REMAT_MODES:
+            tr = Trainer(cfg, Dist(mesh=mesh), OptConfig(
+                name="adamw", lr=PJIT_MESH_LR), TrainerConfig(
+                batch=B, seq=S, ckpt_dir=str(Path(workdir) / remat),
+                job_id=f"remat-{remat}"), opts={"remat": remat}).init(0)
+            batch = tr._batch(0)
+            held = storage_bytes((tr.params, tr.opt_state, batch))
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            loss = tr.step_once(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            temp = torch.cuda.max_memory_allocated() - base
+            after = ops.launch_counts()
+            runs[remat] = {"held": held, "temp": temp, "loss": loss,
+                           "step_s": wall, "launches": {
+                               k: after[k] - before[k] for k in after}}
+            leaves[remat] = {k: gather(x) for k, x in
+                             iter_leaves(tr.params)}
+            del tr, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+    diff = 0.0
+    for k, x in leaves["none"].items():
+        y = leaves["full"][k]
+        d = (x.float() - y.float()).abs()
+        diff = max(diff, d.max().item())
+        if (d > MODEL_TOL + MODEL_TOL * x.float().abs()).any().item():
+            raise AssertionError(f"remat full's updated {k} differs from "
+                                 f"remat none's by {d.max().item()}")
+    la, lb = runs["none"]["loss"], runs["full"]["loss"]
+    if abs(la - lb) > MODEL_TOL + MODEL_TOL * abs(la):
+        raise AssertionError(f"remat full's loss {lb} vs none's {la}")
+    del leaves
+    torch.cuda.empty_cache()
+    return runs, max(diff, abs(la - lb))
+
+
+def dryrun_phase(torch, kfa, kfab, card, child):
+    """Phase 23: a. wait for the dry-run child and require every record
+    ``ok``; b. phase 19 b's step on the card at remat none and full
+    (``remat_steps``): its argument bytes equal the dry-run's to the
+    byte, its temp bytes within REMAT_TEMP_TOL of the dry-run's, remat
+    full's loss and leaves equal remat none's within MODEL_TOL, and the
+    launches: K4 and K4b once a layer at none, K4 twice at full (the
+    recomputed forward). Returns the launches of the two steps (the path
+    ``train-pjit-remat``)."""
+    from repro_torch.configs.registry import get_arch
+    proc, out = child
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=DRYRUN_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"the dry-run child did not end within "
+                             f"{DRYRUN_CHILD_TIMEOUT} s")
+    waited = time.perf_counter() - t0
+    lines = out.read_text().splitlines()
+    recs = []
+    for line in lines:
+        if line.startswith("{"):
+            recs.append(json.loads(line))
+    if rc != 0 or len(recs) != len(DRYRUN_CELLS) + len(REMAT_MODES):
+        raise AssertionError(f"the dry-run child exited {rc} with "
+                             f"{len(recs)} records: "
+                             + "\n".join(lines[-30:]))
+    bad = [r for r in recs if r.get("status") != "ok"]
+    if bad:
+        raise AssertionError(f"dry-run records not ok: {bad}")
+    for r in recs[:len(DRYRUN_CELLS)]:
+        print(f"[dryrun] {card}: {r['arch']} {r['shape']} {r['mesh']} "
+              f"(counted on the meta device against H100 constants, no "
+              f"card): peak {r['peak_bytes_per_device'] / 2**30:.2f} GiB "
+              f"a device (fits 80 GB: {r['fits_h100_80gb']}), "
+              f"{r['flops_per_device']:.4e} FLOPs a device, useful ratio "
+              f"{r['useful_ratio']}, dominant {r['dominant']}, collectives "
+              f"{r['ici_bytes_per_device'] / 1e9:.3f} GB "
+              f"{json.dumps(r['collective_bytes_by_kind'])}; counted in "
+              f"{r['count_s']} s")
+    dry = {r["remat"]: r for r in recs[len(DRYRUN_CELLS):]}
+    print(f"[dryrun] {card}: the child ended {waited:.1f} s after phase 22 "
+          f"(it ran beside phases 2-22)")
+
+    cfg = dataclasses.replace(get_arch(PJIT_ARCH), n_layers=PJIT_LAYERS)
+    build_dir = ROOT / "build"
+    workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-remat-",
+                                    dir=build_dir))
+    try:
+        runs, diff = remat_steps(torch, cfg, workdir, card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    L = cfg.n_layers
+    want = {"none": (L, L), "full": (2 * L, L)}
+    launches = None
+    for remat in REMAT_MODES:
+        r, d = runs[remat], dry[remat]
+        gap = (r["temp"] - d["temp_size_in_bytes"]) / d["temp_size_in_bytes"]
+        print(f"[remat] {card}: stablelm-1.6b L={L} fsdp_tp 1-rank NCCL "
+              f"mesh, AdamW, {PJIT_MANIFEST['batch_docs']} x "
+              f"{PJIT_MANIFEST['data']['seq_len']}, remat {remat}: "
+              f"arguments on the card {r['held']} B, counted "
+              f"{d['argument_size_in_bytes']} B; temp on the card "
+              f"(max_memory_allocated - memory_allocated across the step) "
+              f"{r['temp']} B = {r['temp'] / 2**30:.3f} GiB, counted "
+              f"{d['temp_size_in_bytes']} B = "
+              f"{d['temp_size_in_bytes'] / 2**30:.3f} GiB, gap "
+              f"{100 * gap:+.2f}%; peak counted "
+              f"{d['peak_bytes_per_device'] / 2**30:.3f} GiB; loss "
+              f"{r['loss']:.6f}; step {r['step_s']:.3f} s; launches "
+              f"K4 {r['launches'][kfa.NAME]}, K4b "
+              f"{r['launches'][kfab.NAME]}")
+        if r["held"] != d["argument_size_in_bytes"]:
+            raise AssertionError(f"remat {remat}: the card holds "
+                                 f"{r['held']} B of arguments, the dry-run "
+                                 f"counts {d['argument_size_in_bytes']}")
+        if abs(gap) > REMAT_TEMP_TOL:
+            raise AssertionError(f"remat {remat}: temp bytes on the card "
+                                 f"{r['temp']} vs counted "
+                                 f"{d['temp_size_in_bytes']}: {gap:+.4f}")
+        got = (r["launches"][kfa.NAME], r["launches"][kfab.NAME])
+        if got != want[remat]:
+            raise AssertionError(f"remat {remat}: K4/K4b launches {got}, "
+                                 f"want {want[remat]}")
+        launches = r["launches"] if launches is None else {
+            k: launches[k] + v for k, v in r["launches"].items()}
+    print(f"[remat] {card}: remat full's loss and every updated leaf "
+          f"equal remat none's within atol=rtol {MODEL_TOL}: largest "
+          f"difference {diff:.3e}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4872,6 +5264,9 @@ def main() -> int:
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    # the dry-run child (phase 23) counts on the meta device, with no
+    # card, while the card phases run
+    dry_child = start_dryrun_child()
     clock = PhaseClock()
     clock.done("1 device")
 
@@ -5299,7 +5694,8 @@ def main() -> int:
     # moe_block against moe_ref at k = 8, and the expert-parallel prefill
     # and decode steps on a 1-rank NCCL mesh (kimi-k2's and grok-1's
     # weights) against the mesh-less steps
-    kimi_k4, _, kimi_launches, _ = serve_kimi(torch, ops, ref, kfa, card)
+    kimi_k4, _, kimi_launches, _, (kimi_k4b, kimi_grad_launches) = \
+        serve_kimi(torch, ops, ref, kfa, card)
     torch.cuda.empty_cache()
     clock.done("21 kimi, expert-parallel")
 
@@ -5311,7 +5707,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.done("22 autotune")
 
-    # 23. result
+    # 23. the dry-run: the child's records (two production cells on a fake
+    # 512-rank group, phase 19 b's step counted at remat none and full),
+    # then that step on the card at both values against the count
+    remat_launches = dryrun_phase(torch, kfa, kfab, card, dry_child)
+    torch.cuda.empty_cache()
+    clock.done("23 dryrun")
+
+    # 24. result
     def entry(mod, launches, head, shapes):
         return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                 "replaces": mod.REPLACES, "launches": launches,
@@ -5333,7 +5736,9 @@ def main() -> int:
                    "train-qwen2-vl": vlm_launches,
                    "train-pjit": pjit_launches,
                    "solvers": solver_launches_total,
-                   "train-sp": sp_launches}
+                   "train-sp": sp_launches,
+                   "grad-kimi-attn": kimi_grad_launches,
+                   "train-pjit-remat": remat_launches}
     ssm_paths = {"ssm-train": train["ssm-train"]["launches"],
                  "ssm-platform-train": sptrain["launches"]}
     k4_paths = by_path(kfa.NAME, {"serve": serve_launches, **dense_paths,
@@ -5348,7 +5753,7 @@ def main() -> int:
     k4["launches_by_path"] = k4_paths
     k4b_main = [bwd[-1]] + wh_k4b + vl_k4b + pj_k4b
     k4b = entry(kfab, 0, max(k4b_main, key=lambda r: r["bound_ms"]),
-                bwd + wh_k4b + vl_k4b + pj_k4b + sp_k4b)
+                bwd + wh_k4b + vl_k4b + pj_k4b + sp_k4b + kimi_k4b)
     for e, names in ((k4, TC_KERNELS[:1]), (k4b, TC_KERNELS[1:])):
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
         e["x_library"] = e["ms"] / e["library_ms"]
@@ -5404,4 +5809,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--dryrun-child"]:
+        sys.exit(dryrun_child())
     sys.exit(main())

@@ -27,7 +27,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops, ref
     t0 = time.perf_counter()
-    _, _, launches, ep = smoke.serve_kimi(torch, ops, ref, kfa, card)
+    _, _, launches, ep, _ = smoke.serve_kimi(torch, ops, ref, kfa, card)
     print(f"[kimi] {card}: phase 21 in {time.perf_counter() - t0:.1f} s; "
           f"the cold serve's launches {launches}; expert-parallel "
           f"differences {ep}")

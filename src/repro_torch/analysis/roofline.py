@@ -34,6 +34,16 @@ no data, nothing on the card) under a ``TorchDispatchMode``
     collectives it would issue. A one-card step has none: 0 and {}. Ops
     on tensor subclasses (DTensor) are not counted: the local ops they
     run are.
+  * Memory (``memory_program``, the reference's ``memory_analysis``):
+    every storage an op returns that is new adds its bytes while it
+    lives (a ``weakref.finalize`` on the storage takes them off again);
+    views and in-place ops return no new storage and add nothing. The
+    arguments' storages are ``argument_size_in_bytes``; the high-water
+    mark of the others, less the outputs', is ``temp_size_in_bytes``.
+    Autograd's saved tensors count while they are held, which is what
+    ``remat`` changes. On the card the caching allocator rounds each
+    block up and libraries may take workspace of their own, which this
+    count does not see.
 
 Compute time takes each operation's peak for its own dtype (bf16 on the
 tensor cores, f32 outside them: the port leaves TF32 off), memory time
@@ -43,12 +53,13 @@ on the port's configs.
 from __future__ import annotations
 
 import threading
+import weakref
 from dataclasses import dataclass
 from typing import Callable, Dict, List
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_leaves, tree_map
 from torch.utils.flop_counter import flop_registry
 
 # NVIDIA H100 SXM5 data sheet, dense rates at the 700 W power limit
@@ -59,6 +70,7 @@ NVLINK_BW = 450e9            # bytes/s/card, one direction of NVLink 4
 NET_BW = 50e9                # bytes/s/card across hosts: one 400 Gb/s NIC
                              # per card (modelling assumption, as the
                              # reference's DCN rate)
+HBM_BYTES = 80e9             # bytes of device memory: H100 SXM5 80 GB
 
 # ops that launch nothing or only relabel memory: 0 bytes (besides every
 # overload whose schema says it returns a view)
@@ -348,15 +360,73 @@ class _Tally:
 _active = threading.local()
 
 
+def _storage(t: torch.Tensor):
+    """The storage of ``t`` (of a DTensor, its local tensor's)."""
+    local = getattr(t, "_local_tensor", None)
+    return (t if local is None else local).untyped_storage()
+
+
 class ProgramCounter(TorchDispatchMode):
     """Counts every aten op dispatched on this thread while it is
     entered, keyed by op name, and the kernels recorded by
-    ``record_kernel``, keyed by kernel name."""
+    ``record_kernel``, keyed by kernel name; and the bytes of the
+    storages its ops make while they live (``hold_arguments``,
+    ``memory``)."""
 
     def __init__(self):
         super().__init__()
         self.by_key: Dict[str, _Tally] = {}
         self.colls: List = []        # (kind, payload bytes, ranks)
+        self.args: Dict[int, int] = {}     # argument storage -> bytes
+        self.live: Dict[int, int] = {}     # other live storage -> bytes
+        self.live_bytes = 0
+        self.peak_bytes = 0
+
+    def hold_arguments(self, args) -> None:
+        """Take the storages of the tensors in ``args`` (any tree) as the
+        program's arguments."""
+        for t in tree_leaves(args):
+            if isinstance(t, torch.Tensor):
+                st = _storage(t)
+                self.args[st._cdata] = st.nbytes()
+
+    def _track(self, out) -> None:
+        for t in _tensors(out):
+            st = _storage(t)
+            key = st._cdata
+            if key in self.args or key in self.live:
+                continue
+            n = st.nbytes()
+            self.live[key] = n
+            self.live_bytes += n
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            weakref.finalize(st, self._release, key)
+
+    def _release(self, key: int) -> None:
+        self.live_bytes -= self.live.pop(key, 0)
+
+    def memory(self, result) -> Dict[str, int]:
+        """The reference's ``memory_analysis`` sizes of a program that
+        returned ``result``: ``argument_size_in_bytes``,
+        ``output_size_in_bytes`` (every storage returned, as XLA counts
+        every output buffer), ``alias_size_in_bytes`` (the arguments among
+        them, updated in place), ``temp_size_in_bytes`` (the high-water
+        mark of the other live storages, less the new outputs') and
+        ``peak_bytes_per_device`` = arguments - alias + output + temp."""
+        out: Dict[int, int] = {}
+        for t in tree_leaves(result):
+            if isinstance(t, torch.Tensor):
+                st = _storage(t)
+                out[st._cdata] = st.nbytes()
+        alias = sum(n for k, n in out.items() if k in self.args)
+        output = sum(out.values())
+        temp = max(0, self.peak_bytes - (output - alias))
+        arg = sum(self.args.values())
+        return {"argument_size_in_bytes": arg,
+                "output_size_in_bytes": output,
+                "alias_size_in_bytes": alias,
+                "temp_size_in_bytes": temp,
+                "peak_bytes_per_device": arg - alias + output + temp}
 
     def add(self, key: str, flops: float, nbytes: float,
             compute_s: float) -> None:
@@ -383,6 +453,7 @@ class ProgramCounter(TorchDispatchMode):
         if any(t is not torch.Tensor and issubclass(t, torch.Tensor)
                for t in types):
             return out      # a tensor subclass: its local ops are counted
+        self._track(out)
         name = func.overloadpacket.__name__
         if func.namespace == "_c10d_functional" \
                 and name.rstrip("_") in _COLLECTIVES:
@@ -440,12 +511,31 @@ def _on_meta(x):
     return x
 
 
-def _count(fn: Callable, args, kw) -> ProgramCounter:
+def _count(fn: Callable, args, kw):
+    """(counter, result) of one run of ``fn`` on meta arguments."""
     args, kw = tree_map(_on_meta, (args, kw))
     counter = ProgramCounter()
+    counter.hold_arguments((args, kw))
     with counter:
-        fn(*args, **kw)
-    return counter
+        result = fn(*args, **kw)
+    return counter, result
+
+
+def measure_program(fn: Callable, *args, **kw):
+    """(``count_program``'s terms, ``memory_program``'s sizes, the
+    per-op rows of ``breakdown`` unsorted) of one run of ``fn`` on the
+    meta device: the three from the same pass."""
+    counter, result = _count(fn, args, kw)
+    mem = counter.memory(result)
+    return counter.totals(), mem, _rows(counter)
+
+
+def memory_program(fn: Callable, *args, **kw) -> Dict[str, int]:
+    """The reference's ``memory_analysis`` of ``fn(*args, **kw)`` run
+    once on the meta device: ``ProgramCounter.memory``'s sizes. Arguments
+    as in ``count_program``; nothing runs on the card."""
+    counter, result = _count(fn, args, kw)
+    return counter.memory(result)
 
 
 def count_program(fn: Callable, *args, **kw) -> Dict:
@@ -458,19 +548,23 @@ def count_program(fn: Callable, *args, **kw) -> Dict:
     on meta are replaced by empty meta tensors of their shape, dtype and
     strides; tensors ``fn`` makes must be made on its arguments' device.
     Nothing runs on the card and no device memory is allocated."""
-    return _count(fn, args, kw).totals()
+    return _count(fn, args, kw)[0].totals()
 
 
 def breakdown(fn: Callable, *args, top: int = 15, **kw) -> List[Dict]:
     """Per-op attribution of ``count_program(fn, ...)``, keyed by aten op
     or kernel name, heaviest traffic first: the profile the reference's
     ``breakdown`` gives of an HLO module."""
-    rows = [{"op": key, "calls": t.calls, "flops": t.flops,
-             "GB": round(t.bytes / 1e9, 6), "compute_s": t.compute_s,
-             "memory_s": t.bytes / HBM_BW}
-            for key, t in _count(fn, args, kw).by_key.items()]
+    rows = _rows(_count(fn, args, kw)[0])
     rows.sort(key=lambda r: -r["GB"])
     return rows[:top]
+
+
+def _rows(counter: ProgramCounter) -> List[Dict]:
+    return [{"op": key, "calls": t.calls, "flops": t.flops,
+             "GB": round(t.bytes / 1e9, 6), "compute_s": t.compute_s,
+             "memory_s": t.bytes / HBM_BW}
+            for key, t in counter.by_key.items()]
 
 
 # ---------------------------------------------------------------------------

@@ -618,23 +618,50 @@ def local_train_step(model: Model, opt_cfg: OptConfig, shape: ShapeSpec,
 
 
 def abstract_local_inputs(model: Model, shape: ShapeSpec,
-                          opt_cfg: OptConfig):
-    """The arguments of ``local_train_step`` as empty meta tensors: each
-    param and state leaf this rank's shard of it, the batch global."""
+                          opt_cfg: Optional[OptConfig] = None):
+    """This rank's arguments of the step of ``shape.kind`` on
+    ``model.dist`` as empty meta tensors: for train those of
+    ``local_train_step`` (params, state, batch: each param and state leaf
+    this rank's shard of it, the batch global); for prefill (params,
+    batch) and decode (params, cache, batch) those of
+    ``jit_prefill_step`` / ``jit_decode_step``, the params and the cache
+    DTensors of meta local shards laid out per ``param_specs`` and
+    ``cache_sharding_specs``. Without a mesh, ``abstract_inputs``."""
     d = model.dist
+    if not d.has_mesh:
+        return abstract_inputs(model, shape, opt_cfg)
     axes, coord = mesh_axes(d.mesh), _coord(d)
-    aps, state, batch = abstract_inputs(model, shape, opt_cfg)
-    ospecs = opt_state_specs(opt_cfg, model.param_defs(), d)
+    args = abstract_inputs(model, shape, opt_cfg)
+
+    def local(spec, t):
+        sl = shard_slices(spec, t.shape, axes, coord)
+        return torch.empty([s.stop - s.start for s in sl], dtype=t.dtype,
+                           device="meta")
 
     def cut(specs):
-        def one(path, t):
-            sl = shard_slices(leaf_at(specs, path), t.shape, axes, coord)
-            return torch.empty([s.stop - s.start for s in sl],
-                               dtype=t.dtype, device="meta")
-        return one
-    state = {k: v if k == "step" else map_leaves(cut(ospecs[k]), v)
-             for k, v in state.items()}
-    return map_leaves(cut(model.param_specs()), aps), state, batch
+        return lambda path, t: local(leaf_at(specs, path), t)
+    if shape.kind == "train":
+        aps, state, batch = args
+        oc = opt_cfg or default_optimizer(model.cfg)
+        ospecs = opt_state_specs(oc, model.param_defs(), d)
+        state = {k: v if k == "step" else map_leaves(cut(ospecs[k]), v)
+                 for k, v in state.items()}
+        return map_leaves(cut(model.param_specs()), aps), state, batch
+
+    def dtensor(spec, t):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(local(spec, t), d.mesh,
+                                  placements(spec, tuple(axes)),
+                                  run_check=False, shape=t.shape,
+                                  stride=contiguous_stride(t.shape))
+    pspecs = model.param_specs()
+    params = map_leaves(lambda path, t: dtensor(leaf_at(pspecs, path), t),
+                        args[0])
+    if shape.kind == "prefill":
+        return params, args[1]
+    cspecs = model.cache_sharding_specs(shape.global_batch)
+    cache = {k: dtensor(cspecs[k], t) for k, t in args[1].items()}
+    return params, cache, args[2]
 
 
 def _sharded_train_step(model: Model, opt_cfg: OptConfig,
@@ -687,14 +714,6 @@ def _batch_only(spec: P, bt) -> P:
     return P(*[ax if ax == bt else None for ax in tuple(spec)])
 
 
-def _check_cache_batch(model: Model):
-    if not model.dist.batch_axes:
-        raise UserError("a cache whose batch the data axes do not divide "
-                        "takes its sequence dim over every axis in the "
-                        "reference; that layout is not yet ported to "
-                        "repro_torch")
-
-
 def jit_prefill_step(model: Model, shape: ShapeSpec):
     """The prefill step for ``model.dist``: ``build_prefill_step``
     without a mesh. On one: the weights gathered, each rank's rows of the
@@ -702,11 +721,11 @@ def jit_prefill_step(model: Model, shape: ShapeSpec):
     cache laid out per ``cache_sharding_specs(B)``: a new cache as long
     as the prompt, or ``cache`` (DTensors in that layout, e.g. a longer
     one for decoding) written for every row. A batch the data axes do
-    not divide raises ``UserError``."""
+    not divide is prefilled whole on every rank, and its cache takes its
+    sequence dim over every axis, as the reference's."""
     if not model.dist.has_mesh:
         return build_prefill_step(model)
     check_dist(model)
-    _check_cache_batch(model)
     d = model.dist
     local = build_prefill_step(make_model(model.cfg, d.local(), model.opts))
     cspecs = model.cache_sharding_specs(shape.global_batch)
@@ -752,11 +771,13 @@ def jit_decode_step(model: Model, shape: ShapeSpec):
     """The decode step for ``model.dist``: ``build_decode_step`` without
     a mesh. On one: the weights gathered, the cache (DTensors per
     ``cache_sharding_specs(B)``) gathered to its batch shards, each
-    rank's slots decoded, and the cache laid out again."""
+    rank's slots decoded, and the cache laid out again. A batch the data
+    axes do not divide (``batch_axes`` empty) has every slot on every
+    rank: the cache, its sequence dim over every axis, is gathered whole,
+    decoded, and sliced again."""
     if not model.dist.has_mesh:
         return build_decode_step(model)
     check_dist(model)
-    _check_cache_batch(model)
     d = model.dist
     local = build_decode_step(make_model(model.cfg, d.local(), model.opts))
     cspecs = model.cache_sharding_specs(shape.global_batch)

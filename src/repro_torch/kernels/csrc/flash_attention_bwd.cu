@@ -39,7 +39,7 @@
 // Two instances, chosen by dtype and head dim inside the C entry point
 // (a choice of design, not a fallback):
 //
-// * bf16 at hd 64 and 128: `flash_bwd_dq_tc_kernel` and
+// * bf16 at hd 64, 112 and 128: `flash_bwd_dq_tc_kernel` and
 //   `flash_bwd_dkv_tc_kernel`, on the tensor cores (flash_tc.cuh). Blocks
 //   of two warpgroups; the dq kernel owns 128 query rows (64 per
 //   warpgroup) with Q and dO in shared memory and walks key tiles of 64
@@ -60,14 +60,21 @@
 //   most 128 registers a thread (two blocks per SM; ptxas spills a few
 //   bytes, and it was still faster on the card than one block). The
 //   wrapper requires 16-byte aligned rows for the copies and raises
-//   otherwise.
+//   otherwise. Head dim 112 (kimi-k2) runs the hd-128 tiles, as the
+//   forward does: the copies zero-fill columns 112..127 of every Q, dO, K
+//   and V tile, so they add nothing to S or dP and their dQ/dK/dV columns
+//   stay zero; delta sums the 112 real columns, the scale is the caller's
+//   112^-0.5, and only the 112 real columns are stored. No padded copy is
+//   made in global memory.
 // * float32 (any hd), and bf16 at hd 16 and 32: `flash_bwd_dq_kernel` and
 //   `flash_bwd_dkv_kernel`, the first version, every product in f32 FMAs
 //   on the CUDA cores from the stored values (the f32 tolerance 2e-3 rules
 //   out TF32; hd 16/32 are only the smoke configs). A query (key) row is
 //   split over hd/16 neighbouring threads, 16 of its values each; k and v
 //   (q and dO) are staged as f32 in shared memory; partial dot products
-//   meet in shuffles.
+//   meet in shuffles. hd 112 runs the hd-128 layout (eight threads a
+//   row) with columns 112..127 zero, since 112 / 16 threads would not
+//   divide a warp.
 //
 // Later work, not here: a producer warp with TMA and `setmaxnreg`, the
 // overlap of one warpgroup's exponentials with its own next products,
@@ -87,11 +94,14 @@ namespace {
 constexpr int kThreads = 128;        // threads per block
 
 template <int HD> struct BwdTile {
+  // tile width: hd 112 runs the hd-128 tiles, columns 112..127 zero
+  static constexpr int kTw = HD > 64 ? 128 : HD;
   static constexpr int kDpt = 16;                     // dims per thread
-  static constexpr int kTpr = HD / kDpt;              // threads per row
+  static constexpr int kTpr = kTw / kDpt;             // threads per row
   static constexpr int kRows = kThreads / kTpr;       // own rows per block
-  static constexpr int kStage = HD <= 64 ? 64 : 32;   // staged rows per tile
-  static_assert(HD % kDpt == 0 && 32 % kTpr == 0, "bad head dim");
+  static constexpr int kStage = kTw <= 64 ? 64 : 32;  // staged rows per tile
+  static_assert(HD <= kTw && HD % 8 == 0, "bad head dim");
+  static_assert(kTw % kDpt == 0 && 32 % kTpr == 0, "bad tile width");
 };
 
 // dot product of a row split over TPR neighbouring lanes
@@ -117,8 +127,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int TPR = BwdTile<HD>::kTpr;
   constexpr int ROWS = BwdTile<HD>::kRows;
   constexpr int BK = BwdTile<HD>::kStage;
-  __shared__ float k_tile[BK][HD];
-  __shared__ float v_tile[BK][HD];
+  constexpr int TW = BwdTile<HD>::kTw;
+  __shared__ float k_tile[BK][TW];
+  __shared__ float v_tile[BK][TW];
 
   const int tid = threadIdx.x;
   const int row = tid / TPR;
@@ -140,9 +151,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
       const int d = i * TPR + t;
-      qr[i] = row_ok ? C::load(qrow[d]) : 0.f;
-      dor[i] = row_ok ? C::load(drow[d]) : 0.f;
-      dlt = fmaf(dor[i], row_ok ? C::load(orow[d]) : 0.f, dlt);
+      const bool ok = row_ok && d < HD;
+      qr[i] = ok ? C::load(qrow[d]) : 0.f;
+      dor[i] = ok ? C::load(drow[d]) : 0.f;
+      dlt = fmaf(dor[i], ok ? C::load(orow[d]) : 0.f, dlt);
       acc[i] = 0.f;
     }
   }
@@ -161,11 +173,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();                     // previous tile fully consumed
-    for (int idx = tid; idx < BK * HD; idx += kThreads) {
-      const int r = idx / HD, d = idx % HD;
+    for (int idx = tid; idx < BK * TW; idx += kThreads) {
+      const int r = idx / TW, d = idx % TW;
       const int kp = k0 + r;
       float kx = 0.f, vx = 0.f;
-      if (kp < Sk) {
+      if (kp < Sk && d < HD) {
         kx = C::load(kb[(int64_t)kp * ks.s + d]);
         vx = C::load(vb[(int64_t)kp * vs.s + d]);
       }
@@ -197,7 +209,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (row_ok) {
     T* out = dq + b * dqs.b + (int64_t)qi * dqs.s + h * dqs.h;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) out[i * TPR + t] = C::store(acc[i]);
+    for (int i = 0; i < DPT; ++i)
+      if (i * TPR + t < HD) out[i * TPR + t] = C::store(acc[i]);
   }
 }
 
@@ -216,8 +229,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int TPR = BwdTile<HD>::kTpr;
   constexpr int ROWS = BwdTile<HD>::kRows;
   constexpr int BQ = BwdTile<HD>::kStage;
-  __shared__ float q_tile[BQ][HD];
-  __shared__ float do_tile[BQ][HD];
+  constexpr int TW = BwdTile<HD>::kTw;
+  __shared__ float q_tile[BQ][TW];
+  __shared__ float do_tile[BQ][TW];
   __shared__ float lse_tile[BQ];
   __shared__ float delta_tile[BQ];
 
@@ -238,8 +252,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
       const int d = i * TPR + t;
-      kr[i] = key_ok ? C::load(krow[d]) : 0.f;
-      vr[i] = key_ok ? C::load(vrow[d]) : 0.f;
+      const bool ok = key_ok && d < HD;
+      kr[i] = ok ? C::load(krow[d]) : 0.f;
+      vr[i] = ok ? C::load(vrow[d]) : 0.f;
       dka[i] = 0.f;
       dva[i] = 0.f;
     }
@@ -254,11 +269,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* eb = delta + ((int64_t)b * H + h) * Sq;
     for (int qs0 = q_begin; qs0 < Sq; qs0 += BQ) {
       __syncthreads();                   // previous tile fully consumed
-      for (int idx = tid; idx < BQ * HD; idx += kThreads) {
-        const int r = idx / HD, d = idx % HD;
+      for (int idx = tid; idx < BQ * TW; idx += kThreads) {
+        const int r = idx / TW, d = idx % TW;
         const int qp = qs0 + r;
         float qx = 0.f, dx = 0.f;
-        if (qp < Sq) {
+        if (qp < Sq && d < HD) {
           qx = C::load(qb[(int64_t)qp * qs.s + d]);
           dx = C::load(db[(int64_t)qp * dos.s + d]);
         }
@@ -299,6 +314,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* vo = dv + b * dvs.b + (int64_t)kj * dvs.s + hk * dvs.h;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
+      if (i * TPR + t >= HD) continue;
       ko[i * TPR + t] = C::store(dka[i]);
       vo[i * TPR + t] = C::store(dva[i]);
     }
@@ -306,26 +322,29 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, hd 64 / 128: the tensor-core instance
+// bf16, hd 64 / 112 / 128: the tensor-core instance
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD> struct TcBwd {
+  // tile width: the head dim rounded up to whole 64-column blocks; hd
+  // 112 runs the hd-128 tiles with columns 112..127 zero-filled
+  static constexpr int kTW = (HD + 63) / 64 * 64;
   static constexpr int kThreads = 256;                 // two warpgroups
   // dq kernel: 128 query rows (64 per warpgroup), key tiles of 64
   static constexpr int kBQ = 128, kBK = 64;
-  static constexpr int kQBytes = kBQ * HD * 2, kKBytes = kBK * HD * 2;
+  static constexpr int kQBytes = kBQ * kTW * 2, kKBytes = kBK * kTW * 2;
   // Q, dO, two stages of (K, V), lse and delta of the rows
   static constexpr int kDqSmem = 2 * kQBytes + 4 * kKBytes + 2 * kBQ * 4
                                  + 1024;
   // at hd 64 two dq blocks share an SM (<= 128 registers a thread)
-  static constexpr int kDqMinBlocks = HD == 64 ? 2 : 1;
+  static constexpr int kDqMinBlocks = kTW == 64 ? 2 : 1;
   // dk/dv kernel: 128 keys (64 per warpgroup), query tiles of 64 (32 at
-  // hd 128, for registers)
-  static constexpr int kBKV = 128, kBQT = HD == 64 ? 64 : 32;
-  static constexpr int kKVBytes = kBKV * HD * 2, kQTBytes = kBQT * HD * 2;
+  // hd 112 / 128, for registers)
+  static constexpr int kBKV = 128, kBQT = kTW == 64 ? 64 : 32;
+  static constexpr int kKVBytes = kBKV * kTW * 2, kQTBytes = kBQT * kTW * 2;
   // K, V, two stages of (Q, dO), then two stages of (lse, delta)
   static constexpr int kDkvSmem = 2 * kKVBytes + 4 * kQTBytes
                                   + 4 * kBQT * 4 + 1024;
@@ -349,8 +368,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        Strides ks, Strides vs, Strides os, Strides dos,
                        Strides dqs, int causal, int q_offset, float scale) {
   using P = TcBwd<HD>;
-  constexpr int BQ = P::kBQ, BK = P::kBK, NT = P::kThreads;
-  constexpr int NS = BK / 2, NO = HD / 2;   // accumulator floats / thread
+  constexpr int BQ = P::kBQ, BK = P::kBK, NT = P::kThreads, TW = P::kTW;
+  constexpr int NS = BK / 2, NO = TW / 2;   // accumulator floats / thread
   extern __shared__ uint8_t smem_raw[];
   uint32_t sq;
   uint8_t* base = aligned_smem(smem_raw, &sq);
@@ -378,11 +397,12 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
-  tc::load_tile<BQ, HD, NT>(sq, q + b * qs.b + h * qs.h, qs.s, q0, Sq, tid);
-  tc::load_tile<BQ, HD, NT>(sdo, dout + b * dos.b + h * dos.h, dos.s, q0,
-                            Sq, tid);
-  tc::load_tile<BK, HD, NT>(skv, kb, ks.s, 0, Sk, tid);
-  tc::load_tile<BK, HD, NT>(skv + P::kKBytes, vb, vs.s, 0, Sk, tid);
+  tc::load_tile<BQ, TW, NT, HD>(sq, q + b * qs.b + h * qs.h, qs.s, q0, Sq,
+                                tid);
+  tc::load_tile<BQ, TW, NT, HD>(sdo, dout + b * dos.b + h * dos.h, dos.s,
+                                q0, Sq, tid);
+  tc::load_tile<BK, TW, NT, HD>(skv, kb, ks.s, 0, Sk, tid);
+  tc::load_tile<BK, TW, NT, HD>(skv + P::kKBytes, vb, vs.s, 0, Sk, tid);
   tc::cp_commit();
 
   // delta = rowsum(dO * O) in f32, two threads per row; written for the
@@ -440,9 +460,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();                 // tile j landed; tile j - 1 consumed
     if (j + 1 < n_tiles) {
       const uint32_t nk = skv + ((j + 1) & 1) * 2 * P::kKBytes;
-      tc::load_tile<BK, HD, NT>(nk, kb, ks.s, k0 + BK, Sk, tid);
-      tc::load_tile<BK, HD, NT>(nk + P::kKBytes, vb, vs.s, k0 + BK, Sk,
-                                tid);
+      tc::load_tile<BK, TW, NT, HD>(nk, kb, ks.s, k0 + BK, Sk, tid);
+      tc::load_tile<BK, TW, NT, HD>(nk + P::kKBytes, vb, vs.s, k0 + BK, Sk,
+                                    tid);
       tc::cp_commit();
     }
     if (k0 >= wg_end) continue;      // above this warpgroup's diagonal
@@ -452,11 +472,11 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
     tc::wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < TW / 16; ++kk)
       tc::mma_ss<BK>(s, tc::desc_k<BQ>(sq + wg * 64 * 128, kk),
                      tc::desc_k<BK>(sk, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < TW / 16; ++kk)
       tc::mma_ss<BK>(dp, tc::desc_k<BQ>(sdo + wg * 64 * 128, kk),
                      tc::desc_k<BK>(sv, kk), kk > 0);
     tc::wg_commit();
@@ -486,7 +506,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      tc::mma_rs<HD>(dqacc, &dsa[4 * kk], tc::desc_mn<BK>(sk, kk), 1);
+      tc::mma_rs<TW>(dqacc, &dsa[4 * kk], tc::desc_mn<BK>(sk, kk), 1);
     tc::wg_commit();
     tc::wg_wait<0>();
     tc::reg_fence(dqacc);
@@ -521,7 +541,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
                         Strides dvs, int causal, int q_offset, float scale) {
   using P = TcBwd<HD>;
   constexpr int BKV = P::kBKV, BQT = P::kBQT, NT = P::kThreads;
-  constexpr int NS = BQT / 2, NO = HD / 2;
+  constexpr int TW = P::kTW;
+  constexpr int NS = BQT / 2, NO = TW / 2;
   extern __shared__ uint8_t smem_raw[];
   uint32_t sk;
   uint8_t* base = aligned_smem(smem_raw, &sk);
@@ -549,20 +570,20 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
     const int hh = hk * group + it / nqt;
     const int qs0 = q_begin + (it % nqt) * BQT;
     const uint32_t st = sst + (it & 1) * 2 * P::kQTBytes;
-    tc::load_tile<BQT, HD, NT>(st, q + b * qs.b + hh * qs.h, qs.s, qs0, Sq,
-                               tid);
-    tc::load_tile<BQT, HD, NT>(st + P::kQTBytes, dout + b * dos.b +
-                               hh * dos.h, dos.s, qs0, Sq, tid);
+    tc::load_tile<BQT, TW, NT, HD>(st, q + b * qs.b + hh * qs.h, qs.s, qs0,
+                                   Sq, tid);
+    tc::load_tile<BQT, TW, NT, HD>(st + P::kQTBytes, dout + b * dos.b +
+                                   hh * dos.h, dos.s, qs0, Sq, tid);
     const int64_t lrow = ((int64_t)b * H + hh) * Sq;
     const uint32_t fs = sf + (it & 1) * 2 * BQT * 4;
     tc::load_row_f32<BQT, NT>(fs, lse + lrow, qs0, Sq, tid);
     tc::load_row_f32<BQT, NT>(fs + BQT * 4, delta + lrow, qs0, Sq, tid);
   };
 
-  tc::load_tile<BKV, HD, NT>(sk, k + b * ks.b + hk * ks.h, ks.s, k0, Sk,
-                             tid);
-  tc::load_tile<BKV, HD, NT>(sv, v + b * vs.b + hk * vs.h, vs.s, k0, Sk,
-                             tid);
+  tc::load_tile<BKV, TW, NT, HD>(sk, k + b * ks.b + hk * ks.h, ks.s, k0, Sk,
+                                 tid);
+  tc::load_tile<BKV, TW, NT, HD>(sv, v + b * vs.b + hk * vs.h, vs.s, k0, Sk,
+                                 tid);
   if (total > 0) load_stage(0);
   tc::cp_commit();
 
@@ -590,11 +611,11 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
     for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
     tc::wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < TW / 16; ++kk)
       tc::mma_ss<BQT>(s, tc::desc_k<BKV>(sk + wg * 64 * 128, kk),
                       tc::desc_k<BQT>(sq, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < TW / 16; ++kk)
       tc::mma_ss<BQT>(dp, tc::desc_k<BKV>(sv + wg * 64 * 128, kk),
                       tc::desc_k<BQT>(sdo, kk), kk > 0);
     tc::wg_commit();
@@ -629,10 +650,10 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
     tc::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BQT / 16; ++kk)
-      tc::mma_rs<HD>(dvacc, &pa[4 * kk], tc::desc_mn<BQT>(sdo, kk), 1);
+      tc::mma_rs<TW>(dvacc, &pa[4 * kk], tc::desc_mn<BQT>(sdo, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < BQT / 16; ++kk)
-      tc::mma_rs<HD>(dkacc, &dsa[4 * kk], tc::desc_mn<BQT>(sq, kk), 1);
+      tc::mma_rs<TW>(dkacc, &dsa[4 * kk], tc::desc_mn<BQT>(sq, kk), 1);
     tc::wg_commit();
     tc::wg_wait<0>();
     tc::reg_fence(dvacc);
@@ -742,10 +763,13 @@ cudaError_t dispatch_hd(int hd, const Args& a, cudaStream_t stream) {
     case 16: return launch<T, 16>(a, stream);
     case 32: return launch<T, 32>(a, stream);
     case 64:
+    case 112:
     case 128:
-      // bf16 at hd 64 / 128 runs the tensor-core instance instead
+      // bf16 at hd 64 / 112 / 128 runs the tensor-core instance instead
       if constexpr (std::is_same_v<T, float>)
-        return hd == 64 ? launch<T, 64>(a, stream) : launch<T, 128>(a, stream);
+        return hd == 64    ? launch<T, 64>(a, stream)
+             : hd == 112 ? launch<T, 112>(a, stream)
+                         : launch<T, 128>(a, stream);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
@@ -777,10 +801,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                B, Sq, Sk, H, KV, st, causal, q_offset, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(dispatch_hd<float>(hd, a, s));
-  if (dtype == 1 && (hd == 64 || hd == 128)) {
+  if (dtype == 1 && (hd == 64 || hd == 112 || hd == 128)) {
     if (!rows_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
-    return static_cast<int>(hd == 64 ? launch_tc<64>(a, s)
-                                     : launch_tc<128>(a, s));
+    return static_cast<int>(hd == 64    ? launch_tc<64>(a, s)
+                            : hd == 112 ? launch_tc<112>(a, s)
+                                        : launch_tc<128>(a, s));
   }
   if (dtype == 1)
     return static_cast<int>(dispatch_hd<__nv_bfloat16>(hd, a, s));
@@ -788,10 +813,12 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 }
 
 // Dynamic shared memory (bytes) of the tensor-core instance's dq
-// (kernel 0) or dk/dv (kernel 1) kernel at head dim `hd` (64 or 128; 0
-// otherwise), for reports.
+// (kernel 0) or dk/dv (kernel 1) kernel at head dim `hd` (64, 112 or 128;
+// 0 otherwise), for reports.
 extern "C" int flash_attention_bwd_tc_smem(int hd, int kernel) {
   if (hd == 64) return kernel == 0 ? TcBwd<64>::kDqSmem : TcBwd<64>::kDkvSmem;
+  if (hd == 112)
+    return kernel == 0 ? TcBwd<112>::kDqSmem : TcBwd<112>::kDkvSmem;
   if (hd == 128)
     return kernel == 0 ? TcBwd<128>::kDqSmem : TcBwd<128>::kDkvSmem;
   return 0;

@@ -4,7 +4,7 @@ for it: it replaces the plain-jnp custom VJP ``_flash_vjp_bwd`` of
 ``repro/models/attention.py:232``.
 
 The C entry point picks the instance as the forward does: bf16 at hd
-64 and 128 on the tensor cores (``flash_bwd_dq_tc_kernel``,
+64, 112 and 128 on the tensor cores (``flash_bwd_dq_tc_kernel``,
 ``flash_bwd_dkv_tc_kernel``), everything else on the CUDA cores. The
 wrapper checks what the kernel takes (for the tensor-core instance,
 16-byte aligned rows), allocates dq/dk/dv and the delta scratch with
@@ -27,8 +27,9 @@ NAME = "flash_attention_bwd"
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 REPLACES = "src/repro/models/attention.py:232"
 
-# K4b's instances; the forward's hd 112 (kimi-k2, served only) has none
-HEAD_DIMS = (16, 32, 64, 128)
+# K4b's instances; hd 112 (kimi-k2) runs the hd-128 tiles with columns
+# 112..127 zero-filled, as K4's does
+HEAD_DIMS = (16, 32, 64, 112, 128)
 
 launches = 0          # kernel launches in this process (see ops.py)
 launches_tc = 0       # of them, on the tensor-core instance
@@ -83,8 +84,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool,
     Sk, KV = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"K4b (flash_attention_bwd) has no instance at "
-                         f"head_dim {hd}: it takes {HEAD_DIMS} (hd 112 is "
-                         f"K4's alone, for serving)")
+                         f"head_dim {hd}: it takes {HEAD_DIMS}")
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the grid limit 65535")
     for name, t in ts.items():

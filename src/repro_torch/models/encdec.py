@@ -45,7 +45,7 @@ from repro_torch.models.attention import (SeqParallel, decode_attention,
                                          sp_flash_attention)
 from repro_torch.models.layers import (ParamDef, chunked_xent, embed_tokens,
                                        gated_mlp, last_token_logits,
-                                       sinusoid_positions)
+                                       remat_body, sinusoid_positions)
 from repro_torch.models.transformer import (attn_param_defs, cache_dtype,
                                             cache_update, layer_params,
                                             mlp_param_defs, model_dtype,
@@ -117,38 +117,45 @@ def _start(sp: Optional[SeqParallel], seq: int) -> int:
 
 
 def encode(params, enc_embeds, cfg: ArchConfig,
-           sp: Optional[SeqParallel] = None):
+           sp: Optional[SeqParallel] = None, remat: str = "none"):
     """Encoder states (B, S_enc, D) of the frame embeddings: sinusoid
     positions, then per layer LayerNorm -> non-causal self-attention ->
     residual -> LayerNorm -> SwiGLU -> residual; the final LayerNorm.
-    With ``sp``, of the rank's slice of the frames."""
+    With ``sp``, of the rank's slice of the frames. ``remat`` wraps each
+    layer (``layers.remat_body``)."""
     h = enc_embeds.to(model_dtype(cfg))
     S = h.shape[1]
     h = h + sinusoid_positions(S, cfg.d_model, h.dtype, h.device,
                                start=_start(sp, S))
     blocks = params["enc_blocks"]
-    for l in range(cfg.n_layers):
+
+    def layer(h, l):
         bp = layer_params(blocks, l)
         x = norm_apply(h, bp["ln1"], cfg)
         h = h + _attn_full(x, bp["attn"], cfg, causal=False, sp=sp)[0]
         x = norm_apply(h, bp["ln2"], cfg)
-        h = h + _mlp(x, bp["mlp"])
+        return h + _mlp(x, bp["mlp"])
+    layer = remat_body(layer, remat)
+    for l in range(cfg.n_layers):
+        h = layer(h, l)
     return norm_apply(h, params["enc_norm"], cfg)
 
 
 def _decode_stack(params, tokens, enc_h, cfg: ArchConfig, cache=None,
-                  slots=None, sp: Optional[SeqParallel] = None):
+                  slots=None, sp: Optional[SeqParallel] = None,
+                  remat: str = "none"):
     """The decoder over ``tokens`` (B, S) against the encoder states.
     With ``cache``, writes each row's self K/V at positions 0..S-1 and
     its cross K/V into slot ``slots[b]`` (the reference's ``collect``).
     With ``sp``, of the rank's slices of the tokens and encoder states.
-    Returns the final-normed states."""
+    ``remat`` wraps each layer. Returns the final-normed states."""
     h = embed_tokens(tokens, params["embed"])
     S = h.shape[1]
     h = h + sinusoid_positions(S, cfg.d_model, h.dtype, h.device,
                                start=_start(sp, S))
     blocks = params["dec_blocks"]
-    for l in range(cfg.n_layers):
+
+    def layer(h, l):
         bp = layer_params(blocks, l)
         x = norm_apply(h, bp["ln1"], cfg)
         a, (sk, sv) = _attn_full(x, bp["self_attn"], cfg, causal=True,
@@ -165,18 +172,24 @@ def _decode_stack(params, tokens, enc_h, cfg: ArchConfig, cache=None,
             cache["v"][l, slots, :S] = sv
             cache["cross_k"][l, slots] = ck
             cache["cross_v"][l, slots] = cv
+        return h
+    layer = remat_body(layer, remat)
+    for l in range(cfg.n_layers):
+        h = layer(h, l)
     return norm_apply(h, params["final_norm"], cfg)
 
 
 def encdec_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512,
-                sp: Optional[SeqParallel] = None):
+                sp: Optional[SeqParallel] = None, remat: str = "none"):
     """Mean next-token CE of the decoder. batch: enc_embeds (B, S_enc,
     D), tokens (B, S), labels (B, S); chunked CE with chunk
-    ``min(xent_chunk, S)``. No remat. With ``sp``, the batch holds the
-    rank's slices of the frames and of the tokens and labels, and the
+    ``min(xent_chunk, S)``. ``remat`` wraps each encoder and decoder
+    layer, as the reference's scan bodies. With ``sp``, the batch holds
+    the rank's slices of the frames and of the tokens and labels, and the
     loss is the slice's mean."""
-    enc_h = encode(params, batch["enc_embeds"], cfg, sp)
-    h = _decode_stack(params, batch["tokens"], enc_h, cfg, sp=sp)
+    enc_h = encode(params, batch["enc_embeds"], cfg, sp, remat)
+    h = _decode_stack(params, batch["tokens"], enc_h, cfg, sp=sp,
+                      remat=remat)
     return chunked_xent(h, params["head"], batch["labels"],
                         chunk=min(xent_chunk, h.shape[1]))
 

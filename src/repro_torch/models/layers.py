@@ -245,3 +245,58 @@ def chunked_xent(h, w_head, labels, chunk: int = 512):
 def last_token_logits(h_last, w_head):
     """h_last (B, 1, D) -> f32 logits (B, 1, V)."""
     return (h_last @ w_head).float()
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation of a layer body (the reference's ``_remat``)
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = ("none", "dots", "full")
+DEFAULT_REMAT = "full"     # the reference's DEFAULT_OPTS["remat"]
+
+
+def check_remat(mode: str) -> str:
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat {mode!r} is not one of {REMAT_MODES}")
+    return mode
+
+
+def _dots_policy(_ctx, op, *_args, **_kwargs):
+    """Save the outputs of the matrix products, recompute everything
+    else, the hand-written kernels' outputs included: JAX's
+    ``checkpoint_policies.checkpoint_dots``, which saves ``dot_general``
+    only."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.bmm.default, aten.addmm.default,
+              aten.baddbmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat_body(fn, mode: str):
+    """``fn`` (a layer body) under the reference's ``remat`` option
+    (``repro/models/transformer.py:262-268``): ``none`` as it is;
+    ``full`` keeps only the body's inputs for the backward and reruns it
+    there (``torch.utils.checkpoint``); ``dots`` keeps the outputs of its
+    matrix products too and reruns the rest. A rerun launches the
+    body's kernels (K4, K5) again. The numbers are the same in every
+    mode, and without autograd (prefill, decode, ``no_grad``) every mode
+    runs ``fn`` as it is. A layer draws no random numbers, so no RNG
+    state is kept."""
+    check_remat(mode)
+    if mode == "none":
+        return fn
+
+    def body(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {"context_fn": _dots_context} if mode == "dots" else {}
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return body

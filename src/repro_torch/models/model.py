@@ -15,7 +15,11 @@ The compute itself is the one-card code: the sharded steps of
 ``distributed/steps.py`` gather the weights and run it on each rank's
 batch shard, a moe arch's expert layers expert-parallel over "model"
 (``ep``, a ``models.moe.ExpertParallel``). ``opts`` holds the reference's model options the port reads:
-``xent_chunk`` (default 512).
+``xent_chunk`` (default 512) and ``remat`` (``none`` / ``dots`` /
+``full``, default ``full`` as the reference's ``DEFAULT_OPTS``; the
+training loss wraps each layer, ``layers.remat_body``). The learner,
+the trainer and the serving engine pass ``remat: none``, as the
+reference's do.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ from repro_torch.distributed.sharding import (Dist, P, Sharding, tree_shardings,
                                               tree_specs)
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import init_params, map_leaves
+from repro_torch.models.layers import (DEFAULT_REMAT, check_remat,
+                                       init_params, map_leaves)
 
 
 class CacheSpec(NamedTuple):
@@ -47,6 +52,11 @@ class Model:
 
     def __post_init__(self):
         tf.check_ported(self.cfg)
+        check_remat(self.remat)
+
+    @property
+    def remat(self) -> str:
+        return (self.opts or {}).get("remat", DEFAULT_REMAT)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -91,9 +101,10 @@ class Model:
             xent_chunk = (self.opts or {}).get("xent_chunk", 512)
         if self.encdec:
             return ed.encdec_loss(params, batch, self.cfg,
-                                  xent_chunk=xent_chunk, sp=sp)
+                                  xent_chunk=xent_chunk, sp=sp,
+                                  remat=self.remat)
         return tf.lm_loss(params, batch, self.cfg, xent_chunk=xent_chunk,
-                          sp=sp, ep=ep)
+                          sp=sp, ep=ep, remat=self.remat)
 
     def prefill(self, params, batch, *, cache=None, slots=None, ep=None):
         """Into a new cache as long as the prompt, or into ``slots`` of a

@@ -64,7 +64,7 @@ from repro_torch.models.attention import (SeqParallel, decode_attention,
 from repro_torch.models.layers import (ParamDef, apply_rope, chunked_xent,
                                        embed_tokens, gated_mlp,
                                        last_token_logits, layer_norm,
-                                       rms_norm)
+                                       remat_body, rms_norm)
 
 PORTED_FAMILIES = ("dense", "vlm", "ssm", "moe", "hybrid", "encdec")
 # families whose attention runs sequence-parallel under zero3_sp (the SSD
@@ -275,7 +275,7 @@ def ffn_apply(h, bp, cfg: ArchConfig, capacity: Optional[int] = None,
 
 def hybrid_stack(h, blocks, cfg: ArchConfig, attn, mamba,
                  capacity: Optional[int] = None,
-                 ep: Optional[ExpertParallel] = None):
+                 ep: Optional[ExpertParallel] = None, remat: str = "none"):
     """The hybrid's layers in order (the reference's ``_hybrid_period``,
     period after period): in period p, layer j = 0 mixes with
     ``attn(p, x, weights)`` and layer j >= 1 with ``mamba(p, j - 1, x,
@@ -283,8 +283,9 @@ def hybrid_stack(h, blocks, cfg: ArchConfig, attn, mamba,
     the residual, then the layer's FFN (``moe_block`` with ``capacity``
     at odd j, sub-index (j - 1) // 2, expert-parallel with ``ep``;
     SwiGLU at even j, sub-index j // 2). The callbacks write the caches
-    of prefill and decode."""
-    for p in range(n_periods(cfg)):
+    of prefill and decode. ``remat`` wraps each period, as the
+    reference's ``_hybrid_loss`` wraps its scan body."""
+    def period(h, p):
         bp = layer_params(blocks, p)
         for j in range(cfg.attn_period):
             if j == 0:
@@ -301,6 +302,10 @@ def hybrid_stack(h, blocks, cfg: ArchConfig, attn, mamba,
             else:
                 mp = layer_params(bp["mlp"], j // 2)
                 h = h + gated_mlp(x, mp["wg"], mp["wu"], mp["wd"])
+        return h
+    period = remat_body(period, remat)
+    for p in range(n_periods(cfg)):
+        h = period(h, p)
     return h
 
 
@@ -469,7 +474,7 @@ def _positions(batch, B: int, S: int, cfg: ArchConfig, dev):
 
 def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512,
             sp: Optional[SeqParallel] = None,
-            ep: Optional[ExpertParallel] = None):
+            ep: Optional[ExpertParallel] = None, remat: str = "none"):
     """Next-token CE loss (``transformer.py:272-332`` and
     ``_hybrid_loss``). batch: tokens (B, S), labels (B, S)[, positions].
     Embed; per layer, dense and moe: norm -> attention (RoPE, flash
@@ -477,9 +482,10 @@ def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512,
     ``moe_block``) -> residual; ssm: norm -> ``mamba_block`` (the SSD
     scan through ``SSDScan``) -> residual; hybrid: ``hybrid_stack`` of
     the two mixers; final norm; chunked CE with chunk
-    ``min(xent_chunk, S)``. No remat of the layers (the learner's
-    ``remat: none``). ``embeds`` (B, S, D) may stand in for tokens, as
-    in ``lm_prefill``.
+    ``min(xent_chunk, S)``. ``remat`` (``layers.remat_body``) wraps each
+    layer, or each hybrid period, as the reference's ``_remat`` wraps its
+    scan body. ``embeds`` (B, S, D) may stand in for tokens, as in
+    ``lm_prefill``.
 
     With ``sp`` (``SP_FAMILIES`` only) the batch is this rank's slice of
     the sequence, with its global ``positions``, attention gathers the
@@ -491,24 +497,24 @@ def lm_loss(params, batch, cfg: ArchConfig, xent_chunk: int = 512,
     h, positions = _inputs_to_h(params, batch, cfg)
     S = h.shape[1]
     blocks = params["blocks"]
-    if cfg.family == "ssm":
-        for l in range(cfg.n_layers):
-            bp = layer_params(blocks, l)
-            x = norm_apply(h, bp["ln1"], cfg)
-            h = h + mam.mamba_block(x, bp["mamba"], cfg)[0]
-    elif cfg.family == "hybrid":
+    if cfg.family == "hybrid":
         h = hybrid_stack(
             h, blocks, cfg,
             lambda p, x, w: attn_prefill(x, w, cfg, positions)[0],
-            lambda p, i, x, w: mam.mamba_block(x, w, cfg)[0], ep=ep)
+            lambda p, i, x, w: mam.mamba_block(x, w, cfg)[0], ep=ep,
+            remat=remat)
     else:
-        for l in range(cfg.n_layers):
+        def layer(h, l):
             bp = layer_params(blocks, l)
             x = norm_apply(h, bp["ln1"], cfg)
-            h = h + attn_prefill(x, bp["attn"], cfg, positions,
-                                 sp=sp)[0]
+            if cfg.family == "ssm":
+                return h + mam.mamba_block(x, bp["mamba"], cfg)[0]
+            h = h + attn_prefill(x, bp["attn"], cfg, positions, sp=sp)[0]
             x = norm_apply(h, bp["ln2"], cfg)
-            h = h + ffn_apply(x, bp, cfg, ep=ep)
+            return h + ffn_apply(x, bp, cfg, ep=ep)
+        layer = remat_body(layer, remat)
+        for l in range(cfg.n_layers):
+            h = layer(h, l)
     h = norm_apply(h, params["final_norm"], cfg)
     return chunked_xent(h, params["head"], batch["labels"],
                         chunk=min(xent_chunk, S))

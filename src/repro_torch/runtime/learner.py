@@ -129,7 +129,7 @@ class LMPlugin:
                 framework_cfg.get("arch", "stablelm-1.6b")))
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = make_model(cfg)
+        self.model = make_model(cfg, opts={"remat": "none"})
         self.vocab = cfg.vocab_size
         self._layout = flat_layout(cfg)
         self.flat_size = flat_size(cfg)

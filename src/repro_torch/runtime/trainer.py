@@ -16,10 +16,11 @@ Where it differs from the reference: ``init`` draws from a
 ``torch.Generator`` on the device (as ``Model.init``), so the weights of
 a seed are the port's own; token ids are int64; a ``device`` argument
 names the card (``None``: CUDA) for a mesh-less trainer, where a mesh
-brings its own device type. On a mesh every rank runs the same calls:
-``save`` gathers every leaf (rank 0 writes), and ``restore`` waits until
-every rank of the mesh has reached it, so no rank reads a checkpoint
-that rank 0 is still writing.
+brings its own device type. ``opts`` are the model's options, by default
+the reference's ``{"remat": "none"}``. On a mesh every rank runs the same
+calls: ``save`` gathers every leaf (rank 0 writes), and ``restore`` waits
+until every rank of the mesh has reached it, so no rank reads a
+checkpoint that rank 0 is still writing.
 """
 from __future__ import annotations
 
@@ -63,12 +64,14 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg: ArchConfig, dist: Dist, opt: OptConfig,
                  tc: TrainerConfig, metrics: Optional[MetricsService] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 opts: Optional[Dict[str, Any]] = None):
         self.cfg = cfg
         self.opt = opt
         self.tc = tc
         self.metrics = metrics or MetricsService()
         self._device = device
+        self.opts = opts or {"remat": "none"}
         self.ckpt = CheckpointManager(tc.ckpt_dir, keep=3,
                                       mirror=tc.ckpt_mirror)
         self.step = 0
@@ -80,7 +83,7 @@ class Trainer:
         self.device = (torch.device(self.dist.mesh.device_type)
                        if self.dist.has_mesh
                        else resolve_device(self._device))
-        self.model = make_model(self.cfg, self.dist)
+        self.model = make_model(self.cfg, self.dist, self.opts)
         self.shape = ShapeSpec("trainer", self.tc.seq, self.tc.batch,
                                "train")
         self._step_fn = steps.jit_train_step(self.model, self.opt,

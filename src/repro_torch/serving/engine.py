@@ -118,7 +118,9 @@ class InferenceEngine:
         if capacity < 1 or max_queue < 1 or max_seq < 2:
             raise UserError("capacity/max_queue must be >= 1, max_seq >= 2")
         self.cfg = cfg
-        self.model = make_model(cfg)          # UserError: not yet ported
+        # UserError for a family not ported; no remat, as the reference's
+        # ENGINE_OPTS
+        self.model = make_model(cfg, opts={"remat": "none"})
         self.device = resolve_device(device)
         self.capacity = int(capacity)
         self.max_seq = int(max_seq)

@@ -12,7 +12,7 @@ manifest trained on CUDA against the CPU, and the sharded step on a
 1-rank NCCL mesh against the mesh-less step; the PS solvers' server
 updates (K1), int8 push (K2, K3) and means on a (4, F) stack, K4/K4b at
 a zero3_sp rank's shapes (``q_offset`` > 0), and the zero3_sp step on a
-1-rank NCCL mesh; K4 at kimi-k2's head dim 112 (K4b raising there), and
+1-rank NCCL mesh; K4 and K4b at kimi-k2's head dim 112, and
 the moe and hybrid families' expert-parallel steps on a 1-rank NCCL
 mesh; the launch-shape tuner (``kernels/autotune.py``): every candidate
 of K1-K4 gives the default's bits, a failing one raises, and its probes
@@ -45,6 +45,9 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops, ref
 from repro_torch.serving.engine import InferenceEngine
+
+# the port's models without remat, as the reference's tests build theirs
+NO_REMAT = {"remat": "none"}
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -79,7 +82,8 @@ def _qkv(B, Sq, Sk, H, KV, hd, dtype, seed=0):
 
 def _on_tensor_cores(q):
     """bf16 at head dim 64 or 128: the tensor-core instances of K4/K4b
-    (K4's also at 112, ``test_flash_kernel_at_head_dim_112``)."""
+    (also at 112, ``test_flash_kernel_at_head_dim_112`` and
+    ``test_flash_bwd_kernel_at_head_dim_112``)."""
     return q.dtype == torch.bfloat16 and q.shape[3] in (64, 128)
 
 
@@ -307,17 +311,39 @@ def test_flash_kernel_at_head_dim_112(cuda, dtype, B, Sq, Sk, H, KV, causal,
     assert torch.equal(o, again)
 
 
-def test_flash_bwd_kernel_raises_at_head_dim_112(cuda):
-    """K4b has no hd-112 instance (kimi-k2 is served, not trained, on
-    one card): its wrapper raises, naming K4b and the head dim."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,q_offset", [
+    (2, 300, 300, 8, 1, True, 0),
+    (1, 37, 37, 16, 2, True, 0),
+    (2, 23, 141, 8, 1, False, 0),
+    (2, 23, 41, 8, 2, True, 9),
+])
+def test_flash_bwd_kernel_at_head_dim_112(cuda, dtype, B, Sq, Sk, H, KV,
+                                          causal, q_offset):
+    """K4b at kimi-k2's head dim 112 (the hd-128 tiles, columns 112..127
+    zero-filled) against its plain version: bf16 within relative L2
+    ``BWD_BF16_REL_L2`` per gradient, f32 within ``BWD_TOL``; one launch,
+    on the tensor cores in bf16; two calls give the same bits."""
     from repro_torch.kernels import flash_attention_bwd as kfab
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = _qkv(1, 64, 64, 8, 1, 112, dtype, seed=14)
-        o, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
-        before = kfab.launches
-        with pytest.raises(ValueError, match="K4b.*112"):
-            ops.flash_attention_bwd(q, k, v, o, lse, o, causal=True)
-        assert kfab.launches == before
+    q, k, v = _qkv(B, Sq, Sk, H, KV, 112, dtype, seed=14)
+    do = _qkv(B, Sq, Sq, H, H, 112, dtype, seed=15)[0]
+    kw = dict(causal=causal, q_offset=q_offset)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    before, before_tc = kfab.launches, kfab.launches_tc
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert kfab.launches == before + 1
+    assert kfab.launches_tc == before_tc + (dtype == torch.bfloat16)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=BWD_TOL, rtol=BWD_TOL)
+        else:
+            rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
+            assert rel <= BWD_BF16_REL_L2, rel
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_flash_tensor_core_kernels_reject_unaligned_rows(cuda):
@@ -1302,7 +1328,7 @@ def test_family_training_step_on_cuda_matches_cpu(cuda, arch):
     launches K4 and K4b three times a layer (encoder self, decoder
     self, cross), qwen2-vl once."""
     cfg = reduce_for_smoke(get_arch(arch))
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     params = model.init(torch.Generator().manual_seed(0))
     gparams = map_leaves(lambda _p, t: t.cuda(), params)
     ops.reset_launch_counts()
@@ -1330,7 +1356,7 @@ def test_encdec_prefill_and_decode_on_cuda_match_cpu(cuda):
     card against the CPU, f32: logits 1e-4 of their largest magnitude,
     equal tokens."""
     cfg = reduce_for_smoke(get_arch("whisper-large-v3"))
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     params = model.init(torch.Generator().manual_seed(0))
     out = {}
     for dev in ("cpu", "cuda"):
@@ -1557,13 +1583,14 @@ def test_zero3_sp_step_on_a_one_rank_nccl_mesh(cuda, tmp_path):
     params = make_model(cfg).init(torch.Generator(device="cuda")
                                   .manual_seed(0))
     mine = map_leaves(lambda _p, t: t.clone(), params)
-    params, _, la = steps.build_train_step(make_model(cfg), opt)(
+    params, _, la = steps.build_train_step(
+        make_model(cfg, opts=NO_REMAT), opt)(
         params, init_opt_state(opt, params), b)
     tdist.init_process_group("nccl", store=tdist.FileStore(
         str(tmp_path / "store"), 1), rank=0, world_size=1)
     try:
         d = Dist(mesh=make_mesh(1, 1), policy="zero3_sp").resolve_batch(B)
-        model = make_model(cfg, d)
+        model = make_model(cfg, d, NO_REMAT)
         psh = model.param_shardings()
         mp = map_leaves(lambda p, x: distribute(x, leaf_at(psh, p)), mine)
         shape = ShapeSpec("t", S, B, "train")
@@ -1606,7 +1633,7 @@ def test_expert_parallel_steps_on_a_one_rank_nccl_mesh(cuda, tmp_path,
     params = make_model(cfg).init(torch.Generator(device="cuda")
                                   .manual_seed(0))
     mine = map_leaves(lambda _p, t: t.clone(), params)
-    flat = make_model(cfg)
+    flat = make_model(cfg, opts=NO_REMAT)
     logits_a, cache_a = steps.build_prefill_step(flat)(
         mine, {"tokens": b["tokens"][:, :16]}, cache=flat.empty_cache(
             B, 17, "cuda"), slots=torch.arange(B, device="cuda"))
@@ -1618,7 +1645,7 @@ def test_expert_parallel_steps_on_a_one_rank_nccl_mesh(cuda, tmp_path,
         str(tmp_path / "store"), 1), rank=0, world_size=1)
     try:
         d = Dist(mesh=make_mesh(1, 1)).resolve_batch(B)
-        model = make_model(cfg, d)
+        model = make_model(cfg, d, NO_REMAT)
         psh = model.param_shardings()
         mp = map_leaves(lambda p, x: distribute(x, leaf_at(psh, p)), mine)
         pshape = ShapeSpec("p", 16, B, "prefill")

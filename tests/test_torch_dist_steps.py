@@ -31,8 +31,8 @@ And without processes: a moe arch's steps build on a mesh whose "model"
 axis is larger than 1, under ``zero3_sp`` too (they run expert-parallel:
 tests/test_torch_moe_ep.py runs them on 4 gloo ranks against the
 reference); one whose experts and "model" axis do not divide one another
-raises ``UserError``, as does a cache whose batch the data axes do not
-divide."""
+raises ``UserError``; a cache whose batch the data axes do not divide
+takes its sequence dim over every axis."""
 import json
 from pathlib import Path
 
@@ -57,6 +57,9 @@ from repro_torch.models.layers import iter_leaves
 from repro_torch.optim.optimizers import OptConfig
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 from util_gloo import spawn_ranks
+
+# the port's models without remat, as the reference's tests build theirs
+NO_REMAT = {"remat": "none"}
 
 FWD_TOL = dict(atol=2e-5, rtol=2e-5)     # tests/test_torch_steps.py
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -195,7 +198,8 @@ def test_program_cost_adds_the_step_collectives(ranks):
     cost = res["cost"]
     assert cost["collective_bytes_by_kind"] == res["counted"]
     assert cost["ici_bytes_per_device"] == sum(res["counted"].values()) > 0
-    local = make_model(reduce_for_smoke(get_arch(ARCH)))
+    local = make_model(reduce_for_smoke(get_arch(ARCH)),
+                       opts=NO_REMAT)
     shape = ShapeSpec("t", S, B // 2, "train")      # (2, 2): 2 data shards
     from repro_torch.analysis.roofline import count_program
     want = count_program(steps.build_train_step(local, OptConfig(
@@ -247,7 +251,8 @@ def test_fsdp_tp_collective_term_is_the_wire_formula(ranks):
     shards it ((1/2) * bytes / model shards), else all-reduced (2 * 1/2
     of that); the loss all-reduced over "data"."""
     d = Dist(mesh=FakeMesh({"data": 2, "model": 2})).resolve_batch(B)
-    model = make_model(reduce_for_smoke(get_arch(ARCH)), d)
+    model = make_model(reduce_for_smoke(get_arch(ARCH)), d,
+                       NO_REMAT)
     ag = rs = ar = 0.0
     for path, s in iter_leaves(model.param_specs()):
         n = ranks[3][0][path].size * 4
@@ -295,7 +300,7 @@ def test_sharded_prefill_and_decode_match_one_card(ranks):
     arrays = ranks[1]
     params, tokens, _ = ranks[3]
     cfg = reduce_for_smoke(get_arch(ARCH))
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     tree = {}
     for k, v in params.items():
         node = tree
@@ -390,11 +395,22 @@ def test_zero3_sp_raises():
 
 
 def test_cache_of_an_indivisible_batch_raises():
+    """Nothing raises any more for a batch the data axes do not divide
+    (B = 1 on 2 x 2): its prefill and decode steps build, every rank
+    takes every row, and the cache takes its sequence dim over every
+    axis, as the reference's (``model.py:175-200``).
+    tests/test_torch_dryrun.py runs such steps on 4 gloo ranks against
+    the one-card steps."""
     cfg = reduce_for_smoke(get_arch(ARCH))
     d = Dist(mesh=FakeMesh({"data": 2, "model": 2})).resolve_batch(1)
-    with pytest.raises(UserError, match="sequence dim over every axis"):
-        steps.jit_prefill_step(make_model(cfg, d), ShapeSpec("p", S, 1,
-                                                            "prefill"))
+    model = make_model(cfg, d, NO_REMAT)
+    assert not d.batch_axes
+    shape = ShapeSpec("p", S, 1, "prefill")
+    assert callable(steps.jit_prefill_step(model, shape))
+    assert callable(steps.jit_decode_step(model, shape))
+    specs = model.cache_sharding_specs(1)
+    assert tuple(specs["k"])[2] == ("data", "model")
+    assert all(ax in (None, ("data", "model")) for ax in tuple(specs["k"]))
 
 
 def test_without_a_mesh_the_steps_are_the_one_card_steps():

@@ -43,6 +43,9 @@ from repro_torch.models import make_model
 from repro_torch.models import transformer as ttf
 from repro_torch.weights import flat_layout, flat_size, params_from_flat
 
+# the port's models without remat, as the reference's tests build theirs
+NO_REMAT = {"remat": "none"}
+
 ARCH = "whisper-large-v3"
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 LAYER_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -86,7 +89,8 @@ def setup():
     ravel, unravel = _flat_io(shapes)
     flat = np.asarray(ravel(jm.init(jax.random.PRNGKey(0))))
     return dict(jcfg=jcfg, cfg=cfg, jm=jm, flat=flat,
-                jparams=unravel(jnp.asarray(flat)), model=make_model(cfg),
+                jparams=unravel(jnp.asarray(flat)),
+                model=make_model(cfg, opts=NO_REMAT),
                 params=params_from_flat(flat, cfg, device="cpu"))
 
 
@@ -411,7 +415,7 @@ def test_full_width_steps_count_against_model_flops(kind):
     the meta device: ``FULL_WIDTH_RATIO`` of ``model_flops``. Nothing is
     allocated."""
     cfg = get_arch(ARCH)
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     shape = ShapeSpec(kind, 896, 2, kind)
     args = steps.abstract_inputs(model, shape)
     fn = {"train": steps.build_train_step(model, steps.default_optimizer(
@@ -462,7 +466,7 @@ def test_smoke_step_f32_conditioning(monkeypatch, arch):
     by each leaf's magnitude (its controls: the next test)."""
     from repro_torch.models import encdec as ted
     cfg = reduce_for_smoke(get_arch(arch))
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     params = model.init(torch.Generator().manual_seed(0))
     rng = np.random.RandomState(7)
     toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(2, 41)))
@@ -522,7 +526,7 @@ def test_smoke_step_scaled_limit_fails_planted_faults(monkeypatch, fault):
     in phase 17."""
     from repro_torch.kernels import ops
     cfg = reduce_for_smoke(get_arch(ARCH))
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     params = model.init(torch.Generator().manual_seed(0))
     good = _smoke_step_grads(model, params)
     bwd = ops.flash_attention_bwd

@@ -119,14 +119,30 @@ def _emulate_fwd(q, k, v, *, causal, q_offset, round_ops, visits, scale):
 
 
 def emulate_bwd(q, k, v, o, lse, do, *, causal, q_offset=0,
-                round_ops=True):
-    """(dq, dk, dv) in the kernels' tile order; layouts as emulate_fwd."""
+                round_ops=True, tile_hd=None):
+    """(dq, dk, dv) in the kernels' tile order; layouts and ``tile_hd``
+    as emulate_fwd (the zero columns of q, k, v, o and dO add nothing to
+    S, dP or delta, and only hd gradient columns are kept)."""
+    hd = q.shape[-1]
+    scale = hd ** -0.5
+    if tile_hd is not None and tile_hd > hd:
+        def pad(t):
+            return torch.nn.functional.pad(t, (0, tile_hd - hd))
+        grads = _emulate_bwd(*(pad(t) for t in (q, k, v, o)), lse, pad(do),
+                             causal=causal, q_offset=q_offset,
+                             round_ops=round_ops, scale=scale)
+        return tuple(g[..., :hd] for g in grads)
+    return _emulate_bwd(q, k, v, o, lse, do, causal=causal,
+                        q_offset=q_offset, round_ops=round_ops, scale=scale)
+
+
+def _emulate_bwd(q, k, v, o, lse, do, *, causal, q_offset, round_ops,
+                 scale):
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     group = H // KV
     _, BQT = _tiles(hd)
     BK = 64
-    scale = hd ** -0.5
     delta = (do * o).sum(-1)                          # (B, H, Sq), f32
     kh = k.repeat_interleave(group, dim=1)
     vh = v.repeat_interleave(group, dim=1)
@@ -289,6 +305,30 @@ def test_tile_emulation_at_head_dim_112_vs_jax(B, Sq, Sk, H, KV, causal,
     assert o.shape[-1] == 112
     tol = 1e-5 if not round_ops else 2e-2
     np.testing.assert_allclose(_bshd(o), want_o, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,q_offset", CASES_112)
+@pytest.mark.parametrize("round_ops", [False, True])
+def test_bwd_tile_emulation_at_head_dim_112_vs_jax(B, Sq, Sk, H, KV, causal,
+                                                    q_offset, round_ops):
+    """K4b's hd-128 tiles (dk/dv query tiles of 32) with head dim 112's
+    zero-filled columns and the scale 112^-0.5 against the gradients of
+    JAX's custom-VJP flash attention at hd 112: f32 at 1e-5 with the
+    rounding off, relative L2 <= 2e-2 per gradient with it on."""
+    q, k, v, do = _inputs(2, B, Sq, Sk, H, KV, 112, bf16_values=round_ops)
+    _, want_g = _jax_reference(q, k, v, do, H, causal, q_offset)
+    tq, tk, tv, tdo = (_bhsd(a) for a in (q, k, v, do))
+    o, lse = emulate_fwd(tq, tk, tv, causal=causal, q_offset=q_offset,
+                         round_ops=round_ops, tile_hd=128)
+    got = emulate_bwd(tq, tk, tv, o, lse, tdo, causal=causal,
+                      q_offset=q_offset, round_ops=round_ops, tile_hd=128)
+    for g, w in zip(got, want_g):
+        assert g.shape[-1] == 112
+        if not round_ops:
+            np.testing.assert_allclose(_bshd(g), w, atol=1e-5, rtol=1e-5)
+        else:
+            rel = np.linalg.norm(_bshd(g) - w) / np.linalg.norm(w)
+            assert rel <= BWD_REL_L2, rel
 
 
 @pytest.mark.parametrize("Sq,Sk,hd,q_offset", [(300, 300, 64, 0),

@@ -46,6 +46,9 @@ from repro_torch.serving.engine import InferenceEngine
 from repro_torch.weights import flat_layout, flat_size, params_from_flat
 from util_poll import wait_until
 
+# the port's models without remat, as the reference's tests build theirs
+NO_REMAT = {"remat": "none"}
+
 ARCH = "jamba-1.5-large-398b"
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 FWD_TOL = dict(atol=2e-5, rtol=2e-5)     # tests/test_torch_training.py
@@ -96,7 +99,7 @@ def setup(request):
     _, unravel = _flat_io(shapes)
     return dict(jp=jp, jcfg=jcfg, jmodel=jp.model, flat=flat,
                 jparams=unravel(jnp.asarray(flat)), cfg=cfg,
-                model=make_model(cfg),
+                model=make_model(cfg, opts=NO_REMAT),
                 params=params_from_flat(flat, cfg, device="cpu"))
 
 
@@ -286,7 +289,7 @@ def test_decode_matches_prefill(setup, S):
     cfg = setup["cfg"]
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     toks = torch.from_numpy(np.random.RandomState(8).randint(
         0, cfg.vocab_size, size=(2, S + 1))).long()
     with torch.no_grad():

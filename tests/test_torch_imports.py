@@ -26,7 +26,7 @@ def test_import_loads_no_jax_and_no_repro():
     assert "repro_torch.serving.engine" in mods
     for new in ("repro_torch.launch.mesh", "repro_torch.distributed.sharding",
                 "repro_torch.runtime.trainer", "repro_torch.core.ps",
-                "repro_torch.core.solvers"):
+                "repro_torch.core.solvers", "repro_torch.launch.dryrun"):
         assert new in mods
     code = (
         "import importlib, sys\n"

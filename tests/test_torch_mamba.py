@@ -36,6 +36,9 @@ from repro_torch.models.transformer import layer_params
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.weights import flat_layout, params_from_flat
 
+# the port's models without remat, as the reference's tests build theirs
+NO_REMAT = {"remat": "none"}
+
 ARCH = "mamba2-1.3b"
 SSD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -153,7 +156,7 @@ def setup():
             flat[off:off + n] += rng.standard_normal(n) * 0.2
     jparams = unravel(jnp.asarray(flat))
     tparams = params_from_flat(flat, cfg, device="cpu")
-    return jmodel, jparams, make_model(cfg), tparams, cfg, flat
+    return jmodel, jparams, make_model(cfg, opts=NO_REMAT), tparams, cfg, flat
 
 
 def _layer(setup, l=0):

@@ -21,6 +21,9 @@ from repro_torch.models import layers as tl
 from repro_torch.models import make_model
 from repro_torch.weights import flat_layout, params_from_flat
 
+# the port's models without remat, as the reference's tests build theirs
+NO_REMAT = {"remat": "none"}
+
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 LAYER_TOL = dict(atol=1e-5, rtol=1e-5)
 OPTS = {"remat": "none", "xent_chunk": 32, "q_chunk": 32, "k_chunk": 32}
@@ -91,7 +94,7 @@ def _setup(arch):
             flat[off:off + n] = rng.standard_normal(n) * 0.1
     jparams = unravel(jnp.asarray(flat))
     tparams = params_from_flat(flat, cfg, device="cpu")
-    return jmodel, jparams, make_model(cfg), tparams, cfg
+    return jmodel, jparams, make_model(cfg, opts=NO_REMAT), tparams, cfg
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen1.5-110b"])

@@ -42,6 +42,9 @@ from repro_torch.serving.engine import InferenceEngine
 from repro_torch.weights import flat_layout, flat_size, params_from_flat
 from util_poll import wait_until
 
+# the port's models without remat, as the reference's tests build theirs
+NO_REMAT = {"remat": "none"}
+
 ARCHS = ["grok-1-314b", "kimi-k2-1t-a32b"]
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 FWD_TOL = dict(atol=2e-5, rtol=2e-5)     # tests/test_torch_training.py
@@ -72,7 +75,7 @@ def setup(request):
     cfg = reduce_for_smoke(get_arch(arch))
     return dict(arch=arch, jcfg=jcfg, jmodel=jmodel,
                 jparams=unravel(jnp.asarray(flat)), cfg=cfg,
-                model=make_model(cfg),
+                model=make_model(cfg, opts=NO_REMAT),
                 params=params_from_flat(flat, cfg, device="cpu"))
 
 
@@ -443,7 +446,7 @@ def test_kimi_narrow_head_dim_112_matches_jax():
     ravel, unravel = _flat_io(_jax_shapes(jcfg))
     flat = np.array(ravel(jmodel.init(jax.random.PRNGKey(3))))
     jparams = unravel(jnp.asarray(flat))
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     params = params_from_flat(flat, cfg, device="cpu")
     rng = np.random.RandomState(8)
     toks = rng.randint(0, cfg.vocab_size, size=(2, 33)).astype(np.int32)

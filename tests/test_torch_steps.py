@@ -40,6 +40,9 @@ from repro_torch.optim import optimizers as topt
 from repro_torch.weights import flat_from_params, params_from_flat
 from util_parity import vision_positions
 
+# the port's models without remat, as the reference's tests build theirs
+NO_REMAT = {"remat": "none"}
+
 OPT_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=1e-6, rtol=2 ** -7)
 FWD_TOL = dict(atol=2e-5, rtol=2e-5)     # tests/test_torch_training.py
@@ -316,7 +319,8 @@ def test_train_step_matches_jax(arch, grad_accum):
     oc = STEP_OPT
     jstep = jax.jit(jax_steps.build_train_step(
         jm, jopt.OptConfig(**oc), grad_accum))
-    step = steps.build_train_step(make_model(cfg), topt.OptConfig(**oc),
+    step = steps.build_train_step(make_model(cfg, opts=NO_REMAT),
+                                  topt.OptConfig(**oc),
                                   grad_accum)
     jp = unravel(jnp.asarray(flat))
     tp = params_from_flat(flat, cfg, device="cpu")
@@ -342,7 +346,7 @@ def test_grad_accum_splits_mrope_positions_on_the_batch_dim():
     give the mean of the two halves' losses, each with its own rows'
     positions."""
     cfg = reduce_for_smoke(get_arch("qwen2-vl-2b"))
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     params = model.init(torch.Generator().manual_seed(0))
     b = _torch_batch(_batches(cfg, 1)[0])
     parts = steps.split_batch(b, 2)
@@ -360,7 +364,7 @@ def test_grad_accum_splits_mrope_positions_on_the_batch_dim():
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "qwen2-vl-2b"])
 def test_prefill_and_decode_steps_match_the_model(arch):
     _, cfg, _, _, flat = _setup(arch)
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     params = params_from_flat(flat, cfg, device="cpu")
     b = _torch_batch(_batches(cfg, 1, B=2)[0])
     b.pop("labels")

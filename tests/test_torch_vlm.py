@@ -35,6 +35,9 @@ from repro_torch.models import make_model
 from repro_torch.weights import flat_size, params_from_flat
 from util_parity import vision_positions
 
+# the port's models without remat, as the reference's tests build theirs
+NO_REMAT = {"remat": "none"}
+
 ARCH = "qwen2-vl-2b"
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 FWD_TOL = dict(atol=2e-5, rtol=2e-5)     # tests/test_torch_training.py
@@ -70,7 +73,8 @@ def setup():
     ravel, unravel = _flat_io(shapes)
     flat = np.asarray(ravel(jm.init(jax.random.PRNGKey(0))))
     return dict(jcfg=jcfg, cfg=cfg, jm=jm, flat=flat,
-                jparams=unravel(jnp.asarray(flat)), model=make_model(cfg),
+                jparams=unravel(jnp.asarray(flat)),
+                model=make_model(cfg, opts=NO_REMAT),
                 params=params_from_flat(flat, cfg, device="cpu"))
 
 
@@ -241,7 +245,7 @@ def test_full_width_size_and_counts():
                for l in jax.tree.leaves(shapes))
     assert flat_size(cfg) == want == 1_777_088_000
     assert want - _count_params(jcfg, False) == cfg.d_model
-    model = make_model(cfg)
+    model = make_model(cfg, opts=NO_REMAT)
     for kind, fn in (("train", steps.build_train_step(
                          model, steps.default_optimizer(cfg))),
                      ("prefill", steps.build_prefill_step(model)),

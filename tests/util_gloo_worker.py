@@ -18,7 +18,9 @@ on the CPU with the port only (no JAX here):
     another mesh of the same ranks, and on; its ``program_cost`` beside
     the count of its first step on the new mesh; then a step that fails
     on every rank, which ``step_once`` raises without a restore;
-  * ``serve``: ``jit_prefill_step`` and ``jit_decode_step`` on a mesh;
+  * ``serve``: ``jit_prefill_step`` and ``jit_decode_step`` on a mesh
+    (the prompt and params ``INPUTS/tokens``, ``INPUTS/p/*`` when the
+    case names ``inputs``);
   * ``sp``: the ``zero3_sp`` step's loss and gradients
     (``steps.local_loss_and_grads``) on one batch of the case's arch and
     params (``CASE/b/*``, ``CASE/p/*``); rank 0 records the loss and every
@@ -64,6 +66,9 @@ from repro_torch.optim.optimizers import (OptConfig, init_opt_state,  # noqa: E4
                                           opt_state_specs)
 from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
 
+# the port's models without remat, as the reference's tests build theirs
+NO_REMAT = {"remat": "none"}
+
 
 def _cfg(arch):
     return reduce_for_smoke(get_arch(arch))
@@ -97,7 +102,7 @@ def run_step(case, inputs, rank, out, arrays):
     mesh = make_mesh(*case["mesh"], device="cpu")
     B = int(inputs["tokens"].shape[0])
     d = Dist(mesh=mesh, policy=case["policy"]).resolve_batch(B)
-    model = make_model(cfg, d)
+    model = make_model(cfg, d, NO_REMAT)
     opt = OptConfig(**case["opt"])
     shape = ShapeSpec("t", int(inputs["tokens"].shape[1]), B, "train")
     step = steps.jit_train_step(model, opt, shape)
@@ -179,16 +184,19 @@ def run_resume(case, inputs, rank, out, arrays, workdir):
 
 
 def run_serve(case, inputs, rank, out, arrays):
-    cfg = _cfg(case["arch"])
+    cfg = _moe_cfg(case) if case.get("capacity_factor") else \
+        _cfg(case["arch"])
     mesh = make_mesh(*case["mesh"], device="cpu")
-    prompt = torch.from_numpy(inputs["tokens"][:, :case["prompt"]]).long()
+    pre = case.get("inputs", "")     # the case's own tokens and params
+    prompt = torch.from_numpy(
+        inputs[pre + "tokens"][:, :case["prompt"]]).long()
     B = prompt.shape[0]
     d = Dist(mesh=mesh, policy=case["policy"]).resolve_batch(B)
-    model = make_model(cfg, d)
+    model = make_model(cfg, d, NO_REMAT)
     shape = ShapeSpec("s", case["prompt"], B, "prefill")
     psh = model.param_shardings()
     params = map_leaves(lambda p, x: distribute(x, leaf_at(psh, p)),
-                        _params(inputs))
+                        _params(inputs, pre + "p/"))
     csh = model.cache_shardings(B)
     empty = model.empty_cache(B, case["prompt"] + case["new"], "cpu")
     cache = {k: distribute(v, csh[k]) for k, v in empty.items()}
@@ -252,7 +260,7 @@ def run_ep_block(case, inputs, rank, out, arrays):
     x = torch.from_numpy(inputs[pre + "x"].copy())
     w = torch.from_numpy(inputs[pre + "w"].copy())
     d = Dist(mesh=mesh, policy=case["policy"]).resolve_batch(x.shape[0])
-    ep = steps._expert_parallel(make_model(cfg, d))
+    ep = steps._expert_parallel(make_model(cfg, d, NO_REMAT))
     coord = dict(zip(("data", "model"), mesh.get_coordinate()))
     nb = x.shape[0] // case["mesh"][0]
     rows = slice(coord["data"] * nb, (coord["data"] + 1) * nb)
@@ -290,7 +298,7 @@ def run_ep_step(case, inputs, rank, out, arrays):
     labels = torch.from_numpy(inputs[pre + "b/labels"]).long()
     B, S = tokens.shape
     d = Dist(mesh=mesh, policy=case["policy"]).resolve_batch(B)
-    model = make_model(cfg, d)
+    model = make_model(cfg, d, NO_REMAT)
     opt = OptConfig(name="adamw", lr=case["lr"])
     shape = ShapeSpec("t", S, B, "train")
     psh = model.param_shardings()
