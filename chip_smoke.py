@@ -239,12 +239,17 @@ first failing phase (no phase catches an exception):
      32 documents, a checkpoint every 4 (Adafactor and an object store in
      host memory keep the run's disk writes small: see
      ``PJIT_MANIFEST``); paused once 6 steps are done,
-     preempted, re-placed, restored from its step-4 checkpoint, resumed
-     and COMPLETED; the last pass's mean loss below the first's, K4 and
-     K4b launched 12 times per step taken, the newest checkpoint restored
-     by a fresh ``Trainer`` equal to ``trained_model.npy``, the job's
-     ``status.perf`` (collective term 0: no mesh), two warm steps under
-     the profiler; b. a 1-rank NCCL mesh: the ``fsdp_tp`` AdamW step
+     preempted, moved with ``resume(new_dist=)`` onto a 1 x 1 mesh
+     (``MeshShape``): re-placed, its steps from the step-4 checkpoint on
+     run in a rank process on the card (``runtime/spmd.py``, NCCL, one
+     rank), COMPLETED; the last pass's mean loss below the first's, K4
+     and K4b launched 12 times per step taken (this process's counts and
+     the rank's), the losses after the resume within ``MODEL_TOL`` of a
+     mesh-less restore of the step-4 checkpoint run here on the same
+     batches, the newest checkpoint restored by a fresh ``Trainer`` equal
+     to ``trained_model.npy``, the job's ``status.perf`` (collective term
+     0: taken from the mesh-less incarnation), the rank's start, restore
+     and step times, two warm steps under the profiler; b. a 1-rank NCCL mesh: the ``fsdp_tp`` AdamW step
      against the mesh-less step (loss and every leaf within
      ``MODEL_TOL``), and a mesh-less Adafactor trainer resumed onto the
      mesh at step 4 against an uninterrupted run; K4 and K4b at the
@@ -574,8 +579,10 @@ FAMILY_CHECK_N = 32
 # AdamW checkpoint of this model is 16.4 GB (its f32 moments), three of
 # them 49 GB, where an Adafactor one is 3.3 GB (bf16 params, factored
 # moments). The platform's object store (the checkpoint mirror) and
-# results store are in host memory for the same reason. Then the sharded
-# step on a 1-rank NCCL mesh against the mesh-less step (AdamW, no
+# results store are in host memory for the same reason. The resume after
+# the preemption moves the job onto a 1-rank mesh: its later steps run in
+# a rank process (runtime/spmd.py). Then the sharded step on a 1-rank NCCL
+# mesh in this process against the mesh-less step (AdamW, no
 # checkpoint), and a resume onto that mesh (Adafactor)
 PJIT_ARCH = "stablelm-1.6b"
 # full width, 12 of 24 layers (PERF.md §4). Its status.perf check
@@ -3946,21 +3953,54 @@ def member_log(plat, job, member="worker-0"):
             for c in plat.zk.children(base)]
 
 
+def resumed_batches(torch, plat, job, cfg, n):
+    """The ``n`` batches the job took last, as its leader drew them: the
+    cursor never moves back, so they are the ``n`` chunks that end at
+    its final position."""
+    import numpy as np
+    from repro_torch.core.cursor import GlobalCursor
+    from repro_torch.data.pipeline import DatasetSpec, SyntheticCorpus
+    from repro_torch.platform.zookeeper import ZooKeeper
+    m = PJIT_MANIFEST
+    docs, bd = m["data"]["n_docs"], m["batch_docs"]
+    epoch, offset = GlobalCursor(plat.zk, f"/dlaas/jobs/{job}/cursor",
+                                 dataset_size=docs).position()
+    cur = GlobalCursor(ZooKeeper(), "/replay", dataset_size=docs)
+    cur.restore(*divmod(epoch * docs + offset - n * bd, docs))
+    corpus = SyntheticCorpus(DatasetSpec(
+        n_docs=docs, seq_len=m["data"]["seq_len"],
+        vocab_size=cfg.vocab_size, seed=0))
+    out = []
+    for _ in range(n):
+        b = corpus.batch_for(cur.next_chunk(bd))
+        out.append({k: torch.as_tensor(np.asarray(b[k]),
+                                       dtype=torch.int64).cuda()
+                    for k in ("tokens", "labels")})
+    return out
+
+
 def pjit_platform(torch, ops, kfa, kfab, cfg, workdir, card):
     """19 a: ``PJIT_MANIFEST`` planned by ``PjitBackend`` at ``cfg`` on the
     card, launched under the LCM and scheduler; paused at a step boundary
-    once ``PJIT_PAUSE_AFTER`` steps are done and the step-4 checkpoint is
-    published, preempted, re-placed (its leader logs the restore), resumed
-    and ticked to COMPLETED. Checks: every step done, the last pass's mean
-    loss below the first's, K4 and K4b launched ``n_layers`` times per
-    step taken (the steps redone after the resume included), the
-    newest checkpoint restored by a fresh mesh-less ``Trainer`` at its
-    step with params equal to ``trained_model.npy``, and ``status.perf``
-    ready with its collective term 0. Then two warm steps of that trainer
-    under the profiler. Returns what it measured."""
+    once ``PJIT_PAUSE_AFTER`` steps are done (before step 8), preempted
+    once the step-4 checkpoint is published, and once its leader has
+    yielded, moved with
+    ``resume(new_dist=Dist(mesh=MeshShape(data=1, model=1)))``:
+    re-placed, its steps run in one rank process on the card (NCCL), which
+    logs the restore, ticked to COMPLETED. Checks: every step done, the
+    last pass's mean loss below the first's, K4 and K4b launched
+    ``n_layers`` times per step taken (the steps redone after the resume
+    included; this process's counts and the rank's), the losses after the
+    resume within ``MODEL_TOL`` of a mesh-less ``Trainer`` restored here
+    from the step-4 checkpoint on the same batches, the newest checkpoint
+    restored by a fresh mesh-less ``Trainer`` at its step with params
+    equal to ``trained_model.npy``, and ``status.perf`` ready with its
+    collective term 0. Then two warm steps of that trainer under the
+    profiler. Returns what it measured."""
     import numpy as np
     from repro_torch.analysis.perf import measured_rate_from_metrics
     from repro_torch.distributed.sharding import Dist
+    from repro_torch.launch.mesh import MeshShape
     from repro_torch.optim.optimizers import OptConfig
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     from repro_torch.weights import flat_from_params
@@ -3981,20 +4021,44 @@ def pjit_platform(torch, ops, kfa, kfab, cfg, workdir, card):
     def done():
         return len(plat.metrics.series(job, "loss").values)
     ck4 = ckdir / f"step_{m['checkpoint_every']:010d}" / "manifest.json"
-    tick_until(plat, job, lambda: done() >= PJIT_PAUSE_AFTER and
-               ck4.exists(), "the pause point")
+    # paused before step 8, so the step-4 checkpoint is the newest
+    tick_until(plat, job, lambda: done() >= PJIT_PAUSE_AFTER,
+               "the pause point")
     be.pause(handle)
+    tick_until(plat, job, ck4.exists, "the step-4 checkpoint")
     paused_at = done()
     for app_id in plat.lcm._app_ids(job):
         plat.scheduler.preempt_app(app_id)
-    tick_until(plat, job, lambda: any("resumed from checkpoint" in line
-                                      for line in member_log(plat, job)),
-               "the restore of the re-placed gang")
-    be.resume(handle)
-    state = plat.drive(job)
+    # no tick until the leader has yielded: nothing is placed again before
+    # the resume names the mesh
+    deadline = time.time() + 600
+    while not any(line.startswith("preempted")
+                  for line in member_log(plat, job)):
+        if time.time() > deadline:
+            raise AssertionError(f"{job}: the leader never yielded")
+        time.sleep(0.01)
+    gc.collect()
+    torch.cuda.empty_cache()
+    be.resume(handle, new_dist=Dist(mesh=MeshShape(data=1, model=1)))
+    # a failed rank restarts the gang (up to the LCM's restarts), which
+    # would only show at the drive's deadline: fail on its first error
+    tick_until(plat, job, lambda: plat.lcm.monitor(job) == "COMPLETED"
+               or any(line.startswith("infra error")
+                      for line in member_log(plat, job)),
+               "the end of the job")
+    state = plat.lcm.monitor(job)
+    failed = [line for line in member_log(plat, job)
+              if line.startswith("infra error")]
+    if failed:
+        raise AssertionError(f"{job}: {failed[0]}")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    spmd = plan.results.get("spmd", [])
     launches = ops.launch_counts()
+    here = dict(launches)
+    for inc in spmd:
+        for k, v in (inc["launches"] or {}).items():
+            launches[k] += v
     peak = torch.cuda.max_memory_allocated()
     logs = member_log(plat, job)
     series = plat.metrics.series(job, "loss")
@@ -4005,11 +4069,21 @@ def pjit_platform(torch, ops, kfa, kfab, cfg, workdir, card):
     resumed = [line for line in logs if "resumed from checkpoint" in line]
     if resumed != [f"resumed from checkpoint step={m['checkpoint_every']}"]:
         raise AssertionError(f"{job}: restores {resumed}")
+    if [(inc["ranks"], inc["axes"]) for inc in spmd] != [
+            (1, {"data": 1, "model": 1})]:
+        raise AssertionError(f"{job}: rank incarnations {spmd}")
+    rank = spmd[0]
+    n_rank = len(rank["step_s"])
+    if n_rank != m["steps"] - m["checkpoint_every"]:
+        raise AssertionError(f"{job}: {n_rank} steps in the rank")
     want = {kfa.NAME: cfg.n_layers * n_calls,
             kfab.NAME: cfg.n_layers * n_calls}
-    if {k: launches[k] for k in want} != want:
-        raise AssertionError(f"{job}: launches {launches}, want {want} "
-                             f"({n_calls} steps taken)")
+    if {k: launches[k] for k in want} != want or any(
+            rank["launches"][k] != cfg.n_layers * n_rank for k in want):
+        raise AssertionError(f"{job}: launches {launches} (the rank's "
+                             f"{rank['launches']}), want {want} "
+                             f"({n_calls} steps taken, {n_rank} in the "
+                             f"rank)")
     first = [by_step[s] for s in range(PJIT_EPOCH)]
     last = [by_step[s] for s in range(m["steps"] - PJIT_EPOCH, m["steps"])]
     if not all(map(math.isfinite, by_step.values())) or \
@@ -4026,10 +4100,26 @@ def pjit_platform(torch, ops, kfa, kfab, cfg, workdir, card):
     uploaded = np.load(io.BytesIO(plat.storage.download(
         "results", job, "trained_model.npy")))
     rounds = list(plat.metrics.series(job, "round_time_s").values)
+    batches = resumed_batches(torch, plat, job, cfg, n_rank)
     del handle, plan, be, plat
     gc.collect()
     torch.cuda.empty_cache()
     opt = OptConfig(name=m["optimizer"], lr=m["lr"])
+    # the steps after the resume, mesh-less in this process from the
+    # step-4 checkpoint on the batches the rank took
+    tr = Trainer(cfg, Dist(), opt, TrainerConfig(
+        batch=B, seq=S, ckpt_dir=str(ckdir), job_id="replay"))
+    tr.restore(m["checkpoint_every"])
+    replay = [tr.step_once(b) for b in batches]
+    del tr, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = [by_step[s] for s in range(m["checkpoint_every"], m["steps"])]
+    replay_diff = max(abs(x - y) for x, y in zip(after, replay))
+    if any(abs(x - y) > MODEL_TOL + MODEL_TOL * abs(y)
+           for x, y in zip(after, replay)):
+        raise AssertionError(f"{job}: losses in the rank {after} vs a "
+                             f"mesh-less restore {replay}")
     tr = Trainer(cfg, Dist(), opt, TrainerConfig(
         batch=B, seq=S, ckpt_dir=str(ckdir), job_id="restore"))
     t1 = time.perf_counter()
@@ -4056,13 +4146,23 @@ def pjit_platform(torch, ops, kfa, kfab, cfg, workdir, card):
     gc.collect()
     torch.cuda.empty_cache()
     warm = sorted(rounds[1:])[len(rounds[1:]) // 2]
+    in_rank = sorted(rank["step_s"][1:])[len(rank["step_s"][1:]) // 2]
     print(f"[pjit] {card}: {cfg.arch_id} L={cfg.n_layers} d={cfg.d_model} "
           f"{cfg.dtype} through PjitBackend, {m['optimizer']} lr {m['lr']}, "
           f"{m['steps']} steps of {B} x {S} tokens over "
           f"{m['data']['n_docs']} documents, a checkpoint every "
           f"{m['checkpoint_every']}: {state} in {wall:.2f} s; paused after "
-          f"{paused_at} steps, preempted, {resumed[0]}, {n_calls} steps "
-          f"taken; loss by step {[round(by_step[s], 4) for s in by_step]}; "
+          f"{paused_at} steps, preempted, moved onto a 1 x 1 mesh: one "
+          f"rank process (NCCL) started and restored in "
+          f"{rank['start_s']:.2f} s (its restore {rank['restore_s']:.2f} "
+          f"s), {resumed[0]}, {n_rank} steps in the rank (step_once "
+          f"there: median {1e3 * in_rank:.1f} ms, "
+          f"{[round(1e3 * x, 1) for x in rank['step_s']]} ms), {n_calls} "
+          f"steps taken; losses in the rank vs a mesh-less restore of step "
+          f"{m['checkpoint_every']} here on the same batches: largest "
+          f"difference {replay_diff:.3e} (atol=rtol {MODEL_TOL}); K4 "
+          f"{here[kfa.NAME]} here + {rank['launches'][kfa.NAME]} in the "
+          f"rank; loss by step {[round(by_step[s], 4) for s in by_step]}; "
           f"first pass mean {sum(first) / len(first):.4f}, last pass mean "
           f"{sum(last) / len(last):.4f}; step wall (round_time_s) median "
           f"{1e3 * warm:.1f} ms = {B * S / warm:.1f} tokens/s (rounds "
@@ -4073,13 +4173,15 @@ def pjit_platform(torch, ops, kfa, kfab, cfg, workdir, card):
           f"checkpoint {m['steps']} restored by a fresh Trainer in "
           f"{restore_s:.2f} s, its params == trained_model.npy")
     print(f"[pjit] {card}: status.perf {json.dumps(perf)} "
-          f"({ratio:.4f} of model_flops; collective term 0: no mesh)")
+          f"({ratio:.4f} of model_flops; collective term 0: estimated by "
+          f"the mesh-less incarnation)")
     print(f"[pjit] {card}: two warm steps profiled: {prof_wall:.3f} s "
           f"wall = {1e3 * prof_wall / 2:.1f} ms a step")
     print_profile(prof, prof_wall, card,
                   ours=("flash_fwd_kernel", "flash_bwd"))
     return {"launches": launches, "wall_s": wall, "warm_ms": 1e3 * warm,
-            "peak_bytes": peak, "losses": by_step}
+            "peak_bytes": peak, "losses": by_step,
+            "rank_step_ms": 1e3 * in_rank, "replay_diff": replay_diff}
 
 
 def pjit_mesh(torch, cfg, workdir, card):

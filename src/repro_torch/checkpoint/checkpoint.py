@@ -25,8 +25,8 @@ returns numpy arrays in the template's nesting.
 
 Sharded trees (the pjit trainer on a ``torch.distributed`` mesh): ``save``
 of a tree with DTensor leaves gathers every leaf whole on every rank (a
-collective: every rank of the mesh calls it) and rank 0 writes it, so
-the files are those of an unsharded tree. ``restore(step, template,
+collective: every rank of the mesh calls it) and the rank at the mesh's
+first coordinate writes it, so the files are those of an unsharded tree. ``restore(step, template,
 shardings)`` gives each leaf with a ``Sharding`` as a DTensor holding
 this rank's slice, in the template leaf's dtype on the mesh's device:
 the reference's re-layout through ``device_put`` (elastic restore onto
@@ -76,16 +76,32 @@ def _host(leaf) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def _sharded(tree) -> bool:
-    return any(hasattr(v, "full_tensor") for _, v in iter_leaves(tree))
+def _writer(tree) -> bool:
+    """Whether this rank writes ``tree``: any tree without DTensor
+    leaves, else the rank at the first coordinate of their mesh."""
+    for _, v in iter_leaves(tree):
+        if hasattr(v, "device_mesh"):
+            return not any(v.device_mesh.get_coordinate())
+    return True
 
 
-def _load(data: bytes) -> np.ndarray:
-    arr = np.load(io.BytesIO(data), allow_pickle=False)
+def _widen(arr: np.ndarray) -> np.ndarray:
+    """A leaf as numpy holds it: a bfloat16 leaf widened to float32."""
     if arr.dtype == BF16_BITS:
         arr = (arr.view(np.uint16).astype(np.uint32) << 16).view(
             np.float32)
     return arr
+
+
+def _tensor(arr: np.ndarray, dtype, device):
+    """A leaf as a tensor of ``dtype`` on ``device``; a bfloat16 leaf's
+    bits go to a bfloat16 tensor as they are (widening 1e9 of them to
+    float32 on the host took most of a full-width restore)."""
+    if arr.dtype == BF16_BITS and dtype == torch.bfloat16:
+        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(_widen(arr))
+    return t.to(device, dtype)
 
 
 def _file(key: str) -> str:
@@ -109,15 +125,13 @@ class CheckpointManager:
     def save(self, step: int, tree, extra: Optional[Dict] = None,
              block: bool = False):
         """Snapshot on the caller thread, serialize on a worker thread.
-        A tree with DTensor leaves is gathered on every rank and written
-        by rank 0 only."""
+        A tree with DTensor leaves is gathered on every rank of its mesh
+        and written by the rank at the mesh's first coordinate only."""
         self.wait()
         # snapshot to host memory now (values may be mutated later)
         snap = {k: _host(v) for k, v in iter_leaves(tree)}
-        if _sharded(tree):
-            import torch.distributed as tdist
-            if tdist.get_rank() != 0:
-                return
+        if not _writer(tree):
+            return
         host = {k: v for k, (v, _) in snap.items()}
         meta = {"step": int(step), "ts": time.time(),
                 "extra": extra or {},
@@ -173,14 +187,36 @@ class CheckpointManager:
             finally:
                 os.close(fd)
         if self.mirror is not None:
-            # every put goes through StorageManager.upload's with_backoff
-            storage, store_id, prefix = self.mirror
-            container = f"{prefix}/step_{step:010d}"
-            for name, data in blobs.items():
-                storage.upload(store_id, container, name, data)
-            storage.upload(store_id, container, "manifest.json",
-                           manifest.encode())
+            self._upload(step, blobs, manifest.encode())
         self._gc()
+
+    def _upload(self, step: int, blobs: Dict[str, bytes], manifest: bytes):
+        # every put goes through StorageManager.upload's with_backoff
+        storage, store_id, prefix = self.mirror
+        container = f"{prefix}/step_{step:010d}"
+        for name, data in blobs.items():
+            storage.upload(store_id, container, name, data)
+        storage.upload(store_id, container, "manifest.json", manifest)
+
+    def pending(self) -> bool:
+        """Whether an async write is still in flight."""
+        return self._thread is not None and self._thread.is_alive()
+
+    def publish(self, step: int) -> bool:
+        """Upload checkpoint ``step`` as it stands on disk (written by
+        another process) to the mirror, as ``save`` would have; False
+        where it is no longer there (collected) or not valid."""
+        path = self.dir / f"step_{step:010d}"
+        if self.mirror is None or not self._valid(path):
+            return False
+        try:
+            manifest = (path / "manifest.json").read_bytes()
+            blobs = {_file(k): (path / _file(k)).read_bytes()
+                     for k in json.loads(manifest)["crcs"]}
+        except OSError:             # collected while it was read
+            return False
+        self._upload(step, blobs, manifest)
+        return True
 
     def _gc(self):
         ckpts = sorted(self.dir.glob("step_*"))
@@ -225,12 +261,14 @@ class CheckpointManager:
         return None
 
     # ---- restore ------------------------------------------------------------
-    def restore(self, step: int, template, shardings=None):
+    def restore(self, step: int, template, shardings=None, device=None):
         """(tree, extra): the leaves of checkpoint ``step``, nested as
         ``template`` (whose leaf values are ignored but for their dtype
-        under a sharding): numpy arrays, or, for each leaf whose entry in
-        ``shardings`` (same nesting, ``distributed.sharding.Sharding``
-        leaves) is set, a DTensor of this rank's slice on the mesh."""
+        where a tensor comes back): numpy arrays, or tensors in the
+        template's dtypes on ``device`` when it is given, or, for each
+        leaf whose entry in ``shardings`` (same nesting,
+        ``distributed.sharding.Sharding`` leaves) is set, a DTensor of
+        this rank's slice on the mesh."""
         path = self.dir / f"step_{step:010d}"
         meta = json.loads((path / "manifest.json").read_text())
         flat_s = dict(iter_leaves(shardings)) if shardings is not None \
@@ -240,12 +278,14 @@ class CheckpointManager:
             fp = path / _file(key)
             if not fp.exists():
                 raise FileNotFoundError(f"checkpoint missing leaf {key}")
-            arr = _load(fp.read_bytes())
+            arr = np.load(io.BytesIO(fp.read_bytes()), allow_pickle=False)
             sh = flat_s.get(key)
-            if sh is None:
-                return arr
-            from repro_torch.distributed.sharding import distribute
-            dev = torch.device(sh.mesh.device_type)
-            return distribute(torch.from_numpy(arr).to(dev, leaf.dtype), sh)
+            if sh is not None:
+                from repro_torch.distributed.sharding import distribute
+                return distribute(_tensor(arr, leaf.dtype,
+                                          sh.mesh.device_type), sh)
+            if device is not None:
+                return _tensor(arr, leaf.dtype, device)
+            return _widen(arr)
 
         return map_leaves(load, template), meta.get("extra", {})

@@ -40,7 +40,7 @@ from typing import Dict, Optional
 from repro_torch.configs.base import ArchConfig, reduce_for_smoke
 from repro_torch.configs.registry import get_arch
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.errors import UserError
+from repro_torch.errors import Preempted, UserError
 from repro_torch.platform.cluster import Resources
 from repro_torch.platform.lcm import (ExecutionPlan, JobControl, JobSpec,
                                       LifecycleManager, PS_RESOURCES,
@@ -262,15 +262,34 @@ class SoftwarePSBackend(ExecutionBackend):
 # ---------------------------------------------------------------------------
 
 
+def _check_gang(dist, members: int) -> None:
+    """A mesh of N ranks needs a gang of at least N members."""
+    from repro_torch.distributed.sharding import mesh_axes
+    n = math.prod(mesh_axes(dist.mesh).values()) if dist.has_mesh else 0
+    if n > members:
+        raise UserError(f"a mesh of {n} ranks needs a gang of at least {n} "
+                        f"members; this job's gang has {members}")
+
+
 @register_backend
 class PjitBackend(ExecutionBackend):
-    """The reference's SPMD gang (``backend.py:241-318``): worker 0
-    drives ``Trainer.step_once`` with the sharding policy of
-    distributed/sharding.py; the rest of the gang mirrors liveness, and
-    the gang is placed, queued, preempted and resumed as a unit. Every
+    """The reference's SPMD gang (``backend.py:241-318``): the gang is
+    placed, queued, preempted and resumed as a unit, and every
     incarnation rebuilds the step for the current ``Dist`` and restores
     the latest valid checkpoint. The model config is ``plan_config``'s,
-    as for software-ps, so ``BackendContext.cfg`` trains full width."""
+    as for software-ps, so ``BackendContext.cfg`` trains full width.
+
+    A mesh-less ``Dist`` (the manifest's policy until a mesh is attached
+    with ``resume(new_dist)``) runs ``Trainer.step_once`` in worker 0, in
+    the service process, and the rest of the gang mirrors liveness. A
+    ``Dist`` with a mesh, which may name only axis sizes
+    (``launch.mesh.MeshShape``; the service process holds no rank of
+    it), runs in rank processes (``runtime/spmd.py``): worker 0 starts
+    one per rank for each incarnation and feeds them the batches of the
+    job's cursor, and worker i mirrors the liveness of rank i's process,
+    so a rank that dies fails its member and the gang restarts whole
+    (``min_alive_fraction`` 1.0). A mesh needs a gang of at least as
+    many members as it has ranks."""
 
     name = "pjit"
 
@@ -308,7 +327,7 @@ class PjitBackend(ExecutionBackend):
         body = _make_pjit_body(
             job_id=spec.job_id, cfg=cfg, dspec=dspec, cursor=cursor,
             ctx=ctx, control=control, results=results, state=state,
-            meta=meta,
+            meta=meta, members=spec.learners,
             steps=int(manifest.get("steps", 40)),
             batch_docs=int(manifest.get("batch_docs", 8)),
             lr=float(manifest.get("lr", 0.1)),
@@ -334,49 +353,40 @@ class PjitBackend(ExecutionBackend):
     def resume(self, handle: JobHandle, new_dist=None, **kw):
         """Elastic resume: an optional new ``Dist`` takes effect on the
         next (re)incarnation — the step is rebuilt and the checkpoint
-        restored with the new layout (the ``Trainer.resume`` path). Only
-        worker 0 runs the step, so a ``Dist`` whose mesh spans more than
-        one rank raises ``UserError``: the gang does not run SPMD ranks
-        yet."""
+        restored with the new layout (the ``Trainer.resume`` path), in
+        rank processes where it has a mesh. A mesh of more ranks than the
+        gang has members raises ``UserError`` and changes nothing."""
         if new_dist is not None:
-            from repro_torch.distributed.sharding import mesh_axes
-            if new_dist.has_mesh and math.prod(
-                    mesh_axes(new_dist.mesh).values()) > 1:
-                raise UserError(
-                    "a pjit job's Dist on a mesh of more than one rank is "
-                    "not yet ported to repro_torch: only worker 0 of the "
-                    "gang runs the step; use a mesh-less Dist or a "
-                    "1-rank mesh")
+            _check_gang(new_dist, handle.plan.primary().count)
             handle.plan.meta["next_dist"] = new_dist
         handle.plan.control.resume()
 
 
 def _make_pjit_body(*, job_id, cfg, dspec, cursor, ctx, control, results,
-                    state, meta, steps, batch_docs, lr, optimizer, seed,
-                    ckpt_every, user_error_at, fail_at_step):
+                    state, meta, members, steps, batch_docs, lr, optimizer,
+                    seed, ckpt_every, user_error_at, fail_at_step):
     """Body fn(watchdog, idx) for one gang member (``backend.py:321-437``
-    of the reference). Worker 0 runs the step; the others mirror
-    liveness until the leader finishes (or the gang is preempted or
-    killed)."""
+    of the reference). Worker 0 runs the step (or, on a mesh, the rank
+    processes); the others mirror liveness until the leader finishes (or
+    the gang is preempted or killed)."""
+    import io
+    import time
 
-    def leader(wd):
-        import io
-        import time
+    import numpy as np
 
-        import numpy as np
-        import torch
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.observability.trace import TRACE_STEP_SAMPLE, maybe_span
+    from repro_torch.platform.watchdog import CHECKPOINTING, TRAINING
+    from repro_torch.runtime.trainer import TrainerConfig
 
-        from repro_torch.data.pipeline import SyntheticCorpus
-        from repro_torch.distributed.sharding import Dist, gather
-        from repro_torch.models.layers import map_leaves
-        from repro_torch.observability.trace import (TRACE_STEP_SAMPLE,
-                                                     maybe_span)
-        from repro_torch.optim.optimizers import OptConfig
-        from repro_torch.platform.watchdog import CHECKPOINTING, TRAINING
-        from repro_torch.runtime.trainer import Trainer, TrainerConfig
-        from repro_torch.weights import flat_from_params
+    corpus = SyntheticCorpus(dspec)
+    tc = dict(batch=batch_docs, seq=dspec.seq_len, ckpt_every=ckpt_every,
+              ckpt_dir=f"{ctx.workdir}/ckpt/{job_id}", job_id=job_id)
+    mirror = (ctx.storage, "objectstore", f"ckpt/{job_id}")
+    tracer = ctx.tracer
 
-        corpus = SyntheticCorpus(dspec)
+    def current_dist():
+        from repro_torch.distributed.sharding import Dist
         # an elastic resume's new Dist wins once, then sticks
         # (meta["dist"]) so later preemptions reincarnate at the
         # rescaled distribution; otherwise the manifest's policy applies
@@ -384,13 +394,63 @@ def _make_pjit_body(*, job_id, cfg, dspec, cursor, ctx, control, results,
         dist = (meta.pop("next_dist", None) or meta.get("dist")
                 or Dist(policy=meta.get("policy", "fsdp_tp")))
         meta["dist"] = dist
-        tc = TrainerConfig(batch=batch_docs, seq=dspec.seq_len,
-                           ckpt_every=ckpt_every,
-                           ckpt_dir=f"{ctx.workdir}/ckpt/{job_id}",
-                           job_id=job_id,
-                           ckpt_mirror=(ctx.storage, "objectstore",
-                                        f"ckpt/{job_id}"))
-        tr = Trainer(cfg, dist, OptConfig(name=optimizer, lr=lr), tc,
+        return dist
+
+    def boundary(wd, step, save, crash):
+        """The step boundary: preemption, pause, an on-demand checkpoint,
+        an injected crash or user error; then the step's batch and the
+        cursor position after it."""
+        wd.maybe_preempt()
+        control.wait_while_paused(should_abort=wd.maybe_preempt)
+        if control.take_checkpoint_request():
+            save()
+        for i, s in list(fail_at_step.items()):
+            if s == step:
+                fail_at_step.pop(i)             # transient: fires once
+                crash(i)
+        if user_error_at is not None and step == user_error_at:
+            raise UserError("bad hyperparameter in user model")
+        batch = corpus.batch_for(cursor.next_chunk(batch_docs))
+        epoch, offset = cursor.position()
+        return ({k: np.asarray(batch[k], np.int64)
+                 for k in ("tokens", "labels")},
+                {"epoch": epoch, "offset": offset})
+
+    def record(wd, step, loss, t_round):
+        wd.heartbeat(step, loss=loss)
+        wd.log(f"step={step} loss={loss:.4f}")
+        ctx.metrics.record(job_id, "lr", step, lr)
+        ctx.metrics.record(job_id, "round_time_s", step,
+                           time.time() - t_round)
+
+    def finish(pflat, loss):
+        # store.sh analogue: upload the trained model, the flat f32
+        # vector in the reference's leaf order, gathered whole
+        buf = io.BytesIO()
+        np.save(buf, pflat)
+        ctx.storage.upload("results", job_id, "trained_model.npy",
+                           buf.getbuffer())
+        del buf
+        if loss is not None:
+            results["final_loss"] = float(loss)
+        results["params"] = pflat
+
+    def restored(wd, step, extra):
+        cursor.restore(int(extra.get("epoch", 0)),
+                       int(extra.get("offset", 0)))
+        wd.log(f"resumed from checkpoint step={step}")
+
+    def leader(wd, dist):
+        import torch
+
+        from repro_torch.distributed.sharding import gather
+        from repro_torch.models.layers import map_leaves
+        from repro_torch.optim.optimizers import OptConfig
+        from repro_torch.runtime.trainer import Trainer
+        from repro_torch.weights import flat_from_params
+
+        tr = Trainer(cfg, dist, OptConfig(name=optimizer, lr=lr),
+                     TrainerConfig(**tc, ckpt_mirror=mirror),
                      metrics=ctx.metrics, device=ctx.device).init(seed)
         perf = meta.get("perf")
         if perf is not None:
@@ -398,11 +458,7 @@ def _make_pjit_body(*, job_id, cfg, dspec, cursor, ctx, control, results,
             perf.start_async(tr.program_cost)
         last = tr.ckpt.latest_valid()
         if last is not None:
-            extra = tr.restore(last)
-            cursor.restore(int(extra.get("epoch", 0)),
-                           int(extra.get("offset", 0)))
-            wd.log(f"resumed from checkpoint step={tr.step}")
-        tracer = ctx.tracer
+            restored(wd, last, tr.restore(last))
 
         def save_ckpt():
             wd.set_status(CHECKPOINTING)
@@ -413,65 +469,162 @@ def _make_pjit_body(*, job_id, cfg, dspec, cursor, ctx, control, results,
             ctx.metrics.event(job_id, "checkpoint", tr.step)
             wd.set_status(TRAINING)
 
+        def crash(i):
+            if i != 0:
+                return
+            wd.log(f"injected crash at step {tr.step}")
+            wd.crash()
+            raise RuntimeError("simulated container crash")
+
         loss = None
         t_round = time.time()
         while tr.step < steps:
-            # step boundary: preemption, pause and on-demand checkpoint
-            wd.maybe_preempt()
-            control.wait_while_paused(should_abort=wd.maybe_preempt)
-            if control.take_checkpoint_request():
-                save_ckpt()
             step = tr.step
-            if fail_at_step.get(0) == step:
-                fail_at_step.pop(0)          # transient: fires once
-                wd.log(f"injected crash at step {step}")
-                wd.crash()
-                raise RuntimeError("simulated container crash")
-            if user_error_at is not None and step == user_error_at:
-                raise UserError("bad hyperparameter in user model")
-            batch = corpus.batch_for(cursor.next_chunk(batch_docs))
+            batch, _ = boundary(wd, step, save_ckpt, crash)
             step_sp = (tracer.start(job_id, "step", step=step)
                        if tracer is not None
                        and step % TRACE_STEP_SAMPLE == 0 else None)
-            loss = tr.step_once({
-                k: torch.as_tensor(np.asarray(batch[k]),
-                                   dtype=torch.int64).to(tr.device)
-                for k in ("tokens", "labels")})
+            loss = tr.step_once({k: torch.as_tensor(v).to(tr.device)
+                                 for k, v in batch.items()})
             if step_sp is not None:
                 tracer.end(step_sp, loss=float(loss))
-            wd.heartbeat(step, loss=loss)
-            wd.log(f"step={step} loss={loss:.4f}")
-            ctx.metrics.record(job_id, "lr", step, lr)
-            ctx.metrics.record(job_id, "round_time_s", step,
-                               time.time() - t_round)
+            record(wd, step, loss, t_round)
             t_round = time.time()
             if tr.step % ckpt_every == 0:
                 save_ckpt()
-        # store.sh analogue: upload the trained model, the flat f32
-        # vector in the reference's leaf order, gathered whole
-        pflat = flat_from_params(map_leaves(lambda _p, x: gather(x),
-                                            tr.params))
-        buf = io.BytesIO()
-        np.save(buf, pflat)
-        ctx.storage.upload("results", job_id, "trained_model.npy",
-                           buf.getbuffer())
-        del buf
-        if loss is not None:
-            results["final_loss"] = float(loss)
-        results["params"] = pflat
+        finish(flat_from_params(map_leaves(lambda _p, x: gather(x),
+                                           tr.params)), loss)
         tr.ckpt.wait()
-        state["done"].set()
+
+    def mesh_leader(wd, dist):
+        """Worker 0 on a mesh: one ``RankGang`` for this incarnation."""
+        from repro_torch.checkpoint.checkpoint import CheckpointManager
+        from repro_torch.distributed.sharding import mesh_axes
+        from repro_torch.optim.optimizers import OptConfig
+        from repro_torch.runtime.spmd import RankGang
+
+        _check_gang(dist, members)
+        ckpt = CheckpointManager(tc["ckpt_dir"], mirror=mirror)
+        perf = meta.get("perf")
+        job = {"cfg": cfg, "opt": OptConfig(name=optimizer, lr=lr),
+               "tc": tc, "policy": dist.policy, "seed": seed,
+               "want_cost": perf is not None and perf.state == "pending"}
+        gen = state["gen"] = state.get("gen", 0) + 1
+        gang = RankGang(mesh_axes(dist.mesh), job,
+                        f"{ctx.workdir}/spmd/{job_id}/{gen}-{time.time_ns()}",
+                        ctx.device.type)
+        gang.gen = gen
+        state["gang"] = gang
+        inc = {"ranks": gang.n, "axes": dict(gang.axes),
+               "pids": [q.pid for q in gang.procs], "step_s": [],
+               "launches": None}
+        results.setdefault("spmd", []).append(inc)
+
+        def publish(steps_written):
+            for s in steps_written:
+                ckpt.publish(s)
+
+        try:
+            ready = gang.collect("ready")
+            inc["start_s"] = time.perf_counter() - gang.t_start
+            inc["restore_s"] = ready[0]["restore_s"]
+            step = ready[0]["step"]
+            if ready[0]["restored"] is not None:
+                restored(wd, step, ready[0]["extra"])
+            if ready[0]["cost"] is not None:
+                cost = ready[0]["cost"]
+                perf.start_async(lambda: cost)
+
+            def save_ckpt():
+                wd.set_status(CHECKPOINTING)
+                epoch, offset = cursor.position()
+                gang.send(("save", {"epoch": epoch, "offset": offset}))
+                publish(gang.collect("saved")[0]["written"])
+                ctx.metrics.event(job_id, "checkpoint", step)
+                wd.set_status(TRAINING)
+
+            def crash(i):
+                if i >= gang.n:
+                    return
+                wd.log(f"injected crash of rank {i} at step {step}")
+                gang.kill(i)
+                if i == 0:
+                    wd.crash()
+                    raise RuntimeError("simulated container crash")
+
+            loss = None
+            t_round = time.time()
+            while step < steps:
+                batch, extra = boundary(wd, step, save_ckpt, crash)
+                step_sp = (tracer.start(job_id, "step", step=step)
+                           if tracer is not None
+                           and step % TRACE_STEP_SAMPLE == 0 else None)
+                gang.send(("step", batch, extra))
+                rep = gang.collect("step")[0]
+                loss = rep["loss"]
+                ctx.metrics.record(job_id, "loss", step, loss)
+                if step_sp is not None:
+                    tracer.end(step_sp, loss=loss)
+                inc["step_s"].append(rep["step_s"])
+                inc["launches"] = rep["launches"]
+                record(wd, step, loss, t_round)
+                t_round = time.time()
+                publish(rep["written"])
+                step += 1
+                if rep["saved"] is not None:
+                    ctx.metrics.event(job_id, "checkpoint", rep["saved"])
+            gang.send(("finish",))
+            done = gang.collect("done")
+            inc["launches"] = done[0]["launches"]
+            publish(done[0]["written"])
+            finish(gang.recv_array(0, *done[0]["flat"]), loss)
+            for r in range(gang.n):
+                gang.procs[r].wait()
+        except (Preempted, UserError):
+            # the leader ends this gang itself: a rank that ``stop`` has
+            # to kill is no failure for its member to mirror, in this
+            # incarnation or the next
+            forget(gang)
+            publish(gang.stop())          # at this step boundary
+            raise
+        else:
+            forget(gang)
+        finally:
+            # a failure kills every rank and leaves the gang in view, so
+            # each member fails with its rank and the whole gang restarts
+            gang.close()
+
+    def forget(gang):
+        if state.get("gang") is gang:
+            state["gang"] = None
+
+    def member(wd, idx):
+        # gang member: mirrors the liveness of its rank's process (on a
+        # mesh of more than idx ranks), else yields with the gang
+        failed = state.setdefault("failed_gen", {})
+        while not state["done"].is_set():
+            wd.maybe_preempt()
+            control.wait_while_paused(should_abort=wd.maybe_preempt)
+            gang = state.get("gang")
+            if gang is not None and idx < gang.n \
+                    and failed.get(idx, 0) < gang.gen:
+                rc = gang.returncode(idx)
+                if rc not in (None, 0):
+                    failed[idx] = gang.gen
+                    wd.log(f"rank {idx} exited with code {rc}")
+                    wd.crash()
+                    raise RuntimeError(f"rank {idx}'s process died")
+            time.sleep(0.01)
 
     def body(wd, idx):
-        if idx == 0:
-            leader(wd)
+        if idx != 0:
+            return member(wd, idx)
+        dist = current_dist()
+        if dist.has_mesh:
+            mesh_leader(wd, dist)
         else:
-            # gang member: the step runs everywhere at scale; here it
-            # mirrors liveness and yields with the gang
-            import time
-            while not state["done"].is_set():
-                wd.maybe_preempt()
-                control.wait_while_paused(should_abort=wd.maybe_preempt)
-                time.sleep(0.01)
+            state["gang"] = None
+            leader(wd, dist)
+        state["done"].set()
 
     return body

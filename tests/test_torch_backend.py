@@ -122,31 +122,6 @@ def test_pjit_rejects_non_zoo_framework(tmp_path):
         p.plan("job-1", mlp_manifest(distribution="pjit"))
 
 
-def test_pjit_resume_refuses_a_mesh_of_several_ranks():
-    """Only worker 0 of the gang runs the step, so a ``Dist`` on a mesh
-    of more than one rank cannot reach it; a 1-rank mesh can."""
-    from repro_torch.distributed.sharding import Dist
-
-    class Mesh:
-        def __init__(self, **shape):
-            self.shape, self.axis_names = shape, tuple(shape)
-
-    class Handle:
-        def __init__(self):
-            from repro_torch.platform.lcm import JobControl
-            self.plan = type("Plan", (), {})()
-            self.plan.meta, self.plan.control = {}, JobControl()
-
-    be = port_backend.get_backend("pjit")
-    h = Handle()
-    with pytest.raises(UserError, match="more than one rank"):
-        be.resume(h, new_dist=Dist(mesh=Mesh(data=2, model=1)))
-    assert "next_dist" not in h.plan.meta
-    one = Dist(mesh=Mesh(data=1, model=1))
-    be.resume(h, new_dist=one)
-    assert h.plan.meta["next_dist"] is one
-
-
 # the reference's parity manifest (tests/test_backends.py:20-36) at lr
 # 2e-3: at its 0.1 SGD on the random smoke model is chaotic, so two
 # backends that agree to rounding for 6 steps part after that and their

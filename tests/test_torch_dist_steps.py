@@ -21,8 +21,9 @@ inside them; the tests read their results. Cases, at smoke size
     under ``dp_only`` (every gradient all-reduced over 4 ranks) the
     reference's wire formula, 2 * bytes * 3/4;
   * ``Trainer.resume`` from (4, 1) to (2, 2) after 2 steps, then 2 more:
-    the losses of a mesh-less port ``Trainer`` run uninterrupted; then a
-    step that fails on every rank is raised at once, with no restore;
+    the losses of a mesh-less port ``Trainer`` run uninterrupted (a mesh
+    that leaves ranks out and a failed step's retry across ranks:
+    tests/test_torch_elastic.py and tests/test_torch_step_retry.py);
   * prefill and decode on (2, 2): logits and cache gathered equal the
     one-card steps', and the cache is laid out per
     ``cache_sharding_specs``.
@@ -285,14 +286,6 @@ def test_resume_between_meshes_continues_the_run(ranks, tmp_path):
     for every in ranks[2]:
         np.testing.assert_allclose(every["resume"]["losses"], want,
                                    **FWD_TOL)
-
-
-def test_a_failed_step_on_a_mesh_raises_at_once(ranks):
-    """A rank that restored alone would wait in collectives the others
-    never join: ``step_once`` on a mesh of several ranks re-raises."""
-    for every in ranks[2]:
-        assert every["resume"]["failed_step"] == "down"
-        assert every["resume"]["restores"] == 0
 
 
 def test_sharded_prefill_and_decode_match_one_card(ranks):

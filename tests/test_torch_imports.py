@@ -26,7 +26,8 @@ def test_import_loads_no_jax_and_no_repro():
     assert "repro_torch.serving.engine" in mods
     for new in ("repro_torch.launch.mesh", "repro_torch.distributed.sharding",
                 "repro_torch.runtime.trainer", "repro_torch.core.ps",
-                "repro_torch.core.solvers", "repro_torch.launch.dryrun"):
+                "repro_torch.core.solvers", "repro_torch.launch.dryrun",
+                "repro_torch.runtime.spmd"):
         assert new in mods
     code = (
         "import importlib, sys\n"
@@ -61,6 +62,7 @@ def test_sources_import_no_jax_and_no_repro():
     assert ROOT / "scripts" / "solvers_phase.py" in files
     assert PKG / "core" / "ps.py" in files and PKG / "core" / "solvers.py" \
         in files
+    assert PKG / "runtime" / "spmd.py" in files
     bad = []
     for f in files:
         for name in _imported_names(f):

@@ -16,8 +16,7 @@ on the CPU with the port only (no JAX here):
     the meta device (``steps.local_train_step``, which sends nothing);
   * ``resume``: a ``Trainer`` on one mesh for some steps, ``resume`` onto
     another mesh of the same ranks, and on; its ``program_cost`` beside
-    the count of its first step on the new mesh; then a step that fails
-    on every rank, which ``step_once`` raises without a restore;
+    the count of its first step on the new mesh;
   * ``serve``: ``jit_prefill_step`` and ``jit_decode_step`` on a mesh
     (the prompt and params ``INPUTS/tokens``, ``INPUTS/p/*`` when the
     case names ``inputs``);
@@ -172,15 +171,6 @@ def run_resume(case, inputs, rank, out, arrays, workdir):
                for s in range(case["before"] + 1, case["before"]
                               + case["after"])]
     out["losses"] = losses
-    restores = []
-    tr._restore_latest = lambda: restores.append(1)
-    tr._step_fn = lambda *a: (_ for _ in ()).throw(RuntimeError("down"))
-    try:
-        tr.step_once(tr._batch(tr.step))
-        out["failed_step"] = "returned"
-    except RuntimeError as e:
-        out["failed_step"] = str(e)
-    out["restores"] = len(restores)
 
 
 def run_serve(case, inputs, rank, out, arrays):
