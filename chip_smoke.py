@@ -334,7 +334,38 @@ first failing phase (no phase catches an exception):
      ``temp_size_in_bytes``; remat full's loss and updated leaves equal
      remat none's within ``MODEL_TOL``; K4 and K4b launch once a layer
      at none, K4 twice at full (the path ``train-pjit-remat``);
- 24. result  — each phase's wall seconds (a ``[phase]`` line as each
+ 24. drills  — the paper's fault tolerance through the port's
+     ``DLaaSCore`` on the card (stablelm-1.6b at full width cut to 4 of
+     24 layers, ``arch_cfgs``; object and results stores in host memory,
+     checkpoints on disk; health remediation off): a. an uninterrupted
+     training (one learner, SGD, the f32 wire, 2 shards, 2 x 512 tokens,
+     8 steps, a checkpoint every 4); b. scripts/verify.sh's crash drill:
+     a core process (``--drill-child``) deploys an endpoint, answers one
+     prompt, submits a's manifest with an Idempotency-Key, is paused
+     after its first checkpoint and SIGKILLed; a fresh core here recovers
+     the workdir: the training resumed or requeued, the endpoint
+     redeployed, the replayed key gives the original id, every loss
+     after the resume equals a's at the same step within
+     DRILL_LOSS_RTOL, the endpoint gives the child's tokens, the timeline
+     has a ``recovery`` event under the persisted trace id; c. CRASH_CORE
+     at step 6 of a's manifest, a second core in this process recovers:
+     the zombie's parameter server freed once its learner returned, the
+     losses as in b, memory back at the baseline; d. phase 9's traffic
+     (2 learners, 4 shards, adam, int8, BSP), 12 steps, paused at step 6
+     on a round boundary, the node under the learners killed: re-placed
+     on the other node, resumed from step 4, COMPLETED with a restart,
+     ``trained_model.npy`` uploaded, the dead incarnation's client
+     buffers gone, memory at the survivor's first step no higher than at
+     the victim's last plus SERVICE_MEMORY_SLACK; e. an endpoint on two
+     single-GPU nodes (capacity 4, max_seq 1024), a request submitted
+     while serving is paused, its node killed: re-placed, the request
+     DONE with an undisturbed engine's tokens, memory READY again no
+     higher than before the kill plus the slack. After each drill the
+     device memory is within SERVICE_MEMORY_SLACK of the phase's
+     baseline, and each drill's K1-K4b launches are those its steps,
+     rounds, pushes and prefill batches imply (the path ``drills``);
+     the bytes the phase wrote to disk are printed;
+ 25. result  — each phase's wall seconds (a ``[phase]`` line as each
      ends, and a ``[phases]`` line with the tuning seconds by phase),
      ``{"kernels": [...]}`` on the line before the last (each kernel's
      launches summed over the main paths, with ``launches_by_path``;
@@ -693,6 +724,36 @@ DRYRUN_CELLS = (("stablelm-1.6b", "train_4k", "single"),
 REMAT_MODES = ("none", "full")
 REMAT_TEMP_TOL = 0.10
 DRYRUN_CHILD_TIMEOUT = 600
+
+# phase 24: the paper's fault tolerance (scripts/verify.sh's drills and
+# tests/test_fault_tolerance.py's) through the port's DLaaSCore on the
+# card: stablelm-1.6b at full width cut to SOLVER_LAYERS (F =
+# 616,581,120), so that four trainings fit the phase's time
+DRILL_LAYERS = SOLVER_LAYERS
+# a-c: one learner, the f32 wire, 2 shards, 2 x 512 tokens, 8 steps, a
+# checkpoint every 4. The server's solver is SGD: a learner's checkpoint
+# holds the weights only (as the reference's), so a job resumed on a new
+# core starts Adam's moments from zero and leaves the uninterrupted run's
+# path; a resume that equals it (DRILL_LOSS_RTOL) needs a solver without
+# state. lr 3.0: smaller SGD steps at full width do not survive the cast
+# of the weights to bf16 (phase 20's local SGD)
+DRILL_MANIFEST = {
+    "name": "chip-smoke-drill", "learners": 1, "optimizer": "sgd",
+    "lr": 3.0, "compression": "none", "ps_shards": 2,
+    "batch_docs": TRAIN["batch_docs"], "steps": 8, "checkpoint_every": 4,
+    "seed": 0, "data": {"n_docs": 512, "seq_len": TRAIN["seq_len"],
+                        "seed": 0},
+    "framework": {"name": "repro-lm", "arch": SERVE_ARCH}}
+DRILL_LOSS_RTOL = 1e-6     # scripts/verify.sh's crash-recovery drill
+DRILL_CRASH_AT = 6         # c: CRASH_CORE once step 6 is done
+# d: phase 9's traffic at this depth (2 learners, 4 shards, adam, int8,
+# BSP), 12 steps, a checkpoint every 4; paused once 6 steps are done,
+# then the node under the learners is killed
+DRILL_NODE_MANIFEST = dict(PLATFORM_MANIFEST, name="chip-smoke-drill-node",
+                           steps=12, checkpoint_every=4)
+DRILL_PAUSE_AT = 6
+DRILL_NEW = 8              # tokens a drill's request decodes
+DRILL_CHILD_TIMEOUT = 300
 
 
 @dataclasses.dataclass(frozen=True)
@@ -5342,6 +5403,611 @@ def dryrun_phase(torch, kfa, kfab, card, child):
     return launches
 
 
+def drill_config():
+    """The drills' configuration: stablelm-1.6b at full width, DRILL_LAYERS
+    layers."""
+    from repro_torch.configs.registry import get_arch
+    return dataclasses.replace(get_arch(SERVE_ARCH), n_layers=DRILL_LAYERS)
+
+
+def drill_core(workdir, nodes: int, gpus: int):
+    """A ``DLaaSCore`` on the card over ``workdir`` (a fresh one, or one a
+    crashed core left, which it recovers) with the drills' config, a
+    cluster of ``nodes`` simulated nodes of ``gpus`` accounted GPUs each,
+    and its object and results stores in host memory (the checkpoints
+    stay on disk: recovery reads them there). Health remediation is off,
+    as in phase 10."""
+    from repro_torch.platform.cluster import Cluster, Node, Resources
+    from repro_torch.service.core import DLaaSCore
+    cluster = Cluster([Node(f"drill-{i}", Resources(
+        cpus=32.0, gpus=gpus, memory_mb=96 * 1024)) for i in range(nodes)])
+    core = DLaaSCore(str(workdir), device="cuda", tick_interval=0.005,
+                     arch_cfgs={SERVE_ARCH: drill_config()},
+                     cluster=cluster,
+                     stores={"objectstore": MemoryStore(),
+                             "results": MemoryStore()})
+    core.health.remediate = False
+    return core
+
+
+def disk_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def drill_prompt():
+    """The drills' prompt: phase 4's first (128 tokens, seed 0)."""
+    return [int(t) for t in serve_prompts(drill_config(), 0)[0]]
+
+
+def wait_ready(core, eid, timeout=300):
+    poll(lambda: core.endpoint_status(eid)["state"],
+         lambda s: s in ("READY", "FAILED", "STOPPED"), timeout, eid)
+    if core.endpoint_status(eid)["state"] != "READY":
+        raise AssertionError(f"{eid}: {core.endpoint_status(eid)}")
+
+
+def wait_completed(core, tid, timeout=600):
+    st = poll(lambda: core.training_status(tid),
+              lambda s: s["status"] in ("COMPLETED", "FAILED", "KILLED"),
+              timeout, tid)
+    if st["status"] != "COMPLETED":
+        raise AssertionError(f"{tid}: {st}")
+    plan = core.trainings[tid]["plan"]
+    poll(lambda: plan.meta["ps"] is None, bool, 30,
+         f"{tid}: parameter server not released")
+    return core.training_status(tid)
+
+
+def losses_of(core, tid):
+    s = core.metrics.series(tid, "loss")
+    return dict(zip(s.steps, s.values))
+
+
+def resumed_steps(core, tid, member="learner-0"):
+    return [int(line.rsplit("=", 1)[1])
+            for line in core.training_logs(tid, member)
+            if line.startswith("resumed from checkpoint step=")]
+
+
+def job_times(core, tid):
+    """Where a training's wall time went: {span name: [seconds]} of its
+    timeline (plan, queue wait, checkpoint publishes, ...) and the
+    learners' step seconds (``round_time_s``)."""
+    out = {}
+    for sp in core.training_timeline(tid)["spans"]:
+        if sp.get("duration_s"):
+            out.setdefault(sp["name"], []).append(round(sp["duration_s"], 2))
+    out["step"] = [round(v, 3) for v in
+                   core.metrics.series(tid, "round_time_s").values]
+    return out
+
+
+def same_losses(label, got, want):
+    """``got`` (step -> loss) against the uninterrupted run's ``want`` at
+    the same steps, each within DRILL_LOSS_RTOL; the largest relative
+    difference."""
+    if not got or not set(got) <= set(want):
+        raise AssertionError(f"{label}: steps {sorted(got)} against "
+                             f"{sorted(want)}")
+    worst = max(abs(v - want[k]) / abs(want[k]) for k, v in got.items())
+    if worst > DRILL_LOSS_RTOL:
+        raise AssertionError(f"{label}: losses {got} against the "
+                             f"uninterrupted run's {want}: relative "
+                             f"difference {worst:.3e} > {DRILL_LOSS_RTOL}")
+    return worst
+
+
+def drill_launches(torch, ops, cfg, pushes, rounds, shards, prefills=0,
+                   int8=False):
+    """Check this process's launches since the last reset against
+    ``step_launches`` of what the drill did (K2 and K3 only on the int8
+    wire), and every flash launch on the tensor cores; returns them."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_attention_bwd as kfab
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    want = step_launches(ops, cfg, pushes, rounds, shards, prefills)
+    if not int8:
+        want.update(quantize_ef=0, dequantize=0)
+    tc = {kfa.NAME: kfa.launches_tc, kfab.NAME: kfab.launches_tc}
+    if got != want or tc != {k: got[k] for k in tc}:
+        raise AssertionError(f"drill launches {got} (on the tensor cores "
+                             f"{tc}), want {want}")
+    return got
+
+
+def wait_for(cond, timeout: float) -> bool:
+    """Whether ``cond()`` holds within ``timeout`` seconds (polled every
+    50 ms)."""
+    deadline = time.time() + timeout
+    while not cond():
+        if time.time() > deadline:
+            return False
+        time.sleep(0.05)
+    return True
+
+
+def paused_members(control):
+    """The set of task threads waiting at ``control``'s pause gate, kept
+    by wrapping the job's ``JobControl.wait_while_paused``: every
+    incarnation of the job's bodies passes through it at each step
+    boundary."""
+    waiting = set()
+    gate = control.wait_while_paused
+
+    def counted(should_abort=None):
+        me = threading.current_thread()
+        if control.paused:
+            waiting.add(me)
+        try:
+            return gate(should_abort)
+        finally:
+            waiting.discard(me)
+    control.wait_while_paused = counted
+    return waiting
+
+
+def drill_child(workdir: str) -> int:
+    """Drill b's core process (``chip_smoke.py --drill-child WORKDIR``):
+    a ``DLaaSCore`` on the card over ``workdir`` deploys an endpoint
+    (fresh weights from seed 0) and answers the drills' prompt, submits
+    DRILL_MANIFEST, waits for its first checkpoint on disk, pauses it,
+    writes ``marker.json`` and waits to be killed."""
+    import torch
+    if not torch.cuda.is_available():
+        return 2
+    core = drill_core(workdir, 1, 4)
+    eid = core.deploy_endpoint(
+        arch=SERVE_ARCH, capacity=ENDPOINT_SERVING["capacity"],
+        max_seq=ENDPOINT_SERVING["max_seq"], max_new=DRILL_NEW,
+        idempotency_key="drill-ep")["endpoint_id"]
+    wait_ready(core, eid)
+    tokens = core.predict(eid, drill_prompt(), max_new=DRILL_NEW)["tokens"]
+    mid = core.deploy_model(manifest_yaml(DRILL_MANIFEST))["model_id"]
+    tid = core.create_training(mid, idempotency_key="drill-sub")[
+        "training_id"]
+    poll(lambda: core.metrics.checkpoints(tid), bool, DRILL_CHILD_TIMEOUT,
+         "the first checkpoint")
+    core.pause_training(tid)        # hold it mid-flight: the kill is mid-job
+    first = Path(workdir, "ckpt", tid,
+                 f"step_{DRILL_MANIFEST['checkpoint_every']:010d}")
+    poll(first.exists, bool, DRILL_CHILD_TIMEOUT, f"{first} published")
+    tmp = Path(workdir, "marker.tmp")
+    tmp.write_text(json.dumps({
+        "tid": tid, "eid": eid, "mid": mid, "tokens": tokens,
+        "steps_done": core.training_status(tid)["steps_done"],
+        "checkpoints": len(core.metrics.checkpoints(tid))}))
+    tmp.rename(Path(workdir, "marker.json"))
+    time.sleep(DRILL_CHILD_TIMEOUT)   # the parent kills it here
+    return 1
+
+
+class Drills:
+    """Phase 24's state: the drills' config and prompt, the phase's
+    baseline device memory, the launches of the drills' path, the bytes
+    each drill held on disk, and its workdirs under ``build/``."""
+
+    def __init__(self, torch, ops, card):
+        import collections
+        from repro_torch.weights import flat_size
+        self.torch, self.ops, self.card = torch, ops, card
+        self.cfg = drill_config()
+        self.F = flat_size(self.cfg)
+        self.tag = f"[drills] {card}:"
+        self.prompt = drill_prompt()
+        self.launches = collections.Counter()
+        self.held = {}
+        build_dir = ROOT / "build"
+        build_dir.mkdir(exist_ok=True)
+        self.root = Path(tempfile.mkdtemp(prefix="chip-smoke-drills-",
+                                          dir=build_dir))
+        atexit.register(shutil.rmtree, self.root, True)
+        self.published = 0          # checkpoints the drills wrote
+        self.ckpt_bytes = 0         # the bytes of one on disk
+        torch.cuda.empty_cache()
+        self.base = self.memory()
+
+    def memory(self) -> int:
+        gc.collect()
+        self.torch.cuda.synchronize()
+        return self.torch.cuda.memory_allocated()
+
+    def gib(self, *ns) -> str:
+        return " -> ".join(f"{n / 2**30:.2f}" for n in ns) + " GiB"
+
+    def say(self, line: str):
+        print(f"{self.tag} {line}", flush=True)
+
+    def start(self, label: str):
+        """A drill's workdir; its launches count from here."""
+        self.ops.reset_launch_counts()
+        self.t0 = time.perf_counter()
+        return self.root / label
+
+    def count(self, pushes, rounds, shards, prefills=0, int8=False):
+        self.launches.update(drill_launches(
+            self.torch, self.ops, self.cfg, pushes, rounds, shards,
+            prefills, int8))
+        self.ops.reset_launch_counts()
+
+    def finish(self, label, workdir, cores, tid, published) -> int:
+        """Count the drill's ``published`` checkpoints, close ``cores``,
+        delete the workdir (its size kept), and check the device memory
+        is back within SERVICE_MEMORY_SLACK of the phase's baseline;
+        returns it."""
+        self.published += published
+        steps = sorted(Path(workdir, "ckpt", tid).glob("step_*"))
+        if steps:
+            self.ckpt_bytes = disk_bytes(steps[-1])
+        for c in cores:
+            c.close()
+        self.held[label] = disk_bytes(workdir)
+        shutil.rmtree(workdir, ignore_errors=True)
+        mem = self.memory()
+        if abs(mem - self.base) > SERVICE_MEMORY_SLACK:
+            raise AssertionError(f"{label}: {self.gib(mem)} allocated after "
+                                 f"the drill, {self.gib(self.base)} before "
+                                 f"the phase")
+        return mem
+
+    def seconds(self) -> float:
+        return time.perf_counter() - self.t0
+
+    def start_child(self):
+        """Drill b's core process, started early so that its start
+        overlaps drill a."""
+        self.wd_b = self.root / "b"
+        self.wd_b.mkdir()
+        self.child_log = self.root / "b-child.log"
+        with open(self.child_log, "wb") as out:
+            self.child = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--drill-child", str(self.wd_b)], stdout=out,
+                stderr=subprocess.STDOUT, cwd=str(ROOT))
+        child = self.child
+
+        def stop():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        atexit.register(stop)
+
+    def uninterrupted(self):
+        """a. DRILL_MANIFEST through a core: the losses by step and the
+        trained model the recoveries are held to."""
+        import numpy as np
+        m = DRILL_MANIFEST
+        wd = self.start("a")
+        core = drill_core(wd, 1, 4)
+        mid = core.deploy_model(manifest_yaml(m))["model_id"]
+        tid = core.create_training(mid)["training_id"]
+        st = wait_completed(core, tid)
+        self.want = losses_of(core, tid)
+        self.want_model = np.load(io.BytesIO(core.download_model(tid)))
+        if sorted(self.want) != list(range(m["steps"])) or \
+                st["last_loss"] != self.want[m["steps"] - 1] or \
+                not all(math.isfinite(v) for v in self.want.values()):
+            raise AssertionError(f"a: losses {self.want}, status {st}")
+        times = job_times(core, tid)
+        self.count(m["steps"], m["steps"], m["ps_shards"])
+        mem = self.finish("a", wd, [core], tid,
+                          len(core.metrics.checkpoints(tid)))
+        self.say(f"a. uninterrupted: {self.seconds():.1f} s, COMPLETED, "
+                 f"losses by step {json.dumps(self.want)}; memory "
+                 f"{self.gib(self.base, mem)}; seconds {json.dumps(times)}")
+
+    def recovered(self, label, core, tid):
+        """Check a recovered training against a: COMPLETED, every loss
+        after the resume a's at its step; (its losses, the largest
+        relative difference, the trained model's largest difference)."""
+        import numpy as np
+        wait_completed(core, tid)
+        got = losses_of(core, tid)
+        rel = same_losses(label, got, self.want)
+        model = np.load(io.BytesIO(core.download_model(tid)))
+        return got, rel, float(np.abs(model - self.want_model).max())
+
+    def sigkill(self):
+        """b. scripts/verify.sh's crash drill on the card: the child core
+        is SIGKILLed after its first checkpoint, a fresh core here
+        recovers its workdir."""
+        import signal
+        m = DRILL_MANIFEST
+        marker = self.wd_b / "marker.json"
+        poll(lambda: marker.exists() or self.child.poll() is not None, bool,
+             DRILL_CHILD_TIMEOUT, "the drill child's marker")
+        if not marker.exists():
+            raise AssertionError(
+                f"drill child exited {self.child.returncode}: "
+                f"{self.child_log.read_text()[-3000:]}")
+        ids = json.loads(marker.read_text())
+        os.kill(self.child.pid, signal.SIGKILL)     # no shutdown hook runs
+        self.child.wait()
+        self.start("b")
+        core = drill_core(self.wd_b, 1, 4)
+        tid, eid = ids["tid"], ids["eid"]
+        rep = core.recovery_report()
+        if tid not in rep["trainings"]["resumed"] + \
+                rep["trainings"]["requeued"] or \
+                eid not in rep["endpoints"]["redeployed"]:
+            raise AssertionError(f"b: recovery report {rep}")
+        again = core.create_training(ids["mid"],
+                                     idempotency_key="drill-sub")
+        if again["training_id"] != tid:
+            raise AssertionError(f"b: the replayed key gave {again}")
+        got, rel, diff = self.recovered("b", core, tid)
+        resumed = resumed_steps(core, tid)
+        if resumed != [m["steps"] - len(got)]:
+            raise AssertionError(f"b: resumed {resumed}, {len(got)} steps")
+        wait_ready(core, eid)
+        eng = core.endpoints[eid].engine
+        tokens = core.predict(eid, self.prompt, max_new=DRILL_NEW)["tokens"]
+        if tokens != ids["tokens"]:
+            raise AssertionError(f"b: tokens {tokens} after recovery, "
+                                 f"{ids['tokens']} before the kill")
+        tl = core.training_timeline(tid)
+        rec = core._zget(f"/dlaas/jobs/{tid}/record")
+        if "recovery" not in {s["name"] for s in tl["spans"]} or \
+                tl["trace_id"] != rec["trace_id"]:
+            raise AssertionError(f"b: timeline {tl['trace_id']} against "
+                                 f"the record's {rec.get('trace_id')}")
+        mem_at = self.memory()
+        core.stop_endpoint(eid)
+        poll(lambda: core.endpoint_status(eid)["state"],
+             lambda s: s == "STOPPED", 120, f"{eid} stop")
+        poll(lambda: eng.released, bool, 30, f"{eid}: engine not released")
+        self.count(len(got), len(got), m["ps_shards"], eng.prefill_batches)
+        del eng
+        mem = self.finish("b", self.wd_b, [core], tid,
+                          ids["checkpoints"]
+                          + len(core.metrics.checkpoints(tid)))
+        self.say(f"b. SIGKILL of the core process (paused after "
+                 f"{ids['steps_done']} steps, its first checkpoint on "
+                 f"disk): recovered, COMPLETED {self.seconds():.1f} s after "
+                 f"the kill; {rep['trainings']}, endpoints "
+                 f"{rep['endpoints']}; resumed from step {resumed[0]}; "
+                 f"losses of steps {sorted(got)} within {rel:.3e} of a's "
+                 f"(limit {DRILL_LOSS_RTOL}); trained_model.npy max abs "
+                 f"diff from a's {diff:.3e}; the endpoint's {len(tokens)} "
+                 f"tokens equal the child's; the replayed key gave {tid}; "
+                 f"memory {self.gib(self.base, mem_at, mem)}")
+
+    def crash(self):
+        """c. CRASH_CORE at step DRILL_CRASH_AT of DRILL_MANIFEST; a second
+        core in this process recovers once the zombie's learner has
+        returned and its parameter server is freed."""
+        from repro_torch.platform.faults import FaultEvent
+        m = DRILL_MANIFEST
+        wd = self.start("c")
+        zombie = drill_core(wd, 1, 4)
+        mid = zombie.deploy_model(manifest_yaml(m))["model_id"]
+        tid = zombie.create_training(mid)["training_id"]
+        ps = zombie.trainings[tid]["plan"].meta["ps"]
+        zombie.inject_faults(events=[FaultEvent(
+            "crash_core", "", at_step=DRILL_CRASH_AT, job_id=tid)])
+        poll(lambda: zombie.crashed, bool, 600, "c: the crash")
+        mem_crash = self.torch.cuda.memory_allocated()
+        poll(lambda: ps.released, bool, 120, "c: the zombie's PS released")
+        zombie_steps = len(losses_of(zombie, tid))
+        zombie_rounds = ps.stats()["agg_rounds"]
+        del ps
+        mem_zombie = self.memory()
+        core = drill_core(wd, 1, 4)
+        rep = core.recovery_report()
+        got, rel, diff = self.recovered("c", core, tid)
+        resumed = resumed_steps(core, tid)
+        self.count(zombie_steps + len(got), zombie_rounds + len(got),
+                   m["ps_shards"])
+        mem = self.finish("c", wd, [core, zombie], tid,
+                          len(zombie.metrics.checkpoints(tid))
+                          + len(core.metrics.checkpoints(tid)))
+        self.say(f"c. CRASH_CORE at step {DRILL_CRASH_AT}: the zombie ran "
+                 f"{zombie_steps} steps, its PS freed once its learner "
+                 f"returned ({self.gib(mem_crash, mem_zombie)}); recovered "
+                 f"{rep['trainings']}, resumed from step {resumed}; losses "
+                 f"of steps {sorted(got)} within {rel:.3e} of a's; "
+                 f"trained_model.npy max abs diff {diff:.3e}; "
+                 f"{self.seconds():.1f} s; memory "
+                 f"{self.gib(self.base, mem_crash, mem)}")
+
+    def node_kill(self):
+        """d. DRILL_NODE_MANIFEST on two nodes, paused at a step boundary
+        once DRILL_PAUSE_AT steps are done; the node under the learners
+        killed, the learners re-placed on the other and resumed from the
+        last checkpoint."""
+        import collections
+        from repro_torch.platform.cluster import RUNNING
+        from repro_torch.platform.faults import FaultEvent, KILL
+        nm = DRILL_NODE_MANIFEST
+        n = nm["learners"]
+        wd = self.start("d")
+        core = drill_core(wd, 2, 4)
+        mid = core.deploy_model(manifest_yaml(nm))["model_id"]
+        tid = core.create_training(mid)["training_id"]
+        ps = core.trainings[tid]["plan"].meta["ps"]
+        waiting = paused_members(core.trainings[tid]["plan"].control)
+
+        def diagnose(what):
+            logs = {k: [line for line in core.training_logs(tid, k)
+                        if "loss=" not in line]
+                    for k in (f"learner-{i}" for i in range(n))}
+            apps = {a.app_id: {t.task_id: (t.state, t.node, t.restarts,
+                                           t.message)
+                               for t in a.tasks.values()}
+                    for a in core.scheduler.apps.values()}
+            steps = collections.Counter(
+                core.metrics.series(tid, "loss").steps)
+            return (f"d: {what}; logs {logs}; tasks {apps}; losses by "
+                    f"step {dict(steps)}; data plane {ps.stats()}")
+
+        poll(lambda: core.training_status(tid)["steps_done"],
+             lambda k: k >= DRILL_PAUSE_AT, 600, "d: steps before the pause")
+        # paused at one step boundary: under BSP a learner past the
+        # boundary when the pause lands waits in its push for the
+        # other's, and the kill would end that round with one learner;
+        # let it finish first
+        for _ in range(5):
+            core.pause_training(tid)
+            if wait_for(lambda: len(waiting) == n, 60):
+                break
+            core.resume_training(tid)
+        else:
+            raise AssertionError(diagnose("never paused at one step"))
+        mem_victim = self.memory()
+        app = core.scheduler.apps[f"{tid}-learners"]
+        victim = next(t.node for t in app.tasks.values()
+                      if t.state == RUNNING)
+        victim_steps = core.training_status(tid)["steps_done"]
+        core.inject_faults(events=[
+            FaultEvent(KILL, victim, at_tick=core.cluster.clock + 1)])
+
+        def live_clients():
+            return [c for c in list(ps._clients) if c._err is not None]
+        if not wait_for(lambda: (all(t.state == RUNNING and t.node != victim
+                                     for t in app.tasks.values())
+                                 and len(waiting) == n
+                                 and len(live_clients()) == n), 300):
+            raise AssertionError(diagnose("no re-placed learners at their "
+                                          "first step"))
+        mem_survivor = self.memory()
+        n_clients = len(list(ps._clients))
+        if mem_survivor > mem_victim + SERVICE_MEMORY_SLACK or \
+                len(ps._pull_bufs) != n:
+            raise AssertionError(diagnose(
+                f"{self.gib(mem_survivor)} at the surviving incarnation's "
+                f"first step, {self.gib(mem_victim)} at the victim's last; "
+                f"pull buffers {sorted(ps._pull_bufs)}"))
+        core.resume_training(tid)
+        st = wait_completed(core, tid)
+        restarts = sum(t.restarts for t in app.tasks.values())
+        every = nm["checkpoint_every"]
+        resumed = {k: resumed_steps(core, tid, f"learner-{k}")
+                   for k in range(n)}
+        model = core.download_model(tid)
+        dp = st["data_plane"]
+        n_loss = len(core.metrics.series(tid, "loss").values)
+        if st["steps_done"] != nm["steps"] or restarts != n or \
+                any(r != [every * (victim_steps // every)]
+                    for r in resumed.values()) or \
+                len(model) < self.F * 4 or dp["push_count"] != n_loss or \
+                dp["agg_rounds"] * n != dp["push_count"]:
+            raise AssertionError(diagnose(
+                f"{st}, restarts {restarts}, resumed {resumed}, model "
+                f"{len(model)} bytes"))
+        times = job_times(core, tid)
+        self.count(dp["push_count"], dp["agg_rounds"], nm["ps_shards"],
+                   int8=nm["compression"] == "int8")
+        del ps, model
+        mem = self.finish("d", wd, [core], tid,
+                          len(core.metrics.checkpoints(tid)))
+        self.say(f"d. node kill under the PS learners ({n} learners, "
+                 f"{nm['ps_shards']} shards, adam, int8, BSP): {victim} "
+                 f"killed after {victim_steps} steps, restarts {restarts}, "
+                 f"resumed from step {resumed}, COMPLETED "
+                 f"{st['steps_done']} steps, trained_model.npy uploaded; "
+                 f"{dp['push_count']} pushes, {dp['agg_rounds']} rounds; "
+                 f"clients {n_clients}, {n} with buffers; memory at the "
+                 f"victim's last step -> the survivor's first -> after "
+                 f"{self.gib(mem_victim, mem_survivor, mem)}; "
+                 f"{self.seconds():.1f} s; seconds {json.dumps(times)}")
+
+    def serving_kill(self):
+        """e. An endpoint on two single-GPU nodes; a request submitted
+        while serving is paused, then its node killed."""
+        from repro_torch.platform.cluster import RUNNING
+        from repro_torch.platform.faults import FaultEvent, KILL
+        from repro_torch.serving.engine import InferenceEngine
+        wd = self.start("e")
+        bare = InferenceEngine(self.cfg,
+                               capacity=ENDPOINT_SERVING["capacity"],
+                               max_seq=ENDPOINT_SERVING["max_seq"], seed=0,
+                               device="cuda")
+        bare.start()
+        worker = threading.Thread(target=bare.run, daemon=True)
+        worker.start()
+        r = bare.submit(self.prompt, max_new=DRILL_NEW)
+        if not r.wait(300) or r.status != "DONE":
+            raise AssertionError(f"e: bare engine {r.status} {r.error}")
+        want = r.tokens
+        bare.drain()
+        worker.join(60)
+        bare.release()
+        del bare, worker
+        self.torch.cuda.empty_cache()
+        self.ops.reset_launch_counts()      # the comparison's launches out
+        core = drill_core(wd, 2, 1)
+        eid = core.deploy_endpoint(
+            arch=SERVE_ARCH, capacity=ENDPOINT_SERVING["capacity"],
+            max_seq=ENDPOINT_SERVING["max_seq"],
+            max_new=DRILL_NEW)["endpoint_id"]
+        wait_ready(core, eid)
+        warm = core.predict(eid, self.prompt, max_new=DRILL_NEW)["tokens"]
+        eng = core.endpoints[eid].engine
+        mem_before = self.memory()
+        core.pause_training(eid)        # hold serving at a batch boundary
+        req = eng.submit(self.prompt, max_new=DRILL_NEW)
+        app = core.scheduler.apps[f"{eid}-servers"]
+        victim = next(t.node for t in app.tasks.values()
+                      if t.state == RUNNING)
+        core.inject_faults(events=[
+            FaultEvent(KILL, victim, at_tick=core.cluster.clock + 1)])
+        poll(lambda: any(t.state == RUNNING and t.node != victim
+                         for t in app.tasks.values()), bool, 120,
+             "e: endpoint re-placed")
+        wait_ready(core, eid)
+        mem_ready = self.memory()
+        core.resume_training(eid)
+        if not req.wait(300) or req.status != "DONE":
+            raise AssertionError(f"e: request {req.status} {req.error}")
+        if req.tokens != want or warm != want or \
+                not core.scheduler.faults.done():
+            raise AssertionError(f"e: tokens {req.tokens} (warm {warm}) "
+                                 f"against an undisturbed engine's {want}")
+        if mem_ready > mem_before + SERVICE_MEMORY_SLACK:
+            raise AssertionError(f"e: {self.gib(mem_ready)} READY again, "
+                                 f"{self.gib(mem_before)} before the kill")
+        core.stop_endpoint(eid)
+        poll(lambda: core.endpoint_status(eid)["state"],
+             lambda s: s == "STOPPED", 120, f"{eid} stop")
+        poll(lambda: eng.released, bool, 30, f"{eid}: engine not released")
+        prefills = eng.prefill_batches
+        self.count(0, 0, 0, prefills)
+        del eng
+        mem = self.finish("e", wd, [core], eid, 0)
+        self.say(f"e. serving node killed with a request queued: {victim} "
+                 f"killed, re-placed, the request DONE with an undisturbed "
+                 f"engine's {len(want)} tokens; {prefills} prefill batches; "
+                 f"memory before the kill -> READY again -> after "
+                 f"{self.gib(mem_before, mem_ready, mem)}; "
+                 f"{self.seconds():.1f} s")
+
+    def disk(self):
+        held = {k: round(v / 2**30, 2) for k, v in self.held.items()}
+        self.say(f"disk: {self.published} checkpoints of "
+                 f"{self.ckpt_bytes:,} bytes written "
+                 f"({self.published * self.ckpt_bytes / 2**30:.2f} GiB, the "
+                 f"child's included); held at each drill's end (then "
+                 f"deleted) {json.dumps(held)} GiB")
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
+def drills_phase(torch, ops, card):
+    """Phase 24: the paper's fault tolerance on the card (see the module
+    docstring). Returns the launches of the drills' path."""
+    d = Drills(torch, ops, card)
+    d.say(f"stablelm-1.6b d={d.cfg.d_model} L={d.cfg.n_layers} bf16 (F = "
+          f"{d.F:,}); baseline {d.gib(d.base)} allocated")
+    d.start_child()
+    d.uninterrupted()
+    d.sigkill()
+    d.crash()
+    d.node_kill()
+    d.serving_kill()
+    d.disk()
+    return dict(d.launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5816,7 +6482,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.done("23 dryrun")
 
-    # 24. result
+    # 24. the paper's fault tolerance through the port's DLaaSCore: an
+    # uninterrupted run, a SIGKILLed core process recovered here, a
+    # CRASH_CORE recovered in this process, a node killed under the PS
+    # learners and one under a serving endpoint
+    drill_launches_total = drills_phase(torch, ops, card)
+    torch.cuda.empty_cache()
+    clock.done("24 drills")
+
+    # 25. result
     def entry(mod, launches, head, shapes):
         return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                 "replaces": mod.REPLACES, "launches": launches,
@@ -5840,7 +6514,8 @@ def main() -> int:
                    "solvers": solver_launches_total,
                    "train-sp": sp_launches,
                    "grad-kimi-attn": kimi_grad_launches,
-                   "train-pjit-remat": remat_launches}
+                   "train-pjit-remat": remat_launches,
+                   "drills": drill_launches_total}
     ssm_paths = {"ssm-train": train["ssm-train"]["launches"],
                  "ssm-platform-train": sptrain["launches"]}
     k4_paths = by_path(kfa.NAME, {"serve": serve_launches, **dense_paths,
@@ -5913,4 +6588,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--dryrun-child"]:
         sys.exit(dryrun_child())
+    if sys.argv[1:2] == ["--drill-child"] and len(sys.argv) == 3:
+        sys.exit(drill_child(sys.argv[2]))
     sys.exit(main())

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import io
 import json
+import logging
 import os
 import shutil
 import threading
@@ -49,6 +50,8 @@ import torch
 
 from repro_torch.models.layers import iter_leaves, map_leaves
 from repro_torch.platform.journal import fsync_enabled
+
+log = logging.getLogger("repro_torch.checkpoint")
 
 # a bfloat16 leaf on disk: its bits, in a dtype that JAX refuses
 BF16_BITS = np.dtype([("bfloat16", "<u2")])
@@ -108,6 +111,34 @@ def _file(key: str) -> str:
     return key.replace("/", "__") + ".npy"
 
 
+def _npy(arr: np.ndarray) -> Tuple[bytes, memoryview]:
+    """``np.save``'s bytes of ``arr`` as (its header, a view of the
+    array's own memory)."""
+    from numpy.lib import format as npy
+    if not arr.flags.c_contiguous:
+        arr = arr.copy(order="C")
+    buf = io.BytesIO()
+    d = npy.header_data_from_array_1_0(arr)
+    try:
+        npy.write_array_header_1_0(buf, d)
+    except ValueError:              # a header too long for format 1.0
+        buf = io.BytesIO()
+        npy.write_array_header_2_0(buf, d)
+    return buf.getvalue(), memoryview(arr.reshape(-1).view(np.uint8))
+
+
+def _crc32(fp: Path, chunk: int = 1 << 26) -> int:
+    """crc32 of a file, read in chunks: a full-width leaf is gigabytes,
+    and a whole-file read would hold all of it in host memory at once."""
+    crc = 0
+    with open(fp, "rb") as f:
+        while True:
+            data = f.read(chunk)
+            if not data:
+                return crc
+            crc = zlib.crc32(data, crc)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3,
                  async_save: bool = True,
@@ -159,13 +190,15 @@ class CheckpointManager:
         crcs = {}
         blobs = {}
         for k, v in host.items():
-            buf = io.BytesIO()
-            np.save(buf, v, allow_pickle=False)
-            data = buf.getbuffer()      # no second host copy of the leaf
-            crcs[k] = zlib.crc32(data)
-            (tmp / _file(k)).write_bytes(data)
+            # the bytes np.save writes, from the snapshot itself: no
+            # host copy of the leaf on the way to the file
+            header, data = _npy(v)
+            crcs[k] = zlib.crc32(data, zlib.crc32(header))
+            with open(tmp / _file(k), "wb") as f:
+                f.write(header)
+                f.write(data)
             if self.mirror is not None:
-                blobs[_file(k)] = bytes(data)
+                blobs[_file(k)] = header + data.tobytes()
         meta["crcs"] = crcs
         manifest = json.dumps(meta)
         (tmp / "manifest.json").write_text(manifest)
@@ -197,6 +230,18 @@ class CheckpointManager:
         for name, data in blobs.items():
             storage.upload(store_id, container, name, data)
         storage.upload(store_id, container, "manifest.json", manifest)
+
+    def wait_published(self, timeout: float, poll_s: float = 0.02) -> bool:
+        """Wait until no checkpoint of this directory is being written
+        (no ``step_*.tmp``), by this manager or another (a learner 0
+        that has not published yet); False if one still is after
+        ``timeout`` seconds (e.g. a write cut by a kill)."""
+        deadline = time.time() + timeout
+        while any(self.dir.glob("step_*.tmp")):
+            if time.time() > deadline:
+                return False
+            time.sleep(poll_s)
+        return True
 
     def pending(self) -> bool:
         """Whether an async write is still in flight."""
@@ -245,11 +290,16 @@ class CheckpointManager:
             for k, crc in meta.get("crcs", {}).items():
                 fp = path / _file(k)
                 if not fp.exists():
+                    log.warning("checkpoint %s lacks leaf %s", path, k)
                     return False
-                if zlib.crc32(fp.read_bytes()) != crc:
+                if _crc32(fp) != crc:
+                    log.warning("checkpoint %s: leaf %s fails its crc",
+                                path, k)
                     return False
             return True
-        except (json.JSONDecodeError, OSError):
+        except (json.JSONDecodeError, OSError) as e:
+            log.warning("checkpoint %s unreadable: %s: %s", path,
+                        type(e).__name__, e)
             return False
 
     def latest_valid(self) -> Optional[int]:
@@ -259,6 +309,12 @@ class CheckpointManager:
             if self._valid(self.dir / f"step_{step:010d}"):
                 return step
         return None
+
+    def extra(self, step: int) -> Dict:
+        """The ``extra`` dict saved with checkpoint ``step`` (a learner
+        that restores no leaf reads its step and cursor here)."""
+        path = self.dir / f"step_{step:010d}" / "manifest.json"
+        return json.loads(path.read_text()).get("extra", {})
 
     # ---- restore ------------------------------------------------------------
     def restore(self, step: int, template, shardings=None, device=None):
@@ -278,7 +334,7 @@ class CheckpointManager:
             fp = path / _file(key)
             if not fp.exists():
                 raise FileNotFoundError(f"checkpoint missing leaf {key}")
-            arr = np.load(io.BytesIO(fp.read_bytes()), allow_pickle=False)
+            arr = np.load(fp, allow_pickle=False)
             sh = flat_s.get(key)
             if sh is not None:
                 from repro_torch.distributed.sharding import distribute

@@ -20,7 +20,12 @@ and one fix: ``_set`` checks for a znode, then creates it, so two
 threads in ``monitor()`` at once (the service's tick loop and a status
 request) could both miss it and the second ``create`` raised
 ``NodeExistsError``; the port's ``_set`` then writes the node instead.
-The port imports nothing of ``repro``.
+And one addition: ``JobControl.fence()``. ``DLaaSCore.crash()`` fences
+every job of the crashed core, and a fenced learner writes no checkpoint
+and no model, as a killed process could not. In the reference the
+zombie learner still publishes the checkpoint that ends the step it is
+in, and a recovering core adopts it. The port imports nothing of
+``repro``.
 """
 from __future__ import annotations
 
@@ -78,6 +83,7 @@ class JobControl:
     def __init__(self):
         self._pause = threading.Event()
         self._ckpt = threading.Event()
+        self._fence = threading.Event()
 
     def pause(self):
         self._pause.set()
@@ -99,6 +105,15 @@ class JobControl:
             self._ckpt.clear()
             return True
         return False
+
+    def fence(self):
+        """The service that ran this job crashed: its task bodies write
+        nothing durable (checkpoint, model) from now on."""
+        self._fence.set()
+
+    @property
+    def fenced(self) -> bool:
+        return self._fence.is_set()
 
     def wait_while_paused(self, should_abort: Optional[Callable] = None):
         """Block while paused. ``should_abort`` (e.g. Watchdog.

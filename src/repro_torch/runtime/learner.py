@@ -17,7 +17,16 @@ reference's learner pulls at once and a late starter can take its step 0
 on weights that a round finished without it; and a learner that raises
 waits for its outstanding checkpoint write before its task fails, where
 the reference's restart can probe before that write has landed and
-start from an older checkpoint.
+start from an older checkpoint. A learner other than 0 restarted while
+learner 0's checkpoint is still being written waits for it (at most
+``BSP_TIMEOUT_S``) and reads only its step, so both resume from the same
+step; in the reference it starts from an older one and the two run
+different numbers of steps. Two more, for a task that ends without
+finishing: a learner releases its ``PSClient``'s buffers as it leaves,
+so an exception somebody keeps (and with it the learner's frames) holds
+no device memory; and a learner of a crashed core (``control.fenced``,
+set by ``DLaaSCore.crash``) stops before a checkpoint or the model
+upload instead of writing it, as a killed process would.
 
 The learner's state is the flat f32 weight vector, as in the reference,
 but it lives on the device: the PS pull buffer, the gradient, the push
@@ -47,10 +56,11 @@ from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig, reduce_for_smoke
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.cursor import GlobalCursor
-from repro_torch.core.software_ps import SoftwareParameterServer, as_flat
+from repro_torch.core.software_ps import (BSP_TIMEOUT_S,
+                                          SoftwareParameterServer, as_flat)
 from repro_torch.data.pipeline import DatasetSpec, SyntheticCorpus
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.errors import UserError
+from repro_torch.errors import Preempted, UserError
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as _kfa
 from repro_torch.kernels import flash_attention_bwd as _kfab
@@ -389,39 +399,58 @@ def make_learner_body(cfg: LearnerJobConfig, ps: SoftwareParameterServer,
     def body(wd: Watchdog, idx: int):
         ps.join(idx)
         ckpt = None
+        clients = []
         try:
             if cfg.checkpoint_dir and idx == 0:
                 ckpt = CheckpointManager(cfg.checkpoint_dir, keep=3,
                                          mirror=cfg.ckpt_mirror)
-            _train(wd, idx, ckpt)
+            _train(wd, idx, ckpt, clients)
         finally:
             # a learner that crashes lets its outstanding checkpoint
             # write finish before its task fails: the restart resumes
             # from it
             if ckpt is not None:
                 ckpt.wait()
+            # its device buffers go now, not when its frames are
+            # collected (a kept exception holds them)
+            for client in clients:
+                client.release()
             ps.leave(idx)
 
-    def _train(wd: Watchdog, idx: int, ckpt):
+    def fence(idx: int):
+        """Stop a learner of a crashed core before it writes."""
+        if control is not None and getattr(control, "fenced", False):
+            raise Preempted(f"learner-{idx}: its core crashed")
+
+    def _train(wd: Watchdog, idx: int, ckpt, clients):
         start_step = 0
         # resume from checkpoint if one exists (any learner may restore
         # the global params by pulling after learner-0 pushed them)
         if cfg.checkpoint_dir:
             probe = CheckpointManager(cfg.checkpoint_dir, keep=3)
+            # a learner restarted beside learner 0 waits for learner 0's
+            # checkpoint still being written: learner 0 resumes from it
+            if idx != 0 and not probe.wait_published(BSP_TIMEOUT_S):
+                wd.log("a checkpoint write did not finish: resuming from "
+                       "the newest published one")
             last = probe.latest_valid()
+            if last is None and probe.steps():
+                wd.log(f"no valid checkpoint among steps {probe.steps()}")
             if last is not None:
-                # the template only names the leaf (np.zeros touches no
-                # memory): the restored values are what count
-                tmpl = {"flat": np.zeros(plugin.flat_size, np.float32)}
-                tree, extra = probe.restore(last, tmpl)
+                extra = probe.extra(last)
                 start_step = int(extra.get("step", last))
-                # learner 0 republishes restored weights to the PS shards
+                # learner 0 republishes restored weights to the PS shards;
+                # the others pull them and read only the step
                 if idx == 0:
+                    # the template only names the leaf (np.zeros touches
+                    # no memory): the restored values are what count
+                    tmpl = {"flat": np.zeros(plugin.flat_size, np.float32)}
+                    tree, _ = probe.restore(last, tmpl)
                     ps.load_flat(tree["flat"])
+                    del tree
                     cur_epoch = int(extra.get("epoch", 0))
                     cur_off = int(extra.get("offset", 0))
                     cursor.restore(cur_epoch, cur_off)
-                del tree
                 wd.log(f"resumed from checkpoint step={start_step}")
 
         # on the PS's first start, no learner pulls before every learner
@@ -433,9 +462,11 @@ def make_learner_body(cfg: LearnerJobConfig, ps: SoftwareParameterServer,
         # the learner's state is the flat f32 vector in its device pull
         # buffer, reused by every pull
         client = ps.make_client(idx)
+        clients.append(client)
         flat = client.pull()
 
         def save_ckpt(step, flat):
+            fence(idx)
             wd.set_status(CHECKPOINTING)
             with maybe_span(tracer, cfg.job_id, "checkpoint_publish",
                             step=step):
@@ -507,6 +538,7 @@ def make_learner_body(cfg: LearnerJobConfig, ps: SoftwareParameterServer,
                 save_ckpt(step + 1, flat)
         # store.sh: upload the trained model
         if idx == 0:
+            fence(idx)
             host = flat.detach().cpu().numpy()
             buf = io.BytesIO()
             np.save(buf, host)

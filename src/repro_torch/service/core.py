@@ -20,6 +20,9 @@ checkpoint-resume, READY endpoints re-deploy, billing never resets).
 The public methods, their names and their return shapes are the
 reference's. What differs:
 
+  * ``stores`` (store id -> a ``platform.storage`` store) replaces the
+    workdir's ``local``, ``objectstore`` or ``results`` store, e.g. by
+    one in host memory where the disk is the scarce resource.
   * ``device`` (``None``: CUDA, which raises where there is none) and
     ``arch_cfgs`` (arch id -> the ``ArchConfig`` a ``repro-lm`` job or
     endpoint of that arch runs; absent arches run the reference's
@@ -33,6 +36,14 @@ reference's. What differs:
     only drops the server from the plan when a terminal job is polled,
     and its learner body keeps it alive; at full width on one card that
     would hold tens of GiB for the life of the service.
+  * ``crash()`` frees the abandoned incarnation's device state as a
+    SIGKILL frees a process's memory: each training's parameter server
+    and each endpoint's engine, once that job's task bodies have
+    returned. It also fences every job (``JobControl.fence``), so the
+    zombie's learners write no checkpoint and no model after the crash.
+    The reference's zombie keeps its servers, which is harmless in host
+    memory; on one card two full-width servers do not fit beside the
+    recovered run.
   * No XLA compilation cache (kernels build from the repo's sources into
     ``build/kernels/`` at first use).
 
@@ -92,7 +103,8 @@ class DLaaSCore:
                  admin_users: Optional[set] = None,
                  autoscale: Optional[Any] = None,
                  durable: bool = True, device: DeviceLike = None,
-                 arch_cfgs: Optional[Dict[str, ArchConfig]] = None):
+                 arch_cfgs: Optional[Dict[str, ArchConfig]] = None,
+                 stores: Optional[Dict[str, Any]] = None):
         # first: without a card (and no device="cpu") nothing else starts
         self.device = resolve_device(device)
         self.arch_cfgs = dict(arch_cfgs or {})
@@ -143,6 +155,10 @@ class DLaaSCore:
         self.storage.register(
             "objectstore", ObjectStore(f"{workdir}/objectstore"))
         self.storage.register("results", LocalFSStore(f"{workdir}/results"))
+        # a deployment's own stores in place of the workdir's (registered
+        # before recovery, which relaunches jobs that write to them)
+        for store_id, store in (stores or {}).items():
+            self.storage.register(store_id, store)
         self.models: Dict[str, Dict] = {}
         self.trainings: Dict[str, Dict] = {}
         self.endpoints: Dict[str, ModelEndpoint] = {}
@@ -187,21 +203,55 @@ class DLaaSCore:
     def crash(self):
         """SIGKILL-equivalent teardown for crash drills: detach the
         journal FIRST (nothing this incarnation does afterwards is
-        durable — exactly like a dead process), then stop the ticker and
+        durable — exactly like a dead process), then stop the ticker,
+        fence every job (its learners write no checkpoint or model) and
         force every running task body to bail at its next step boundary
         so the zombie incarnation stops writing checkpoints into the
-        workdir a recovering core is about to adopt."""
+        workdir a recovering core is about to adopt. A short-lived
+        thread then frees each job's device state (parameter server,
+        engine) once its task bodies have returned."""
         self.zk.detach_journal()
         self._stop.set()
         self.crashed = True
         unregister_hub(self.loghub)
+        with self._lock:
+            plans = [r["plan"] for r in self.trainings.values()
+                     if r.get("plan") is not None]
+            plans += [ep.plan for ep in self.endpoints.values()]
+        for plan in plans:
+            if plan.control is not None:
+                plan.control.fence()
         for app in list(self.scheduler.apps.values()):
             for t in list(app.tasks.values()):
                 t.preempt_event.set()
+        threading.Thread(target=self._release_after_crash, daemon=True,
+                         name="crash-release").start()
         # crash_core fires from inside Scheduler.tick() on the ticker
         # thread itself — joining would deadlock
         if threading.current_thread() is not self._ticker:
             self._ticker.join(timeout=2)
+
+    def _release_after_crash(self, poll_s: float = 0.02):
+        """Free each training's PS and each endpoint's engine of a
+        crashed core as soon as the job's task bodies have returned (the
+        ticker that does it for a live core has stopped)."""
+        # the tick that fired the crash may still place a task: once the
+        # ticker has stopped, nothing starts any more
+        self._ticker.join()
+        for app in list(self.scheduler.apps.values()):
+            for t in list(app.tasks.values()):
+                t.preempt_event.set()
+        with self._lock:
+            jobs = list(self.trainings) + list(self.endpoints)
+        while jobs:
+            for jid in list(jobs):
+                if self._tasks_returned(jid):
+                    self._release_ps(jid)
+                    ep = self.endpoints.get(jid)
+                    if ep is not None:
+                        ep.finalize()
+                    jobs.remove(jid)
+            time.sleep(poll_s)
 
     def _tick_loop(self, interval: float):
         while not self._stop.is_set():

@@ -379,6 +379,10 @@ def _logger(name, var="log", indent=""):
 #   * platform/lcm.py's ``_set`` writes a znode that another thread
 #     created between its check and its create, where the reference's
 #     raises ``NodeExistsError`` (test_lcm_set_survives_a_concurrent_create).
+#   * platform/lcm.py's ``JobControl`` has ``fence()`` / ``fenced``, which
+#     ``DLaaSCore.crash()`` sets so that the crashed core's learners write
+#     no checkpoint and no model
+#     (tests/test_torch_fault_tolerance.py::test_crashed_core_writes_no_checkpoint).
 REFERENCE_ONLY = {
     "platform/lcm.py": [
         (["                self.zk.create(path, data, makepath=True)"],
@@ -386,7 +390,24 @@ REFERENCE_ONLY = {
           "                    self.zk.create(path, data, makepath=True)",
           "                except NodeExistsError:     # created since the "
           "check",
-          "                    self.zk.set(path, data)"])],
+          "                    self.zk.set(path, data)"]),
+        (["        self._ckpt = threading.Event()"],
+         ["        self._ckpt = threading.Event()",
+          "        self._fence = threading.Event()"]),
+        (["    def wait_while_paused(self, should_abort: Optional[Callable] "
+          "= None):"],
+         ["    def fence(self):",
+          '        """The service that ran this job crashed: its task '
+          "bodies write",
+          '        nothing durable (checkpoint, model) from now on."""',
+          "        self._fence.set()",
+          "",
+          "    @property",
+          "    def fenced(self) -> bool:",
+          "        return self._fence.is_set()",
+          "",
+          "    def wait_while_paused(self, should_abort: Optional[Callable] "
+          "= None):"])],
     "platform/cluster.py": [
         (["class _UserError(Exception):",
           '    """Raised by task bodies for errors in user input/code '
