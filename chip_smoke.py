@@ -365,7 +365,32 @@ first failing phase (no phase catches an exception):
      baseline, and each drill's K1-K4b launches are those its steps,
      rounds, pushes and prefill batches imply (the path ``drills``);
      the bytes the phase wrote to disk are printed;
- 25. result  — each phase's wall seconds (a ``[phase]`` line as each
+ 25. dense   — the dense family's three archs that no earlier phase
+     runs, at full width, bf16, random weights from seed 0, each freed
+     before the next (``DENSE_CELLS``): minitron-8b (GQA 4, vocab
+     256,000) and granite-20b (48 query heads on one KV head, 56.3 GB)
+     served at full depth, qwen1.5-110b (QKV bias) cut to 8 of 80
+     layers. For each: a. K4 at (1, 4,096) and K4 with its LSE and K4b
+     at the arch's train shape against their plain versions, on the
+     tensor cores, two calls equal in their bits, with bound and SDPA
+     ms; b. the 8 requests of phase 4 through ``InferenceEngine`` (qwen's
+     ``bq``/``bk``/``bv`` drawn non-zero into the engine's weights before
+     the first request): every request done, K4 once a layer per prefill
+     batch on the tensor cores, weights-ready s, prefill ms a batch,
+     decode ms a step beside the bound of the least bytes a step reads,
+     ``status.perf``; minitron's serve of the first 4 requests under the
+     profiler; prefill vs decode at 2 layers in f32 (qwen's biases
+     non-zero; held with wq, wk, wv redrawn at std d_model^-1/2,
+     ``QK_CHECK_SEED``, and printed at the init's fan-in rule); c.
+     ``DENSE_STEPS`` AdamW steps through ``steps.build_train_step`` on one
+     batch (granite 2 layers at 1 x 4,096, minitron 2 at 2 x 2,048, qwen
+     1 at 2 x 2,048): the losses fall, K4 with LSE and K4b once a layer
+     a step, step ms beside the bound of least work; qwen's bias
+     gradients finite and non-zero; the smoke-width step of granite (MQA)
+     and minitron on the card against the CPU; d. device memory back
+     within SERVICE_MEMORY_SLACK of the phase's baseline after each arch.
+     The serves' and steps' launches are the path ``dense_archs``;
+ 26. result  — each phase's wall seconds (a ``[phase]`` line as each
      ends, and a ``[phases]`` line with the tuning seconds by phase),
      ``{"kernels": [...]}`` on the line before the last (each kernel's
      launches summed over the main paths, with ``launches_by_path``;
@@ -755,6 +780,32 @@ DRILL_PAUSE_AT = 6
 DRILL_NEW = 8              # tokens a drill's request decodes
 DRILL_CHILD_TIMEOUT = 300
 
+# Phase 25: the dense archs no earlier phase runs, at full width, bf16.
+# serve_layers: the served depth (qwen1.5-110b's 80 layers are 217 GB of
+# bf16: 8 of them, 26.7 GB with the embedding and head); train: (layers,
+# B, S) of the AdamW steps (with the f32 moments they peak at 25, 44 and
+# 65 GiB on an H100 80GB)
+DENSE_CELLS = (
+    dict(arch="minitron-8b", serve_layers=32, train=(2, 2, 2048)),
+    dict(arch="granite-20b", serve_layers=52, train=(2, 1, 4096)),
+    dict(arch="qwen1.5-110b", serve_layers=8, train=(1, 2, 2048)),
+)
+DENSE_K4_SEQ = 4096        # a.: K4 causal at (1, 4,096) of each arch
+DENSE_STEPS = 3            # c.: AdamW steps on one batch: losses fall
+# the arch whose serve runs again under the profiler, with the first 4
+# requests (one prefill batch of 4 x 128, then decode: with all 8
+# requests' ~190,000 device events the profiled serve and its
+# post-processing took most of a minute)
+DENSE_PROFILED = ("minitron-8b", SERVE_REQUESTS[:4])
+DENSE_SMOKE_ARCHS = ("granite-20b", "minitron-8b")   # c.: card vs CPU
+QKV_BIAS_STD = 0.1         # tests/test_torch_model.py:_setup's draw
+# b.'s prefill-vs-decode check redraws wq, wk, wv at std d_model^-1/2:
+# the reference's fan-in rule (a leaf's shape[-2]: the head count) gives
+# granite's one KV head std 1, scores of std ~887, where two f32 paths
+# differ by 1e-4 to 2e-3 from rounding alone (tests/test_torch_model.py::
+# test_granite_prefill_vs_decode_conditioning; PERF.md §6, PR 32)
+QK_CHECK_SEED = 2500
+
 
 @dataclasses.dataclass(frozen=True)
 class PlatformRun:
@@ -1089,6 +1140,7 @@ class SpanRecorder:
         self.prefills = []
         self.prefill_s = []
         self.spans = []
+        self.ready_s = None
 
     def span(self, job_id, name, **attrs):
         import contextlib
@@ -1125,11 +1177,14 @@ def serve_prompts(cfg, seed: int, requests=SERVE_REQUESTS):
 
 
 def serve(torch, cfg, ops, seed: int, card: str, profile: bool = False,
-          requests=SERVE_REQUESTS, max_seq: int = 1024, flat=None):
+          requests=SERVE_REQUESTS, max_seq: int = 1024, flat=None,
+          prepare=None):
     """One full serve of ``requests`` (prompt length, max_new) through
     the engine's public API, on the weights ``flat`` (None: fresh from
-    ``seed``). Returns (tokens per request, engine, the
-    ``SpanRecorder``, launches, wall seconds, profiler or None)."""
+    ``seed``); ``prepare(params)``, if given, edits the started engine's
+    weights in place before the first request. Returns (tokens per
+    request, engine, the ``SpanRecorder`` (``ready_s``: the weights-ready
+    seconds), launches, wall seconds, profiler or None)."""
     from repro_torch.serving.engine import InferenceEngine
     prompts = serve_prompts(cfg, seed, requests)
     torch.cuda.reset_peak_memory_stats()
@@ -1140,8 +1195,11 @@ def serve(torch, cfg, ops, seed: int, card: str, profile: bool = False,
     t0 = time.perf_counter()
     eng.start(flat)
     torch.cuda.synchronize()
-    print(f"[serve] {card}: weights + cache ready in "
-          f"{time.perf_counter() - t0:.2f} s")
+    rec.ready_s = time.perf_counter() - t0
+    print(f"[serve] {card}: weights + cache ready in {rec.ready_s:.2f} s")
+    if prepare is not None:
+        with torch.no_grad():
+            prepare(eng.params)
     reqs = [eng.submit(p, max_new=m)
             for p, (_, m) in zip(prompts, requests)]
     failed = []
@@ -1225,9 +1283,10 @@ def print_profile(prof, wall: float, card: str, top: int = 8,
     return kernels
 
 
-def prefill_vs_decode(torch, cfg, prompt, seed=0):
-    """Full-width model cut to ``cfg.n_layers`` layers, random weights:
-    last-position logits of prefill(prompt) (attention in the kernel)
+def prefill_vs_decode(torch, cfg, prompt, seed=0, prepare=None):
+    """Full-width model cut to ``cfg.n_layers`` layers, random weights
+    (edited in place by ``prepare(params)`` if given): last-position
+    logits of prefill(prompt) (attention in the kernel)
     against prefill(prompt[:-1]) + decode(prompt[-1]) (plain decode
     attention), two independent attention paths. Returns the relative L2
     difference. The depth is cut because rounding differences between any
@@ -1236,6 +1295,8 @@ def prefill_vs_decode(torch, cfg, prompt, seed=0):
     from repro_torch.models import make_model
     model = make_model(cfg, opts=NO_REMAT)
     params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    if prepare is not None:
+        prepare(params)
     toks = torch.tensor(prompt, device="cuda", dtype=torch.int64)[None]
     with torch.no_grad():
         full, _ = model.prefill(params, {"tokens": toks})
@@ -3416,7 +3477,8 @@ def meta_like(torch, tree):
                                                 device="meta"), tree)
 
 
-def family_train(torch, model, params, batch, n_steps, tokens, card, label):
+def family_train(torch, model, params, batch, n_steps, tokens, card, label,
+                 stats=None):
     """``n_steps`` of ``steps.build_train_step(model,
     default_optimizer(cfg))`` on the one ``batch`` (the main path: the
     launch counts are not reset here). Each step is timed between
@@ -3424,8 +3486,10 @@ def family_train(torch, model, params, batch, n_steps, tokens, card, label):
     (``count_program``) for its FLOPs and its own traffic; the share of
     attainable is against the larger of those FLOPs at peak and
     ``least_step_bytes`` at the HBM rate. Prints a line per
-    step and the summary; returns the params. The optimizer state is
-    freed before it returns."""
+    step and the summary; returns the params, and with a dict ``stats``
+    puts the losses, step ms, warm median ms, bound ms, share of
+    attainable (%) and peak GiB in it. The optimizer state is freed
+    before it returns."""
     from repro_torch.analysis.roofline import HBM_BW, count_program
     from repro_torch.distributed import steps
     from repro_torch.optim.optimizers import init_opt_state
@@ -3474,6 +3538,10 @@ def family_train(torch, model, params, batch, n_steps, tokens, card, label):
           f"(meta count, {count['hbm_bytes_per_device'] / 1e9:.2f} GB) "
           f"bounds it at {1e3 * own_s:.2f} ms: {own_pct:.2f}% of that "
           f"(share of own traffic)")
+    if stats is not None:
+        stats.update(losses=losses, ms=ms, warm_ms=warm,
+                     bound_ms=1e3 * bound_s, bound_by=by, pct=pct,
+                     peak_gib=peak)
     return params
 
 
@@ -3492,7 +3560,7 @@ def least_step_bytes(cfg, params, state, batch):
         return sum(t.numel() * t.element_size()
                    for _, t in iter_leaves(tree))
     esize = next(iter_leaves(params))[1].element_size()
-    x = batch.get("enc_embeds", batch.get("embeds"))
+    x = batch.get("enc_embeds", batch.get("embeds", batch.get("tokens")))
     rows = x.shape[0] * x.shape[1] + (batch["tokens"].numel()
                                       if "enc_embeds" in batch else 0)
     layer_in = 2 * cfg.n_layers * rows * cfg.d_model * esize
@@ -6008,6 +6076,325 @@ def drills_phase(torch, ops, card):
     return dict(d.launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the dense archs that no earlier phase runs
+# ---------------------------------------------------------------------------
+
+
+def qkv_bias_draw(torch, seed):
+    """A ``prepare`` for ``serve`` and ``prefill_vs_decode``: the
+    attention's ``bq``/``bk``/``bv`` (init zeros, so on fresh weights
+    the forward's add does nothing) drawn in place, N(0, QKV_BIAS_STD^2)
+    from generators seeded ``seed``, ``seed + 1``, ``seed + 2``, as
+    tests/test_torch_model.py:_setup draws them on the CPU."""
+    def prepare(params):
+        attn = params["blocks"]["attn"]
+        for j, name in enumerate(("bq", "bk", "bv")):
+            t = attn[name]
+            g = torch.Generator(device=t.device).manual_seed(seed + j)
+            with torch.no_grad():
+                t.copy_(torch.randn(t.shape, generator=g, device=t.device)
+                        .mul_(QKV_BIAS_STD))
+            if not t.abs().max().item() > 0:
+                raise AssertionError(f"{name} still zero after its draw")
+    return prepare
+
+
+def qkv_unit_draw(torch, d_model, seed, then=None):
+    """A ``prepare`` that redraws ``wq``/``wk``/``wv`` in place at std
+    ``d_model``^-1/2 (the fan-in of their contraction) from a generator
+    seeded ``seed``, so the scores have unit scale, then runs ``then``
+    (e.g. ``qkv_bias_draw``'s) if given."""
+    def prepare(params):
+        attn = params["blocks"]["attn"]
+        g = torch.Generator(device=attn["wq"].device).manual_seed(seed)
+        for name in ("wq", "wk", "wv"):
+            t = attn[name]
+            with torch.no_grad():
+                t.copy_(torch.randn(t.shape, generator=g, device=t.device)
+                        .mul_(d_model ** -0.5))
+        if then is not None:
+            then(params)
+    return prepare
+
+
+def decode_least_bytes(cfg, params, requests, decode_steps, capacity):
+    """Mean bytes a batched decode step of a serve of ``requests``
+    (prompt length, max_new) must read at the least: every weight of the
+    blocks, the final norm and the head, one embedding row a slot, and
+    the cache rows (K and V of every layer, in the cache's bf16) its
+    live slots see, averaged over the serve's ``decode_steps`` (a
+    request of prompt p and m tokens decodes m - 1 steps, seeing p + 1,
+    ..., p + m - 1 rows)."""
+    from repro_torch.models.layers import iter_leaves
+    weights = sum(t.numel() * t.element_size()
+                  for key in ("blocks", "final_norm", "head")
+                  for _, t in iter_leaves({key: params[key]}))
+    embed = capacity * cfg.d_model * params["embed"].element_size()
+    row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.hd * 2
+    rows = sum((m - 1) * p + (m - 1) * m // 2 for p, m in requests)
+    return weights + embed + row * rows / decode_steps
+
+
+def dense_kernels(torch, ops, ref, cfg, train, i, card):
+    """25 a: K4 causal at (1, DENSE_K4_SEQ) and K4 with its LSE and K4b
+    at the train shape ``train`` (B, S) of ``cfg``'s heads, bf16,
+    against their plain versions (``check_attention``,
+    ``check_attention_bwd``: TOL["bfloat16"], BWD_BF16_REL_L2, two calls
+    equal in their bits), each on the tensor cores. Returns (K4
+    results, K4b results)."""
+    B, S = train
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    k4 = check_attention(torch, ops, ref, (1, DENSE_K4_SEQ, H, KV, hd,
+                                           "bfloat16", True), seed=250 + i)
+    torch.cuda.empty_cache()
+    k4b = check_attention_bwd(torch, ops, ref, (B, S, H, KV, hd, "bfloat16",
+                                                True, 0), seed=260 + i)
+    torch.cuda.empty_cache()
+    print(f"[kernel] {card}: K4 dense_archs {cfg.arch_id} {json.dumps(k4)}")
+    print(f"[kernel] {card}: K4 with LSE and K4b dense_archs {cfg.arch_id} "
+          f"{json.dumps(k4b)}")
+    for label, r in (("K4", k4), ("K4 with LSE", k4b["fwd"]), ("K4b", k4b)):
+        if r["instance"] != "tensor cores":
+            raise AssertionError(f"{label} at {r['shape']} off the tensor "
+                                 f"cores")
+        sh = r["shape"]
+        print(f"[kernel] {card}: {label} at ({sh['B']}, {sh['S']}, {H}, KV "
+              f"{KV}, hd {hd}) bf16 causal ({cfg.arch_id}, group {H // KV}):"
+              f" {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}) = {r['share_of_bound']:.4f} of it; plain "
+              f"{r['plain_ms']:.3f} ms; SDPA {r['library_ms']:.4f} ms, "
+              f"{r['x_library']:.2f} x; two calls equal in their bits")
+    return [k4, k4b["fwd"]], [k4b]
+
+
+def dense_serve(torch, ops, kfa, cfg, full, prepare, card):
+    """25 b: ``cfg`` behind ``InferenceEngine`` with SERVE_REQUESTS
+    (``prepare`` edits the started engine's weights), the checks and the
+    numbers of the module docstring; the DENSE_PROFILED arch's serve
+    again under the profiler, of its first requests; then prefill
+    against decode at 2 layers in f32 (held with wq, wk, wv at unit
+    scale; printed at the init's). Returns the serve's launches."""
+    from repro_torch.analysis.roofline import HBM_BW
+    from repro_torch.weights import flat_size
+    tokens, eng, rec, launches, wall, _ = serve(torch, cfg, ops, 0, card,
+                                                prepare=prepare)
+    st = eng.stats()
+    n_batches = eng.prefill_batches
+    want = dict.fromkeys(launches, 0)
+    want[kfa.NAME] = cfg.n_layers * n_batches
+    if launches != want or kfa.launches_tc != want[kfa.NAME]:
+        raise AssertionError(f"{cfg.arch_id} serve launches {launches} "
+                             f"({kfa.launches_tc} K4 on the tensor cores); "
+                             f"want {want}, all on the tensor cores")
+    snap = wait_perf(eng)
+    check_perf(snap, f"serve-{cfg.arch_id}")
+    n_tok = st["tokens_out_total"]
+    decode_ms = 1e3 * eng.decode_seconds / st["decode_steps"]
+    least = decode_least_bytes(cfg, eng.params, SERVE_REQUESTS,
+                               st["decode_steps"], eng.capacity)
+    bound_ms = 1e3 * least / HBM_BW
+    share = bound_ms / decode_ms
+    if not 0 < share <= 1:
+        raise AssertionError(f"{cfg.arch_id}: decode {decode_ms} ms a step "
+                             f"against a bound of {bound_ms} ms")
+    by_batch = ", ".join(f"{nb}x{pl} {1e3 * t:.2f}" for (nb, pl), t
+                         in zip(rec.prefills, rec.prefill_s))
+    print(f"[serve-dense] {card}: {cfg.arch_id} L={cfg.n_layers} of "
+          f"{full.n_layers}, d={cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} of hd {cfg.hd}, vocab {cfg.vocab_size}, "
+          f"{flat_size(cfg):,} parameters, bf16, capacity 4, max_seq 1024: "
+          f"weights + cache ready in {rec.ready_s:.2f} s; "
+          f"{st['completed_total']} requests, {n_tok} tokens in {wall:.3f} "
+          f"s = {n_tok / wall:.1f} tokens/s; prefill ms by batch (n x "
+          f"plen): {by_batch}; mean "
+          f"{1e3 * eng.prefill_seconds / n_batches:.2f} ms a batch; decode "
+          f"{st['decode_steps']} steps: "
+          f"{decode_ms:.3f} ms a step, bound {bound_ms:.3f} ms ("
+          f"{least / 1e9:.3f} GB a step reads at the least: every weight, "
+          f"the live slots' visible cache, at {HBM_BW / 1e12} TB/s) = "
+          f"{share:.3f} of it; status.perf {snap['pct_of_attainable']:.2f}% "
+          f"of attainable; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches} (all K4 on the tensor cores)")
+    eng.release()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.arch_id == DENSE_PROFILED[0]:
+        run = serve(torch, cfg, ops, 0, card, profile=True, prepare=prepare,
+                    requests=DENSE_PROFILED[1])
+        st = run[1].stats()
+        step_ms = 1e3 * run[1].decode_seconds / st["decode_steps"]
+        print(f"[serve-dense] {card}: {cfg.arch_id} profiled: "
+              f"{len(DENSE_PROFILED[1])} requests, {st['tokens_out_total']} "
+              f"tokens in {run[4]:.3f} s; decode {st['decode_steps']} "
+              f"steps: {step_ms:.3f} ms a step under the profiler")
+        check_tc_names(print_profile(run[5], run[4], card),
+                       f"serve-{cfg.arch_id}")
+        run[1].release()
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(full, n_layers=2, dtype="float32")
+    prompt = list(range(1000, 1040))
+    score_std = full.d_model / math.sqrt(full.n_heads * full.n_kv_heads)
+    raw = prefill_vs_decode(torch, cut, prompt, prepare=prepare)
+    rel = prefill_vs_decode(torch, cut, prompt, prepare=qkv_unit_draw(
+        torch, cut.d_model, QK_CHECK_SEED, prepare))
+    print(f"[serve-dense] {card}: {cfg.arch_id} d={cut.d_model} L=2 "
+          f"float32{' (bq, bk, bv non-zero)' if prepare else ''}: prefill "
+          f"vs decode logits, relative L2 {rel:.3e} with wq, wk, wv at std "
+          f"d^-1/2 (limit {PREFILL_DECODE_RTOL}); {raw:.3e} at the init's "
+          f"fan-in rule (scores of std ~{score_std:.0f}: f32 rounding, "
+          f"not held)")
+    if rel > PREFILL_DECODE_RTOL:
+        raise AssertionError(f"{cfg.arch_id} prefill vs decode logits "
+                             f"differ by {rel} > {PREFILL_DECODE_RTOL}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dense_train(torch, ops, kfa, kfab, tcfg, train, prepare, i, card):
+    """25 c: DENSE_STEPS steps of ``family_train`` (AdamW) on one batch
+    of ``train`` (B, S) tokens: the losses fall, K4 with its LSE and K4b
+    once a layer a step on the tensor cores, the share of attainable in
+    (0, 100]; with QKV biases their gradients at the trained weights
+    finite and non-zero. Returns the steps' launches."""
+    import numpy as np
+    from repro_torch.distributed import steps
+    from repro_torch.models import make_model
+    B, S = train
+    L = tcfg.n_layers
+    model = make_model(tcfg, opts=NO_REMAT)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    if prepare is not None:
+        prepare(params)
+    toks = torch.from_numpy(np.random.RandomState(25 + i).randint(
+        0, tcfg.vocab_size, size=(B, S + 1))).to("cuda")
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    stats = {}
+    ops.reset_launch_counts()
+    params = family_train(torch, model, params, batch, DENSE_STEPS, B * S,
+                          card, f"train-{tcfg.arch_id}", stats=stats)
+    launches = ops.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want[kfa.NAME] = want[kfab.NAME] = L * DENSE_STEPS
+    tc = (kfa.launches_tc, kfab.launches_tc)
+    if launches != want or tc != (L * DENSE_STEPS,) * 2:
+        raise AssertionError(f"{tcfg.arch_id} train launches {launches}, on "
+                             f"the tensor cores {tc}; want {want}, all on "
+                             f"them")
+    if not 0 < stats["pct"] <= 100:
+        raise AssertionError(f"{tcfg.arch_id}: {stats['pct']}% of the "
+                             f"step's least work")
+    print(f"[train-dense] {card}: {tcfg.arch_id} L={L} d={tcfg.d_model} "
+          f"bf16, {B} x {S} tokens, AdamW: step ms {stats['ms']} (warm "
+          f"median {stats['warm_ms']:.2f}) beside the bound of least work "
+          f"{stats['bound_ms']:.2f} ms ({stats['bound_by']}) = "
+          f"{stats['pct']:.2f}%; losses {stats['losses']}; peak device "
+          f"memory {stats['peak_gib']:.2f} GiB; launches {launches}")
+    if tcfg.qkv_bias:
+        _, grads = steps.value_and_grad(model, params, batch)
+        norms = {}
+        for name in ("bq", "bk", "bv"):
+            gb = grads["blocks"]["attn"][name].float()
+            norms[name] = gb.norm().item()
+            if not torch.isfinite(gb).all().item() or not norms[name] > 0:
+                raise AssertionError(f"{tcfg.arch_id}: the gradient of "
+                                     f"{name} is not finite and non-zero: "
+                                     f"norm {norms[name]}")
+        del grads
+        print(f"[train-dense] {card}: {tcfg.arch_id}: the QKV biases' "
+              f"gradients at the trained weights, finite, L2 norms "
+              f"{json.dumps({k: round(v, 6) for k, v in norms.items()})}")
+    del params, batch, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dense_smoke_step(torch, ops, kfa, kfab, arch, card):
+    """25 c: ``family_step_card_vs_cpu`` of ``arch``'s smoke reduction
+    on 2 x 32 tokens (granite-20b's is MQA: 4 heads on one KV head)."""
+    import numpy as np
+
+    def batch_fn(c, device):
+        toks = torch.from_numpy(np.random.RandomState(7).randint(
+            0, c.vocab_size, size=(2, 33)))
+        return {"tokens": toks[:, :-1].contiguous().to(device),
+                "labels": toks[:, 1:].contiguous().to(device)}
+    scfg, loss_err, grad_err, _, sl, _ = family_step_card_vs_cpu(
+        torch, ops, arch, batch_fn)
+    if (sl[kfa.NAME], sl[kfab.NAME]) != (scfg.n_layers,) * 2:
+        raise AssertionError(f"{arch} smoke step launches {sl}")
+    print(f"[dense-step] {card}: {scfg.arch_id} f32 L={scfg.n_layers}, "
+          f"{scfg.n_heads} heads over {scfg.n_kv_heads}, card (K4, K4b) vs "
+          f"CPU: loss err {loss_err:.3e} (limit {STEP_LOSS_TOL}), gradient "
+          f"max abs err {grad_err:.3e} (atol=rtol {STEP_GRAD_TOL}) over "
+          f"every leaf")
+
+
+def dense_archs_phase(torch, ops, ref, kfa, kfab, card):
+    """Phase 25 (see the module docstring): each of DENSE_CELLS in turn,
+    its weights, caches and optimizer state freed before the next, the
+    device memory then within SERVICE_MEMORY_SLACK of the phase's
+    baseline. Returns (K4 results, K4b results, the launches of the
+    serves and train steps: the path ``dense_archs``)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import autotune
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    print(f"[dense] {card}: {memory_line(torch, 'before phase 25:')}")
+    k4s, k4bs, total = [], [], {}
+    for i, cell in enumerate(DENSE_CELLS):
+        t0, tuned0 = time.perf_counter(), autotune.tuning_seconds
+        full = get_arch(cell["arch"])
+        L, B, S = cell["train"]
+        prepare = qkv_bias_draw(torch, 25 + 3 * i) if full.qkv_bias \
+            else None
+        parts, mark = {}, [t0]
+
+        def part(name):
+            now = time.perf_counter()
+            parts[name] = round(now - mark[0], 1)
+            mark[0] = now
+        k4, k4b = dense_kernels(torch, ops, ref, full, (B, S), i, card)
+        part("a kernels")
+        cfg = dataclasses.replace(full, n_layers=cell["serve_layers"])
+        served = dense_serve(torch, ops, kfa, cfg, full, prepare, card)
+        part("b serve")
+        tcfg = dataclasses.replace(full, n_layers=L)
+        trained = dense_train(torch, ops, kfa, kfab, tcfg, (B, S), prepare,
+                              i, card)
+        part("c train")
+        if cell["arch"] in DENSE_SMOKE_ARCHS:
+            dense_smoke_step(torch, ops, kfa, kfab, cell["arch"], card)
+            part("c smoke step")
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - base
+        print(f"[dense] {card}: {cell['arch']} done in "
+              f"{time.perf_counter() - t0:.1f} s ({json.dumps(parts)}; the "
+              f"tuner measured {autotune.tuning_seconds - tuned0:.3f} s of "
+              f"it); freed: "
+              f"{memory_line(torch, 'now')}, {left / 2**30:+.3f} GiB from "
+              f"the phase's baseline (limit "
+              f"{SERVICE_MEMORY_SLACK / 2**30} GiB)")
+        if abs(left) > SERVICE_MEMORY_SLACK:
+            raise AssertionError(f"{cell['arch']}: {left / 2**30:.3f} GiB "
+                                 f"left on the card after it was freed")
+        for k in served:
+            total[k] = total.get(k, 0) + served[k] + trained[k]
+        k4s += k4
+        k4bs += k4b
+    print(f"[dense] {card}: path dense_archs launches {json.dumps(total)}")
+    return k4s, k4bs, total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6490,7 +6877,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.done("24 drills")
 
-    # 25. result
+    # 25. the dense archs no earlier phase runs: minitron-8b and
+    # granite-20b served whole, qwen1.5-110b cut in depth, a train step
+    # of each through K4/K4b, K4/K4b at their shapes
+    dn_k4, dn_k4b, dense_launches = dense_archs_phase(torch, ops, ref, kfa,
+                                                      kfab, card)
+    torch.cuda.empty_cache()
+    clock.done("25 dense")
+
+    # 26. result
     def entry(mod, launches, head, shapes):
         return {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                 "replaces": mod.REPLACES, "launches": launches,
@@ -6515,7 +6910,8 @@ def main() -> int:
                    "train-sp": sp_launches,
                    "grad-kimi-attn": kimi_grad_launches,
                    "train-pjit-remat": remat_launches,
-                   "drills": drill_launches_total}
+                   "drills": drill_launches_total,
+                   "dense_archs": dense_launches}
     ssm_paths = {"ssm-train": train["ssm-train"]["launches"],
                  "ssm-platform-train": sptrain["launches"]}
     k4_paths = by_path(kfa.NAME, {"serve": serve_launches, **dense_paths,
@@ -6524,13 +6920,14 @@ def main() -> int:
                                   "serve-hybrid": hybrid_launches,
                                   "serve-kimi": kimi_launches})
     k4_shapes = (main_path + train_fwd + moe_main + hy_k4 + wh_k4 + vl_k4
-                 + pj_k4 + sp_k4 + kimi_k4 + k4_hd112)
+                 + pj_k4 + sp_k4 + kimi_k4 + k4_hd112 + dn_k4)
     k4 = entry(kfa, sum(k4_paths.values()),
                max(k4_shapes, key=lambda r: r["bound_ms"]), k4_shapes)
     k4["launches_by_path"] = k4_paths
-    k4b_main = [bwd[-1]] + wh_k4b + vl_k4b + pj_k4b
+    k4b_main = [bwd[-1]] + wh_k4b + vl_k4b + pj_k4b + dn_k4b
     k4b = entry(kfab, 0, max(k4b_main, key=lambda r: r["bound_ms"]),
-                bwd + wh_k4b + vl_k4b + pj_k4b + sp_k4b + kimi_k4b)
+                bwd + wh_k4b + vl_k4b + pj_k4b + sp_k4b + kimi_k4b
+                + dn_k4b)
     for e, names in ((k4, TC_KERNELS[:1]), (k4b, TC_KERNELS[1:])):
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
         e["x_library"] = e["ms"] / e["library_ms"]

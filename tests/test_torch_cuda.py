@@ -12,7 +12,8 @@ manifest trained on CUDA against the CPU, and the sharded step on a
 1-rank NCCL mesh against the mesh-less step; the PS solvers' server
 updates (K1), int8 push (K2, K3) and means on a (4, F) stack, K4/K4b at
 a zero3_sp rank's shapes (``q_offset`` > 0), and the zero3_sp step on a
-1-rank NCCL mesh; K4 and K4b at kimi-k2's head dim 112, and
+1-rank NCCL mesh; K4 and K4b at kimi-k2's head dim 112 and at
+granite-20b's 48 query heads on one KV head, and
 the moe and hybrid families' expert-parallel steps on a 1-rank NCCL
 mesh; the launch-shape tuner (``kernels/autotune.py``): every candidate
 of K1-K4 gives the default's bits, a failing one raises, and its probes
@@ -343,6 +344,36 @@ def test_flash_bwd_kernel_at_head_dim_112(cuda, dtype, B, Sq, Sk, H, KV,
             rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
             assert rel <= BWD_BF16_REL_L2, rel
     again = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_kernels_at_granite_mqa(cuda):
+    """K4 (with and without its LSE) and K4b at granite-20b's 48 query
+    heads on one KV head, hd 128, bf16, causal, 300 rows (a ragged key
+    block; the dk/dv kernel's one KV head walks all 48 heads) against
+    their plain versions, on the tensor cores; two calls give the same
+    bits."""
+    q, k, v = _qkv(1, 300, 300, 48, 1, 128, torch.bfloat16, seed=32)
+    do = _qkv(1, 300, 300, 48, 48, 128, torch.bfloat16, seed=33)[0]
+    _check(q, k, v, True)
+    o, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal=True,
+                                             return_lse=True)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    before, before_tc = kfab.launches, kfab.launches_tc
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert (kfab.launches, kfab.launches_tc) == (before + 1, before_tc + 1)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
+        assert rel <= BWD_BF16_REL_L2, rel
+    o2, lse2 = ops.flash_attention(q, k, v, causal=True, return_lse=True)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

@@ -331,6 +331,58 @@ def test_bwd_tile_emulation_at_head_dim_112_vs_jax(B, Sq, Sk, H, KV, causal,
             assert rel <= BWD_REL_L2, rel
 
 
+# head dim 128 with a wide group, as granite-20b's 48 query heads on one
+# KV head: the dk/dv kernel's key block walks every head of its group
+# (12 or 8 here) and each head's query tiles of 32, summing them in one
+# accumulator. B, Sq, Sk, H, KV, causal, q_offset
+CASES_128_WIDE = [
+    (1, 150, 150, 12, 1, True, 0),         # group 12, MQA, two key blocks
+    (1, 96, 130, 12, 1, False, 0),         # group 12, not causal, ragged
+    (1, 150, 150, 16, 2, True, 0),         # group 8 on two KV heads
+    (2, 70, 70, 8, 1, False, 0),           # group 8, not causal, B 2
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,q_offset", CASES_128_WIDE)
+@pytest.mark.parametrize("round_ops", [False, True])
+def test_tile_emulation_at_head_dim_128_wide_group_vs_jax(
+        B, Sq, Sk, H, KV, causal, q_offset, round_ops):
+    """K4's hd-128 tiles (key tiles of 64) with 8 or 12 query heads on a
+    KV head against JAX's flash attention: f32 at 1e-5 with the rounding
+    off, atol = rtol = 2e-2 with it on."""
+    q, k, v, do = _inputs(3, B, Sq, Sk, H, KV, 128, bf16_values=round_ops)
+    want_o, _ = _jax_reference(q, k, v, do, H, causal, q_offset)
+    tq, tk, tv = (_bhsd(a) for a in (q, k, v))
+    o, _ = emulate_fwd(tq, tk, tv, causal=causal, q_offset=q_offset,
+                       round_ops=round_ops)
+    tol = 1e-5 if not round_ops else 2e-2
+    np.testing.assert_allclose(_bshd(o), want_o, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,q_offset", CASES_128_WIDE)
+@pytest.mark.parametrize("round_ops", [False, True])
+def test_bwd_tile_emulation_at_head_dim_128_wide_group_vs_jax(
+        B, Sq, Sk, H, KV, causal, q_offset, round_ops):
+    """K4b's hd-128 tiles (dq key tiles of 64; dk/dv key blocks of 128
+    walking the group's heads in query tiles of 32) with 8 or 12 query
+    heads on a KV head against the gradients of JAX's custom-VJP flash
+    attention: f32 at 1e-5 with the rounding off, relative L2 <= 2e-2 per
+    gradient with it on."""
+    q, k, v, do = _inputs(4, B, Sq, Sk, H, KV, 128, bf16_values=round_ops)
+    _, want_g = _jax_reference(q, k, v, do, H, causal, q_offset)
+    tq, tk, tv, tdo = (_bhsd(a) for a in (q, k, v, do))
+    o, lse = emulate_fwd(tq, tk, tv, causal=causal, q_offset=q_offset,
+                         round_ops=round_ops)
+    got = emulate_bwd(tq, tk, tv, o, lse, tdo, causal=causal,
+                      q_offset=q_offset, round_ops=round_ops)
+    for g, w in zip(got, want_g):
+        if not round_ops:
+            np.testing.assert_allclose(_bshd(g), w, atol=1e-5, rtol=1e-5)
+        else:
+            rel = np.linalg.norm(_bshd(g) - w) / np.linalg.norm(w)
+            assert rel <= BWD_REL_L2, rel
+
+
 @pytest.mark.parametrize("Sq,Sk,hd,q_offset", [(300, 300, 64, 0),
                                                (23, 41, 64, 9),
                                                (150, 150, 128, 0)])

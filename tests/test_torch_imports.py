@@ -60,6 +60,7 @@ def test_sources_import_no_jax_and_no_repro():
     assert (ROOT / "chip_smoke.py").is_file()
     assert ROOT / "scripts" / "pjit_phase.py" in files
     assert ROOT / "scripts" / "solvers_phase.py" in files
+    assert ROOT / "scripts" / "dense_phase.py" in files
     assert PKG / "core" / "ps.py" in files and PKG / "core" / "solvers.py" \
         in files
     assert PKG / "runtime" / "spmd.py" in files

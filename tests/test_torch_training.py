@@ -177,6 +177,7 @@ def test_chunked_xent_matches_jax(S, chunk):
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen1.5-110b",
+                                  "granite-20b", "minitron-8b",
                                   "mamba2-1.3b"])
 def test_flat_loss_grad_matches_jax(arch):
     """Loss and flat gradient of one step from JAX's own flat_state(0):
